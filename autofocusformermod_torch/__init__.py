@@ -1,7 +1,8 @@
-"""PyTorch + CUDA port of the AutoFocusFormer / Mask2Former inference path.
+"""PyTorch + CUDA port of the AutoFocusFormer / Mask2Former inference path
+and training step.
 
 Mirrors the layout of ``autofocusformermod_tpu`` (``ops/``, ``geometry/``,
-``models/``, ``engine/``) and keeps its function and class names, so each
+``models/``, ``losses/``, ``engine/``) and keeps its function and class names, so each
 counterpart is easy to find.  The JAX package is the reference this port is
 tested against; this package imports ``torch`` only.
 

@@ -1,0 +1,97 @@
+"""Exact linear sum assignment (Jonker-Volgenant shortest augmenting paths
+with potentials): the ``lapjv`` CUDA kernel (``csrc/lapjv.cu``) and its
+plain PyTorch version.
+
+Counterpart of ``autofocusformermod_tpu/losses/lapjv.py`` (``hungarian_lsap``)
+and of its Pallas kernel ``ops/pallas/lapjv_kernel.py:lsap_pallas``.  For
+each of the T targets (rows) one Dijkstra over the Q >= T queries (columns)
+grows an alternating tree until it reaches a free column, then augments.
+Costs are clamped to +-3e4 so that the matcher's 1e8 sentinel for padded
+targets cannot swamp the fp32 duals; ties go to the first index.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.build import check, load_kernels
+from ..ops.dispatch import require, stream_of
+
+COST_CLIP = 3e4
+
+
+def lapjv(cost: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel: cost (b, Q, T) f32 on the card, T <= Q -> (b, T)
+    int64 matched query per target (the same as ``hungarian_lsap``)."""
+    b, q, t = cost.shape
+    cost_tq = cost.transpose(1, 2).contiguous()
+    require(cost_tq, "cost_tq", torch.float32, (b, t, q))
+    out = torch.empty((b, t), dtype=torch.int32, device=cost.device)
+    lib = load_kernels()
+    with torch.cuda.device(cost.device):
+        err = lib.aff_lapjv(cost_tq.data_ptr(), out.data_ptr(), b, q, t, stream_of(cost))
+    check(err, "aff_lapjv")
+    lapjv.launches += 1
+    return out.long()
+
+
+lapjv.launches = 0
+
+
+def hungarian_lsap(cost: torch.Tensor) -> torch.Tensor:
+    """Plain version: all b problems in lockstep, each Dijkstra step one set
+    of (b, Q+1) tensor ops; a finished problem is masked until the slowest
+    one augments.  The float operations are the kernel's, in its order."""
+    b, q, t = cost.shape
+    dev = cost.device
+    c = torch.clamp(cost.transpose(1, 2).float(), -COST_CLIP, COST_CLIP)
+    c = torch.nn.functional.pad(c, (1, 0, 1, 0))                    # (b, T+1, Q+1)
+    inf = torch.tensor(float("inf"), device=dev)
+    ar = torch.arange(b, device=dev)
+    cols = torch.arange(q + 1, device=dev)
+    rows = torch.arange(t + 1, device=dev)
+    u = torch.zeros((b, t + 1), device=dev)
+    v = torch.zeros((b, q + 1), device=dev)
+    p = torch.zeros((b, q + 1), dtype=torch.long, device=dev)        # row of column j
+    for r in range(1, t + 1):
+        minv = torch.full((b, q + 1), float("inf"), device=dev)
+        way = torch.zeros((b, q + 1), dtype=torch.long, device=dev)
+        used = cols[None] == 0
+        used = used.expand(b, q + 1).clone()
+        rows_in = (rows == r)[None].expand(b, t + 1).clone()          # the tree's rows
+        p[:, 0] = r
+        j0 = torch.zeros(b, dtype=torch.long, device=dev)
+        active = torch.ones(b, dtype=torch.bool, device=dev)
+        while True:
+            i0 = p[ar, j0]
+            cur = c[ar, i0] - u[ar, i0][:, None] - v
+            a = active[:, None]
+            better = (cur < minv) & ~used & a
+            minv = torch.where(better, cur, minv)
+            way = torch.where(better, j0[:, None], way)
+            mm = torch.where(used, inf, minv)
+            delta = mm.min(dim=1, keepdim=True).values
+            # the first index of the minimum, spelled out rather than left to
+            # torch.argmin's tie rule (the sentinel columns tie exactly)
+            j1 = torch.where(mm == delta, cols[None], q + 1).min(dim=1).values
+            u = torch.where(rows_in & a, u + delta, u)
+            v = torch.where(used & a, v - delta, v)
+            minv = torch.where(~used & a, minv - delta, minv)
+            used = used | ((cols[None] == j1[:, None]) & a)
+            pj1 = p[ar, j1]
+            rows_in = rows_in | ((rows[None] == pj1[:, None]) & a)
+            j0 = torch.where(active, j1, j0)
+            active = active & (pj1 > 0)
+            if not bool(active.any()):
+                break
+        live = j0 > 0
+        while bool(live.any()):                    # augment along the path
+            j1 = way[ar, j0]
+            p[ar, j0] = torch.where(live, p[ar, j1], p[ar, j0])
+            j0 = torch.where(live, j1, j0)
+            live = j0 > 0
+    # invert: the one column holding each row, by compare-and-sum (a
+    # scatter_ over p, where every free column writes slot 0, gave other
+    # results on CUDA than on the CPU)
+    hit = p[:, None, :] == rows[1:, None]                              # (b, T, Q+1)
+    return torch.where(hit, cols, 0).sum(-1) - 1

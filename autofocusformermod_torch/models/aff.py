@@ -22,7 +22,7 @@ from ..geometry.knn import knn
 from ..ops.clusten import cluster_wf
 from ..ops.gather import take_rows
 from ..ops.local_attn import sfc_cluster_attention
-from .layers import Mlp, WeightNet, layer_norm, rel_pos_features
+from .layers import FlaxBatchNorm2d, Mlp, WeightNet, layer_norm, rel_pos_features
 
 
 def _topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -178,14 +178,14 @@ class BasicLayer(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    """Two stride-2 3x3 convs with BatchNorm + exact GELU between.  Input
-    NHWC, as the JAX package; output tokens in raster order with integer grid
-    positions (x, y)."""
+    """Two stride-2 3x3 convs with BatchNorm (flax's momentum, as the JAX
+    stem) + exact GELU between.  Input NHWC, as the JAX package; output
+    tokens in raster order with integer grid positions (x, y)."""
 
     def __init__(self, embed_dim: int = 32, patch_norm: bool = True):
         super().__init__()
         self.proj1 = nn.Conv2d(3, embed_dim // 2, 3, stride=2, padding=1)
-        self.bn = nn.BatchNorm2d(embed_dim // 2)
+        self.bn = FlaxBatchNorm2d(embed_dim // 2)
         self.proj2 = nn.Conv2d(embed_dim // 2, embed_dim, 3, stride=2, padding=1)
         self.norm = layer_norm(embed_dim) if patch_norm else nn.Identity()
 
@@ -202,14 +202,18 @@ class PatchEmbed(nn.Module):
 
 class AFF(nn.Module):
     """The 4-stage AutoFocusFormer backbone.  forward(NHWC images) ->
-    {"res2".."res5": feat, "res*_pos": pos, "res*_spatial_shape": (h, w)}."""
+    {"res2".."res5": feat, "res*_pos": pos, "res*_spatial_shape": (h, w)}.
+
+    DropPath is not ported: a model with drop_path_rate > 0 runs in eval
+    mode and refuses train mode."""
 
     def __init__(self, embed_dim: Sequence[int] = (32, 128, 256, 512), cluster_size: int = 8,
                  nbhd_size: Sequence[int] = (48, 48, 48, 48), alpha: float = 4.0,
                  ds_rate: float = 0.25, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), mlp_ratio: float = 2.0,
-                 patch_norm: bool = True):
+                 patch_norm: bool = True, drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         nl = len(depths)
         self.patch_embed = PatchEmbed(embed_dim[0], patch_norm)
         self.layers = nn.ModuleList(
@@ -221,6 +225,10 @@ class AFF(nn.Module):
             self.add_module(f"norm{i}", layer_norm(embed_dim[i]))
 
     def forward(self, x: torch.Tensor) -> Dict:
+        if self.training and self.drop_path_rate > 0:
+            raise NotImplementedError(
+                f"DropPath is not ported: train with MODEL.AFF.DROP_PATH_RATE 0, not "
+                f"{self.drop_path_rate} (the published AFF-Mini config sets 0.0)")
         pos, feat, h, w = self.patch_embed(x)
         outs: Dict = {}
         for i, layer in enumerate(self.layers):
@@ -240,4 +248,5 @@ def aff_from_config(cfg) -> AFF:
     return AFF(embed_dim=tuple(a.EMBED_DIM), cluster_size=a.CLUSTER_SIZE,
                nbhd_size=tuple(a.NBHD_SIZE), alpha=a.ALPHA, ds_rate=a.DS_RATE,
                depths=tuple(a.DEPTHS), num_heads=tuple(a.NUM_HEADS),
-               mlp_ratio=a.MLP_RATIO, patch_norm=a.PATCH_NORM)
+               mlp_ratio=a.MLP_RATIO, patch_norm=a.PATCH_NORM,
+               drop_path_rate=a.DROP_PATH_RATE)

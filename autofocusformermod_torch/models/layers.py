@@ -1,5 +1,6 @@
 """Shared layers: relative-position features, MLPs, sine position embedding,
-PointConv weight net.  Counterpart of ``autofocusformermod_tpu/models/layers.py``.
+PointConv weight net, flax-convention BatchNorm.  Counterpart of
+``autofocusformermod_tpu/models/layers.py``.
 
 Flax's LayerNorm epsilon is 1e-6 (torch's default is 1e-5), so every
 LayerNorm here passes ``eps=LN_EPS``.
@@ -91,3 +92,25 @@ class WeightNet(nn.Sequential):
 
     def __init__(self, inner_ch: int = 4):
         super().__init__(nn.Linear(5, inner_ch), layer_norm(inner_ch), nn.GELU())
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d with flax.linen.BatchNorm's training semantics: flax's
+    default momentum 0.99 (0.01 in PyTorch's convention, where 0.1 is the
+    default), and running statistics that take the biased batch variance
+    (PyTorch's BatchNorm2d takes the unbiased one).  Eval mode is plain
+    BatchNorm2d."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, momentum=0.01)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        return nn.functional.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                                        self.eps)

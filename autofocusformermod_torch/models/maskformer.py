@@ -33,14 +33,19 @@ class MaskFormerHead(nn.Module):
 
 class MaskFormer(nn.Module):
     """forward(raw NHWC RGB images, uint8 or float) -> {'pred_logits' (b, q,
-    nc+1), 'pred_masks' (b, q, H/4, W/4), 'aux_outputs'}."""
+    nc+1), 'pred_masks' (b, q, H/4, W/4), 'aux_outputs'}.
+
+    Dropout in the decoders is not ported: a model with dropout > 0 runs in
+    eval mode and refuses train mode."""
 
     def __init__(self, backbone: AFF, sem_seg_head: MaskFormerHead,
                  pixel_mean: Sequence[float] = (123.675, 116.28, 103.53),
-                 pixel_std: Sequence[float] = (58.395, 57.12, 57.375)):
+                 pixel_std: Sequence[float] = (58.395, 57.12, 57.375),
+                 dropout: float = 0.0):
         super().__init__()
         self.backbone = backbone
         self.sem_seg_head = sem_seg_head
+        self.dropout = dropout
         self.register_buffer("pixel_mean", torch.tensor(pixel_mean, dtype=torch.float32), False)
         self.register_buffer("pixel_std", torch.tensor(pixel_std, dtype=torch.float32), False)
 
@@ -48,6 +53,10 @@ class MaskFormer(nn.Module):
         return (images.float() - self.pixel_mean) / self.pixel_std
 
     def forward(self, images: torch.Tensor) -> Dict:
+        if self.training and self.dropout > 0:
+            raise NotImplementedError(
+                f"decoder dropout is not ported: train with MODEL.MASK_FORMER.DROPOUT 0, "
+                f"not {self.dropout} (the published Mask2Former configs set 0.0)")
         return self.sem_seg_head(self.backbone(self.normalize(images)))
 
 
@@ -60,7 +69,7 @@ def maskformer_from_config(cfg) -> MaskFormer:
     head = MaskFormerHead(pixel_decoder_from_config(cfg, channels),
                           transformer_decoder_from_config(cfg, cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM))
     return MaskFormer(aff_from_config(cfg), head, tuple(cfg.MODEL.PIXEL_MEAN),
-                      tuple(cfg.MODEL.PIXEL_STD))
+                      tuple(cfg.MODEL.PIXEL_STD), cfg.MODEL.MASK_FORMER.DROPOUT)
 
 
 @torch.no_grad()

@@ -106,6 +106,8 @@ class PointConv(nn.Module):
             np.stack([border % w_, border // w_], axis=-1).astype(np.float32)).to(dev)
         w_b = self.weight_net(rel_pos_features(torch.trunc(bpos[None, :, None, :] - nb_pos)))
         bacc = torch.einsum("bnsi,bnsc->bnic", w_b, take_rows(x, tok9))
+        # in place on a non-leaf view: autograd records it (CopySlices), the
+        # overwritten interior values get no gradient, as with JAX's .at[].set
         acc[:, torch.from_numpy(border).to(dev)] = bacc
 
         cell = pos[..., 1].long() * w_ + pos[..., 0].long()           # raster -> token order

@@ -1,9 +1,10 @@
 """Build the CUDA kernels in ``csrc/`` with nvcc and load them with ctypes.
 
-The sources have a plain C interface (no PyTorch headers), so one nvcc call
-builds all of them into one shared library in a few seconds.  The library
-goes to ``build/torch_kernels/`` at the repository root, named by a digest of
-the sources and flags, and is built on first use.  A missing nvcc or a failed
+The sources have a plain C interface (no PyTorch headers).  One nvcc per
+source compiles them all at once into objects, and a last nvcc links the
+objects into one shared library.  The library goes to
+``build/torch_kernels/`` at the repository root, named by a digest of the
+sources and flags, and is built on first use.  A missing nvcc or a failed
 build raises; nothing falls back to the plain versions.
 """
 
@@ -20,9 +21,9 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("knn.cu", "local_attn.cu", "msdetrpc.cu")
+SOURCES = ("knn.cu", "lapjv.cu", "local_attn.cu", "msdetrpc.cu", "point_sample.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 P = ctypes.c_void_p
@@ -30,8 +31,13 @@ I = ctypes.c_int
 # C entry points: name -> argument types (pointers and the stream as void*)
 SIGNATURES = {
     "aff_knn": [P, P, P, P, I, I, I, I, P],
-    "aff_local_attn": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "aff_lapjv": [P, P, I, I, I, P],
+    "aff_local_attn": [P] * 11 + [I] * 6 + [P],
+    "aff_local_attn_bwd": [P] * 14 + [I] * 6 + [P],
     "aff_msdetrpc": [P, P, P, P, I, I, I, I, I, P, I, P],
+    "aff_msdetrpc_bwd": [P] * 6 + [I] * 5 + [P, I, P],
+    "aff_point_sample": [P, P, P, I, I, I, I, P],
+    "aff_point_sample_bwd": [P, P, P, I, I, I, I, P],
 }
 
 
@@ -61,12 +67,23 @@ def build_library(nvcc: Optional[str] = None) -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(name).stem}.{tag}.o" for name in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, obj in zip(SOURCES, objs)]
+    logs = [f"== {name}\n{proc.communicate()[0]}" for name, proc in zip(SOURCES, procs)]
+    failed = [name for name, proc in zip(SOURCES, procs) if proc.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    (BUILD_DIR / "ptxas.log").write_text(proc.stdout + proc.stderr)
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    (BUILD_DIR / "ptxas.log").write_text("\n".join(logs))
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib)
     return lib
 

@@ -1,21 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's AFF-Mini semantic-segmentation path on one NVIDIA GPU.
+"""Drive the PyTorch port's AFF-Mini semantic-segmentation paths -- inference
+and the training step -- on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-1. builds the hand-written CUDA kernels (csrc/) with nvcc;
-2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes a 512x512 batch-4 forward gives it, and times both;
+1. builds the hand-written CUDA kernels (csrc/) with nvcc, one process per
+   source;
+2. holds each inference kernel against its plain PyTorch version on the
+   card, at the shapes a 512x512 batch-4 forward gives it, and times both;
 3. runs the full AFF-Mini + Mask2Former forward (published ADE20K widths,
    seeded random weights) at 512x512, batch 4, through the kernels, checks
    that every kernel launched the expected number of times, and compares the
    outputs with the same model run through the plain versions;
 4. serves 8 random uint8 512x512 images through the predictor at batch 1
-   and batch 4 and checks the label maps.
+   and batch 4 and checks the label maps;
+5. holds each training kernel (local_attn and msdetrpc backward,
+   point_sample forward and backward, the lapjv matcher) against its plain
+   version at the shapes a 512x512 batch-8 training step gives it, and
+   times both;
+6. trains: the full-width step (batch 8, 512x512, 100 target slots, 12544
+   points, fp32) on seeded synthetic label maps, once through the kernels
+   and once through the plain versions from the same weights, batch and
+   generator (loss terms, valid-target matches, gradient norms per
+   parameter group), then 3 steps through the kernels with the launch
+   counts of every kernel, ms per step for both paths and peak memory.
 
 Exits non-zero on any failure, and at once when no CUDA device is present.
-The last line is {"ok": true, "device": {...}}; the line before it lists the
-kernels with their errors and times.
+The last line is {"ok": true, "device": {...}}; the line before it is the
+card's name and power limit, and the one before that lists the kernels with
+their errors and times.
 """
 
 from __future__ import annotations
@@ -27,10 +40,26 @@ import sys
 import time
 
 SIZE, BATCH, SEED = 512, 4, 0
+TRAIN_BATCH, TRAIN_STEPS = 8, 3
 # tolerances, fp32 throughout: the kernels sum in another order than the
-# plain versions (a few ulps per output); knn must agree exactly
+# plain versions (a few ulps per output); knn and lapjv must agree exactly
 LOCAL_ATTN_ATOL = 1e-4
 MSDETRPC_ATOL = 1e-4
+POINT_SAMPLE_ATOL = 1e-5
+# gradients, error relative to the largest entry (at least 1) of each
+# gradient tensor: the kernels scatter with atomics
+# (run-to-run order) and the w5/b5 reductions sum ~1e6 terms in another order
+GRAD_RTOL = 1e-3
+# the two training steps: loss terms (relative), and gradient norms per
+# parameter group (relative; a flipped near-tie in the matcher or in token
+# selection moves them more than fp32 order does)
+LOSS_RTOL = 1e-3
+GROUP_NORM_RTOL = 2e-2
+# at random initialisation many queries predict nearly the same mask, so
+# near-tied matching costs flip a few valid-target matches between the two
+# paths (the flipped assignments are equally good: the loss terms, which
+# depend on them, still agree within LOSS_RTOL)
+MATCH_AGREE_MIN = 0.9
 
 
 def log(msg: str) -> None:
@@ -182,6 +211,226 @@ def check_msdetrpc(dev, gen):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def grad_errs(got, want):
+    """(max abs err, max abs err / max(max |ref|, 1)) over pairs of gradients."""
+    errs = [((a - r).abs().max().item(), max(r.abs().max().item(), 1.0))
+            for a, r in zip(got, want)]
+    return max(e for e, _ in errs), max(e / s for e, s in errs)
+
+
+def plain_grad_ms(fn, inputs, cots) -> float:
+    """Device ms of the plain version's autograd backward alone."""
+    import torch
+
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+
+    with plain_versions():
+        outs = fn()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return cuda_ms(lambda: torch.autograd.grad(outs, inputs, cots, retain_graph=True),
+                   iters=5, warmup=1)
+
+
+def check_local_attn_bwd(dev, gen):
+    """K2 at the four stages' shapes of a batch-8 step: the gradients of the
+    kernel pair against the plain version's autograd; ms sums the 12
+    backward calls of a step (the kernel backward alone vs the plain
+    version's autograd backward alone)."""
+    import torch
+    from autofocusformermod_torch.geometry.cluster import space_filling_cluster
+    from autofocusformermod_torch.geometry.knn import knn
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.local_attn import (
+        local_attn_forward, sfc_cluster_attention, sfc_cluster_attention_backward)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    heads, dims, depths, b = (2, 4, 8, 16), (32, 128, 256, 384), (2, 2, 6, 2), TRAIN_BATCH
+    err, worst, ms, plain_ms = 0.0, 0.0, 0.0, 0.0
+    for s in range(4):
+        h, c_ = heads[s], dims[s] // heads[s]
+        pos, means, _, _, _ = space_filling_cluster(grid_pos(128 >> s, 1 << s, 1, dev), 8, 128, 128)
+        n = pos.shape[1]
+        nc = knn(pos, means, 6).expand(b, n, 6).contiguous()
+        pos = pos.expand(b, n, 2).contiguous()
+        diff = [randn(b, h, n, c_, scale=c_ ** -0.5), randn(b, h, n, c_), randn(b, h, n, c_),
+                randn(h, 5, scale=0.1), randn(h, scale=0.1), randn(h, c_, scale=c_ ** -0.5)]
+        g, gb = randn(b, h, n, c_), randn(b, h, n, 1)
+        leaves = [t.clone().requires_grad_() for t in diff]
+
+        def fwd():
+            q, k, v, w5, b5, bk = leaves
+            return sfc_cluster_attention(q, k, v, pos, nc, w5, b5, bk, 8)
+
+        got = torch.autograd.grad(fwd(), leaves, (g, gb))
+        with plain_versions():
+            want = torch.autograd.grad(fwd(), leaves, (g, gb))
+        e, rel = grad_errs(got, want)
+        err, worst = max(err, e), max(worst, rel)
+        q, k, v, w5, b5, bk = diff
+        out, blank, lse = local_attn_forward(q, k, v, pos, nc, w5, b5, bk, 8)
+        delta = ((g * out).sum(-1, keepdim=True) + gb * blank).contiguous()
+        t_k = cuda_ms(lambda: sfc_cluster_attention_backward(q, k, v, pos, nc, w5, b5, g, lse,
+                                                             delta, 8))
+        t_p = plain_grad_ms(fwd, leaves, (g, gb))
+        ms, plain_ms = ms + depths[s] * t_k, plain_ms + depths[s] * t_p
+        log(f"  local_attn bwd stage {s + 1} q={tuple(q.shape)}: max_abs_err {e:.3e} (rel "
+            f"{rel:.3e}; dq dk dv dw5 db5 dblank_k) kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+    if not worst <= GRAD_RTOL:
+        raise SystemExit(f"local_attn backward: max rel err {worst} > {GRAD_RTOL}")
+    return {"name": "local_attn_bwd", "route": "cuda",
+            "source": "autofocusformermod_torch/csrc/local_attn.cu",
+            "replaces": "autofocusformermod_tpu/ops/pallas/local_attn.py:622",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_msdetrpc_bwd(dev, gen):
+    """K4 at a batch-8 step's shapes (bh=64, 3 levels x 16 pairs, c_=32);
+    ms sums the 18 backward calls of a step."""
+    import torch
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.msdetrpc import (
+        msdetrpc_levels_s, msdetrpc_levels_s_backward)
+
+    bh, p, c_, sizes = TRAIN_BATCH * 8, 16, 32, (256, 1024, 4096)
+    val = torch.randn((bh, sum(sizes), c_), generator=gen).to(dev)
+    err, worst, ms, plain_ms = 0.0, 0.0, 0.0, 0.0
+    for n in sizes:
+        idx = torch.cat([torch.randint(0, s, (bh, n, p), generator=gen) for s in sizes], 2)
+        idx = idx.int().to(dev).contiguous()
+        w = torch.rand((bh, n, 3 * p), generator=gen)
+        w = (w / w.sum(-1, keepdim=True)).to(dev).contiguous()
+        g = torch.randn((bh, n, c_), generator=gen).to(dev)
+        leaves = [w.clone().requires_grad_(), val.clone().requires_grad_()]
+
+        def fwd():
+            return msdetrpc_levels_s(idx, leaves[0], leaves[1], sizes)
+
+        got = torch.autograd.grad(fwd(), leaves, g)
+        with plain_versions():
+            want = torch.autograd.grad(fwd(), leaves, g)
+        e, rel = grad_errs(got, want)
+        err, worst = max(err, e), max(worst, rel)
+        t_k = cuda_ms(lambda: msdetrpc_levels_s_backward(idx, w, val, g, sizes))
+        t_p = plain_grad_ms(fwd, leaves, g)
+        ms, plain_ms = ms + 6 * t_k, plain_ms + 6 * t_p
+        log(f"  msdetrpc bwd n={n} idx={tuple(idx.shape)} val={tuple(val.shape)}: max_abs_err "
+            f"{e:.3e} (rel {rel:.3e}; d_w d_val) kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+    if not worst <= GRAD_RTOL:
+        raise SystemExit(f"msdetrpc backward: max rel err {worst} > {GRAD_RTOL}")
+    return {"name": "msdetrpc_bwd", "route": "cuda",
+            "source": "autofocusformermod_torch/csrc/msdetrpc.cu",
+            "replaces": "autofocusformermod_tpu/ops/pallas/msdetrpc_kernel.py:2078",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_point_sample(dev, gen):
+    """K10 at a batch-8 step's three forward calls -- the ranking read
+    (8000 masks x 37632 candidates), the target labels (800 512x512 masks x
+    10 x 12544 points) and the matched logits (8000 x 12544) -- and the one
+    backward (the logits'); ms sums the four."""
+    import torch
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.point_sample import (
+        point_sample_backward, point_sample_bilinear)
+
+    n_t, layers, pts = TRAIN_BATCH * 100, 10, 12544
+    masks = torch.randn((layers * n_t, 128, 128), generator=gen).to(dev) * 3
+    cases = (("ranking", masks, (layers * n_t, 3 * pts)),
+             ("targets", None, (n_t, layers * pts)),
+             ("logits", masks, (layers * n_t, pts)))
+    fwd_err, bwd_err, bwd_rel, ms, plain_ms = 0.0, 0.0, 0.0, 0.0, 0.0
+    for label, m, (n, p) in cases:
+        if m is None:
+            m = (torch.rand((n, SIZE, SIZE), generator=gen) < 0.3).float().to(dev)
+        coords = torch.rand((n, p, 2), generator=gen).to(dev)
+        out = point_sample_bilinear(m, coords)
+        with plain_versions():
+            ref = point_sample_bilinear(m, coords)
+            t_p = cuda_ms(lambda: point_sample_bilinear(m, coords), iters=3, warmup=1)
+        t_k = cuda_ms(lambda: point_sample_bilinear(m, coords), iters=5, warmup=1)
+        e = (out - ref).abs().max().item()
+        fwd_err = max(fwd_err, e)
+        ms, plain_ms = ms + t_k, plain_ms + t_p
+        log(f"  point_sample fwd {label:8s} masks={tuple(m.shape)} points={p}: max_abs_err "
+            f"{e:.3e} kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+        del out, ref
+        if label == "logits":
+            g = torch.randn((n, p), generator=gen).to(dev)
+            leaf = m.clone().requires_grad_()
+            got = torch.autograd.grad(point_sample_bilinear(leaf, coords), leaf, g)[0]
+            with plain_versions():
+                want = torch.autograd.grad(point_sample_bilinear(leaf, coords), leaf, g)[0]
+            bwd_err, bwd_rel = grad_errs([got], [want])
+            t_k = cuda_ms(lambda: point_sample_backward(coords, g, tuple(m.shape)), iters=5,
+                          warmup=1)
+            t_p = plain_grad_ms(lambda: point_sample_bilinear(leaf, coords), [leaf], g)
+            ms, plain_ms = ms + t_k, plain_ms + t_p
+            log(f"  point_sample bwd {label:8s}: max_abs_err {bwd_err:.3e} (rel {bwd_rel:.3e}) "
+                f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+            del got, want, leaf
+        del coords
+        torch.cuda.empty_cache()
+    if not (fwd_err <= POINT_SAMPLE_ATOL and bwd_rel <= GRAD_RTOL):
+        raise SystemExit(f"point_sample: forward err {fwd_err} > {POINT_SAMPLE_ATOL} or "
+                         f"backward rel err {bwd_rel} > {GRAD_RTOL}")
+    return {"name": "point_sample", "route": "cuda",
+            "source": "autofocusformermod_torch/csrc/point_sample.cu",
+            "replaces": "autofocusformermod_tpu/ops/pallas/point_sample_kernel.py:200",
+            "max_abs_err": max(fwd_err, bwd_err), "ms": ms, "plain_ms": plain_ms}
+
+
+def check_lapjv(dev, gen):
+    """K13 on a step's stacked problems: 10 layers x 8 images, 100 queries x
+    100 target slots, 8-12 valid targets per image (the rest at the 1e8
+    sentinel).  The assignments must be identical."""
+    import torch
+    from autofocusformermod_torch.losses.lapjv import hungarian_lsap, lapjv
+
+    b = 10 * TRAIN_BATCH
+    cost = torch.rand((b, 100, 100), generator=gen) * 10 - 5
+    n_valid = torch.randint(8, 13, (b,), generator=gen)
+    cost = torch.where(torch.arange(100)[None, None] < n_valid[:, None, None], cost, 1e8)
+    cost = cost.to(dev)
+    got = lapjv(cost)
+    ref = hungarian_lsap(cost)
+    torch.cuda.synchronize()
+    same = torch.equal(got, ref)
+    t_k = cuda_ms(lambda: lapjv(cost), iters=5, warmup=1)
+    t_p = cuda_ms(lambda: hungarian_lsap(cost), iters=2, warmup=1)
+    log(f"  lapjv cost={tuple(cost.shape)}: identical={same} kernel {t_k:.4f} ms, "
+        f"plain {t_p:.4f} ms")
+    if not same:
+        raise SystemExit("lapjv: kernel and plain version disagree")
+    return {"name": "lapjv", "route": "cuda", "source": "autofocusformermod_torch/csrc/lapjv.cu",
+            "replaces": "autofocusformermod_tpu/ops/pallas/lapjv_kernel.py:161",
+            "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p}
+
+
+def synthetic_batch(gen, dev, b: int, slots: int, num_classes: int):
+    """uint8 images and blocky label maps with 8-12 classes each, labels
+    padded to ``slots`` target slots as the semantic mapper pads them."""
+    import torch
+
+    images = torch.randint(0, 256, (b, SIZE, SIZE, 3), generator=gen, dtype=torch.uint8)
+    sem = torch.zeros((b, SIZE, SIZE), dtype=torch.uint8)
+    labels = torch.zeros((b, slots), dtype=torch.long)
+    valid = torch.zeros((b, slots), dtype=torch.bool)
+    for i in range(b):
+        k = int(torch.randint(8, 13, (1,), generator=gen))
+        classes = torch.randperm(num_classes, generator=gen)[:k]
+        cells = classes[torch.randint(0, k, (16 * 16,), generator=gen)]
+        cells[:k] = classes                                # every class present
+        cells = cells[torch.randperm(16 * 16, generator=gen)].reshape(16, 16)
+        sem[i] = cells.repeat_interleave(SIZE // 16, 0).repeat_interleave(SIZE // 16, 1)
+        present = torch.unique(sem[i]).long()
+        labels[i, :len(present)] = present
+        valid[i, :len(present)] = True
+    return {"image": images.to(dev), "sem_seg_map": sem.to(dev), "labels": labels.to(dev),
+            "valid": valid.to(dev)}
+
+
 def kept_agreement(fk, fp):
     """Per stage after res2: share of kept token positions common to both runs."""
     import torch
@@ -194,6 +443,120 @@ def kept_agreement(fk, fp):
         out[f"res{i}"] = torch.stack([torch.isin(ida[j], idb[j]).float().mean()
                                       for j in range(a.shape[0])]).mean().item()
     return out
+
+
+def group_norms(model):
+    """Gradient norm of each optimizer parameter group."""
+    import torch
+    from autofocusformermod_torch.engine.optimizer import param_groups
+
+    return {label: torch.sqrt(sum((p.grad ** 2).sum() for _, p in named)).item()
+            for label, named in param_groups(model).items()}
+
+
+def train_phase(dev, smi, counters):
+    """Phase 6.  Returns {counter name: launches over the TRAIN_STEPS steps}."""
+    import contextlib
+    import copy
+
+    import torch
+    from autofocusformermod_torch.config import aff_mini_cfg
+    from autofocusformermod_torch.engine.train_step import TrainStep
+    from autofocusformermod_torch.losses.criterion import device_draw
+    from autofocusformermod_torch.models.maskformer import init_random_weights, maskformer_from_config
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+
+    cfg = aff_mini_cfg()
+    model = maskformer_from_config(cfg)
+    init_random_weights(model, torch.Generator().manual_seed(SEED))
+    model = model.to(dev)
+    initial = copy.deepcopy(model.state_dict())
+    batch = synthetic_batch(torch.Generator().manual_seed(SEED + 1), dev, TRAIN_BATCH,
+                            cfg.TPU.MAX_GT_INSTANCES, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
+    n_valid = batch["valid"].sum(1).tolist()
+    log(f"  batch {TRAIN_BATCH} x {SIZE}x{SIZE}, {cfg.TPU.MAX_GT_INSTANCES} target slots, "
+        f"valid targets per image {n_valid}")
+
+    def draw():
+        return device_draw(torch.Generator(device=dev).manual_seed(SEED))
+
+    def grads_of(path):
+        """Forward, criterion and backward from the initial weights."""
+        model.load_state_dict(initial)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with path():
+            total, losses, matched = TrainStep(model, cfg).loss_and_grads(batch, draw())
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        return total, losses, matched, grads, group_norms(model), dt, peak
+
+    k_total, k_losses, k_matched, k_grads, k_norms, k_dt, k_peak = grads_of(contextlib.nullcontext)
+    p_total, p_losses, p_matched, p_grads, p_norms, p_dt, p_peak = grads_of(plain_versions)
+    log(f"  forward + criterion + backward: kernels {k_dt:.3f} s (peak {k_peak:.2f} GiB), "
+        f"plain versions {p_dt:.3f} s (peak {p_peak:.2f} GiB) [first call of each]")
+    bad = [k for k, v in k_losses.items() if not torch.isfinite(v)]
+    if bad or not torch.isfinite(k_total):
+        raise SystemExit(f"non-finite losses: {bad}")
+    worst = max(abs(k_losses[k].item() - p_losses[k].item()) / max(abs(p_losses[k].item()), 1e-6)
+                for k in k_losses)
+    log(f"  total loss kernels {k_total.item():.6f} plain {p_total.item():.6f}; "
+        f"{len(k_losses)} loss terms, worst rel diff {worst:.3e}")
+    valid = batch["valid"]
+    agree = torch.stack([(a == b)[valid].float().mean() for a, b in zip(k_matched, p_matched)])
+    log(f"  valid-target matches equal in {agree.mean().item() * 100:.2f}% "
+        f"(per layer min {agree.min().item() * 100:.2f}%)")
+    group_diff = {g: abs(k_norms[g] - p_norms[g]) / max(p_norms[g], 1e-12) for g in p_norms}
+    log("  grad norm per group (kernels / plain): " + ", ".join(
+        f"{g} {k_norms[g]:.5g}/{p_norms[g]:.5g}" for g in sorted(p_norms)))
+    missing = [n for n, g in p_grads.items() if g.abs().max() > 0 and not k_grads[n].abs().max() > 0]
+    log(f"  parameters with a gradient: plain {sum(g.abs().max().item() > 0 for g in p_grads.values())}"
+        f" of {len(p_grads)}; of those, zero through the kernels: {len(missing)}")
+    if missing:
+        raise SystemExit(f"the kernel step gives no gradient to {missing[:10]}")
+    if worst > LOSS_RTOL:
+        raise SystemExit(f"loss terms: kernels and plain versions differ by {worst} (rel)")
+    if max(group_diff.values()) > GROUP_NORM_RTOL:
+        raise SystemExit(f"gradient norms per group disagree: {group_diff}")
+    if agree.mean().item() < MATCH_AGREE_MIN:
+        raise SystemExit("valid-target matches disagree between kernels and plain versions")
+
+    def timed_steps(path, n):
+        """n full steps from the initial weights and a fresh optimizer."""
+        model.load_state_dict(initial)
+        step, gen = TrainStep(model, cfg), draw()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, metrics = [], []
+        with path():
+            for _ in range(n):
+                t0 = time.time()
+                metrics.append(step(batch, gen))
+                torch.cuda.synchronize()
+                times.append(time.time() - t0)
+        return times, metrics, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    for fn in counters.values():
+        fn.launches = 0
+    times, metrics, peak = timed_steps(contextlib.nullcontext, TRAIN_STEPS)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for i, (t, m) in enumerate(zip(times, metrics)):
+        if not all(torch.isfinite(v) for v in m.values()):
+            raise SystemExit(f"step {i}: non-finite metrics")
+        log(f"  kernels step {i}: {t * 1e3:.1f} ms, total_loss {m['total_loss'].item():.5f} "
+            f"loss_ce {m['loss_ce'].item():.5f} loss_mask {m['loss_mask'].item():.5f} "
+            f"loss_dice {m['loss_dice'].item():.5f} grad_norm {m['grad_norm'].item():.5f}")
+    p_times, _, p_peak = timed_steps(plain_versions, 2)
+    k_ms = statistics.median(times[1:]) * 1e3
+    p_ms = p_times[-1] * 1e3
+    log(f"  ms per step (steady): kernels {k_ms:.1f} ({TRAIN_BATCH / k_ms * 1e3:.2f} images/s, "
+        f"peak {peak:.2f} GiB), plain versions {p_ms:.1f} ({TRAIN_BATCH / p_ms * 1e3:.2f} "
+        f"images/s, peak {p_peak:.2f} GiB) ({smi})")
+    log(f"  launches over {TRAIN_STEPS} steps: {launches}")
+    return launches
 
 
 def main() -> int:
@@ -210,12 +573,15 @@ def main() -> int:
 
     from autofocusformermod_torch.config import aff_mini_cfg
     from autofocusformermod_torch.geometry.knn import knn
+    from autofocusformermod_torch.losses.lapjv import lapjv
     from autofocusformermod_torch.models.inference import SemanticPredictor
     from autofocusformermod_torch.models.maskformer import init_random_weights, maskformer_from_config
     from autofocusformermod_torch.ops.build import build_library, load_kernels
     from autofocusformermod_torch.ops.dispatch import plain_versions
-    from autofocusformermod_torch.ops.local_attn import sfc_cluster_attention
-    from autofocusformermod_torch.ops.msdetrpc import msdetrpc_levels_s
+    from autofocusformermod_torch.ops.local_attn import (sfc_cluster_attention,
+                                                         sfc_cluster_attention_backward)
+    from autofocusformermod_torch.ops.msdetrpc import msdetrpc_levels_s, msdetrpc_levels_s_backward
+    from autofocusformermod_torch.ops.point_sample import point_sample_backward, point_sample_bilinear
 
     dev = torch.device("cuda", 0)
     log("phase 1: build")
@@ -285,6 +651,35 @@ def main() -> int:
                 raise SystemExit(f"bad label map {tuple(lab.shape)} [{lab.min()}, {lab.max()}]")
         log(f"  batch {bs}: {len(reqs)} images in {dt:.3f} s = {len(reqs) / dt:.2f} images/s "
             f"({smi}); label maps {tuple(labels[0].shape)}")
+
+    del model, predictor, out, ref, fk, fp, images
+    torch.cuda.empty_cache()
+
+    log(f"phase 5: training kernels against their plain versions, 512x512 batch-{TRAIN_BATCH} "
+        "step shapes")
+    kernels += [check_local_attn_bwd(dev, gen), check_msdetrpc_bwd(dev, gen),
+                check_point_sample(dev, gen), check_lapjv(dev, gen)]
+    torch.cuda.empty_cache()
+
+    log(f"phase 6: AFF-Mini training step, 512x512, batch {TRAIN_BATCH}, fp32, seeded random "
+        "weights and label maps")
+    train_counters = {"local_attn": sfc_cluster_attention,
+                      "local_attn_bwd": sfc_cluster_attention_backward,
+                      "msdetrpc": msdetrpc_levels_s, "msdetrpc_bwd": msdetrpc_levels_s_backward,
+                      "point_sample": point_sample_bilinear,
+                      "point_sample_bwd": point_sample_backward, "lapjv": lapjv, "knn": knn}
+    per_step = {"local_attn": 12, "local_attn_bwd": 12, "msdetrpc": 18, "msdetrpc_bwd": 18,
+                "point_sample": 3, "point_sample_bwd": 1, "lapjv": 1, "knn": 10}
+    train_launches = train_phase(dev, smi, train_counters)
+    for name, n in per_step.items():
+        if train_launches[name] != n * TRAIN_STEPS:
+            raise SystemExit(f"{name}: launched {train_launches[name]} times in {TRAIN_STEPS} "
+                             f"training steps, expected {n} per step")
+    for kr in kernels:
+        kr["inference_launches"] = kr.get("launches", 0)
+        kr["launches"] = train_launches[kr["name"]]
+        if kr["name"] == "point_sample":
+            kr["launches"] += train_launches["point_sample_bwd"]
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

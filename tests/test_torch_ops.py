@@ -1,17 +1,27 @@
 """Parity of the PyTorch port's ops (autofocusformermod_torch/ops) with the
-JAX package's: the gather-einsums, the plain versions of the local_attn and
-msdetrpc kernels, the device rule, and (on a card) the kernels themselves.
+JAX package's: the gather-einsums, the plain versions of the local_attn,
+msdetrpc and point_sample kernels and their gradients, the autograd
+Functions that wrap the kernels, the device rule, and (on a card) the
+kernels themselves, forward and backward.
 
 Inputs come from numpy with a seed; both sides run fp32.  Tolerance for the
 gather-einsums and the kernels' plain versions: rtol = atol = 1e-5, the
 room fp32 leaves for the two frameworks summing the same products in another
-order (inner sizes <= 48 here)."""
+order (inner sizes <= 48 here).  Gradients: rtol = atol = 1e-4 (the
+cotangents are O(1) and every gradient sums <= 3 * 48 products more).  The
+kernels scatter their gradients with atomics, whose order changes from run
+to run, so on the card the gradients are held to the same 1e-4."""
 
 import numpy as np
 import pytest
 import torch
 
+from autofocusformermod_torch.losses.lapjv import hungarian_lsap, lapjv
+from autofocusformermod_torch.losses.point_sample import point_sample
 from autofocusformermod_torch.ops import clusten as tc
+from autofocusformermod_torch.ops import local_attn as la
+from autofocusformermod_torch.ops import msdetrpc as md
+from autofocusformermod_torch.ops import point_sample as ps
 from autofocusformermod_torch.ops.dispatch import plain_versions, use_kernel
 from autofocusformermod_torch.ops.gather import take_rows, take_scalars
 from autofocusformermod_torch.ops.local_attn import (
@@ -19,6 +29,7 @@ from autofocusformermod_torch.ops.local_attn import (
 from autofocusformermod_torch.ops.msdetrpc import msdetrpc_levels_s, msdetrpc_levels_s_plain
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def _t(x):
@@ -184,6 +195,216 @@ def test_dispatch_rule():
         use_kernel(torch.zeros(2, device="meta"))
 
 
+# ------------------------------------------------------------ gradients
+def _vjp_torch(fn, args, diff, cots):
+    """Gradients of sum(out_i * cot_i) in the arguments listed in diff."""
+    leaves = [a.clone().requires_grad_() if i in diff else a for i, a in enumerate(args)]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o * c).sum() for o, c in zip(outs, cots))
+    return torch.autograd.grad(loss, [leaves[i] for i in diff])
+
+
+_ATTN_DIFF = (0, 1, 2, 5, 6, 7)            # q, k, v, w5, b5, blank_k
+
+
+def _attn_cots(rng, q):
+    b, h, n, c = q.shape
+    return (rng.standard_normal((b, h, n, c)).astype(np.float32),
+            rng.standard_normal((b, h, n, 1)).astype(np.float32))
+
+
+@pytest.mark.parametrize("pad,ref_fn", [(0, "sfc_attention_reference"),
+                                        (0, "gather_composition"), (3, "gather_composition")])
+def test_local_attention_plain_backward_matches_jax(jnp, rng, pad, ref_fn):
+    """d(q, k, v, w5, b5, blank_k) of the plain version == jax.vjp of the
+    JAX definitions (the mask formulation agrees where no slot is padded)."""
+    import jax
+
+    from autofocusformermod_tpu.ops.pallas import local_attn as jla
+
+    args = _attn_case(rng, pad=pad)
+    g, gb = _attn_cots(rng, args[0])
+    ref = getattr(jla, ref_fn)
+    jargs = list(map(jnp.asarray, args))
+
+    def f(*diff):
+        full = list(jargs)
+        for i, d in zip(_ATTN_DIFF, diff):
+            full[i] = d
+        return ref(*full, 4)
+
+    _, vjp = jax.vjp(f, *[jargs[i] for i in _ATTN_DIFF])
+    want = vjp((jnp.asarray(g), jnp.asarray(gb)))
+    got = _vjp_torch(lambda *a: sfc_cluster_attention_plain(*a, 4), list(map(_t, args)),
+                     _ATTN_DIFF, (_t(g), _t(gb)))
+    for gt, w in zip(got, want):
+        _close(gt, w, **GRAD_TOL)
+
+
+def test_msdetrpc_plain_backward_matches_jax(jnp, rng):
+    """d(w_s, val) of the plain stacked version == jax.vjp of the JAX
+    msdetrpc definition (ops/clusten.msdetrpc) on the interleaved operands."""
+    import jax
+
+    from autofocusformermod_tpu.ops import clusten as jc
+
+    sizes = (5, 9, 14)
+    idxs, ws, attn, val, idx_s, w_s = _stacked_case(rng, sizes=sizes)
+    bh, n, k, _ = idxs[0].shape
+    l = len(sizes)
+    offs = np.cumsum([0] + list(sizes))[:-1]
+    nn_idx = np.stack([i + o for i, o in zip(idxs, offs)], 3).reshape(bh, n, k * l, 4)
+    # the combined weight per (point, level, tap), interleaved as nn_idx
+    w_i = w_s.reshape(bh, n, l, k, 4).transpose(0, 1, 3, 2, 4).reshape(bh, n, k * l, 4)
+    g = rng.standard_normal((bh, n, val.shape[-1])).astype(np.float32)
+    ones = jnp.ones((bh, n, k * l))
+    _, vjp = jax.vjp(lambda w, v: jc.msdetrpc(jnp.asarray(nn_idx), w, ones, v),
+                     jnp.asarray(w_i), jnp.asarray(val))
+    dw_i, dval = vjp(jnp.asarray(g))
+    dw_s = np.asarray(dw_i).reshape(bh, n, k, l, 4).transpose(0, 1, 3, 2, 4).reshape(bh, n, -1)
+    got = _vjp_torch(lambda w, v: msdetrpc_levels_s_plain(_t(idx_s), w, v, sizes),
+                     [_t(w_s), _t(val)], (0, 1), (_t(g),))
+    _close(got[0], dw_s, **GRAD_TOL)
+    _close(got[1], dval, **GRAD_TOL)
+
+
+def test_point_sample_plain_matches_jax_forward_and_backward(jnp, rng):
+    """The plain version against JAX point_sample and its VJP in the masks,
+    coordinates reaching every border (zeros padding), and the wrapper on CPU
+    tensors runs it without launching."""
+    import jax
+
+    from autofocusformermod_tpu.losses.point_sample import point_sample as jps
+
+    masks = rng.standard_normal((3, 7, 9)).astype(np.float32)
+    coords = rng.random((3, 50, 2)).astype(np.float32)
+    coords[:, :4] = [[0, 0], [1, 1], [0, 1], [1, 0]]
+    g = rng.standard_normal((3, 50)).astype(np.float32)
+    out, vjp = jax.vjp(lambda m: jps(m, jnp.asarray(coords)), jnp.asarray(masks))
+    _close(point_sample(_t(masks), _t(coords)), out)
+    (dm,) = _vjp_torch(lambda m: point_sample(m, _t(coords)), [_t(masks)], (0,), (_t(g),))
+    _close(dm, vjp(jnp.asarray(g))[0])
+    before = ps.point_sample_bilinear.launches
+    _close(ps.point_sample_bilinear(_t(masks), _t(coords)), out)
+    assert ps.point_sample_bilinear.launches == before
+
+
+def test_point_sample_plain_matches_pallas_interpret(jnp, rng):
+    """Forward and backward against the TPU kernel itself, run in Pallas
+    interpret mode (128x128 masks, 256 points, as its tiling needs)."""
+    from autofocusformermod_tpu.ops.pallas.point_sample_kernel import (
+        point_sample_pallas_bwd_impl, point_sample_pallas_impl)
+
+    masks = rng.standard_normal((2, 128, 128)).astype(np.float32)
+    coords = rng.random((2, 256, 2)).astype(np.float32)
+    g = rng.standard_normal((2, 256)).astype(np.float32)
+    out = point_sample_pallas_impl(jnp.asarray(masks), jnp.asarray(coords), interpret=True)
+    dm = point_sample_pallas_bwd_impl(masks.shape, jnp.asarray(coords), jnp.asarray(g),
+                                      interpret=True)
+    # the TPU kernel's MXU dots round their inputs to bf16 (~0.4% relative)
+    _close(point_sample(_t(masks), _t(coords)), out, rtol=1e-2, atol=2e-2)
+    (got,) = _vjp_torch(lambda m: point_sample(m, _t(coords)), [_t(masks)], (0,), (_t(g),))
+    _close(got, dm, rtol=1e-2, atol=2e-2)
+
+
+# ------------------------------------------- the autograd Functions, on CPU
+def _attn_launchers(q, k, v, pos, nc, w5, b5, span):
+    """What the local_attn kernels compute, in plain PyTorch: the forward's
+    lse, and the backward's dq (without the blank term), dk, dv and drow,
+    from p = exp(s - lse) over the valid slots (exact exclusion)."""
+    from autofocusformermod_torch.geometry.cluster import nbhd_from_cluster_ids
+
+    member, mask, rel5 = nbhd_from_cluster_ids(pos, nc, span, q.shape[2])
+    valid = torch.ones_like(member, dtype=torch.bool) if mask is None else mask > 0
+    s = tc.cluster_qk(q, k, member) + torch.einsum("bnmf,hf->bhnm", rel5, w5) + b5[:, None, None]
+    return member, valid[:, None], s, rel5
+
+
+def _fake_forward(q, k, v, pos, nc, w5, b5, blank_k, span):
+    _, valid, s, _ = _attn_launchers(q, k, v, pos, nc, w5, b5, span)
+    blank_logit = torch.einsum("bhnc,hc->bhn", q, blank_k)[..., None]
+    s = torch.where(valid, s, torch.full_like(s, -torch.inf))
+    lse = torch.logsumexp(torch.cat([s, blank_logit], -1), -1, keepdim=True)
+    out, blank = sfc_cluster_attention_plain(q, k, v, pos, nc, w5, b5, blank_k, span)
+    return out, blank, lse
+
+
+def _fake_backward(q, k, v, pos, nc, w5, b5, g, lse, delta, span):
+    member, valid, s, rel5 = _attn_launchers(q, k, v, pos, nc, w5, b5, span)
+    p = torch.where(valid, torch.exp(s - lse), torch.zeros_like(s))
+    ds = p * (tc.cluster_qk(g, v, member) - delta)
+    with torch.enable_grad():             # a Function's backward runs without
+        kk, vv = k.clone().requires_grad_(), v.clone().requires_grad_()
+        dk, dv = torch.autograd.grad((ds * tc.cluster_qk(q, kk, member)).sum()
+                                     + (p * tc.cluster_qk(g, vv, member)).sum(), [kk, vv])
+    drow = torch.cat([torch.einsum("bhnm,bnmf->bhnf", ds, rel5), ds.sum(-1, keepdim=True),
+                      torch.zeros_like(ds[..., :2])], -1)
+    return tc.cluster_av(ds, k, member), dk, dv, drow
+
+
+def test_local_attention_function_wiring(monkeypatch, rng):
+    """The CUDA path's autograd Function, with its two launchers replaced by
+    plain PyTorch stand-ins, has a grad_fn and gives the plain version's
+    gradients: the blank-sink terms and the w5/b5/blank_k reductions around
+    the kernels are right (regression: the CUDA forward returned tensors
+    without a grad_fn, so training cut the gradient silently)."""
+    monkeypatch.setattr(la, "local_attn_forward", _fake_forward)
+    monkeypatch.setattr(la, "sfc_cluster_attention_backward", _fake_backward)
+    args = list(map(_t, _attn_case(rng, n=64, c=5, span=8, nnc=3)))
+    g, gb = map(_t, _attn_cots(rng, args[0]))
+
+    def fn(*a):
+        out = la._LocalAttention.apply(*a, 8)
+        assert out[0].grad_fn is not None and out[1].grad_fn is not None
+        return out
+
+    got = _vjp_torch(fn, args, _ATTN_DIFF, (g, gb))
+    want = _vjp_torch(lambda *a: sfc_cluster_attention_plain(*a, 8), args, _ATTN_DIFF, (g, gb))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+
+
+def test_msdetrpc_and_point_sample_function_wiring(monkeypatch, rng):
+    """The msdetrpc and point_sample autograd Functions, their launchers
+    replaced by the plain versions and their autograd gradients, give the
+    plain versions' gradients (and none to the indices or coordinates)."""
+    sizes = (5, 9, 14)
+    _, _, _, val, idx_s, w_s = _stacked_case(rng, sizes=sizes)
+
+    def md_bwd(idx, w, v, g, level_sizes):
+        with torch.enable_grad():
+            w, v = w.clone().requires_grad_(), v.clone().requires_grad_()
+            out = msdetrpc_levels_s_plain(idx, w, v, level_sizes)
+            return tuple(reversed(torch.autograd.grad((out * g).sum(), [w, v])))
+
+    monkeypatch.setattr(md, "msdetrpc_forward", msdetrpc_levels_s_plain)
+    monkeypatch.setattr(md, "msdetrpc_levels_s_backward", md_bwd)
+    cot = (_t(rng.standard_normal((idx_s.shape[0], idx_s.shape[1], val.shape[-1]))
+              .astype(np.float32)),)
+    args = [_t(idx_s), _t(w_s), _t(val)]
+    got = _vjp_torch(lambda i, w, v: md._Msdetrpc.apply(i, w, v, sizes), args, (1, 2), cot)
+    want = _vjp_torch(lambda i, w, v: msdetrpc_levels_s_plain(i, w, v, sizes), args, (1, 2), cot)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+
+    def ps_bwd(coords, g, shape):
+        with torch.enable_grad():
+            m = torch.zeros(shape, requires_grad=True)
+            return torch.autograd.grad((point_sample(m, coords) * g).sum(), m)[0]
+
+    monkeypatch.setattr(ps, "point_sample_forward", point_sample)
+    monkeypatch.setattr(ps, "point_sample_backward", ps_bwd)
+    masks = _t(rng.standard_normal((3, 7, 9)).astype(np.float32)).requires_grad_()
+    coords = _t(rng.random((3, 20, 2)).astype(np.float32)).requires_grad_()
+    g = _t(rng.standard_normal((3, 20)).astype(np.float32))
+    dm, dc = torch.autograd.grad((ps._PointSample.apply(masks, coords) * g).sum(),
+                                 [masks, coords], allow_unused=True)
+    assert dc is None
+    (want,) = torch.autograd.grad((point_sample(masks, coords.detach()) * g).sum(), masks)
+    torch.testing.assert_close(dm, want, **GRAD_TOL)
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def cuda():
@@ -212,3 +433,71 @@ def test_msdetrpc_kernel_matches_plain_on_card(rng, cuda):
     with plain_versions():
         ref = msdetrpc_levels_s(*args, sizes)
     torch.testing.assert_close(out, ref, **TOL)
+
+
+def _attn_grads_on_card(args, span, g, gb):
+    return _vjp_torch(lambda *a: sfc_cluster_attention(*a, span), args, _ATTN_DIFF, (g, gb))
+
+
+@pytest.mark.cuda
+def test_local_attn_backward_kernel_matches_plain_on_card(rng, cuda):
+    """Forward has a grad_fn on CUDA, and the backward kernel's gradients
+    equal the plain version's autograd (n % span == 0: no padded slots)."""
+    args = [_t(a).to(cuda) for a in _attn_case(rng, n=64, c=16, span=8, nnc=6)]
+    g, gb = (_t(a).to(cuda) for a in _attn_cots(rng, args[0]))
+    q = args[0].clone().requires_grad_()
+    out, blank = sfc_cluster_attention(q, *args[1:], 8)
+    assert out.grad_fn is not None and blank.grad_fn is not None
+    before = la.sfc_cluster_attention_backward.launches
+    got = _attn_grads_on_card(args, 8, g, gb)
+    assert la.sfc_cluster_attention_backward.launches == before + 1
+    with plain_versions():
+        want = _attn_grads_on_card(args, 8, g, gb)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_msdetrpc_backward_kernel_matches_plain_on_card(rng, cuda):
+    sizes = (5, 9, 14)
+    _, _, _, val, idx_s, w_s = _stacked_case(rng, sizes=sizes)
+    args = [_t(a).to(cuda) for a in (idx_s, w_s, val)]
+    cot = (torch.randn(idx_s.shape[0], idx_s.shape[1], val.shape[-1], device=cuda),)
+
+    def grads():
+        return _vjp_torch(lambda i, w, v: msdetrpc_levels_s(i, w, v, sizes), args, (1, 2), cot)
+
+    before = md.msdetrpc_levels_s_backward.launches
+    got = grads()
+    assert md.msdetrpc_levels_s_backward.launches == before + 1
+    with plain_versions():
+        want = grads()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_point_sample_kernel_matches_plain_on_card(rng, cuda):
+    masks = _t(rng.standard_normal((4, 32, 48)).astype(np.float32)).to(cuda)
+    coords = _t(rng.random((4, 300, 2)).astype(np.float32)).to(cuda)
+    coords[:, :4] = torch.tensor([[0, 0], [1, 1], [0, 1], [1, 0]], device=cuda)
+    cot = (torch.randn(4, 300, device=cuda),)
+
+    def run():
+        return _vjp_torch(lambda m: ps.point_sample_bilinear(m, coords), [masks], (0,), cot)[0]
+
+    out = ps.point_sample_bilinear(masks, coords)
+    torch.testing.assert_close(out, point_sample(masks, coords), **TOL)
+    torch.testing.assert_close(run(), _vjp_torch(lambda m: point_sample(m, coords), [masks],
+                                                 (0,), cot)[0], **GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_lapjv_kernel_matches_plain_on_card(rng, cuda):
+    """The same float operations in the same order: identical assignments,
+    sentinel ties included."""
+    cost = rng.standard_normal((6, 100, 100)).astype(np.float32) * 3
+    cost[:, :, 60:] = 1e8
+    cost = _t(cost).to(cuda)
+    got = lapjv(cost)
+    torch.testing.assert_close(got, hungarian_lsap(cost), rtol=0, atol=0)
