@@ -1,17 +1,18 @@
-"""A yaml-free AFF-Mini preset.
+"""Yaml-free presets of the published AFF-Mini and AFF-Small models.
 
-``configs/ade20k/maskformer2_aff_mini_bs32_80k.yaml`` merged over the defaults
-gives the published AFF-Mini + Mask2Former ADE20K model and its training
-recipe.  Reading that file needs PyYAML; this preset carries the same values
-for every field the port's ``*_from_config`` functions, its optimizer and its
-training step read, so a machine without PyYAML can build and train the
-model.  Those functions also accept the JAX package's ``CfgNode`` (same
-attribute paths).
+``configs/ade20k/maskformer2_aff_{mini,small}_bs32_80k.yaml`` merged over the
+defaults give the published AFF + Mask2Former ADE20K models and their
+training recipe.  Reading those files needs PyYAML; these presets carry the
+same values for every field the port's ``*_from_config`` functions, its
+optimizer, its training step and its trainer read, so a machine without
+PyYAML can build and train the models.  Those functions also accept the JAX
+package's ``CfgNode`` (same attribute paths).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import ast
+from typing import Any, Dict, Sequence
 
 
 class Cfg(dict):
@@ -29,11 +30,43 @@ class Cfg(dict):
             raise AttributeError(name) from e
 
 
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+    def merge_from_list(self, opts: Sequence[str]) -> None:
+        """KEY VALUE pairs over existing fields, as the JAX package's CfgNode
+        takes them: dotted keys, values read as Python literals where they
+        parse (else kept as strings) and held to the field's type."""
+        if len(opts) % 2:
+            raise ValueError(f"overrides come as KEY VALUE pairs, got {list(opts)}")
+        for key, raw in zip(opts[0::2], opts[1::2]):
+            *parents, leaf = key.split(".")
+            node = self
+            for p in parents:
+                node = node.get(p) if isinstance(node, Cfg) else None
+            if not isinstance(node, Cfg) or leaf not in node or isinstance(node[leaf], Cfg):
+                raise KeyError(f"no config field {key}")
+            try:
+                value = ast.literal_eval(raw) if isinstance(raw, str) else raw
+            except (ValueError, SyntaxError):
+                value = raw
+            old = node[leaf]
+            if isinstance(old, float) and isinstance(value, int):
+                value = float(value)
+            if isinstance(old, list) and isinstance(value, tuple):
+                value = list(value)
+            if type(value) is not type(old):
+                raise TypeError(f"{key}: expected {type(old).__name__}, got {raw!r}")
+            node[leaf] = value
+
+
 def aff_mini_cfg(num_classes: int = 150) -> Cfg:
-    """AFF-Mini + Mask2Former, ADE20K semantic segmentation at 512x512."""
+    """AFF-Mini + Mask2Former, ADE20K semantic segmentation at 512x512
+    (``configs/ade20k/maskformer2_aff_mini_bs32_80k.yaml``)."""
     return Cfg({
         "MODEL": {
             "BACKBONE": {"NAME": "AutoFocusFormer"},
+            "WEIGHTS": "aff_mini.pth",
             "AFF": {
                 "EMBED_DIM": [32, 128, 256, 384],
                 "DEPTHS": [2, 2, 6, 2],
@@ -82,8 +115,10 @@ def aff_mini_cfg(num_classes: int = 150) -> Cfg:
             "PIXEL_STD": [58.395, 57.12, 57.375],
         },
         "SOLVER": {
+            "IMS_PER_BATCH": 32,
             "BASE_LR": 0.0002,
             "MAX_ITER": 80000,
+            "CHECKPOINT_PERIOD": 2500,
             "WEIGHT_DECAY": 0.05,
             "WEIGHT_DECAY_NORM": 0.0,
             "WEIGHT_DECAY_EMBED": 0.0,
@@ -96,6 +131,29 @@ def aff_mini_cfg(num_classes: int = 150) -> Cfg:
             "POLY_LR_CONSTANT_ENDING": 0.0,
             "CLIP_GRADIENTS": {"ENABLED": True, "CLIP_TYPE": "full_model", "CLIP_VALUE": 0.01},
         },
+        "INPUT": {"CROP": {"ENABLED": True, "SIZE": [512, 512]}},
+        "SEED": 0,
+        "OUTPUT_DIR": "./output",
         # target slots per image (the JAX package pads to TPU.MAX_GT_INSTANCES)
         "TPU": {"MAX_GT_INSTANCES": 100},
     })
+
+
+def aff_small_cfg(num_classes: int = 150) -> Cfg:
+    """AFF-Small + Mask2Former, ADE20K semantic segmentation at 512x512
+    (``configs/ade20k/maskformer2_aff_small_bs32_80k.yaml``): wider and
+    deeper than AFF-Mini, with DropPath and layer scale."""
+    cfg = aff_mini_cfg(num_classes)
+    cfg.MODEL.WEIGHTS = "aff_small.pth"
+    cfg.MODEL.AFF.update({
+        "EMBED_DIM": [96, 192, 384, 768],
+        "DEPTHS": [3, 4, 18, 2],
+        "NUM_HEADS": [3, 6, 12, 24],
+        "MLP_RATIO": 3.0,
+        "DROP_PATH_RATE": 0.3,
+        "LAYER_SCALE": 1e-5,
+    })
+    return cfg
+
+
+PRESETS = {"aff_mini": aff_mini_cfg, "aff_small": aff_small_cfg}

@@ -1,8 +1,7 @@
 """SetCriterion: Hungarian-matched class loss plus point-sampled mask losses.
 
 Counterpart of ``autofocusformermod_tpu/losses/criterion.py``
-(``set_criterion``) with the reference's exact uncertainty sampler.  For
-the main output and every auxiliary output:
+(``set_criterion``).  For the main output and every auxiliary output:
 
   - loss_ce   : cross-entropy over classes, weight ``eos_coef`` on no-object
   - loss_mask : sigmoid cross-entropy at uncertainty-sampled points
@@ -12,11 +11,15 @@ normalized by the number of valid target masks.  As in the JAX package,
 every layer is matched in one stacked LSAP solve, and every layer of one
 mask resolution is sampled in one stacked pass.
 
-All randomness comes from one ``draw(shape)`` function, called in this
-order: the matcher's points (b, p, 2) for each layer in turn, then for each
-mask-resolution group the uncertainty candidates (n, 3p, 2) and the random
-remainder (n, p/4, 2), n = layers * b * t.  The JAX package splits its key
-in the same order, so a test can replay its draws.
+All randomness comes from one ``Draw`` (``losses.point_sample.Draw``),
+called in this order: ``draw((b, p, 2))``, the matcher's points, for each
+layer in turn; then for each mask-resolution group, n = layers * b * t, with
+the default nearest-tap ranking ``draw.seeds(2)`` (the candidates are hashed
+from counters under these two seeds) and ``draw((n, p/4, 2))``, the random
+remainder; with ``NN_RANK_UNCERTAINTY`` off ``draw((n, 3p, 2))``, the
+candidates, and the same remainder.  The JAX package splits its key in the
+same order (seeds from ``k1`` of the group's key, the remainder from ``k2``),
+so a test can replay its draws.
 """
 
 from __future__ import annotations
@@ -27,14 +30,39 @@ import torch
 from torch.nn import functional as F
 
 from .matcher import matching_cost, solve_lsap
-from .point_sample import (Draw, get_uncertain_point_coords_with_randomness,
-                           point_sample_auto, point_sample_shared_batch)
+from .point_sample import (Draw, get_uncertain_point_coords_nn_ranked,
+                           get_uncertain_point_coords_with_randomness, point_sample_auto,
+                           point_sample_shared_batch)
+
+# Rank the oversampled candidates with a one-tap nearest-cell read instead of
+# the four-tap bilinear one (a selection heuristic only: the supervision stays
+# at continuous points).  Off, the reference's exact sampler runs.
+NN_RANK_UNCERTAINTY = True
+
+
+def _uncertain_coords(draw, src_flat, num_points, oversample_ratio, importance_sample_ratio):
+    fn = (get_uncertain_point_coords_nn_ranked if NN_RANK_UNCERTAINTY
+          else get_uncertain_point_coords_with_randomness)
+    return fn(draw, src_flat, num_points, oversample_ratio, importance_sample_ratio)
+
+
+class _GeneratorDraw:
+    """Uniforms and seeds from one ``torch.Generator``, on its device."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def __call__(self, shape) -> torch.Tensor:
+        return torch.rand(tuple(shape), generator=self.generator, device=self.generator.device)
+
+    def seeds(self, count: int) -> torch.Tensor:
+        return torch.randint(0, 1 << 32, (count,), generator=self.generator,
+                             device=self.generator.device, dtype=torch.int64)
 
 
 def device_draw(generator: torch.Generator) -> Draw:
-    """The default draw: uniforms from ``generator`` on its device."""
-    return lambda shape: torch.rand(tuple(shape), generator=generator,
-                                    device=generator.device)
+    """The default draw: uniforms and seeds from ``generator`` on its device."""
+    return _GeneratorDraw(generator)
 
 
 def select_matched(pred_masks: torch.Tensor, matched: torch.Tensor) -> torch.Tensor:
@@ -122,8 +150,8 @@ def set_criterion(
         nlg = len(idxs)
         src_flat = torch.cat([select_matched(all_outputs[i]["pred_masks"], matched_all[i])
                               .reshape(b * t, *shape_hw) for i in idxs], 0)
-        coords = get_uncertain_point_coords_with_randomness(
-            draw, src_flat.detach(), num_points, oversample_ratio, importance_sample_ratio)
+        coords = _uncertain_coords(draw, src_flat.detach(), num_points, oversample_ratio,
+                                   importance_sample_ratio)
         ct = (coords.reshape(nlg, b * t, num_points, 2).transpose(0, 1)
               .reshape(b * t, nlg * num_points, 2))
         with torch.no_grad():

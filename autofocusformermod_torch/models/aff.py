@@ -20,16 +20,9 @@ from torch import nn
 from ..geometry.cluster import nbhd_from_cluster_ids, space_filling_cluster
 from ..geometry.knn import knn
 from ..ops.clusten import cluster_wf
-from ..ops.gather import take_rows
+from ..ops.gather import take_rows, topk_indices
 from ..ops.local_attn import sfc_cluster_attention
-from .layers import FlaxBatchNorm2d, Mlp, WeightNet, layer_norm, rel_pos_features
-
-
-def _topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest entries of each row, in descending order with
-    ties to the lowest index (jax.lax.top_k's order; torch.topk promises
-    neither)."""
-    return torch.sort(x, dim=1, descending=True, stable=True)[1][:, :k]
+from .layers import DropPath, FlaxBatchNorm2d, Mlp, WeightNet, layer_norm, rel_pos_features
 
 
 class ClusterAttention(nn.Module):
@@ -74,18 +67,31 @@ class ClusterAttention(nn.Module):
 
 
 class ClusterTransformerBlock(nn.Module):
-    """Pre-LN attention + FFN block (no layer scale: LAYER_SCALE is 0)."""
+    """Pre-LN attention + FFN block.  With ``layer_scale`` > 0 each residual
+    branch is scaled per channel by a learned ``gamma1`` / ``gamma2`` that
+    starts at that value; each branch goes through DropPath."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 2.0):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 2.0,
+                 drop_path: float = 0.0, layer_scale: float = 0.0):
         super().__init__()
         self.norm1 = layer_norm(dim)
         self.attn = ClusterAttention(dim, num_heads)
         self.norm2 = layer_norm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.drop_path = DropPath(drop_path)
+        scaled = layer_scale > 0
+        self.gamma1 = nn.Parameter(layer_scale * torch.ones(dim)) if scaled else None
+        self.gamma2 = nn.Parameter(layer_scale * torch.ones(dim)) if scaled else None
 
     def forward(self, feat, ctx):
-        feat = feat + self.attn(self.norm1(feat), ctx)
-        return feat + self.mlp(self.norm2(feat))
+        branch = self.attn(self.norm1(feat), ctx)
+        if self.gamma1 is not None:
+            branch = self.gamma1 * branch
+        feat = feat + self.drop_path(branch)
+        branch = self.mlp(self.norm2(feat))
+        if self.gamma2 is not None:
+            branch = self.gamma2 * branch
+        return feat + self.drop_path(branch)
 
 
 class ClusterMerging(nn.Module):
@@ -116,8 +122,8 @@ class ClusterMerging(nn.Module):
         # the coarse grid (every 2*stride) is reserved: it always survives
         reserve_mask = (pos_int % (stride * 2) == 0).all(-1).float()
         final_prob = final_prob + reserve_mask * (-100.0)
-        idx = torch.cat([_topk_indices(final_prob, keep_num - reserve_num),
-                         _topk_indices(reserve_mask, reserve_num)], dim=1)
+        idx = torch.cat([topk_indices(final_prob, keep_num - reserve_num),
+                         topk_indices(reserve_mask, reserve_num)], dim=1)
 
         new_pos = take_rows(pos, idx)
         member_idx, mask, rel5 = nbhd_from_cluster_ids(pos, take_rows(nc, idx), span, n,
@@ -134,11 +140,14 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim: int, out_dim: Optional[int], cluster_size: int, nbhd_size: int,
                  depth: int, num_heads: int, mlp_ratio: float, alpha: float = 4.0,
-                 ds_rate: float = 0.25, has_downsample: bool = True):
+                 ds_rate: float = 0.25, has_downsample: bool = True,
+                 drop_path: Sequence[float] = (), layer_scale: float = 0.0):
         super().__init__()
         self.cluster_size, self.nbhd_size = cluster_size, nbhd_size
+        drop_path = tuple(drop_path) or (0.0,) * depth
         self.blocks = nn.ModuleList(
-            ClusterTransformerBlock(dim, num_heads, mlp_ratio) for _ in range(depth))
+            ClusterTransformerBlock(dim, num_heads, mlp_ratio, drop_path[i], layer_scale)
+            for i in range(depth))
         self.has_downsample = has_downsample
         if has_downsample:
             self.prob_net = nn.Linear(dim, 1)
@@ -204,31 +213,38 @@ class AFF(nn.Module):
     """The 4-stage AutoFocusFormer backbone.  forward(NHWC images) ->
     {"res2".."res5": feat, "res*_pos": pos, "res*_spatial_shape": (h, w)}.
 
-    DropPath is not ported: a model with drop_path_rate > 0 runs in eval
-    mode and refuses train mode."""
+    The blocks' DropPath rates rise linearly over the depth from 0 to
+    ``drop_path_rate``; ``set_drop_path_generator`` gives them their stream."""
 
     def __init__(self, embed_dim: Sequence[int] = (32, 128, 256, 512), cluster_size: int = 8,
                  nbhd_size: Sequence[int] = (48, 48, 48, 48), alpha: float = 4.0,
                  ds_rate: float = 0.25, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), mlp_ratio: float = 2.0,
-                 patch_norm: bool = True, drop_path_rate: float = 0.0):
+                 patch_norm: bool = True, drop_path_rate: float = 0.0,
+                 layer_scale: float = 0.0):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         nl = len(depths)
+        dpr = [float(r) for r in np.linspace(0, drop_path_rate, sum(depths))]
         self.patch_embed = PatchEmbed(embed_dim[0], patch_norm)
         self.layers = nn.ModuleList(
             BasicLayer(embed_dim[i], embed_dim[i + 1] if i < nl - 1 else None, cluster_size,
                        nbhd_size[i], depths[i], num_heads[i], mlp_ratio, alpha, ds_rate,
-                       has_downsample=i < nl - 1)
+                       has_downsample=i < nl - 1,
+                       drop_path=dpr[sum(depths[:i]):sum(depths[:i + 1])],
+                       layer_scale=layer_scale)
             for i in range(nl))
         for i in range(nl):
             self.add_module(f"norm{i}", layer_norm(embed_dim[i]))
 
+    def set_drop_path_generator(self, generator: Optional[torch.Generator]) -> None:
+        """Every DropPath of the backbone draws its keep decisions from this
+        generator (on the device the model runs on), in forward order."""
+        for m in self.modules():
+            if isinstance(m, DropPath):
+                m.generator = generator
+
     def forward(self, x: torch.Tensor) -> Dict:
-        if self.training and self.drop_path_rate > 0:
-            raise NotImplementedError(
-                f"DropPath is not ported: train with MODEL.AFF.DROP_PATH_RATE 0, not "
-                f"{self.drop_path_rate} (the published AFF-Mini config sets 0.0)")
         pos, feat, h, w = self.patch_embed(x)
         outs: Dict = {}
         for i, layer in enumerate(self.layers):
@@ -242,11 +258,10 @@ class AFF(nn.Module):
 def aff_from_config(cfg) -> AFF:
     """Build AFF from a config (the JAX package's CfgNode or config.Cfg)."""
     a = cfg.MODEL.AFF
-    if not a.RESERVE or a.LAYER_SCALE or a.CLUSTER_SIZE > min(a.NBHD_SIZE):
-        raise NotImplementedError("ported: reserved coarse grid, no layer scale, "
-                                  "CLUSTER_SIZE <= NBHD_SIZE")
+    if not a.RESERVE or a.CLUSTER_SIZE > min(a.NBHD_SIZE):
+        raise NotImplementedError("ported: reserved coarse grid, CLUSTER_SIZE <= NBHD_SIZE")
     return AFF(embed_dim=tuple(a.EMBED_DIM), cluster_size=a.CLUSTER_SIZE,
                nbhd_size=tuple(a.NBHD_SIZE), alpha=a.ALPHA, ds_rate=a.DS_RATE,
                depths=tuple(a.DEPTHS), num_heads=tuple(a.NUM_HEADS),
                mlp_ratio=a.MLP_RATIO, patch_norm=a.PATCH_NORM,
-               drop_path_rate=a.DROP_PATH_RATE)
+               drop_path_rate=a.DROP_PATH_RATE, layer_scale=a.LAYER_SCALE)

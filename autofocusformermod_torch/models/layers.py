@@ -1,5 +1,5 @@
-"""Shared layers: relative-position features, MLPs, sine position embedding,
-PointConv weight net, flax-convention BatchNorm.  Counterpart of
+"""Shared layers: relative-position features, MLPs, DropPath, sine position
+embedding, PointConv weight net, flax-convention BatchNorm.  Counterpart of
 ``autofocusformermod_tpu/models/layers.py``.
 
 Flax's LayerNorm epsilon is 1e-6 (torch's default is 1e-5), so every
@@ -46,6 +46,29 @@ class Mlp(nn.Module):
 
     def forward(self, x):
         return self.fc2(nn.functional.gelu(self.fc1(x)))
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: in train mode drop the residual branch of a sample
+    with probability ``rate`` and scale the kept ones by 1 / (1 - rate).  The
+    keep decisions come from ``generator`` (a ``torch.Generator`` on the
+    input's device; None is PyTorch's global one), set by whoever owns the
+    model, so a run can checkpoint the stream and continue it."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def keep_mask(self, shape, device) -> torch.Tensor:
+        """bool (b, 1, ...): True where the sample's branch is kept."""
+        return torch.rand(shape, generator=self.generator, device=device) < 1.0 - self.rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        mask = self.keep_mask((x.shape[0],) + (1,) * (x.dim() - 1), x.device)
+        return torch.where(mask, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 class MLP(nn.Module):

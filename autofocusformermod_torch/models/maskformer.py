@@ -77,12 +77,12 @@ def init_random_weights(model: nn.Module, generator: torch.Generator) -> nn.Modu
     """Deterministic random weights from a CPU generator: matrices ~ N(0,
     1/fan_in), norm scales ~ 1 + N(0, 0.01), other vectors ~ N(0, 0.01);
     BatchNorm statistics near (0, 1).  The deformable-offset bias grid and
-    the Shepard power keep their constructor values."""
+    the Shepard power and the layer scales keep their constructor values."""
     def randn(shape):
         return torch.randn(shape, generator=generator)
 
     for name, p in model.named_parameters():
-        if name.endswith(("shepard_power", "sampling_offsets.bias")):
+        if name.endswith(("shepard_power", "sampling_offsets.bias", "gamma1", "gamma2")):
             continue
         if p.dim() >= 2:
             val = randn(p.shape) * p[0].numel() ** -0.5

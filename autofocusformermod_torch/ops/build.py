@@ -38,6 +38,8 @@ SIGNATURES = {
     "aff_msdetrpc_bwd": [P] * 6 + [I] * 5 + [P, I, P],
     "aff_point_sample": [P, P, P, I, I, I, I, P],
     "aff_point_sample_bwd": [P, P, P, I, I, I, I, P],
+    "aff_point_sample_nearest": [P, P, P, I, I, I, I, P],
+    "aff_point_sample_nearest_rows": [P, P, P, P, I, I, I, I, P],
 }
 
 

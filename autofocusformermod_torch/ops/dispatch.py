@@ -35,14 +35,20 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel and no plain version for device {dev}")
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Tuple[int, ...]) -> None:
-    """Raise unless a kernel operand has this dtype and shape and is contiguous."""
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Tuple[int, ...],
+            align: int = 1) -> None:
+    """Raise unless a kernel operand has this dtype and shape, is contiguous
+    and starts at a multiple of ``align`` bytes (for kernels that read it in
+    vectors; a view into a larger tensor may not)."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: kernel operands must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: the kernel reads {align} bytes at a time and needs the tensor "
+                         f"to start at a multiple of that; pass a copy (.clone())")
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's AFF-Mini semantic-segmentation paths -- inference
-and the training step -- on one NVIDIA GPU.
+"""Drive the PyTorch port's semantic-segmentation paths -- AFF-Mini inference,
+the AFF-Mini training step and an AFF-Small training run with checkpoint and
+resume -- on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -14,21 +15,41 @@ and the training step -- on one NVIDIA GPU.
    outputs with the same model run through the plain versions;
 4. serves 8 random uint8 512x512 images through the predictor at batch 1
    and batch 4 and checks the label maps;
-5. holds each training kernel (local_attn and msdetrpc backward,
-   point_sample forward and backward, the lapjv matcher) against its plain
-   version at the shapes a 512x512 batch-8 training step gives it, and
-   times both;
-6. trains: the full-width step (batch 8, 512x512, 100 target slots, 12544
-   points, fp32) on seeded synthetic label maps, once through the kernels
-   and once through the plain versions from the same weights, batch and
-   generator (loss terms, valid-target matches, gradient norms per
-   parameter group), then 3 steps through the kernels with the launch
-   counts of every kernel, ms per step for both paths and peak memory.
+5. holds every kernel of a training step against its plain version at the
+   shapes a 512x512 batch-8 step of each trained model gives it, and times
+   both: local_attn forward and backward at AFF-Mini's and at AFF-Small's
+   stage shapes, and what is the same for both models at one batch
+   (msdetrpc forward and backward, knn, point_sample forward and backward,
+   the lapjv matcher);
+6. trains: the full-width AFF-Mini step (batch 8, 512x512, 100 target slots,
+   12544 points, fp32, the default criterion with the nearest-tap ranking)
+   on seeded synthetic label maps, once through the kernels and once
+   through the plain versions from the same weights, batch and generator
+   (loss terms, valid-target matches, gradient norms per parameter group),
+   then 3 steps through the kernels with the launch counts of every kernel,
+   ms per step for both paths and peak memory;
+7. holds the two nearest-read kernels of the point ranking against their
+   plain versions (exact equality: they copy floats) at the step's shapes,
+   times them beside one flat torch.gather, and checks that the whole
+   sampler picks identical points through kernels and plain versions on
+   both routes (y-stratified, and i.i.d. with stratification off);
+8. trains AFF-Small at its published width and depth (DropPath 0.3, layer
+   scale 1e-5) through the package's command line, in this process: 4
+   steps at batch 8 in one go; 3 steps, then a fresh Trainer that resumes
+   from the checkpoint and takes the 4th; one more resumed step with
+   stratification off.  Checks the resumed state (model, optimizer,
+   schedule, generators: bit for bit) and step against the uninterrupted
+   run, the launch counts per step, that DropPath dropped samples and that
+   every parameter got a gradient, and one step at batch 2 through the
+   kernels against the plain versions (loss terms and gradient norms per
+   parameter group).
 
 Exits non-zero on any failure, and at once when no CUDA device is present.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that lists the kernels with
-their errors and times.
+their errors, times, launch counts, bounds and (where one PyTorch call
+computes the same function) that call's time; a kernel held at the shapes of
+several paths has each path's figures under "by_path".
 """
 
 from __future__ import annotations
@@ -41,6 +62,15 @@ import time
 
 SIZE, BATCH, SEED = 512, 4, 0
 TRAIN_BATCH, TRAIN_STEPS = 8, 3
+SMALL_BATCH, SMALL_STEPS, SMALL_PLAIN_BATCH = 8, 4, 2
+# the backbones of the two driven models: heads, widths and blocks per stage
+# (AFF-Small's heads have 32 channels each, AFF-Mini's 16, 32, 32 and 24)
+BACKBONES = {"aff_mini": ((2, 4, 8, 16), (32, 128, 256, 384), (2, 2, 6, 2)),
+             "aff_small": ((3, 6, 12, 24), (96, 192, 384, 768), (3, 4, 18, 2))}
+# the card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# bytes/s, and fp32 operations/s outside the tensor cores (every kernel here
+# is fp32 and uses none)
+PEAK_BYTES_S, PEAK_FP32_S = 3.35e12, 67e12
 # tolerances, fp32 throughout: the kernels sum in another order than the
 # plain versions (a few ulps per output); knn and lapjv must agree exactly
 LOCAL_ATTN_ATOL = 1e-4
@@ -60,6 +90,14 @@ GROUP_NORM_RTOL = 2e-2
 # paths (the flipped assignments are equally good: the loss terms, which
 # depend on them, still agree within LOSS_RTOL)
 MATCH_AGREE_MIN = 0.9
+# a resumed run against the uninterrupted one: the restored state (model,
+# optimizer, schedule, generators) is equal bit for bit, but the backward
+# kernels and PyTorch's index_add scatter with atomics, whose order changes
+# from run to run, so the two runs' weights differ in the last bits after
+# three updates and the 4th step's loss terms agree only to this (relative,
+# about 17 times the most that two runs of the same steps were seen to
+# differ by, 3e-5)
+RESUME_RTOL = 5e-4
 
 
 def log(msg: str) -> None:
@@ -85,6 +123,29 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved_bytes: float, operations: float) -> dict:
+    """The least time the card could take: the bytes the function must move
+    (each input read once, each output written once) at the card's memory
+    rate, or its fp32 operations at the card's peak rate, whichever is more."""
+    by_bytes, by_ops = moved_bytes / PEAK_BYTES_S * 1e3, operations / PEAK_FP32_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def add_bounds(a: dict, b: dict, times: int = 1) -> dict:
+    """Sum of two bounds' times (calls run one after the other); bound_by is
+    that of the larger share."""
+    if not a:
+        return {"bound_ms": times * b["bound_ms"], "bound_by": b["bound_by"]}
+    ms = a["bound_ms"] + times * b["bound_ms"]
+    by = a["bound_by"] if a["bound_ms"] >= times * b["bound_ms"] else b["bound_by"]
+    return {"bound_ms": ms, "bound_by": by}
+
+
 def grid_pos(side: int, step: int, b: int, dev):
     import torch
 
@@ -93,28 +154,29 @@ def grid_pos(side: int, step: int, b: int, dev):
     return pos.expand(b, -1, -1).contiguous().to(dev)
 
 
-def check_knn(dev, gen):
-    """Every knn shape of one forward; indices and distances must be identical."""
+def check_knn(dev, gen, batch):
+    """Every knn shape of one forward at this batch (the same for both
+    models); indices and distances must be identical."""
     import torch
     from autofocusformermod_torch.geometry.cluster import space_filling_cluster
     from autofocusformermod_torch.geometry.knn import _knn_cuda, knn_plain
 
     cases = []   # (label, query, database, k)
     for s in range(4):                                  # backbone cluster neighbours
-        b = 1 if s == 0 else BATCH                      # stage 1 runs on the constant grid
+        b = 1 if s == 0 else batch                      # stage 1 runs on the constant grid
         pos, means, _, _, _ = space_filling_cluster(grid_pos(128 >> s, 1 << s, b, dev), 8, 128, 128)
         cases.append((f"cluster_s{s + 1}", pos, means, 6))
     for s in (1, 2):                                    # ClusterMerging 1-NN distance
-        p = grid_pos(128 >> s, 1 << s, BATCH, dev)
+        p = grid_pos(128 >> s, 1 << s, batch, dev)
         cases.append((f"merge_s{s + 1}", p, p, 2))
-    q = grid_pos(128, 1, BATCH, dev)
+    q = grid_pos(128, 1, batch, dev)
     for lvl in (3, 2, 1):                               # pixel-decoder 4-NN tables, FPN
-        cases.append((f"table_{128 >> lvl}", q, grid_pos(128 >> lvl, 1 << lvl, BATCH, dev), 4))
-    cases.append(("fpn_shepard", q, grid_pos(64, 2, BATCH, dev), 4))
+        cases.append((f"table_{128 >> lvl}", q, grid_pos(128 >> lvl, 1 << lvl, batch, dev), 4))
+    cases.append(("fpn_shepard", q, grid_pos(64, 2, batch, dev), 4))
     # exact ties: integer queries exactly between half-integer database points
-    cases.append(("tie_half_integer", q, grid_pos(64, 2, BATCH, dev) + 0.5, 4))
+    cases.append(("tie_half_integer", q, grid_pos(64, 2, batch, dev) + 0.5, 4))
 
-    ms, plain_ms = 0.0, 0.0
+    ms, plain_ms, bnd = 0.0, 0.0, {}
     for label, query, db, k in cases:
         perm = torch.randperm(db.shape[1], generator=gen).to(dev)   # tie order by index
         db = db[:, perm].contiguous()
@@ -127,17 +189,36 @@ def check_knn(dev, gen):
         t_p = cuda_ms(lambda: knn_plain(query, db, k), iters=5, warmup=1)
         if label != "tie_half_integer":
             ms, plain_ms = ms + t_k, plain_ms + t_p
-        log(f"  knn {label:18s} q={tuple(query.shape)} db={tuple(db.shape)} k={k}: "
+            # 5 operations per (query, database point) pair: two differences,
+            # two squares, a sum; the selection's comparisons not counted
+            pairs = query.shape[0] * query.shape[1] * db.shape[1]
+            bnd = add_bounds(bnd, bound(nbytes(query, db, idx, d2), 5 * pairs))
+        log(f"  knn b{batch} {label:18s} q={tuple(query.shape)} db={tuple(db.shape)} k={k}: "
             f"identical={same} kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
         if not same:
-            raise SystemExit(f"knn {label}: kernel and plain version disagree")
+            raise SystemExit(f"knn b{batch} {label}: kernel and plain version disagree")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bnd}
+
+
+def knn_record(paths: dict) -> dict:
     return {"name": "knn", "route": "cuda", "source": "autofocusformermod_torch/csrc/knn.cu",
             "replaces": "autofocusformermod_tpu/ops/pallas/knn_kernel.py:136",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+            "library_ms": None, **per_path(paths, "b4_forward")}
 
 
-def check_local_attn(dev, gen):
-    """The four backbone stages' shapes; ms sums the 12 calls of a forward."""
+def per_path(paths: dict, first: str) -> dict:
+    """The keys of a kernel record whose kernel is held at the shapes of
+    several driven paths: the times and bound are those of the path `first`
+    (the one every earlier record of this kernel gave), the error is the
+    worst of all, and `by_path` has each path's own figures."""
+    return {"max_abs_err": max(r["max_abs_err"] for r in paths.values()),
+            **{k: paths[first][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "by_path": paths}
+
+
+def check_local_attn(dev, gen, model, b):
+    """K1 at the four backbone stages' shapes of `model` at batch b; ms sums
+    the calls of one forward (one per block)."""
     import torch
     from autofocusformermod_torch.geometry.cluster import space_filling_cluster
     from autofocusformermod_torch.geometry.knn import knn
@@ -147,16 +228,16 @@ def check_local_attn(dev, gen):
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
 
-    heads, dims, depths = (2, 4, 8, 16), (32, 128, 256, 384), (2, 2, 6, 2)
-    err, ms, plain_ms = 0.0, 0.0, 0.0
+    heads, dims, depths = BACKBONES[model]
+    err, ms, plain_ms, bnd = 0.0, 0.0, 0.0, {}
     for s in range(4):
         h, c_ = heads[s], dims[s] // heads[s]
         pos, means, _, _, _ = space_filling_cluster(grid_pos(128 >> s, 1 << s, 1, dev), 8, 128, 128)
         n = pos.shape[1]
-        nc = knn(pos, means, 6).expand(BATCH, n, 6).contiguous()
-        pos = pos.expand(BATCH, n, 2).contiguous()
-        q = randn(BATCH, h, n, c_, scale=c_ ** -0.5)
-        k, v = randn(BATCH, h, n, c_), randn(BATCH, h, n, c_)
+        nc = knn(pos, means, 6).expand(b, n, 6).contiguous()
+        pos = pos.expand(b, n, 2).contiguous()
+        q = randn(b, h, n, c_, scale=c_ ** -0.5)
+        k, v = randn(b, h, n, c_), randn(b, h, n, c_)
         w5, b5, bk = randn(h, 5, scale=0.1), randn(h, scale=0.1), randn(h, c_, scale=c_ ** -0.5)
         args = (q, k, v, pos, nc, w5, b5, bk, 8)
         out, blank = sfc_cluster_attention(*args)
@@ -167,26 +248,38 @@ def check_local_attn(dev, gen):
         e = max((out - rout).abs().max().item(), (blank - rblank).abs().max().item())
         err = max(err, e)
         ms, plain_ms = ms + depths[s] * t_k, plain_ms + depths[s] * t_p
-        log(f"  local_attn stage {s + 1} q={tuple(q.shape)} nnc*span=48: max_abs_err {e:.3e} "
-            f"(rel {e / rout.abs().max().item():.3e}) kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+        # per (query, head, neighbour): q.k and p.v (4 c_) and the 5-feature
+        # rel-pos bias (10); lse is the third output
+        bnd = add_bounds(bnd, bound(nbytes(q, k, v, pos, nc, w5, b5, bk, out, blank, blank),
+                                    b * h * n * 48 * (4 * c_ + 10)), depths[s])
+        log(f"  local_attn {model} b{b} stage {s + 1} q={tuple(q.shape)} nnc*span=48: max_abs_err "
+            f"{e:.3e} (rel {e / rout.abs().max().item():.3e}) kernel {t_k:.4f} ms, plain "
+            f"{t_p:.4f} ms")
+        del q, k, v, out, blank, rout, rblank, args
+        torch.cuda.empty_cache()
     if not err <= LOCAL_ATTN_ATOL:
-        raise SystemExit(f"local_attn: max abs err {err} > {LOCAL_ATTN_ATOL}")
+        raise SystemExit(f"local_attn {model} b{b}: max abs err {err} > {LOCAL_ATTN_ATOL}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd}
+
+
+def local_attn_record(paths: dict) -> dict:
     return {"name": "local_attn", "route": "cuda",
             "source": "autofocusformermod_torch/csrc/local_attn.cu",
             "replaces": "autofocusformermod_tpu/ops/pallas/local_attn.py:756",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "library_ms": None, **per_path(paths, "aff_mini_b4_forward")}
 
 
-def check_msdetrpc(dev, gen):
-    """bh=32, 3 levels x 16 pairs, c_=32 at the three query levels; ms sums
+def check_msdetrpc(dev, gen, b):
+    """K3 at batch b (bh = 8 b; the pixel decoder is the same for both
+    models): 3 levels x 16 pairs, c_=32 at the three query levels; ms sums
     the 18 calls of a forward (6 encoder layers x 3 levels)."""
     import torch
     from autofocusformermod_torch.ops.dispatch import plain_versions
     from autofocusformermod_torch.ops.msdetrpc import msdetrpc_levels_s
 
-    bh, p, c_, sizes = BATCH * 8, 16, 32, (256, 1024, 4096)
+    bh, p, c_, sizes = b * 8, 16, 32, (256, 1024, 4096)
     val = torch.randn((bh, sum(sizes), c_), generator=gen).to(dev)
-    err, ms, plain_ms = 0.0, 0.0, 0.0
+    err, ms, plain_ms, bnd = 0.0, 0.0, 0.0, {}
     for n in sizes:
         idx = torch.cat([torch.randint(0, s, (bh, n, p), generator=gen) for s in sizes], 2)
         w = torch.rand((bh, n, 3 * p), generator=gen)
@@ -200,15 +293,21 @@ def check_msdetrpc(dev, gen):
         e = (out - ref).abs().max().item()
         err = max(err, e)
         ms, plain_ms = ms + 6 * t_k, plain_ms + 6 * t_p
-        log(f"  msdetrpc n={n} idx={tuple(idx.shape)} val={tuple(val.shape)}: max_abs_err "
+        # a multiply and an add per (query, pair, channel)
+        bnd = add_bounds(bnd, bound(nbytes(idx, w, val, out), 2 * bh * n * 3 * p * c_), 6)
+        log(f"  msdetrpc b{b} n={n} idx={tuple(idx.shape)} val={tuple(val.shape)}: max_abs_err "
             f"{e:.3e} (rel {e / ref.abs().max().item():.3e}) kernel {t_k:.4f} ms, "
             f"plain {t_p:.4f} ms")
     if not err <= MSDETRPC_ATOL:
-        raise SystemExit(f"msdetrpc: max abs err {err} > {MSDETRPC_ATOL}")
+        raise SystemExit(f"msdetrpc b{b}: max abs err {err} > {MSDETRPC_ATOL}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd}
+
+
+def msdetrpc_record(paths: dict) -> dict:
     return {"name": "msdetrpc", "route": "cuda",
             "source": "autofocusformermod_torch/csrc/msdetrpc.cu",
             "replaces": "autofocusformermod_tpu/ops/pallas/msdetrpc_kernel.py:2061",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "library_ms": None, **per_path(paths, "b4_forward")}
 
 
 def grad_errs(got, want):
@@ -231,11 +330,11 @@ def plain_grad_ms(fn, inputs, cots) -> float:
                    iters=5, warmup=1)
 
 
-def check_local_attn_bwd(dev, gen):
-    """K2 at the four stages' shapes of a batch-8 step: the gradients of the
-    kernel pair against the plain version's autograd; ms sums the 12
-    backward calls of a step (the kernel backward alone vs the plain
-    version's autograd backward alone)."""
+def check_local_attn_bwd(dev, gen, model, b):
+    """K2 at the four stages' shapes of a batch-b step of `model`: the
+    gradients of the kernel pair against the plain version's autograd; ms
+    sums the backward calls of a step, one per block (the kernel backward
+    alone vs the plain version's autograd backward alone)."""
     import torch
     from autofocusformermod_torch.geometry.cluster import space_filling_cluster
     from autofocusformermod_torch.geometry.knn import knn
@@ -246,8 +345,8 @@ def check_local_attn_bwd(dev, gen):
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
 
-    heads, dims, depths, b = (2, 4, 8, 16), (32, 128, 256, 384), (2, 2, 6, 2), TRAIN_BATCH
-    err, worst, ms, plain_ms = 0.0, 0.0, 0.0, 0.0
+    heads, dims, depths = BACKBONES[model]
+    err, worst, ms, plain_ms, bnd = 0.0, 0.0, 0.0, 0.0, {}
     for s in range(4):
         h, c_ = heads[s], dims[s] // heads[s]
         pos, means, _, _, _ = space_filling_cluster(grid_pos(128 >> s, 1 << s, 1, dev), 8, 128, 128)
@@ -275,14 +374,26 @@ def check_local_attn_bwd(dev, gen):
                                                              delta, 8))
         t_p = plain_grad_ms(fwd, leaves, (g, gb))
         ms, plain_ms = ms + depths[s] * t_k, plain_ms + depths[s] * t_p
-        log(f"  local_attn bwd stage {s + 1} q={tuple(q.shape)}: max_abs_err {e:.3e} (rel "
-            f"{rel:.3e}; dq dk dv dw5 db5 dblank_k) kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+        # per (query, head, neighbour): q.k again, g.v, and the three
+        # products into dq, dk, dv (10 c_), and the bias and its gradient (20);
+        # out: dq, dk, dv and the per-query rel-pos partials (5 per head)
+        bnd = add_bounds(bnd, bound(nbytes(q, k, v, pos, nc, w5, b5, g, lse, delta, q, k, v)
+                                    + 4 * b * h * n * 5,
+                                    b * h * n * 48 * (10 * c_ + 20)), depths[s])
+        log(f"  local_attn bwd {model} b{b} stage {s + 1} q={tuple(q.shape)}: max_abs_err {e:.3e} "
+            f"(rel {rel:.3e}; dq dk dv dw5 db5 dblank_k) kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+        del diff, leaves, got, want, q, k, v, g, gb, out, blank, lse, delta
+        torch.cuda.empty_cache()
     if not worst <= GRAD_RTOL:
-        raise SystemExit(f"local_attn backward: max rel err {worst} > {GRAD_RTOL}")
+        raise SystemExit(f"local_attn backward {model} b{b}: max rel err {worst} > {GRAD_RTOL}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd}
+
+
+def local_attn_bwd_record(paths: dict) -> dict:
     return {"name": "local_attn_bwd", "route": "cuda",
             "source": "autofocusformermod_torch/csrc/local_attn.cu",
             "replaces": "autofocusformermod_tpu/ops/pallas/local_attn.py:622",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "library_ms": None, **per_path(paths, f"aff_mini_b{TRAIN_BATCH}_step")}
 
 
 def check_msdetrpc_bwd(dev, gen):
@@ -295,7 +406,7 @@ def check_msdetrpc_bwd(dev, gen):
 
     bh, p, c_, sizes = TRAIN_BATCH * 8, 16, 32, (256, 1024, 4096)
     val = torch.randn((bh, sum(sizes), c_), generator=gen).to(dev)
-    err, worst, ms, plain_ms = 0.0, 0.0, 0.0, 0.0
+    err, worst, ms, plain_ms, bnd = 0.0, 0.0, 0.0, 0.0, {}
     for n in sizes:
         idx = torch.cat([torch.randint(0, s, (bh, n, p), generator=gen) for s in sizes], 2)
         idx = idx.int().to(dev).contiguous()
@@ -315,6 +426,8 @@ def check_msdetrpc_bwd(dev, gen):
         t_k = cuda_ms(lambda: msdetrpc_levels_s_backward(idx, w, val, g, sizes))
         t_p = plain_grad_ms(fwd, leaves, g)
         ms, plain_ms = ms + 6 * t_k, plain_ms + 6 * t_p
+        # d_val += w * g and d_w = g . val: 4 operations per (query, pair, channel)
+        bnd = add_bounds(bnd, bound(nbytes(idx, w, val, g, w, val), 4 * bh * n * 3 * p * c_), 6)
         log(f"  msdetrpc bwd n={n} idx={tuple(idx.shape)} val={tuple(val.shape)}: max_abs_err "
             f"{e:.3e} (rel {rel:.3e}; d_w d_val) kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
     if not worst <= GRAD_RTOL:
@@ -322,25 +435,32 @@ def check_msdetrpc_bwd(dev, gen):
     return {"name": "msdetrpc_bwd", "route": "cuda",
             "source": "autofocusformermod_torch/csrc/msdetrpc.cu",
             "replaces": "autofocusformermod_tpu/ops/pallas/msdetrpc_kernel.py:2078",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **bnd}
 
 
 def check_point_sample(dev, gen):
-    """K10 at a batch-8 step's three forward calls -- the ranking read
-    (8000 masks x 37632 candidates), the target labels (800 512x512 masks x
-    10 x 12544 points) and the matched logits (8000 x 12544) -- and the one
-    backward (the logits'); ms sums the four."""
+    """K10 at a batch-8 step's calls: the target labels (800 512x512 masks x
+    10 x 12544 points), the matched logits (8000 x 12544) and the one
+    backward (the logits'); ms sums the three.  The ranking read of the
+    reference sampler (8000 masks x 37632 candidates), which the default
+    criterion no longer makes, is held and timed too but not summed.  The
+    library call is F.grid_sample on the same masks and points."""
     import torch
+    import torch.nn.functional as F
     from autofocusformermod_torch.ops.dispatch import plain_versions
     from autofocusformermod_torch.ops.point_sample import (
         point_sample_backward, point_sample_bilinear)
+
+    def grid_sample(m, grid):
+        return F.grid_sample(m[:, None], grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=False)
 
     n_t, layers, pts = TRAIN_BATCH * 100, 10, 12544
     masks = torch.randn((layers * n_t, 128, 128), generator=gen).to(dev) * 3
     cases = (("ranking", masks, (layers * n_t, 3 * pts)),
              ("targets", None, (n_t, layers * pts)),
              ("logits", masks, (layers * n_t, pts)))
-    fwd_err, bwd_err, bwd_rel, ms, plain_ms = 0.0, 0.0, 0.0, 0.0, 0.0
+    fwd_err, bwd_err, bwd_rel, ms, plain_ms, lib_ms, bnd = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, {}
     for label, m, (n, p) in cases:
         if m is None:
             m = (torch.rand((n, SIZE, SIZE), generator=gen) < 0.3).float().to(dev)
@@ -350,12 +470,21 @@ def check_point_sample(dev, gen):
             ref = point_sample_bilinear(m, coords)
             t_p = cuda_ms(lambda: point_sample_bilinear(m, coords), iters=3, warmup=1)
         t_k = cuda_ms(lambda: point_sample_bilinear(m, coords), iters=5, warmup=1)
+        grid = (coords * 2 - 1)[:, None]
+        lib = grid_sample(m, grid)[:, 0, 0]
+        t_l = cuda_ms(lambda: grid_sample(m, grid), iters=5, warmup=1)
         e = (out - ref).abs().max().item()
+        e_lib = (lib - ref).abs().max().item()
         fwd_err = max(fwd_err, e)
-        ms, plain_ms = ms + t_k, plain_ms + t_p
+        on_path = label != "ranking"
+        if on_path:
+            ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
+            # per point: the pixel coordinate, four weights and the blend, ~20
+            bnd = add_bounds(bnd, bound(nbytes(m, coords, out), 20 * n * p))
         log(f"  point_sample fwd {label:8s} masks={tuple(m.shape)} points={p}: max_abs_err "
-            f"{e:.3e} kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-        del out, ref
+            f"{e:.3e} kernel {t_k:.4f} ms, plain {t_p:.4f} ms, grid_sample {t_l:.4f} ms "
+            f"(its err vs plain {e_lib:.3e}){'' if on_path else ' [not on the default path]'}")
+        del out, ref, lib
         if label == "logits":
             g = torch.randn((n, p), generator=gen).to(dev)
             leaf = m.clone().requires_grad_()
@@ -366,11 +495,15 @@ def check_point_sample(dev, gen):
             t_k = cuda_ms(lambda: point_sample_backward(coords, g, tuple(m.shape)), iters=5,
                           warmup=1)
             t_p = plain_grad_ms(lambda: point_sample_bilinear(leaf, coords), [leaf], g)
-            ms, plain_ms = ms + t_k, plain_ms + t_p
+            lib_out = grid_sample(leaf, grid)
+            t_l = cuda_ms(lambda: torch.autograd.grad(lib_out, leaf, g[:, None, None],
+                                                      retain_graph=True), iters=5, warmup=1)
+            ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
+            bnd = add_bounds(bnd, bound(nbytes(coords, g, m), 20 * n * p))
             log(f"  point_sample bwd {label:8s}: max_abs_err {bwd_err:.3e} (rel {bwd_rel:.3e}) "
-                f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-            del got, want, leaf
-        del coords
+                f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, grid_sample's backward {t_l:.4f} ms")
+            del got, want, leaf, lib_out
+        del coords, grid
         torch.cuda.empty_cache()
     if not (fwd_err <= POINT_SAMPLE_ATOL and bwd_rel <= GRAD_RTOL):
         raise SystemExit(f"point_sample: forward err {fwd_err} > {POINT_SAMPLE_ATOL} or "
@@ -378,7 +511,8 @@ def check_point_sample(dev, gen):
     return {"name": "point_sample", "route": "cuda",
             "source": "autofocusformermod_torch/csrc/point_sample.cu",
             "replaces": "autofocusformermod_tpu/ops/pallas/point_sample_kernel.py:200",
-            "max_abs_err": max(fwd_err, bwd_err), "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": max(fwd_err, bwd_err), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, **bnd}
 
 
 def check_lapjv(dev, gen):
@@ -405,30 +539,110 @@ def check_lapjv(dev, gen):
         raise SystemExit("lapjv: kernel and plain version disagree")
     return {"name": "lapjv", "route": "cuda", "source": "autofocusformermod_torch/csrc/lapjv.cu",
             "replaces": "autofocusformermod_tpu/ops/pallas/lapjv_kernel.py:161",
-            "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p}
+            "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p, "library_ms": None,
+            # every cost read and reduced at least once (a comparison and a
+            # subtraction); the solver's sequential augmenting steps, which
+            # set its real time, are in neither term
+            **bound(nbytes(cost, got), 2 * cost.numel())}
 
 
-def synthetic_batch(gen, dev, b: int, slots: int, num_classes: int):
-    """uint8 images and blocky label maps with 8-12 classes each, labels
-    padded to ``slots`` target slots as the semantic mapper pads them."""
+def check_nearest(dev, gen):
+    """K11 and K12 at a batch-8 step's ranking shapes (8000 masks of 128x128,
+    37632 candidates each = 294 chunks of 128): the kernels copy floats, so
+    they must equal their plain versions exactly.  The library call is one
+    flat torch.gather on a precomputed cell index."""
     import torch
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.point_sample import (point_sample_nearest,
+                                                           point_sample_nearest_rows)
 
-    images = torch.randint(0, 256, (b, SIZE, SIZE, 3), generator=gen, dtype=torch.uint8)
-    sem = torch.zeros((b, SIZE, SIZE), dtype=torch.uint8)
-    labels = torch.zeros((b, slots), dtype=torch.long)
-    valid = torch.zeros((b, slots), dtype=torch.bool)
-    for i in range(b):
-        k = int(torch.randint(8, 13, (1,), generator=gen))
-        classes = torch.randperm(num_classes, generator=gen)[:k]
-        cells = classes[torch.randint(0, k, (16 * 16,), generator=gen)]
-        cells[:k] = classes                                # every class present
-        cells = cells[torch.randperm(16 * 16, generator=gen)].reshape(16, 16)
-        sem[i] = cells.repeat_interleave(SIZE // 16, 0).repeat_interleave(SIZE // 16, 1)
-        present = torch.unique(sem[i]).long()
-        labels[i, :len(present)] = present
-        valid[i, :len(present)] = True
-    return {"image": images.to(dev), "sem_seg_map": sem.to(dev), "labels": labels.to(dev),
-            "valid": valid.to(dev)}
+    n, h, w, p = 10 * TRAIN_BATCH * 100, 128, 128, 3 * 12544
+    chunks = p // 128
+    masks = torch.randn((n, h, w), generator=gen).to(dev) * 3
+    flat = masks.reshape(n, h * w)
+    records = []
+
+    def hold(name, line, fn, args, cell_index):
+        out = fn(masks, *args)
+        with plain_versions():
+            ref = fn(masks, *args)
+            t_p = cuda_ms(lambda: fn(masks, *args), iters=3, warmup=1)
+        t_k = cuda_ms(lambda: fn(masks, *args), iters=10, warmup=2)
+        lib = torch.gather(flat, 1, cell_index)
+        t_l = cuda_ms(lambda: torch.gather(flat, 1, cell_index), iters=10, warmup=2)
+        same = torch.equal(out, ref) and torch.equal(lib.reshape(out.shape), ref)
+        bnd = bound(nbytes(masks, *args, out), 6 * out.numel())
+        log(f"  {name} masks={tuple(masks.shape)} candidates={p}: identical={same} kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, torch.gather {t_l:.4f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        if not same:
+            raise SystemExit(f"{name}: kernel, plain version and torch.gather disagree")
+        records.append({"name": name, "route": "cuda",
+                        "source": "autofocusformermod_torch/csrc/point_sample.cu",
+                        "replaces": f"autofocusformermod_tpu/ops/pallas/point_sample_kernel.py:{line}",
+                        "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p, "library_ms": t_l, **bnd})
+
+    coords = torch.rand((n, p, 2), generator=gen).to(dev)
+    cell = ((coords[..., 1] * h).int().clamp(0, h - 1) * w
+            + (coords[..., 0] * w).int().clamp(0, w - 1)).long()
+    hold("point_sample_nearest", 266, point_sample_nearest, (coords,), cell)
+    del coords, cell
+    u = torch.rand((n, chunks, 128), generator=gen).to(dev)
+    ys = (torch.arange(chunks, device=dev)[None, :, None] + u) * (1.0 / chunks)
+    cy = (ys * h).int().clamp(0, h - 1)
+    cx = (torch.rand((n, chunks, 128), generator=gen).to(dev) * w).int().clamp(0, w - 1)
+    del u, ys
+    hold("point_sample_nearest_rows", 344, point_sample_nearest_rows, (cx, cy),
+         (cy * w + cx).long().reshape(n, p))
+    return records
+
+
+def check_sampler(dev, gen):
+    """The whole nearest-tap sampler at the step's shapes, through the kernels
+    and through the plain versions from the same seeds: the picked
+    coordinates must be identical, on the stratified route and with
+    stratification off.  Times the sampler, and its top-k alone."""
+    import torch
+    from autofocusformermod_torch.losses import point_sample as sampler
+    from autofocusformermod_torch.losses.criterion import device_draw
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.gather import topk_indices
+
+    n, pts = 10 * TRAIN_BATCH * 100, 12544
+    masks = torch.randn((n, 128, 128), generator=gen).to(dev) * 3
+
+    def run():
+        draw = device_draw(torch.Generator(device=dev).manual_seed(SEED))
+        return sampler.get_uncertain_point_coords_nn_ranked(draw, masks, pts, 3.0, 0.75)
+
+    try:
+        for stratify in (True, False):
+            sampler.STRATIFY_RANKING = stratify
+            got = run()
+            with plain_versions():
+                want = run()
+            same = torch.equal(got, want)
+            # a stratified y may round up to exactly 1, as in the JAX package
+            ok = (tuple(got.shape) == (n, pts, 2) and bool((got >= 0).all())
+                  and bool((got <= 1).all()))
+            t = cuda_ms(run, iters=3, warmup=1)
+            log(f"  sampler, stratified={stratify}: picked coordinates identical={same}, in "
+                f"[0, 1]={ok}, {t:.3f} ms")
+            if not (same and ok):
+                raise SystemExit(f"sampler (stratified={stratify}): kernel and plain version "
+                                 "pick different points, or points outside the image")
+            del got, want
+    finally:
+        sampler.STRATIFY_RANKING = True
+    del masks
+    unc = torch.randn((n * 294, 128), device=dev)
+    t_rows = cuda_ms(lambda: topk_indices(unc, 32), iters=3, warmup=1)
+    wide = unc.reshape(n, 3 * pts)
+    t_wide = cuda_ms(lambda: topk_indices(wide, int(0.75 * pts)), iters=3, warmup=1)
+    t_topk = cuda_ms(lambda: torch.topk(wide, int(0.75 * pts), dim=1), iters=3, warmup=1)
+    log(f"  lowest-index top-k (stable sort): 32 of 128 over {unc.shape[0]} rows {t_rows:.3f} ms;"
+        f" 9408 of 37632 over {n} rows {t_wide:.3f} ms (torch.topk, other tie order: "
+        f"{t_topk:.3f} ms)")
 
 
 def kept_agreement(fk, fp):
@@ -461,6 +675,7 @@ def train_phase(dev, smi, counters):
 
     import torch
     from autofocusformermod_torch.config import aff_mini_cfg
+    from autofocusformermod_torch.data.synthetic import synthetic_batch
     from autofocusformermod_torch.engine.train_step import TrainStep
     from autofocusformermod_torch.losses.criterion import device_draw
     from autofocusformermod_torch.models.maskformer import init_random_weights, maskformer_from_config
@@ -472,7 +687,8 @@ def train_phase(dev, smi, counters):
     model = model.to(dev)
     initial = copy.deepcopy(model.state_dict())
     batch = synthetic_batch(torch.Generator().manual_seed(SEED + 1), dev, TRAIN_BATCH,
-                            cfg.TPU.MAX_GT_INSTANCES, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
+                            (SIZE, SIZE), cfg.TPU.MAX_GT_INSTANCES,
+                            cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
     n_valid = batch["valid"].sum(1).tolist()
     log(f"  batch {TRAIN_BATCH} x {SIZE}x{SIZE}, {cfg.TPU.MAX_GT_INSTANCES} target slots, "
         f"valid targets per image {n_valid}")
@@ -549,14 +765,219 @@ def train_phase(dev, smi, counters):
         log(f"  kernels step {i}: {t * 1e3:.1f} ms, total_loss {m['total_loss'].item():.5f} "
             f"loss_ce {m['loss_ce'].item():.5f} loss_mask {m['loss_mask'].item():.5f} "
             f"loss_dice {m['loss_dice'].item():.5f} grad_norm {m['grad_norm'].item():.5f}")
-    p_times, _, p_peak = timed_steps(plain_versions, 2)
+    p_times, _, p_peak = timed_steps(plain_versions, TRAIN_STEPS)
     k_ms = statistics.median(times[1:]) * 1e3
-    p_ms = p_times[-1] * 1e3
-    log(f"  ms per step (steady): kernels {k_ms:.1f} ({TRAIN_BATCH / k_ms * 1e3:.2f} images/s, "
-        f"peak {peak:.2f} GiB), plain versions {p_ms:.1f} ({TRAIN_BATCH / p_ms * 1e3:.2f} "
-        f"images/s, peak {p_peak:.2f} GiB) ({smi})")
+    p_ms = statistics.median(p_times[1:]) * 1e3
+    log(f"  ms per step (median of steps 2-{TRAIN_STEPS}): kernels {k_ms:.1f} "
+        f"({TRAIN_BATCH / k_ms * 1e3:.2f} images/s, peak {peak:.2f} GiB), plain versions {p_ms:.1f} "
+        f"({TRAIN_BATCH / p_ms * 1e3:.2f} images/s, peak {p_peak:.2f} GiB) ({smi})")
     log(f"  launches over {TRAIN_STEPS} steps: {launches}")
     return launches
+
+
+def same_tree(a, b) -> bool:
+    """Whether two nested dicts and lists of tensors and plain values (a
+    state dict) are equal, tensors bit for bit."""
+    import torch
+
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(same_tree(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def small_phase(dev, smi, counters):
+    """Phase 8.  Returns ({counter: launches over the SMALL_STEPS steps of the
+    uninterrupted run}, {nearest-read counter: launches in the one step with
+    stratification off})."""
+    import contextlib
+    import copy
+    import json
+    import os
+    import tempfile
+
+    import torch
+    from autofocusformermod_torch import train_net
+    from autofocusformermod_torch.config import aff_small_cfg
+    from autofocusformermod_torch.data.synthetic import synthetic_batches
+    from autofocusformermod_torch.engine.train import Trainer
+    from autofocusformermod_torch.losses import point_sample as sampler
+    from autofocusformermod_torch.models.layers import DropPath
+    from autofocusformermod_torch.ops.build import BUILD_DIR
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+
+    def cli(out_dir, max_iter, resume=False):
+        argv = ["--config", "aff_small", "--synthetic", "--max-iter", str(max_iter)]
+        argv += ["--resume"] if resume else []
+        return train_net.main(argv + ["SOLVER.IMS_PER_BATCH", str(SMALL_BATCH),
+                                      "OUTPUT_DIR", out_dir])
+
+    def small_cfg(out_dir, batch=SMALL_BATCH):
+        cfg = aff_small_cfg()
+        cfg.merge_from_list(["SOLVER.IMS_PER_BATCH", str(batch), "OUTPUT_DIR", out_dir])
+        return cfg
+
+    def metrics_of(out_dir):
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            return {m["step"]: m for m in map(json.loads, f)}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def loss_terms(m):
+        return {k: v for k, v in m.items() if k.startswith("loss_") or k == "total_loss"}
+
+    def worst_rel(a, b):
+        return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for k in b)
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR.parent, prefix="aff_small_") as tmp:
+        dir_a, dir_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+
+        # the uninterrupted run
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        trainer = cli(dir_a, SMALL_STEPS)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        whole = metrics_of(dir_a)
+        cfg = trainer.cfg
+        a = cfg.MODEL.AFF
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        log(f"  AFF-Small EMBED_DIM {a.EMBED_DIM} DEPTHS {a.DEPTHS} NUM_HEADS {a.NUM_HEADS} "
+            f"MLP_RATIO {a.MLP_RATIO} DROP_PATH_RATE {a.DROP_PATH_RATE} LAYER_SCALE "
+            f"{a.LAYER_SCALE}; {n_params / 1e6:.1f} M parameters")
+        for step in sorted(whole):
+            m = whole[step]
+            if not all(v == v and abs(v) != float("inf") for v in loss_terms(m).values()):
+                raise SystemExit(f"AFF-Small step {step}: non-finite loss terms")
+            log(f"  step {step}: {m['seconds'] * 1e3:.1f} ms, total_loss {m['total_loss']:.5f} "
+                f"loss_ce {m['loss_ce']:.5f} loss_mask {m['loss_mask']:.5f} loss_dice "
+                f"{m['loss_dice']:.5f} grad_norm {m['grad_norm']:.5f}")
+        if sorted(whole) != list(range(1, SMALL_STEPS + 1)):
+            raise SystemExit(f"the run logged steps {sorted(whole)}")
+        ms = statistics.median(whole[s]["seconds"] for s in range(2, SMALL_STEPS + 1)) * 1e3
+        peak = whole[SMALL_STEPS]["peak_bytes_in_use"] / 2 ** 30
+        log(f"  ms per step (median of steps 2-{SMALL_STEPS}): {ms:.1f} = "
+            f"{SMALL_BATCH / ms * 1e3:.2f} images/s at batch {SMALL_BATCH}, peak {peak:.2f} GiB "
+            f"({smi})")
+        log(f"  launches over {SMALL_STEPS} steps: {launches}")
+        # a branch that DropPath dropped for every sample of the last step has
+        # no gradient in it, so ask Adam's first moment, which is nonzero
+        # exactly where some step's gradient was
+        moments = trainer.step_fn.optimizer.state
+        no_grad = [n for n, p in trainer.model.named_parameters()
+                   if not moments[p]["exp_avg"].abs().max() > 0]
+        gammas = [n for n, _ in trainer.model.named_parameters() if "gamma" in n]
+        log(f"  parameters that no gradient reached in {SMALL_STEPS} steps: {len(no_grad)} of "
+            f"{len(moments)} ({len(gammas)} of them layer scales)")
+        if no_grad or len(gammas) != 2 * sum(a.DEPTHS):
+            raise SystemExit(f"no gradient reached {no_grad[:10]}")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # stop after 3 steps, resume in a fresh Trainer, take the 4th; count
+        # the samples DropPath drops on the way
+        dropped = torch.zeros((), dtype=torch.long, device=dev)
+
+        def count_dropped(module, args, out):
+            if isinstance(module, DropPath) and module.training and module.rate > 0:
+                dropped.add_((out.flatten(1).abs().amax(1) == 0).sum())
+
+        hook = torch.nn.modules.module.register_module_forward_hook(count_dropped)
+        try:
+            first = cli(dir_b, SMALL_STEPS - 1)
+        finally:
+            hook.remove()
+        calls = 2 * sum(a.DEPTHS) * (SMALL_STEPS - 1) * SMALL_BATCH
+        log(f"  DropPath dropped {int(dropped)} of {calls} residual branches in "
+            f"{SMALL_STEPS - 1} steps")
+        if not 0 < int(dropped) < calls:
+            raise SystemExit("DropPath is not live in the training run")
+        saved = copy.deepcopy(first.state(SMALL_STEPS - 1))
+        n_moments = sum(1 for st in saved["optimizer"]["state"].values()
+                        for k in ("exp_avg", "exp_avg_sq") if st[k].abs().max() > 0)
+        del first
+        torch.cuda.empty_cache()
+        fresh = Trainer(small_cfg(dir_b), dev)
+        fresh.resume_or_load(resume=True)
+        restored = fresh.state(fresh.start_step)
+        same = {part: same_tree(saved[part], restored[part]) for part in saved}
+        log(f"  a fresh Trainer resumed at step {fresh.start_step}; equal to the stopped run's, "
+            f"bit for bit: {same} ({len(saved['model'])} model tensors, {n_moments} nonzero AdamW "
+            f"moments, schedule at {saved['scheduler']['last_epoch']})")
+        if not all(same.values()) or fresh.start_step != SMALL_STEPS - 1 \
+                or saved["scheduler"]["last_epoch"] != SMALL_STEPS - 1 or not n_moments:
+            raise SystemExit(f"the resumed state differs from the stopped run's: {same}")
+        del restored
+        del fresh, saved
+        torch.cuda.empty_cache()
+        cli(dir_b, SMALL_STEPS, resume=True)
+        resumed = metrics_of(dir_b)
+        for step in range(1, SMALL_STEPS + 1):
+            rel = worst_rel(loss_terms(resumed[step]), loss_terms(whole[step]))
+            exact = loss_terms(resumed[step]) == loss_terms(whole[step])
+            log(f"  step {step}{' (resumed)' if step == SMALL_STEPS else ''}: loss terms against "
+                f"the uninterrupted run: worst rel diff {rel:.3e}, exactly equal: {exact}")
+            if rel > RESUME_RTOL:
+                raise SystemExit(f"step {step}: the two runs' loss terms differ by {rel} (rel)")
+
+        # one more resumed step with stratification off: the i.i.d. route
+        # reads through point_sample_nearest
+        sampler.STRATIFY_RANKING = False
+        try:
+            reset_counts()
+            cli(dir_b, SMALL_STEPS + 1, resume=True)
+            k11 = {name: counters[name].launches
+                   for name in ("point_sample_nearest", "point_sample_nearest_rows")}
+        finally:
+            sampler.STRATIFY_RANKING = True
+        m = metrics_of(dir_b)[SMALL_STEPS + 1]
+        log(f"  step {SMALL_STEPS + 1}, stratification off: {m['seconds'] * 1e3:.1f} ms, "
+            f"total_loss {m['total_loss']:.5f}; launches {k11}")
+        torch.cuda.empty_cache()
+
+        # one step at a smaller batch through the kernels and through the
+        # plain versions (which at the full batch need more memory than the
+        # card has), from the same weights, batch and generators
+        results = []
+        for path in (contextlib.nullcontext, plain_versions):
+            cfg_c = small_cfg(os.path.join(tmp, "c"), SMALL_PLAIN_BATCH)
+            tr = Trainer(cfg_c, dev)
+            batch = next(synthetic_batches(cfg_c, dev))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with path():
+                total, losses, _ = tr.step_fn.loss_and_grads(batch, tr.draw)
+            torch.cuda.synchronize()
+            results.append(({"total_loss": total.item(),
+                             **{k: v.item() for k, v in losses.items()}},
+                            group_norms(tr.model),
+                            torch.cuda.max_memory_allocated() / 2 ** 30))
+            del tr, batch, total, losses
+            torch.cuda.empty_cache()
+        (k_terms, k_norms, k_peak), (p_terms, p_norms, p_peak) = results
+        rel = worst_rel(k_terms, p_terms)
+        log(f"  one step at batch {SMALL_PLAIN_BATCH}: total loss kernels "
+            f"{k_terms['total_loss']:.6f} (peak {k_peak:.2f} GiB) plain "
+            f"{p_terms['total_loss']:.6f} (peak {p_peak:.2f} GiB); {len(p_terms) - 1} loss "
+            f"terms, worst rel diff {rel:.3e}")
+        norm_rel = worst_rel(k_norms, p_norms)
+        log("  grad norm per group (kernels / plain): " + ", ".join(
+            f"{g} {k_norms[g]:.5g}/{p_norms[g]:.5g}" for g in sorted(p_norms))
+            + f"; worst rel diff {norm_rel:.3e}")
+        if rel > LOSS_RTOL:
+            raise SystemExit(f"AFF-Small loss terms: kernels and plain versions differ by {rel}")
+        if norm_rel > GROUP_NORM_RTOL:
+            raise SystemExit("AFF-Small gradient norms per group: kernels and plain versions "
+                             f"differ by {norm_rel} (rel)")
+    return launches, k11
 
 
 def main() -> int:
@@ -581,7 +1002,9 @@ def main() -> int:
     from autofocusformermod_torch.ops.local_attn import (sfc_cluster_attention,
                                                          sfc_cluster_attention_backward)
     from autofocusformermod_torch.ops.msdetrpc import msdetrpc_levels_s, msdetrpc_levels_s_backward
-    from autofocusformermod_torch.ops.point_sample import point_sample_backward, point_sample_bilinear
+    from autofocusformermod_torch.ops.point_sample import (
+        point_sample_backward, point_sample_bilinear, point_sample_nearest,
+        point_sample_nearest_rows)
 
     dev = torch.device("cuda", 0)
     log("phase 1: build")
@@ -592,7 +1015,9 @@ def main() -> int:
 
     log("phase 2: kernels against their plain versions, 512x512 batch-4 shapes")
     gen = torch.Generator().manual_seed(SEED)
-    kernels = [check_local_attn(dev, gen), check_msdetrpc(dev, gen), check_knn(dev, gen)]
+    local_attn_paths = {"aff_mini_b4_forward": check_local_attn(dev, gen, "aff_mini", BATCH)}
+    msdetrpc_paths = {"b4_forward": check_msdetrpc(dev, gen, BATCH)}
+    knn_paths = {"b4_forward": check_knn(dev, gen, BATCH)}
 
     log("phase 3: AFF-Mini forward, 512x512, batch 4, seeded random weights")
     cfg = aff_mini_cfg()
@@ -622,8 +1047,7 @@ def main() -> int:
     for name, n in launches.items():
         if n != expected[name]:
             raise SystemExit(f"{name}: launched {n} times in the forward, expected {expected[name]}")
-    for kr in kernels:
-        kr["launches"] = launches[kr["name"]]
+    inference_launches = launches
     agree = kept_agreement(fk, fp)
     log(f"  kept-token agreement kernels vs plain: {agree}")
     for key, shape in (("pred_logits", (BATCH, 100, 151)), ("pred_masks", (BATCH, 100, 128, 128))):
@@ -655,31 +1079,75 @@ def main() -> int:
     del model, predictor, out, ref, fk, fp, images
     torch.cuda.empty_cache()
 
-    log(f"phase 5: training kernels against their plain versions, 512x512 batch-{TRAIN_BATCH} "
-        "step shapes")
-    kernels += [check_local_attn_bwd(dev, gen), check_msdetrpc_bwd(dev, gen),
-                check_point_sample(dev, gen), check_lapjv(dev, gen)]
+    log(f"phase 5: the kernels against their plain versions at the shapes of a 512x512 batch-"
+        f"{TRAIN_BATCH} AFF-Mini step and a batch-{SMALL_BATCH} AFF-Small step")
+    # the pixel decoder, the knn tables, the criterion and the matcher have
+    # the same shapes in both models at one batch; the backbone's do not
+    steps = {f"aff_mini_b{TRAIN_BATCH}_step": ("aff_mini", TRAIN_BATCH),
+             f"aff_small_b{SMALL_BATCH}_step": ("aff_small", SMALL_BATCH)}
+    local_attn_bwd_paths = {}
+    for path, (name, b) in steps.items():
+        local_attn_paths[path] = check_local_attn(dev, gen, name, b)
+        local_attn_bwd_paths[path] = check_local_attn_bwd(dev, gen, name, b)
+    for b in sorted({TRAIN_BATCH, SMALL_BATCH}):
+        msdetrpc_paths[f"b{b}_step"] = check_msdetrpc(dev, gen, b)
+        knn_paths[f"b{b}_step"] = check_knn(dev, gen, b)
+    kernels = [local_attn_record(local_attn_paths), msdetrpc_record(msdetrpc_paths),
+               knn_record(knn_paths), local_attn_bwd_record(local_attn_bwd_paths),
+               check_msdetrpc_bwd(dev, gen), check_point_sample(dev, gen), check_lapjv(dev, gen)]
     torch.cuda.empty_cache()
 
-    log(f"phase 6: AFF-Mini training step, 512x512, batch {TRAIN_BATCH}, fp32, seeded random "
-        "weights and label maps")
+    log(f"phase 6: AFF-Mini training step, 512x512, batch {TRAIN_BATCH}, fp32, the default "
+        "criterion, seeded random weights and label maps")
     train_counters = {"local_attn": sfc_cluster_attention,
                       "local_attn_bwd": sfc_cluster_attention_backward,
                       "msdetrpc": msdetrpc_levels_s, "msdetrpc_bwd": msdetrpc_levels_s_backward,
                       "point_sample": point_sample_bilinear,
-                      "point_sample_bwd": point_sample_backward, "lapjv": lapjv, "knn": knn}
+                      "point_sample_bwd": point_sample_backward, "lapjv": lapjv, "knn": knn,
+                      "point_sample_nearest": point_sample_nearest,
+                      "point_sample_nearest_rows": point_sample_nearest_rows}
+    # per step: the default criterion reads the ranking through
+    # point_sample_nearest_rows, so point_sample is left the target labels
+    # and the matched logits
     per_step = {"local_attn": 12, "local_attn_bwd": 12, "msdetrpc": 18, "msdetrpc_bwd": 18,
-                "point_sample": 3, "point_sample_bwd": 1, "lapjv": 1, "knn": 10}
-    train_launches = train_phase(dev, smi, train_counters)
+                "point_sample": 2, "point_sample_bwd": 1, "lapjv": 1, "knn": 10,
+                "point_sample_nearest": 0, "point_sample_nearest_rows": 1}
+    mini_launches = train_phase(dev, smi, train_counters)
     for name, n in per_step.items():
-        if train_launches[name] != n * TRAIN_STEPS:
-            raise SystemExit(f"{name}: launched {train_launches[name]} times in {TRAIN_STEPS} "
+        if mini_launches[name] != n * TRAIN_STEPS:
+            raise SystemExit(f"{name}: launched {mini_launches[name]} times in {TRAIN_STEPS} "
                              f"training steps, expected {n} per step")
+    torch.cuda.empty_cache()
+
+    log(f"phase 7: the ranking's nearest-read kernels against their plain versions, batch-"
+        f"{TRAIN_BATCH} step shapes")
+    kernels += check_nearest(dev, gen)
+    torch.cuda.empty_cache()
+    check_sampler(dev, gen)
+    torch.cuda.empty_cache()
+
+    log(f"phase 8: AFF-Small training run through the command line, 512x512, batch "
+        f"{SMALL_BATCH}, fp32, DropPath and layer scale, checkpoint and resume")
+    small_launches, k11_launches = small_phase(dev, smi, train_counters)
+    blocks = 3 + 4 + 18 + 2
+    per_step.update({"local_attn": blocks, "local_attn_bwd": blocks})
+    for name, n in per_step.items():
+        if small_launches[name] != n * SMALL_STEPS:
+            raise SystemExit(f"{name}: launched {small_launches[name]} times in {SMALL_STEPS} "
+                             f"AFF-Small steps, expected {n} per step")
+    if k11_launches != {"point_sample_nearest": 1, "point_sample_nearest_rows": 0}:
+        raise SystemExit(f"the step with stratification off launched {k11_launches}, expected "
+                         "point_sample_nearest once and point_sample_nearest_rows not at all")
+
     for kr in kernels:
-        kr["inference_launches"] = kr.get("launches", 0)
-        kr["launches"] = train_launches[kr["name"]]
-        if kr["name"] == "point_sample":
-            kr["launches"] += train_launches["point_sample_bwd"]
+        names = [kr["name"]] + (["point_sample_bwd"] if kr["name"] == "point_sample" else [])
+        kr["inference_launches"] = inference_launches.get(kr["name"], 0)
+        kr["mini_step_launches"] = sum(mini_launches[n] for n in names)
+        kr["small_run_launches"] = sum(small_launches[n] + k11_launches.get(n, 0) for n in names)
+        kr["launches"] = (kr["inference_launches"] + kr["mini_step_launches"]
+                          + kr["small_run_launches"])
+        if kr["launches"] < 1:
+            raise SystemExit(f"{kr['name']}: never launched on a main path")
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,8 +6,10 @@ update), plus the training-mode repairs of the model.
 Everything runs fp32 on the CPU.  The JAX side draws its randomness from
 keys as ``parallel/train_step.py`` and ``losses/criterion.py`` split them;
 the port's criterion replays those draws through its ``draw`` function, in
-its documented order.  JAX's criterion is pinned to the reference's exact
-sampler (``NN_RANK_UNCERTAINTY = False``), the one the port has.  The model
+its documented order.  Here both criteria are pinned to the reference's exact
+sampler (``NN_RANK_UNCERTAINTY = False``); the default nearest-tap ranking is
+held the same way in ``test_torch_trainer.py`` (the whole step) and below
+(the criterion alone).  The model
 is the tiny MaskFormer of ``test_torch_model.py`` (128x128, 2 images, 4
 queries = 4 target slots, of which 2 or 3 are valid), with seeded random
 weights carried to JAX by the JAX package's own checkpoint converter.  The
@@ -35,6 +37,7 @@ from autofocusformermod_torch.losses.matcher import matching_cost, solve_lsap
 from autofocusformermod_torch.models.maskformer import init_random_weights, maskformer_from_config
 
 from test_torch_model import tiny_cfg
+from test_torch_sampler import Replay, jax_ranked_draws
 
 B, T, NC, P = 2, 4, 4, 64        # images, target slots (= queries), classes, points
 LOSS_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -44,22 +47,12 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-def replay(arrays):
-    """A ``draw`` that hands out the given arrays in order, checking shapes."""
-    it = iter(arrays)
-
-    def draw(shape):
-        a = np.asarray(next(it))
-        assert tuple(a.shape) == tuple(shape), (a.shape, shape)
-        return torch.from_numpy(a.copy())
-
-    return draw
-
-
-def jax_criterion_draws(key, nl, b, t, num_points, oversample=3.0, importance=0.75):
-    """The uniforms the JAX set_criterion draws from ``key``, in the port's
-    draw order: each layer's matcher points, then (one mask resolution) the
-    candidates and the random remainder."""
+def jax_criterion_draws(key, nl, b, t, num_points, oversample=3.0, importance=0.75,
+                        nn_rank=False):
+    """What the JAX set_criterion draws from ``key``, in the port's draw
+    order: each layer's matcher points, then (one mask resolution) with the
+    reference's sampler the candidates and the random remainder, with the
+    nearest-tap ranking the two seeds and the remainder."""
     import jax
 
     draws, pts_keys = [], []
@@ -67,8 +60,11 @@ def jax_criterion_draws(key, nl, b, t, num_points, oversample=3.0, importance=0.
         key, k_match, k_pts = jax.random.split(key, 3)
         draws.append(jax.random.uniform(k_match, (b, num_points, 2)))
         pts_keys.append(k_pts)
-    k1, k2 = jax.random.split(pts_keys[0])
     n = nl * b * t
+    if nn_rank:
+        return [np.asarray(d) for d in draws] + jax_ranked_draws(pts_keys[0], n, num_points,
+                                                                 importance)
+    k1, k2 = jax.random.split(pts_keys[0])
     draws.append(jax.random.uniform(k1, (n, int(num_points * oversample), 2)))
     draws.append(jax.random.uniform(k2, (n, num_points - int(importance * num_points), 2)))
     return [np.asarray(d) for d in draws]
@@ -174,13 +170,27 @@ def test_matching_cost_matches_jax():
 def test_set_criterion_matches_jax_on_replayed_draws(monkeypatch):
     """Loss terms (rtol 1e-4) and their gradients in the predictions (atol
     1e-6) against the JAX criterion with the reference's exact sampler."""
+    _check_set_criterion(monkeypatch, nn_rank=False)
+
+
+def test_set_criterion_default_ranking_matches_jax_on_replayed_draws(monkeypatch):
+    """The same with both packages' default, the nearest-tap ranking (on the
+    CPU: i.i.d. candidates and a global top-k on both sides)."""
+    from autofocusformermod_tpu.losses import criterion as jc
+
+    assert jc.NN_RANK_UNCERTAINTY and tcrit.NN_RANK_UNCERTAINTY
+    _check_set_criterion(monkeypatch, nn_rank=True)
+
+
+def _check_set_criterion(monkeypatch, nn_rank):
     pytest.importorskip("jax")
     import jax
     import jax.numpy as jnp
 
     from autofocusformermod_tpu.losses import criterion as jc
 
-    monkeypatch.setattr(jc, "NN_RANK_UNCERTAINTY", False)
+    monkeypatch.setattr(jc, "NN_RANK_UNCERTAINTY", nn_rank)
+    monkeypatch.setattr(tcrit, "NN_RANK_UNCERTAINTY", nn_rank)
     rng = np.random.default_rng(1)
     out, tgt = _random_outputs(rng), _random_targets(rng)
     key = jax.random.PRNGKey(7)
@@ -194,11 +204,11 @@ def test_set_criterion_matches_jax_on_replayed_draws(monkeypatch):
         jax.tree.map(jnp.asarray, out))
     # set_criterion splits the key it is given (not a train-step key), so
     # replay its draws from there: skip the train step's first split
-    draws = jax_criterion_draws(key, 3, 2, 3, num_points)
+    draws = jax_criterion_draws(key, 3, 2, 3, num_points, nn_rank=nn_rank)
 
     tout = jax.tree.map(lambda a: _t(a).requires_grad_(), out)
     ttgt = {k: _t(v) for k, v in tgt.items()}
-    total, losses, _ = tcrit.set_criterion(tout, ttgt, NC, replay(draws), num_points=num_points)
+    total, losses, _ = tcrit.set_criterion(tout, ttgt, NC, Replay(draws), num_points=num_points)
     total.backward()
     np.testing.assert_allclose(total.item(), float(jtotal), **LOSS_TOL)
     assert set(losses) == set(jlosses)
@@ -284,11 +294,11 @@ def test_three_optimizer_steps_match_optax():
 
 
 # -------------------------------------------------------------- the whole step
-@pytest.fixture(scope="module")
-def ref():
-    """The JAX side, once: the tiny model's loss terms, gradients, mutated
-    BatchNorm statistics and one optax update, from the port's random
-    weights carried over by convert_reference_state_dict."""
+def jax_reference_step(cfg, nn_rank):
+    """The JAX side of one step: the tiny model's loss terms, gradients,
+    mutated BatchNorm statistics and one optax update, from the port's random
+    weights carried over by convert_reference_state_dict, with the criterion's
+    ``NN_RANK_UNCERTAINTY`` set to ``nn_rank``."""
     pytest.importorskip("jax")
     import jax
     import jax.numpy as jnp
@@ -300,7 +310,6 @@ def ref():
     from autofocusformermod_tpu.models import maskformer_from_config as jax_maskformer
     from autofocusformermod_tpu.parallel.train_step import _device_masks
 
-    cfg = train_cfg()
     model = init_random_weights(maskformer_from_config(cfg), torch.Generator().manual_seed(0))
     sd = {k: v.numpy().copy() for k, v in model.state_dict().items()}
     flat_p, flat_s = convert_reference_state_dict(sd)
@@ -326,7 +335,7 @@ def ref():
         return total, (losses, mutated["batch_stats"])
 
     orig = jc.NN_RANK_UNCERTAINTY
-    jc.NN_RANK_UNCERTAINTY = False
+    jc.NN_RANK_UNCERTAINTY = nn_rank
     try:
         (total, (losses, new_stats)), grads = jax.jit(
             jax.value_and_grad(loss_fn, has_aux=True))(params)
@@ -335,30 +344,46 @@ def ref():
     tx = jax_build_optimizer(cfg, params)
     updates, _ = jax.jit(lambda g, p: tx.update(g, tx.init(p), p))(grads, params)
     _, k_crit = jax.random.split(key)
-    return {"cfg": cfg, "sd": sd, "batch": batch,
-            "draws": jax_criterion_draws(k_crit, mf.DEC_LAYERS, B, T, P),
+    return {"cfg": cfg, "sd": sd, "batch": batch, "nn_rank": nn_rank,
+            "jax": (jmodel, params, stats),
+            "draws": jax_criterion_draws(k_crit, mf.DEC_LAYERS, B, T, P, nn_rank=nn_rank),
             "total": float(total), "losses": jax.tree.map(float, losses),
             "grads": flax_to_torch_state_dict(grads),
             "stats": flax_to_torch_state_dict({}, new_stats),
             "updated": flax_to_torch_state_dict(optax.apply_updates(params, updates))}
 
 
-@pytest.fixture(scope="module")
-def port(ref):
+def port_step(ref):
+    """The port's side of the same step, on JAX's replayed draws."""
     model = maskformer_from_config(ref["cfg"])
     model.load_state_dict({k: _t(v) for k, v in ref["sd"].items()})
     step = TrainStep(model, ref["cfg"])
     batch = {k: _t(v) for k, v in ref["batch"].items()}
-    total, losses, matched = step.loss_and_grads(batch, replay(ref["draws"]))
+    orig = tcrit.NN_RANK_UNCERTAINTY
+    tcrit.NN_RANK_UNCERTAINTY = ref["nn_rank"]
+    try:
+        total, losses, matched = step.loss_and_grads(batch, Replay(ref["draws"]))
+    finally:
+        tcrit.NN_RANK_UNCERTAINTY = orig
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
     stats = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
     grad_norm = step.apply_gradients()
     return {"total": total.item(), "losses": {k: v.item() for k, v in losses.items()},
             "grads": grads, "stats": stats, "grad_norm": grad_norm.item(),
-            "params": dict(model.named_parameters()), "matched": matched}
+            "params": dict(model.named_parameters()), "matched": matched, "model": model}
 
 
-def test_step_loss_terms_match_jax(ref, port):
+@pytest.fixture(scope="module")
+def ref():
+    return jax_reference_step(train_cfg(), nn_rank=False)
+
+
+@pytest.fixture(scope="module")
+def port(ref):
+    return port_step(ref)
+
+
+def check_loss_terms(ref, port):
     np.testing.assert_allclose(port["total"], ref["total"], **LOSS_TOL)
     assert set(port["losses"]) == set(ref["losses"])
     assert len(port["losses"]) == 3 * ref["cfg"].MODEL.MASK_FORMER.DEC_LAYERS
@@ -366,7 +391,7 @@ def test_step_loss_terms_match_jax(ref, port):
         np.testing.assert_allclose(v, ref["losses"][k], err_msg=k, **LOSS_TOL)
 
 
-def test_step_every_gradient_matches_jax(ref, port):
+def check_gradients(ref, port):
     """Every parameter's gradient: rtol 1e-3, atol 1e-4 of its largest entry
     + 1e-5 (the largest gradient entry of the model is ~24)."""
     assert set(port["grads"]) == set(ref["grads"])
@@ -377,6 +402,24 @@ def test_step_every_gradient_matches_jax(ref, port):
                                    err_msg=name)
     nonzero = {n for n, g in port["grads"].items() if g.abs().max() > 0}
     assert nonzero == {n for n, g in ref["grads"].items() if g.abs().max() > 0}
+
+
+def check_update(ref, port):
+    """One clipped AdamW update of the whole step's gradients; the clip
+    scales the gradients to norm 0.01, so the update is Adam's normalized
+    first step: lr * sign-like, 1e-6 absolute."""
+    assert port["grad_norm"] > 0.01
+    for name, p in port["params"].items():
+        np.testing.assert_allclose(p.detach().numpy(), ref["updated"][name].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def test_step_loss_terms_match_jax(ref, port):
+    check_loss_terms(ref, port)
+
+
+def test_step_every_gradient_matches_jax(ref, port):
+    check_gradients(ref, port)
 
 
 def test_step_batchnorm_statistics_match_jax(ref, port):
@@ -390,13 +433,7 @@ def test_step_batchnorm_statistics_match_jax(ref, port):
 
 
 def test_step_update_matches_optax(ref, port):
-    """One clipped AdamW update of the whole step's gradients; the clip
-    scales the gradients to norm 0.01, so the update is Adam's normalized
-    first step: lr * sign-like, 1e-6 absolute."""
-    assert port["grad_norm"] > 0.01
-    for name, p in port["params"].items():
-        np.testing.assert_allclose(p.detach().numpy(), ref["updated"][name].numpy(),
-                                   rtol=1e-5, atol=1e-6, err_msg=name)
+    check_update(ref, port)
 
 
 # --------------------------------------------------- training-mode repairs
@@ -416,17 +453,17 @@ def test_stem_batchnorm_uses_flax_momentum():
 
 
 def test_drop_path_rate_is_read_and_refused_in_train_mode():
-    """Regression: aff_from_config ignored DROP_PATH_RATE.  The rate is read;
-    a model with DropPath (not ported) evaluates but refuses to train, and
-    so does decoder dropout."""
+    """Regression: aff_from_config ignored DROP_PATH_RATE.  The rate is read
+    and reaches the blocks' DropPath, which evaluates as the identity and
+    trains; decoder dropout (not ported) is still refused in train mode."""
     cfg = train_cfg()
     cfg.MODEL.AFF.DROP_PATH_RATE = 0.3
     model = maskformer_from_config(cfg)
     assert model.backbone.drop_path_rate == 0.3
+    assert model.backbone.layers[-1].blocks[-1].drop_path.rate == pytest.approx(0.3)
     x = torch.zeros(1, 128, 128, 3, dtype=torch.uint8)
     with torch.no_grad():
         model.eval()(x)
-    with pytest.raises(NotImplementedError, match="DROP_PATH_RATE"):
         model.train()(x)
     cfg = train_cfg()
     cfg.MODEL.MASK_FORMER.DROPOUT = 0.1
