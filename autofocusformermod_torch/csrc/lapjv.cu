@@ -14,6 +14,11 @@
 // Costs are clamped to +-3e4 (the matcher's 1e8 sentinel for padded targets
 // would swamp the fp32 duals; the sentinels stay equal, so the order among
 // costs is kept), and ties go to the first index, as in the JAX solver.
+// A NaN cost counts as the largest cost, +3e4 (written out: fmaxf would drop
+// the NaN and return -3e4), and +-inf are clamped like any other value, so
+// every value the loop sees is finite: each Dijkstra step finds a finite
+// minimum over the free columns, marks one more column used and so ends
+// after at most Q + 1 steps, whatever the input.
 // The float operations are the plain version's, in its order, so kernel and
 // plain version give the same assignment.
 //
@@ -87,7 +92,8 @@ lapjv_kernel(const float* __restrict__ cost, int* __restrict__ out, int Q, int T
       int bj = q1;
       for (int j = tid; j < q1; j += kThreads) {
         if (used[j]) continue;
-        const float cij = fminf(fmaxf(crow[j - 1], -kClip), kClip);
+        const float raw = crow[j - 1];
+        const float cij = raw != raw ? kClip : fminf(fmaxf(raw, -kClip), kClip);
         const float cur = cij - ui0 - v[j];
         if (cur < minv[j]) {
           minv[j] = cur;

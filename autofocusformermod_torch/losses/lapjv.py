@@ -7,7 +7,10 @@ and of its Pallas kernel ``ops/pallas/lapjv_kernel.py:lsap_pallas``.  For
 each of the T targets (rows) one Dijkstra over the Q >= T queries (columns)
 grows an alternating tree until it reaches a free column, then augments.
 Costs are clamped to +-3e4 so that the matcher's 1e8 sentinel for padded
-targets cannot swamp the fp32 duals; ties go to the first index.
+targets cannot swamp the fp32 duals; ties go to the first index.  A NaN cost
+counts as the largest cost (+3e4) and +-inf are clamped like any other value,
+in the kernel and in the plain version alike, so both terminate on any input
+and return a valid assignment (distinct queries).
 """
 
 from __future__ import annotations
@@ -22,7 +25,10 @@ COST_CLIP = 3e4
 
 def lapjv(cost: torch.Tensor) -> torch.Tensor:
     """Launch the kernel: cost (b, Q, T) f32 on the card, T <= Q -> (b, T)
-    int64 matched query per target (the same as ``hungarian_lsap``)."""
+    int64 matched query per target (the same as ``hungarian_lsap``).  On a
+    cost matrix that holds NaN or +-inf it still returns distinct queries:
+    the optimum of the matrix with NaN read as +3e4 and the rest clamped to
+    +-3e4.  Whether such a matching means anything is the caller's concern."""
     b, q, t = cost.shape
     cost_tq = cost.transpose(1, 2).contiguous()
     require(cost_tq, "cost_tq", torch.float32, (b, t, q))
@@ -44,7 +50,8 @@ def hungarian_lsap(cost: torch.Tensor) -> torch.Tensor:
     one augments.  The float operations are the kernel's, in its order."""
     b, q, t = cost.shape
     dev = cost.device
-    c = torch.clamp(cost.transpose(1, 2).float(), -COST_CLIP, COST_CLIP)
+    c = torch.clamp(torch.nan_to_num(cost.transpose(1, 2).float(), nan=COST_CLIP),
+                    -COST_CLIP, COST_CLIP)
     c = torch.nn.functional.pad(c, (1, 0, 1, 0))                    # (b, T+1, Q+1)
     inf = torch.tensor(float("inf"), device=dev)
     ar = torch.arange(b, device=dev)

@@ -4,15 +4,30 @@ Counterpart of ``autofocusformermod_tpu/models/pixel_decoder.py`` (its XLA
 path): per-level Linear+LN input projections, encoder layers whose
 MSDeformAttnPc samples each head/level/point location through a packed 4-NN
 table on the finest grid with Shepard weights, aggregated by the
-``msdetrpc`` kernel on CUDA; then the FPN level by Shepard upsampling and a
-dense-grid PointConv.  The TPU-only layout machinery (DualLayoutDense, the
-head-natural and channel-major fused-prep paths) is not ported.
+``msdetrpc`` kernels on CUDA; then the FPN level by Shepard upsampling and a
+dense-grid PointConv.
+
+The sampling operands can be built in four layouts, chosen by the module
+constants below (same names and defaults as the JAX module's); each reaches
+its own kernel:
+
+- default (``USE_STACKED_GLUE``): the levels stacked on the pair axis ->
+  ``ops/msdetrpc.py:msdetrpc_levels_s``, for every level size;
+- ``USE_STACKED_GLUE`` off: one operand per level -> ``msdetrpc_levels`` when
+  every level size is a multiple of 128 (the JAX gate), else the interleaved
+  operands -> ``ops/clusten.py:msdetrpc``;
+- ``USE_FUSED_PREP``: for fine query levels the whole prep runs channel-major
+  (queries minor), the packed rows come from Morton-ordered channel-major
+  tables through ``ops/window_gather.py:windowed_row_gather`` ->
+  ``msdetrpc_levels_t``;
+- ``USE_BH_LAYOUT``: heads stay where the Linear put them -> ``msdetrpc_bh``.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import os
 from typing import Dict, Sequence
 
 import numpy as np
@@ -21,10 +36,51 @@ from torch import nn
 
 from ..geometry.gridnn import lex_sort, pos_index_lut
 from ..geometry.knn import knn
+from ..geometry.morton import is_pow2, morton_perm, morton_rank
 from ..geometry.shepard import shepard_decay_weights, upsample_feature_shepard
+from ..ops.clusten import msdetrpc
 from ..ops.gather import take_rows, take_scalars
-from ..ops.msdetrpc import msdetrpc_levels_s
+from ..ops.msdetrpc import msdetrpc_bh, msdetrpc_levels, msdetrpc_levels_s, msdetrpc_levels_t
+from ..ops.window_gather import windowed_row_gather
 from .layers import WeightNet, layer_norm, position_embedding_sine, rel_pos_features
+
+# The layout of the sampling operands (module docstring).  Read at call time:
+# set them on this module to choose a layout.
+USE_STACKED_GLUE = os.environ.get("MSDETRPC_STACKED", "1").strip().lower() not in (
+    "0", "false", "no")
+USE_FUSED_PREP = False
+USE_BH_LAYOUT = False
+
+
+def _levels_ok(level_sizes, ntot: int) -> bool:
+    """Gate of the per-level, channel-major and head-natural routes (the JAX
+    module's): the levels partition the value table in multiples of 128."""
+    return sum(level_sizes) == ntot and all(nj % 128 == 0 for nj in level_sizes)
+
+
+def _msdetrpc_dispatch(idxs_local, ws_shepard, attn_perm, values_all, level_sizes):
+    """The sampling contraction with ``USE_STACKED_GLUE`` off.
+
+    idxs_local: per level j (bh, n_i, k, 4) int32 LOCAL indices into level j's
+    value rows; ws_shepard: matching Shepard weights; attn_perm: (bh, n_i, l, k)
+    softmaxed attention; values_all: (bh, ntot, c_) -> (bh, n_i, c_).  Level
+    sizes all multiples of 128: one operand per level, the attention folded
+    into the weights.  Else the interleaved operands (slot = point * l +
+    level, global indices), the attention multiplied in the kernel."""
+    bh, n_i, kpts, kk = idxs_local[0].shape
+    n_levels = len(level_sizes)
+    if _levels_ok(level_sizes, values_all.shape[1]):
+        idxs = [i.reshape(bh, n_i, kpts * kk) for i in idxs_local]
+        ws = [(w * attn_perm[:, :, j, :, None]).reshape(bh, n_i, kpts * kk)
+              for j, w in enumerate(ws_shepard)]
+        return msdetrpc_levels(idxs, ws, values_all, level_sizes)
+    offs = np.cumsum([0] + list(level_sizes))[:-1]
+    nn_idxs = torch.stack([i + int(o) for i, o in zip(idxs_local, offs)], dim=3)
+    nn_weights = torch.stack(ws_shepard, dim=3)
+    attn_i = attn_perm.permute(0, 1, 3, 2).reshape(bh, n_i, kpts * n_levels)
+    return msdetrpc(nn_idxs.reshape(bh, n_i, kpts * n_levels, kk),
+                    nn_weights.reshape(bh, n_i, kpts * n_levels, kk), attn_i.contiguous(),
+                    values_all)
 
 
 def scale_pos(pos: torch.Tensor, last_ss, cur_ss, no_bias: bool = False) -> torch.Tensor:
@@ -116,17 +172,21 @@ class PointConv(nn.Module):
 
 
 class MSDeformAttnPc(nn.Module):
-    """Deformable attention over point clouds."""
+    """Deformable attention over point clouds.  ``shepard_power_learnable``:
+    the power is a parameter; else the constant given."""
 
     def __init__(self, d_model: int, n_levels: int, n_heads: int, n_points: int,
-                 shepard_power: float):
+                 shepard_power: float, shepard_power_learnable: bool = True):
         super().__init__()
         self.d_model, self.n_levels, self.n_heads, self.n_points = d_model, n_levels, n_heads, n_points
         self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
         self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
         self.value_proj = nn.Linear(d_model, d_model)
         self.output_proj = nn.Linear(d_model, d_model)
-        self.shepard_power = nn.Parameter(torch.full((1,), float(shepard_power)))
+        if shepard_power_learnable:
+            self.shepard_power = nn.Parameter(torch.full((1,), float(shepard_power)))
+        else:
+            self.shepard_power = float(shepard_power)
         self._reset_offsets()
 
     def _reset_offsets(self):
@@ -144,28 +204,43 @@ class MSDeformAttnPc(nn.Module):
             self.attention_weights.weight.zero_()
             self.attention_weights.bias.zero_()
 
-    def forward(self, querys, poss, values, spatial_shapes, nb_packed):
+    def forward(self, querys, poss, values, spatial_shapes, nb_packed, nb_packed_t=None):
         """querys/values: per level (b, n_l, c); poss: per level (b, n_l, 2);
         spatial_shapes: per level (h, w), finest grid last; nb_packed: per
-        level (b, grid_h*grid_w, 12) packed 4-NN tables."""
+        level (b, grid_h*grid_w, 12) packed 4-NN tables; nb_packed_t: the same
+        tables Morton-ordered and channel-major, (b, 12, grid_h*grid_w), which
+        switch the channel-major prep on for the fine query levels."""
         b, _, c = querys[0].shape
         h, l, k = self.n_heads, self.n_levels, self.n_points
         c_ = c // h
         grid_hw = spatial_shapes[-1]
-        power = self.shepard_power[0]
+        power = self.shepard_power[0] if isinstance(self.shepard_power, nn.Parameter) \
+            else self.shepard_power
         values_cat = self.value_proj(torch.cat(values, dim=1))
         ntot = values_cat.shape[1]
-        values_all = values_cat.reshape(b, ntot, h, c_).permute(0, 2, 1, 3).reshape(b * h, ntot, c_)
         level_sizes = [q.shape[1] for q in querys]
+        levels_ok = _levels_ok(level_sizes, ntot)
+        if USE_BH_LAYOUT and levels_ok:
+            return self._forward_bh(querys, poss, values_cat, spatial_shapes, nb_packed, power,
+                                    level_sizes)
+        values_all = values_cat.reshape(b, ntot, h, c_).permute(0, 2, 1, 3).reshape(b * h, ntot, c_)
+        values_all = values_all.contiguous()
+        ncells = int(grid_hw[0]) * int(grid_hw[1])
 
         outputs = []
         for i in range(l):
             n_i = level_sizes[i]
+            # the channel-major prep is for the fine query levels; the coarse
+            # ones keep the row-major prep below (the JAX module's gate)
+            if nb_packed_t is not None and levels_ok and n_i * 8 >= ncells:
+                outputs.append(self._level_fused_t(i, querys, poss, values_all, spatial_shapes,
+                                                   nb_packed_t, power, level_sizes))
+                continue
             offs = self.sampling_offsets(querys[i]).reshape(b, n_i, h, l, k, 2)
             attn = torch.softmax(self.attention_weights(querys[i]).reshape(b, n_i, h, l * k),
                                  dim=-1).reshape(b, n_i, h, l, k)
             attn_perm = attn.permute(0, 2, 1, 3, 4).reshape(b * h, n_i, l, k)
-            idxs, ws = [], []
+            idxs_local, ws_shepard = [], []
             for j in range(l):
                 s_pos = scale_pos(poss[i], spatial_shapes[i], spatial_shapes[j], no_bias=True)
                 loc = s_pos[:, :, None, None, :] + offs[:, :, :, j]          # (b, n_i, h, k, 2)
@@ -175,17 +250,122 @@ class MSDeformAttnPc(nn.Module):
                 sl = torch.round(scale_pos(loc, spatial_shapes[j], grid_hw, no_bias=True)).int()
                 gx = torch.clamp(sl[..., 0], 0, grid_hw[1] - 1)
                 gy = torch.clamp(sl[..., 1], 0, grid_hw[0] - 1) * grid_hw[1]
-                packed = take_rows(nb_packed[j], (gx + gy).reshape(b, h * n_i * k))
+                # the tables are geometry, constant in the parameters
+                packed = take_rows(nb_packed[j].detach(), (gx + gy).reshape(b, h * n_i * k))
                 packed = packed.reshape(b * h, n_i * k, 12)
                 d2 = (loc[..., 0:1] - packed[..., 4:8]) ** 2 + (loc[..., 1:2] - packed[..., 8:12]) ** 2
-                w = shepard_decay_weights(d2, power=power).reshape(b * h, n_i, k, 4)
-                idxs.append(packed[..., 0:4].int().reshape(b * h, n_i, k * 4))
-                ws.append((w * attn_perm[:, :, j, :, None]).reshape(b * h, n_i, k * 4))
-            sampled = msdetrpc_levels_s(torch.cat(idxs, 2).contiguous(),
-                                        torch.cat(ws, 2).contiguous(),
-                                        values_all.contiguous(), level_sizes)
+                w = shepard_decay_weights(d2, power=power)
+                idxs_local.append(packed[..., 0:4].int().reshape(b * h, n_i, k, 4))
+                ws_shepard.append(w.reshape(b * h, n_i, k, 4))
+            if USE_STACKED_GLUE:
+                idx_s = torch.cat([i_.reshape(b * h, n_i, k * 4) for i_ in idxs_local], 2)
+                w_s = torch.cat([(w * attn_perm[:, :, j, :, None]).reshape(b * h, n_i, k * 4)
+                                 for j, w in enumerate(ws_shepard)], 2)
+                sampled = msdetrpc_levels_s(idx_s.contiguous(), w_s.contiguous(), values_all,
+                                            level_sizes)
+            else:
+                sampled = _msdetrpc_dispatch(idxs_local, ws_shepard, attn_perm, values_all,
+                                             level_sizes)
             sampled = sampled.reshape(b, h, n_i, c_).permute(0, 2, 1, 3).reshape(b, n_i, c)
             outputs.append(self.output_proj(sampled))
+        return outputs
+
+    def _level_fused_t(self, i, querys, poss, values_all, spatial_shapes, nb_packed_t, power,
+                       level_sizes):
+        """Channel-major sampling prep for query level i: everything from the
+        offset and attention projections to the sampling kernel keeps the
+        queries on the minor axis.  The projections emit (b, F, n) (the JAX
+        module's ``DualLayoutDense(transposed=True)``, a plain matrix product),
+        the packed rows come from the Morton-ordered channel-major tables, and
+        ``msdetrpc_levels_t`` reads (bh, pairs, n) operands.  Same arithmetic as
+        the row-major prep except where noted."""
+        b = querys[i].shape[0]
+        h, l, k = self.n_heads, self.n_levels, self.n_points
+        c_ = self.d_model // h
+        n_i = level_sizes[i]
+        gh, gw = int(spatial_shapes[-1][0]), int(spatial_shapes[-1][1])
+        log2w, log2h = gw.bit_length() - 1, gh.bit_length() - 1
+        dev, dt = querys[i].device, querys[i].dtype
+
+        def dense_t(lin, x):                                  # (b, n, c) -> (b, F, n)
+            return torch.matmul(lin.weight, x.transpose(1, 2)) + lin.bias[None, :, None]
+
+        offs_t = dense_t(self.sampling_offsets, querys[i]).reshape(b, h, l, k, 2, n_i)
+        attn_t = torch.softmax(dense_t(self.attention_weights, querys[i]).reshape(b, h, l * k, n_i),
+                               dim=2).reshape(b, h, l, k, n_i)
+        s_pos_t = poss[i].transpose(1, 2)                     # (b, 2, n_i)
+
+        idx_ts, w_ts = [], []
+        for j in range(l):
+            # level i's positions in level j's canvas: (p + 0.5) * r - 0.5 with
+            # the ratio rounded to float32 first, the identity for equal shapes
+            if tuple(spatial_shapes[i]) == tuple(spatial_shapes[j]):
+                sp = s_pos_t
+            else:
+                r = torch.tensor([spatial_shapes[j][1] / spatial_shapes[i][1],
+                                  spatial_shapes[j][0] / spatial_shapes[i][0]],
+                                 dtype=dt, device=dev)[None, :, None]
+                sp = (s_pos_t + 0.5) * r - 0.5
+            loc_t = sp[:, None, None] + offs_t[:, :, j]       # (b, h, k, 2, n)
+            if (int(spatial_shapes[j][0]), int(spatial_shapes[j][1])) == (gh, gw):
+                sl = loc_t
+            else:
+                rg = torch.tensor([gw / spatial_shapes[j][1], gh / spatial_shapes[j][0]],
+                                  dtype=dt, device=dev)[None, None, None, :, None]
+                sl = (loc_t + 0.5) * rg - 0.5
+            sl = torch.round(sl).int()                        # half to even, as jnp.round
+            gx = torch.clamp(sl[:, :, :, 0], 0, gw - 1)       # (b, h, k, n)
+            gy = torch.clamp(sl[:, :, :, 1], 0, gh - 1)
+            rank = morton_rank(gx, gy, log2w, log2h)
+            packed = windowed_row_gather(nb_packed_t[j], rank.reshape(b, h * k * n_i).contiguous())
+            packed = packed.reshape(b, 12, h, k, n_i).permute(0, 2, 1, 3, 4).reshape(
+                b * h, 12, k, n_i)
+            nbi, nbx, nby = packed[:, 0:4], packed[:, 4:8], packed[:, 8:12]   # (bh, 4, k, n)
+            lx = loc_t[:, :, :, 0].reshape(b * h, 1, k, n_i)
+            ly = loc_t[:, :, :, 1].reshape(b * h, 1, k, n_i)
+            d2 = (lx - nbx) ** 2 + (ly - nby) ** 2
+            # shepard_decay_weights, normalised over the 4-NN axis (dim 1); a
+            # constant power stays a float exponent here, as in the JAX module
+            ipd = 1.0 / (torch.clamp(d2, min=1e-2) ** power + 1e-6)
+            w = ipd / (ipd.sum(dim=1, keepdim=True) + 1e-6)
+            w = w * attn_t[:, :, j].reshape(b * h, 1, k, n_i)
+            # (bh, 4, k, n) -> (bh, k*4, n): only the majors move; the kernel
+            # wants them contiguous
+            idx_ts.append(nbi.int().permute(0, 2, 1, 3).reshape(b * h, k * 4, n_i).contiguous())
+            w_ts.append(w.permute(0, 2, 1, 3).reshape(b * h, k * 4, n_i).contiguous())
+        sampled = msdetrpc_levels_t(idx_ts, w_ts, values_all, level_sizes)     # (bh, n, c_)
+        sampled = sampled.reshape(b, h, n_i, c_).permute(0, 2, 1, 3).reshape(b, n_i, self.d_model)
+        return self.output_proj(sampled)
+
+    def _forward_bh(self, querys, poss, values_cat, spatial_shapes, nb_packed, power, level_sizes):
+        """Head-natural route: tensors stay (b, n, h, ...) as the Linears emit
+        them, no head transposes; ``msdetrpc_bh`` reads them so."""
+        b, ntot, c = values_cat.shape
+        h, l, k = self.n_heads, self.n_levels, self.n_points
+        c_ = c // h
+        grid_hw = spatial_shapes[-1]
+        values_bh = values_cat.reshape(b, ntot, h, c_)
+        outputs = []
+        for i in range(l):
+            n_i = level_sizes[i]
+            offs = self.sampling_offsets(querys[i]).reshape(b, n_i, h, l, k, 2)
+            attn = torch.softmax(self.attention_weights(querys[i]).reshape(b, n_i, h, l * k),
+                                 dim=-1).reshape(b, n_i, h, l, k)
+            idxs_bh, ws_bh = [], []
+            for j in range(l):
+                s_pos = scale_pos(poss[i], spatial_shapes[i], spatial_shapes[j], no_bias=True)
+                loc = (s_pos[:, :, None, None, :] + offs[:, :, :, j]).reshape(b, n_i * h * k, 2)
+                sl = torch.round(scale_pos(loc, spatial_shapes[j], grid_hw, no_bias=True)).int()
+                gx = torch.clamp(sl[..., 0], 0, grid_hw[1] - 1)
+                gy = torch.clamp(sl[..., 1], 0, grid_hw[0] - 1) * grid_hw[1]
+                packed = take_rows(nb_packed[j].detach(), gx + gy)           # (b, nhk, 12)
+                d2 = (loc[..., 0:1] - packed[..., 4:8]) ** 2 + (loc[..., 1:2] - packed[..., 8:12]) ** 2
+                w = shepard_decay_weights(d2, power=power).reshape(b, n_i, h, k, 4)
+                w = w * attn[:, :, :, j, :, None]
+                idxs_bh.append(packed[..., 0:4].int().reshape(b, n_i, h, k * 4))
+                ws_bh.append(w.reshape(b, n_i, h, k * 4))
+            sampled = msdetrpc_bh(idxs_bh, ws_bh, values_bh, level_sizes)
+            outputs.append(self.output_proj(sampled.reshape(b, n_i, c)))
         return outputs
 
 
@@ -200,17 +380,18 @@ class MSDeformAttnEncoderLayerPc(nn.Module):
     """Deformable self-attention + FFN encoder layer (post-norm, ReLU)."""
 
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int, n_points: int,
-                 shepard_power: float):
+                 shepard_power: float, shepard_power_learnable: bool = True):
         super().__init__()
-        self.self_attn = MSDeformAttnPc(d_model, n_levels, n_heads, n_points, shepard_power)
+        self.self_attn = MSDeformAttnPc(d_model, n_levels, n_heads, n_points, shepard_power,
+                                        shepard_power_learnable)
         self.norm1 = layer_norm(d_model)
         self.norm2 = layer_norm(d_model)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
 
-    def forward(self, srcs, poss, spatial_shapes, pos_embeds, nb_packed):
+    def forward(self, srcs, poss, spatial_shapes, pos_embeds, nb_packed, nb_packed_t=None):
         with_pe = [s + p for s, p in zip(srcs, pos_embeds)]
-        src2s = self.self_attn(with_pe, poss, srcs, spatial_shapes, nb_packed)
+        src2s = self.self_attn(with_pe, poss, srcs, spatial_shapes, nb_packed, nb_packed_t)
         outs = []
         for src, src2 in zip(srcs, src2s):
             src = self.norm1(src + src2)
@@ -229,7 +410,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
                  mask_dim: int = 256, transformer_nheads: int = 8,
                  transformer_dim_feedforward: int = 1024, transformer_enc_layers: int = 6,
                  common_stride: int = 4, n_points: int = 4, shepard_power: float = 3.0,
-                 maskformer_num_feature_levels: int = 3):
+                 shepard_power_learnable: bool = True, maskformer_num_feature_levels: int = 3):
         super().__init__()
         self.in_features = tuple(in_features)
         self.transformer_in_features = tuple(transformer_in_features)
@@ -243,7 +424,8 @@ class MSDeformAttnPixelDecoder(nn.Module):
         self.transformer.encoder = nn.Module()
         self.transformer.encoder.layers = nn.ModuleList(
             MSDeformAttnEncoderLayerPc(conv_dim, transformer_dim_feedforward, num_levels,
-                                       transformer_nheads, n_points, shepard_power)
+                                       transformer_nheads, n_points, shepard_power,
+                                       shepard_power_learnable)
             for _ in range(transformer_enc_layers))
         strides = dict(zip(self.in_features, feature_strides))
         self.num_fpn_levels = int(
@@ -283,9 +465,17 @@ class MSDeformAttnPixelDecoder(nn.Module):
         last_pos, last_ss = poss[-1], spatial_shapes[-1]
         spatial_shapes = list(spatial_shapes) + [grid_hw]
 
+        # Morton-ordered channel-major tables for the channel-major prep: one
+        # row permutation and one transpose per forward, shared by the layers
+        nb_tables_t = None
+        gh, gw = int(grid_hw[0]), int(grid_hw[1])
+        if USE_FUSED_PREP and is_pow2(gh) and is_pow2(gw) and (gh * gw) % 128 == 0:
+            perm = torch.from_numpy(morton_perm(gh, gw)).to(dev)
+            nb_tables_t = [t[:, perm, :].transpose(1, 2).contiguous() for t in nb_tables]
+
         out = srcs
         for layer in self.transformer.encoder.layers:
-            out = layer(out, poss, spatial_shapes, lvl_pos, nb_tables)
+            out = layer(out, poss, spatial_shapes, lvl_pos, nb_tables, nb_tables_t)
         transformer_out = out[0]
 
         out = list(out)
@@ -307,8 +497,6 @@ class MSDeformAttnPixelDecoder(nn.Module):
 
 def pixel_decoder_from_config(cfg, feature_channels: Dict[str, int]) -> MSDeformAttnPixelDecoder:
     h = cfg.MODEL.SEM_SEG_HEAD
-    if not cfg.MODEL.AFF.SHEPARD_POWER_LEARNABLE:
-        raise NotImplementedError("only the learnable Shepard power is ported")
     return MSDeformAttnPixelDecoder(
         feature_channels,
         in_features=tuple(h.IN_FEATURES),
@@ -321,4 +509,5 @@ def pixel_decoder_from_config(cfg, feature_channels: Dict[str, int]) -> MSDeform
         common_stride=h.COMMON_STRIDE,
         # distances are squared, so halve the configured power
         shepard_power=cfg.MODEL.AFF.SHEPARD_POWER / 2.0,
+        shepard_power_learnable=cfg.MODEL.AFF.SHEPARD_POWER_LEARNABLE,
     )

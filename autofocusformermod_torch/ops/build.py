@@ -21,7 +21,8 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("knn.cu", "lapjv.cu", "local_attn.cu", "msdetrpc.cu", "point_sample.cu")
+SOURCES = ("knn.cu", "lapjv.cu", "local_attn.cu", "msdetrpc.cu", "point_sample.cu",
+           "window_gather.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -36,10 +37,19 @@ SIGNATURES = {
     "aff_local_attn_bwd": [P] * 14 + [I] * 6 + [P],
     "aff_msdetrpc": [P, P, P, P, I, I, I, I, I, P, I, P],
     "aff_msdetrpc_bwd": [P] * 6 + [I] * 5 + [P, I, P],
+    "aff_msdetrpc_levels": [P] * 4 + [I] * 5 + [P, I, P],
+    "aff_msdetrpc_levels_bwd": [P] * 6 + [I] * 5 + [P, I, P],
+    "aff_msdetrpc_levels_t": [P] * 4 + [I] * 5 + [P, I, P],
+    "aff_msdetrpc_levels_t_bwd": [P] * 6 + [I] * 5 + [P, I, P],
+    "aff_msdetrpc_bh": [P] * 4 + [I] * 6 + [P, I, P],
+    "aff_msdetrpc_bh_bwd": [P] * 6 + [I] * 6 + [P, I, P],
+    "aff_msdetrpc_interleaved": [P] * 5 + [I] * 6 + [P],
+    "aff_msdetrpc_interleaved_bwd": [P] * 8 + [I] * 6 + [P],
     "aff_point_sample": [P, P, P, I, I, I, I, P],
     "aff_point_sample_bwd": [P, P, P, I, I, I, I, P],
     "aff_point_sample_nearest": [P, P, P, I, I, I, I, P],
     "aff_point_sample_nearest_rows": [P, P, P, P, I, I, I, I, P],
+    "aff_window_gather": [P, P, P, I, I, I, I, P],
 }
 
 

@@ -1,13 +1,19 @@
 """Neighbourhood gather-einsums (counterparts of ``autofocusformermod_tpu/ops/clusten.py``).
 
 Plain PyTorch: gather the neighbour rows, then contract.  These are the
-semantic definitions the kernels are held against.
+semantic definitions the kernels are held against.  ``msdetrpc``, the
+interleaved deformable sampling, launches its CUDA kernels
+(``csrc/msdetrpc.cu``; counterpart of
+``autofocusformermod_tpu/ops/pallas/msdetrpc_kernel.py:msdetrpc_pallas``)
+on CUDA tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .build import check, load_kernels
+from .dispatch import require, stream_of, use_kernel
 from .gather import take_rows
 
 
@@ -44,6 +50,74 @@ def msdetrpc(nn_idx: torch.Tensor, nn_weight: torch.Tensor, attn: torch.Tensor,
     """feat[b,i,c] = sum_m attn[b,i,m] * sum_k w[b,i,m,k] * val[b,nn_idx[b,i,m,k],c].
 
     nn_idx/nn_weight: (b, n, m, k); attn: (b, n, m); val: (b, nv, c) -> (b, n, c).
+    On CUDA tensors (nn_idx int32, the rest f32, all contiguous) an autograd
+    Function over the interleaved kernels, differentiable in nn_weight, attn
+    and val; on CPU tensors the plain version.
     """
+    if not use_kernel(nn_idx, nn_weight, attn, val):
+        return msdetrpc_plain(nn_idx, nn_weight, attn, val)
+    return _MsdetrpcInterleaved.apply(nn_idx, nn_weight, attn, val)
+
+
+def msdetrpc_plain(nn_idx, nn_weight, attn, val) -> torch.Tensor:
+    """Plain version: fold the attention into the weights, gather, contract."""
     w = nn_weight * attn[..., None]
     return torch.einsum("bnmk,bnmkc->bnc", w, take_rows(val, nn_idx))
+
+
+class _MsdetrpcInterleaved(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, nn_idx, nn_weight, attn, val):
+        ctx.save_for_backward(nn_idx, nn_weight, attn, val)
+        return msdetrpc_forward(nn_idx, nn_weight, attn, val)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *msdetrpc_backward(*ctx.saved_tensors, g.contiguous()))
+
+
+def _check_interleaved(nn_idx, nn_weight, attn, val):
+    bh, n, m, k = nn_idx.shape
+    nv, c = val.shape[1:]
+    require(nn_idx, "nn_idx", torch.int32, (bh, n, m, k))
+    require(nn_weight, "nn_weight", torch.float32, (bh, n, m, k))
+    require(attn, "attn", torch.float32, (bh, n, m))
+    require(val, "val", torch.float32, (bh, nv, c))
+    return bh, n, nv, c, m, k
+
+
+def msdetrpc_forward(nn_idx, nn_weight, attn, val) -> torch.Tensor:
+    """Launch the interleaved forward kernel -> (bh, n, c)."""
+    dims = _check_interleaved(nn_idx, nn_weight, attn, val)
+    out = torch.empty((dims[0], dims[1], dims[3]), dtype=torch.float32, device=val.device)
+    lib = load_kernels()
+    with torch.cuda.device(val.device):
+        err = lib.aff_msdetrpc_interleaved(nn_idx.data_ptr(), nn_weight.data_ptr(),
+                                           attn.data_ptr(), val.data_ptr(), out.data_ptr(),
+                                           *dims, stream_of(val))
+    check(err, "aff_msdetrpc_interleaved")
+    msdetrpc.launches += 1
+    return out
+
+
+msdetrpc.launches = 0
+
+
+def msdetrpc_backward(nn_idx, nn_weight, attn, val, g):
+    """Launch the interleaved backward kernel for g = d out (bh, n, c) ->
+    (d_nn_weight, d_attn, d_val), each shaped as its operand."""
+    dims = _check_interleaved(nn_idx, nn_weight, attn, val)
+    require(g, "g", torch.float32, (dims[0], dims[1], dims[3]))
+    d_w, d_attn, d_val = torch.empty_like(nn_weight), torch.empty_like(attn), torch.zeros_like(val)
+    lib = load_kernels()
+    with torch.cuda.device(val.device):
+        err = lib.aff_msdetrpc_interleaved_bwd(
+            nn_idx.data_ptr(), nn_weight.data_ptr(), attn.data_ptr(), val.data_ptr(),
+            g.data_ptr(), d_w.data_ptr(), d_attn.data_ptr(), d_val.data_ptr(), *dims,
+            stream_of(val))
+    check(err, "aff_msdetrpc_interleaved_bwd")
+    msdetrpc_backward.launches += 1
+    return d_w, d_attn, d_val
+
+
+msdetrpc_backward.launches = 0

@@ -16,8 +16,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from .clusten import cluster_av, cluster_qk
-
 _PLAIN_ON_CUDA = contextvars.ContextVar("plain_on_cuda", default=False)
 
 
@@ -82,6 +80,8 @@ def local_cluster_attention_reference(
     (b, h, n, 1) pre-softmax logit.  Returns (feat (b, h, n, c_),
     blank_prob (b, h, n, 1)).
     """
+    from .clusten import cluster_av, cluster_qk     # clusten imports this module
+
     b, h, n, _ = q.shape
     attn = cluster_qk(q, key, member_idx) + pos_bias.permute(0, 3, 1, 2)
     if cluster_mask is not None:
