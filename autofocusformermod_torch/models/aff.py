@@ -21,7 +21,8 @@ from ..geometry.cluster import nbhd_from_cluster_ids, space_filling_cluster
 from ..geometry.knn import knn
 from ..ops.clusten import cluster_wf
 from ..ops.gather import take_rows, topk_indices
-from ..ops.local_attn import sfc_cluster_attention
+from ..ops.dispatch import use_kernel
+from ..ops.local_attn import build_reverse_lists, sfc_cluster_attention
 from .layers import DropPath, FlaxBatchNorm2d, Mlp, WeightNet, layer_norm, rel_pos_features
 
 
@@ -61,7 +62,7 @@ class ClusterAttention(nn.Module):
             out, blank_prob = sfc_cluster_attention(
                 q.contiguous(), key.contiguous(), v.contiguous(), ctx["pos"], ctx["nc"],
                 self.pos_embed.weight.contiguous(), self.pos_embed.bias.contiguous(),
-                blank_k.contiguous(), ctx["span"])
+                blank_k.contiguous(), ctx["span"], reverse=ctx.get("reverse"))
         out = out + blank_prob * self.blank_v.reshape(1, h, 1, c_)
         return self.proj(out.permute(0, 2, 1, 3).reshape(b, n, c))
 
@@ -170,6 +171,10 @@ class BasicLayer(nn.Module):
             nc = knn(pos, cluster_mean_pos, nnc).expand(b, n, nnc).contiguous()
             pos = pos.expand(b, n, 2).contiguous()
             ctx = {"global": False, "pos": pos, "nc": nc, "span": span}
+            if torch.is_grad_enabled() and use_kernel(pos, nc):
+                # the backward kernels' reverse lists depend on nc alone:
+                # built once here for all the stage's blocks
+                ctx["reverse"] = build_reverse_lists(nc, n, span)
 
         for blk in self.blocks:
             feat = blk(feat, ctx)

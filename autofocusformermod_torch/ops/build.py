@@ -23,6 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("knn.cu", "lapjv.cu", "local_attn.cu", "msdetrpc.cu", "point_sample.cu",
            "window_gather.cu")
+HEADERS = ("local_attn_common.cuh",)    # included by the sources; part of the digest
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -34,7 +35,8 @@ SIGNATURES = {
     "aff_knn": [P, P, P, P, I, I, I, I, P],
     "aff_lapjv": [P, P, I, I, I, P],
     "aff_local_attn": [P] * 11 + [I] * 6 + [P],
-    "aff_local_attn_bwd": [P] * 14 + [I] * 6 + [P],
+    "aff_local_attn_bwd_dq": [P] * 14 + [I] * 6 + [P],
+    "aff_local_attn_bwd_dkv": [P] * 8 + [I] * 6 + [P],
     "aff_msdetrpc": [P, P, P, P, I, I, I, I, I, P, I, P],
     "aff_msdetrpc_bwd": [P] * 6 + [I] * 5 + [P, I, P],
     "aff_msdetrpc_levels": [P] * 4 + [I] * 5 + [P, I, P],
@@ -50,6 +52,7 @@ SIGNATURES = {
     "aff_point_sample_nearest": [P, P, P, I, I, I, I, P],
     "aff_point_sample_nearest_rows": [P, P, P, P, I, I, I, I, P],
     "aff_window_gather": [P, P, P, I, I, I, I, P],
+    "aff_window_gather_shared": [P, P, P, I, I, I, I, P],
 }
 
 
@@ -73,7 +76,7 @@ def build_library(nvcc: Optional[str] = None) -> Path:
             "nvcc not found (checked $CUDA_HOME/bin, PATH and "
             f"{DEFAULT_CUDA_HOME}/bin): the CUDA kernels cannot be built")
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((CSRC / name).read_bytes())
     lib = BUILD_DIR / f"libaff_kernels_{digest.hexdigest()[:16]}.so"
     if lib.exists():

@@ -7,6 +7,13 @@ Counterpart of ``autofocusformermod_tpu/ops/pallas/window_gather.py``
 port's function takes the table and the indices only.  It copies floats: the
 result equals the plain version exactly.  No gradient (the tables are
 geometry, not parameters).
+
+The kernel has two routes, chosen from the shapes alone
+(``window_gather_route``): ``"shared"`` stages one (image, channel) slice of
+the table in the SM's shared memory and looks the samples up there;
+``"direct"`` reads the table where it lies, for a slice that does not fit or
+a call with fewer samples than rows.  ``windowed_row_gather.launches`` counts
+both, ``windowed_row_gather.launches_by_route`` each.
 """
 
 from __future__ import annotations
@@ -17,6 +24,18 @@ from .build import check, load_kernels
 from .dispatch import require, stream_of, use_kernel
 
 MAX_CHANNELS = 32
+# the largest (image, channel) slice the shared route stages: 224 KB of the
+# 227 KB of shared memory a block may use on the H100 (csrc/window_gather.cu)
+SHARED_SLICE_ROWS = 57344
+
+
+def window_gather_route(n: int, s: int) -> str:
+    """The kernel route for an N-row table and S samples per image: a pure
+    function of the shapes.  "shared" where a slice of N floats fits shared
+    memory and there are at least as many samples as rows (staging the slice
+    reads every row once; with fewer samples reading in place moves less),
+    else "direct"."""
+    return "shared" if n <= SHARED_SLICE_ROWS and s >= n else "direct"
 
 
 def windowed_row_gather_supported(table_cm: torch.Tensor, idx: torch.Tensor) -> bool:
@@ -39,17 +58,21 @@ def windowed_row_gather(table_cm: torch.Tensor, idx: torch.Tensor) -> torch.Tens
     s = idx.shape[1]
     require(table_cm, "table_cm", torch.float32, (b, c, n))
     require(idx, "idx", torch.int32, (b, s))
-    out = torch.empty((b, c, s), dtype=torch.float32, device=table_cm.device)
+    out = table_cm.new_empty((b, c, s))
     lib = load_kernels()
+    route = window_gather_route(n, s)
+    name = "aff_window_gather_shared" if route == "shared" else "aff_window_gather"
     with torch.cuda.device(table_cm.device):
-        err = lib.aff_window_gather(table_cm.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                                    b, c, n, s, stream_of(table_cm))
-    check(err, "aff_window_gather")
+        err = getattr(lib, name)(table_cm.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                                 b, c, n, s, stream_of(table_cm))
+    check(err, name)
     windowed_row_gather.launches += 1
+    windowed_row_gather.launches_by_route[route] += 1
     return out
 
 
 windowed_row_gather.launches = 0
+windowed_row_gather.launches_by_route = {"shared": 0, "direct": 0}
 
 
 def windowed_row_gather_plain(table_cm: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

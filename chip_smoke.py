@@ -18,7 +18,9 @@ resume, and the pixel decoder's alternate operand layouts -- on one NVIDIA GPU.
 5. holds every kernel of a training step against its plain version at the
    shapes a 512x512 batch-8 step of each trained model gives it, and times
    both: local_attn forward and backward at AFF-Mini's and at AFF-Small's
-   stage shapes, and what is the same for both models at one batch
+   stage shapes (the backward's two kernels timed apart, its reverse lists'
+   build timed too, two calls compared bit for bit, and once more on a random
+   neighbour list), and what is the same for both models at one batch
    (msdetrpc forward and backward, knn, point_sample forward and backward,
    the lapjv matcher);
 6. trains: the full-width AFF-Mini step (batch 8, 512x512, 100 target slots,
@@ -45,7 +47,9 @@ resume, and the pixel decoder's alternate operand layouts -- on one NVIDIA GPU.
    parameter group);
 9. the pixel decoder's alternate operand layouts: holds their five kernels
    (per-level, pair-major and head-natural msdetrpc, forward and backward;
-   the channel-major table lookup, exact; the interleaved msdetrpc at a level
+   the channel-major table lookup, exact, at uniformly random indices and at
+   the path's own Morton ranks, and at a table too large for its
+   shared-memory route; the interleaved msdetrpc at a level
    split that is not all multiples of 128, forward and backward) against
    their plain versions at the shapes of a batch-4 forward and a batch-8
    step; runs the phase-3 forward (same weights and images) once per layout
@@ -95,8 +99,9 @@ LOCAL_ATTN_ATOL = 1e-4
 MSDETRPC_ATOL = 1e-4
 POINT_SAMPLE_ATOL = 1e-5
 # gradients, error relative to the largest entry (at least 1) of each
-# gradient tensor: the kernels scatter with atomics
-# (run-to-run order) and the w5/b5 reductions sum ~1e6 terms in another order
+# gradient tensor: the msdetrpc and point_sample backward kernels scatter
+# with atomics (run-to-run order; the local_attn pair sums in a fixed order)
+# and the w5/b5 reductions sum ~1e6 terms in another order
 GRAD_RTOL = 1e-3
 # the two training steps: loss terms (relative), and gradient norms per
 # parameter group (relative; a flipped near-tie in the matcher or in token
@@ -109,10 +114,11 @@ GROUP_NORM_RTOL = 2e-2
 # depend on them, still agree within LOSS_RTOL)
 MATCH_AGREE_MIN = 0.9
 # a resumed run against the uninterrupted one: the restored state (model,
-# optimizer, schedule, generators) is equal bit for bit, but the backward
-# kernels and PyTorch's index_add scatter with atomics, whose order changes
-# from run to run, so the two runs' weights differ in the last bits after
-# the first update and the later steps' loss terms agree only to this
+# optimizer, schedule, generators) is equal bit for bit, but the msdetrpc and
+# point_sample backward kernels and PyTorch's index_add scatter with atomics,
+# whose order changes from run to run (the local_attn backward does not: its
+# key side sums in a fixed order), so the two runs' weights differ in the
+# last bits after the first update and the later steps' loss terms agree only to this
 # (relative; two runs of the same steps mostly differ by 1e-5 to 3e-5).  At
 # random initialisation a near-tied match that flips amplifies the
 # difference from one step to the next (seen: 7.8e-5 at step 3, before any
@@ -145,6 +151,46 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """Device time of fn() in ms per call, with the card kept busy: the calls
+    are enqueued behind one long matrix product, so the host's launch work
+    overlaps it and the two events bracket back-to-back execution.  For a
+    call shorter than its own launch, whose cuda_ms is mostly the host's."""
+    import torch
+
+    fn()
+    filler = torch.empty((8192, 8192), device="cuda")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.matmul(filler, filler)          # ~20 ms of fp32: time to enqueue what follows
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def run_ms(fn, iters: int = 50) -> float:
+    """ms per call over one run of back-to-back calls between two events: the
+    larger of what the host needs to launch a call and what the card needs to
+    run it (cuda_ms times each call alone, from an idle card, and so adds the
+    two)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def nbytes(*tensors) -> int:
@@ -356,21 +402,27 @@ def plain_grad_ms(fn, inputs, cots) -> float:
 
 def check_local_attn_bwd(dev, gen, model, b):
     """K2 at the four stages' shapes of a batch-b step of `model`: the
-    gradients of the kernel pair against the plain version's autograd; ms
-    sums the backward calls of a step, one per block (the kernel backward
-    alone vs the plain version's autograd backward alone)."""
+    gradients of the kernel pair against the plain version's autograd, and
+    two calls on the same inputs bit for bit; ms sums the backward calls of a
+    step, one per block (the kernel pair alone, the reverse lists given, vs
+    the plain version's autograd backward alone).  dq_ms and dkv_ms are the
+    device times of the query-side and key-side kernels (queued_ms), summed
+    the same way; reverse_ms is the build of the stage's reverse lists, once
+    per stage."""
     import torch
     from autofocusformermod_torch.geometry.cluster import space_filling_cluster
     from autofocusformermod_torch.geometry.knn import knn
     from autofocusformermod_torch.ops.dispatch import plain_versions
     from autofocusformermod_torch.ops.local_attn import (
-        local_attn_forward, sfc_cluster_attention, sfc_cluster_attention_backward)
+        backward_key_side, backward_query_side, build_reverse_lists, local_attn_forward,
+        sfc_cluster_attention, sfc_cluster_attention_backward)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
 
     heads, dims, depths = BACKBONES[model]
     err, worst, ms, plain_ms, bnd = 0.0, 0.0, 0.0, 0.0, {}
+    dq_ms, dkv_ms, reverse_ms, fan_in = 0.0, 0.0, 0.0, 0
     for s in range(4):
         h, c_ = heads[s], dims[s] // heads[s]
         pos, means, _, _, _ = space_filling_cluster(grid_pos(128 >> s, 1 << s, 1, dev), 8, 128, 128)
@@ -394,10 +446,28 @@ def check_local_attn_bwd(dev, gen, model, b):
         q, k, v, w5, b5, bk = diff
         out, blank, lse = local_attn_forward(q, k, v, pos, nc, w5, b5, bk, 8)
         delta = ((g * out).sum(-1, keepdim=True) + gb * blank).contiguous()
-        t_k = cuda_ms(lambda: sfc_cluster_attention_backward(q, k, v, pos, nc, w5, b5, g, lse,
-                                                             delta, 8))
+        rev = build_reverse_lists(nc, n, 8)
+        fan_in = max(fan_in, (rev.offsets[:, 1:] - rev.offsets[:, :-1]).max().item())
+
+        def bwd():
+            return sfc_cluster_attention_backward(q, k, v, pos, nc, w5, b5, g, lse, delta, 8, rev)
+
+        # no atomics: the same inputs give the same bits, also with lists
+        # the wrapper builds itself
+        first = bwd()
+        again = sfc_cluster_attention_backward(q, k, v, pos, nc, w5, b5, g, lse, delta, 8)
+        if not all(torch.equal(a, r) for a, r in zip(first, again)):
+            raise SystemExit(f"local_attn backward {model} b{b} stage {s + 1}: two calls on the "
+                             "same inputs differ")
+        t_k = cuda_ms(bwd)
+        t_r = cuda_ms(lambda: build_reverse_lists(nc, n, 8))
+        _, _, p_, ds_ = backward_query_side(q, k, v, pos, nc, w5, b5, g, lse, delta, 8)
+        t_dq = queued_ms(lambda: backward_query_side(q, k, v, pos, nc, w5, b5, g, lse, delta, 8))
+        t_dkv = queued_ms(lambda: backward_key_side(q, g, p_, ds_, rev, 6, 8))
+        del p_, ds_
         t_p = plain_grad_ms(fwd, leaves, (g, gb))
         ms, plain_ms = ms + depths[s] * t_k, plain_ms + depths[s] * t_p
+        dq_ms, dkv_ms, reverse_ms = dq_ms + depths[s] * t_dq, dkv_ms + depths[s] * t_dkv, reverse_ms + t_r
         # per (query, head, neighbour): q.k again, g.v, and the three
         # products into dq, dk, dv (10 c_), and the bias and its gradient (20);
         # out: dq, dk, dv and the per-query rel-pos partials (5 per head)
@@ -405,19 +475,70 @@ def check_local_attn_bwd(dev, gen, model, b):
                                     + 4 * b * h * n * 5,
                                     b * h * n * 48 * (10 * c_ + 20)), depths[s])
         log(f"  local_attn bwd {model} b{b} stage {s + 1} q={tuple(q.shape)}: max_abs_err {e:.3e} "
-            f"(rel {rel:.3e}; dq dk dv dw5 db5 dblank_k) kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-        del diff, leaves, got, want, q, k, v, g, gb, out, blank, lse, delta
+            f"(rel {rel:.3e}; dq dk dv dw5 db5 dblank_k), bit-identical twice; kernel pair "
+            f"{t_k:.4f} ms a call (device: query side {t_dq:.4f}, key side {t_dkv:.4f}), "
+            f"reverse lists {t_r:.4f} ms, plain {t_p:.4f} ms")
+        del diff, leaves, got, want, first, again, q, k, v, g, gb, out, blank, lse, delta, rev
         torch.cuda.empty_cache()
     if not worst <= GRAD_RTOL:
         raise SystemExit(f"local_attn backward {model} b{b}: max rel err {worst} > {GRAD_RTOL}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd}
+    log(f"  local_attn bwd {model} b{b}: per step {ms:.3f} ms in calls, device {dq_ms:.3f} query "
+        f"side + {dkv_ms:.3f} key side, reverse lists {reverse_ms:.3f} ms (4 builds); largest "
+        f"fan-in {fan_in} references to one key cluster (mean 48)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "dq_ms": dq_ms,
+            "dkv_ms": dkv_ms, "reverse_ms": reverse_ms, "max_fan_in": fan_in}
+
+
+def check_local_attn_bwd_random(dev, gen):
+    """K2 on a neighbour list with no locality, at a small shape: random
+    cluster ids with duplicates and ids past the last cluster, n not a
+    multiple of the cluster size (so the last cluster is cut and the plain
+    version masks), once with 32-channel heads and once with 5-channel ones
+    (4-byte reads).  Against the plain version's autograd, and twice."""
+    import torch
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.local_attn import sfc_cluster_attention
+
+    worst = 0.0
+    for b, h, n, c_, nnc in ((2, 3, 1021, 32, 6), (2, 2, 203, 5, 6)):
+        n_cl = -(-n // 8)
+        nc = torch.randint(0, n_cl + 2, (b, n, nnc), generator=gen).int()
+        nc[:, ::3, 1] = nc[:, ::3, 0]
+        nc = nc.to(dev)
+        pos = torch.randint(0, 128, (b, n, 2), generator=gen).float().to(dev)
+        leaves = [(torch.randn(shape, generator=gen) * scale).to(dev).requires_grad_()
+                  for shape, scale in (((b, h, n, c_), c_ ** -0.5), ((b, h, n, c_), 1.0),
+                                       ((b, h, n, c_), 1.0), ((h, 5), 0.1), ((h,), 0.1),
+                                       ((h, c_), c_ ** -0.5))]
+        g, gb = torch.randn((b, h, n, c_), generator=gen).to(dev), torch.randn(
+            (b, h, n, 1), generator=gen).to(dev)
+
+        def grads():
+            q, k, v, w5, b5, bk = leaves
+            return torch.autograd.grad(sfc_cluster_attention(q, k, v, pos, nc, w5, b5, bk, 8),
+                                       leaves, (g, gb))
+
+        got, again = grads(), grads()
+        with plain_versions():
+            want = grads()
+        e, rel = grad_errs(got, want)
+        same = all(torch.equal(a, r) for a, r in zip(got, again))
+        worst = max(worst, rel)
+        log(f"  local_attn bwd random nc n={n} c_={c_}: max_abs_err {e:.3e} (rel {rel:.3e}), "
+            f"bit-identical twice: {same}")
+        if not same:
+            raise SystemExit("local_attn backward on a random nc: two calls differ")
+    if not worst <= GRAD_RTOL:
+        raise SystemExit(f"local_attn backward on a random nc: max rel err {worst} > {GRAD_RTOL}")
+    return worst
 
 
 def local_attn_bwd_record(paths: dict) -> dict:
     return {"name": "local_attn_bwd", "route": "cuda",
             "source": "autofocusformermod_torch/csrc/local_attn.cu",
             "replaces": "autofocusformermod_tpu/ops/pallas/local_attn.py:622",
-            "library_ms": None, **per_path(paths, f"aff_mini_b{TRAIN_BATCH}_step")}
+            "library_ms": None, "deterministic": True,
+            **per_path(paths, f"aff_mini_b{TRAIN_BATCH}_step")}
 
 
 def check_msdetrpc_bwd(dev, gen):
@@ -778,35 +899,107 @@ def check_sampling_layouts(dev, gen, b, backward):
     return results
 
 
+def path_sample_ranks(dev, gen, b, heads=8, points=4):
+    """Morton ranks as the channel-major prep makes them for the 4096-token
+    level (models/pixel_decoder.py:_level_fused_t): 4096 query positions on the
+    128x128 canvas in the backbone's curve order, plus (heads, points) offsets
+    of a few cells each, rounded half to even, clamped and ranked; (b, heads *
+    points * 4096) int32 with the queries minor, so neighbouring samples fall
+    in neighbouring cells."""
+    import torch
+    from autofocusformermod_torch.geometry.cluster import space_filling_cluster
+    from autofocusformermod_torch.geometry.morton import morton_rank
+
+    pos = space_filling_cluster(grid_pos(64, 2, 1, dev), 8, 128, 128)[0]     # (1, 4096, 2)
+    offs = (torch.randn((b, heads, points, 2, pos.shape[1]), generator=gen) * 2.0).to(dev)
+    sl = torch.round(pos.transpose(1, 2)[:, None, None] + offs).int()         # (b, h, k, 2, n)
+    gx = torch.clamp(sl[:, :, :, 0], 0, 127)
+    gy = torch.clamp(sl[:, :, :, 1], 0, 127)
+    return morton_rank(gx, gy, 7, 7).reshape(b, -1).contiguous()
+
+
 def check_window_gather(dev, gen, b):
     """K14 at a batch-b forward's one shape (the 4096-token level: 12-channel
     table over 128x128 cells, 8 heads x 4 points x 4096 queries = 131072
-    samples): exact equality with the plain version; ms sums a forward's 18
-    calls (6 layers x 3 value levels).  The library call is one torch.gather
-    on an index expanded over the channels beforehand."""
+    samples), at two index distributions: uniformly random rows (the worst
+    case for locality) and the path's own (path_sample_ranks).  Exact equality
+    with the plain version; ms sums a forward's 18 calls (6 layers x 3 value
+    levels).  The library call is one torch.gather on an index expanded over
+    the channels beforehand.  Three times each: per call alone (`ms`, from
+    cuda_ms as every record; for a kernel this short mostly the host's launch
+    work), per call in a run of calls (`run_ms`: the larger of the host's and
+    the card's share) and on the card alone (`device_ms`, from queued_ms);
+    `direct_kernel_device_ms` is the direct route's kernel on the same
+    operands.  The record's own figures
+    are the uniform case's, as every earlier record's; by_path has both.
+    Then once at a table too large for shared memory (256x256 cells), where
+    the direct route runs."""
     import torch
-    from autofocusformermod_torch.ops.dispatch import plain_versions
-    from autofocusformermod_torch.ops.window_gather import windowed_row_gather
+    from autofocusformermod_torch.ops.build import load_kernels
+    from autofocusformermod_torch.ops.dispatch import plain_versions, stream_of
+    from autofocusformermod_torch.ops.window_gather import (
+        window_gather_route, windowed_row_gather)
+
+    lib = load_kernels()
+
+    def hold(label, table, idx, route):
+        bb, c, n = table.shape
+        s = idx.shape[1]
+        if window_gather_route(n, s) != route:
+            raise SystemExit(f"window_gather {label}: expected the {route} route")
+        before = dict(windowed_row_gather.launches_by_route)
+        out = windowed_row_gather(table, idx)
+        took = {r: windowed_row_gather.launches_by_route[r] - before[r] for r in before}
+        if took != {r: int(r == route) for r in before}:
+            raise SystemExit(f"window_gather {label}: route counts moved by {took}")
+        with plain_versions():
+            ref = windowed_row_gather(table, idx)
+            t_p = cuda_ms(lambda: windowed_row_gather(table, idx))
+        t_k = cuda_ms(lambda: windowed_row_gather(table, idx))
+        wide = idx.long()[:, None, :].expand(bb, c, s).contiguous()
+        t_l = cuda_ms(lambda: torch.gather(table, 2, wide))
+        d_k = queued_ms(lambda: windowed_row_gather(table, idx))
+        d_l = queued_ms(lambda: torch.gather(table, 2, wide))
+        r_k = run_ms(lambda: windowed_row_gather(table, idx))
+        r_l = run_ms(lambda: torch.gather(table, 2, wide))
+        # the direct kernel on the same operands (the whole of the kernel
+        # before it had a shared-memory route), launched past the wrapper
+        scratch = torch.empty_like(out)
+        d_d = queued_ms(lambda: lib.aff_window_gather(
+            table.data_ptr(), idx.data_ptr(), scratch.data_ptr(), bb, c, n, s, stream_of(table)))
+        same = (torch.equal(out, ref) and torch.equal(torch.gather(table, 2, wide), ref)
+                and torch.equal(scratch, ref))
+        bnd = bound(nbytes(table, idx, out), 0)
+        log(f"  window_gather b{bb} {label} table={tuple(table.shape)} samples={s} route={route}: "
+            f"identical={same}; per call alone: kernel {t_k:.4f} ms, plain {t_p:.4f}, torch.gather "
+            f"{t_l:.4f}; in a run of calls: kernel {r_k:.4f}, torch.gather {r_l:.4f}; on the "
+            f"card: kernel {d_k:.4f}, direct kernel {d_d:.4f}, torch.gather {d_l:.4f}; bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        if not same:
+            raise SystemExit(f"window_gather {label}: kernel, plain version and torch.gather "
+                             "disagree")
+        return {"max_abs_err": 0.0, "kernel_route": route, "ms": 18 * t_k, "plain_ms": 18 * t_p,
+                "library_ms": 18 * t_l, "run_ms": 18 * r_k, "library_run_ms": 18 * r_l,
+                "device_ms": 18 * d_k, "direct_kernel_device_ms": 18 * d_d,
+                "library_device_ms": 18 * d_l,
+                "bound_ms": 18 * bnd["bound_ms"], "bound_by": bnd["bound_by"]}
 
     c, n, s = 12, 128 * 128, 8 * 4 * 4096
     table = torch.randn((b, c, n), generator=gen).to(dev)
-    idx = torch.randint(0, n, (b, s), generator=gen).int().to(dev)
-    out = windowed_row_gather(table, idx)
-    with plain_versions():
-        ref = windowed_row_gather(table, idx)
-        t_p = cuda_ms(lambda: windowed_row_gather(table, idx))
-    t_k = cuda_ms(lambda: windowed_row_gather(table, idx))
-    wide = idx.long()[:, None, :].expand(b, c, s).contiguous()
-    t_l = cuda_ms(lambda: torch.gather(table, 2, wide))
-    same = torch.equal(out, ref) and torch.equal(torch.gather(table, 2, wide), ref)
-    bnd = bound(nbytes(table, idx, out), 0)
-    log(f"  window_gather b{b} table={tuple(table.shape)} samples={s}: identical={same} kernel "
-        f"{t_k:.4f} ms, plain {t_p:.4f} ms, torch.gather {t_l:.4f} ms, bound "
-        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-    if not same:
-        raise SystemExit("window_gather: kernel, plain version and torch.gather disagree")
-    return {"max_abs_err": 0.0, "ms": 18 * t_k, "plain_ms": 18 * t_p, "library_ms": 18 * t_l,
-            "bound_ms": 18 * bnd["bound_ms"], "bound_by": bnd["bound_by"]}
+    paths = {"uniform": hold("uniform indices", table,
+                             torch.randint(0, n, (b, s), generator=gen).int().to(dev), "shared"),
+             "path_morton": hold("the path's Morton ranks", table,
+                                 path_sample_ranks(dev, gen, b), "shared")}
+    n_big = 256 * 256
+    big = torch.randn((b, c, n_big), generator=gen).to(dev)
+    paths["direct_route_256x256"] = hold(
+        "a table too large for shared memory", big,
+        torch.randint(0, n_big, (b, s), generator=gen).int().to(dev), "direct")
+    first = paths["uniform"]
+    return {**{k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "run_ms",
+                                     "library_run_ms", "device_ms", "library_device_ms",
+                                     "bound_ms", "bound_by")},
+            "by_path": paths}
 
 
 def check_lapjv_bad_costs(dev, gen, limit_s=20.0):
@@ -1490,6 +1683,7 @@ def main() -> int:
     for path, (name, b) in steps.items():
         local_attn_paths[path] = check_local_attn(dev, gen, name, b)
         local_attn_bwd_paths[path] = check_local_attn_bwd(dev, gen, name, b)
+    check_local_attn_bwd_random(dev, gen)
     for b in sorted({TRAIN_BATCH, SMALL_BATCH}):
         msdetrpc_paths[f"b{b}_step"] = check_msdetrpc(dev, gen, b)
         knn_paths[f"b{b}_step"] = check_knn(dev, gen, b)
@@ -1569,7 +1763,13 @@ def main() -> int:
         "msdetrpc_interleaved": clusten.msdetrpc,
         "msdetrpc_interleaved_bwd": clusten.msdetrpc_backward,
         "window_gather": windowed_row_gather}
+    by_route = dict(windowed_row_gather.launches_by_route)
     layout_launches = layouts_phase(dev, smi, images, default_out, layout_counters)
+    by_route = {r: windowed_row_gather.launches_by_route[r] - n for r, n in by_route.items()}
+    log(f"  window_gather launches by route on the layouts' forwards and steps: {by_route}")
+    if by_route["direct"] or by_route["shared"] < 18:
+        raise SystemExit(f"the channel-major prep's lookups took the routes {by_route}; the "
+                         "path's shape belongs to the shared route")
     del images, default_out
     torch.cuda.empty_cache()
 

@@ -9,8 +9,9 @@ gather-einsums and the kernels' plain versions: rtol = atol = 1e-5, the
 room fp32 leaves for the two frameworks summing the same products in another
 order (inner sizes <= 48 here).  Gradients: rtol = atol = 1e-4 (the
 cotangents are O(1) and every gradient sums <= 3 * 48 products more).  The
-kernels scatter their gradients with atomics, whose order changes from run
-to run, so on the card the gradients are held to the same 1e-4."""
+msdetrpc and point_sample kernels scatter their gradients with atomics, whose
+order changes from run to run (the local_attn pair sums in a fixed order), so
+on the card the gradients are held to the same 1e-4."""
 
 import numpy as np
 import pytest
@@ -309,48 +310,15 @@ def test_point_sample_plain_matches_pallas_interpret(jnp, rng):
 
 
 # ------------------------------------------- the autograd Functions, on CPU
-def _attn_launchers(q, k, v, pos, nc, w5, b5, span):
-    """What the local_attn kernels compute, in plain PyTorch: the forward's
-    lse, and the backward's dq (without the blank term), dk, dv and drow,
-    from p = exp(s - lse) over the valid slots (exact exclusion)."""
-    from autofocusformermod_torch.geometry.cluster import nbhd_from_cluster_ids
-
-    member, mask, rel5 = nbhd_from_cluster_ids(pos, nc, span, q.shape[2])
-    valid = torch.ones_like(member, dtype=torch.bool) if mask is None else mask > 0
-    s = tc.cluster_qk(q, k, member) + torch.einsum("bnmf,hf->bhnm", rel5, w5) + b5[:, None, None]
-    return member, valid[:, None], s, rel5
-
-
-def _fake_forward(q, k, v, pos, nc, w5, b5, blank_k, span):
-    _, valid, s, _ = _attn_launchers(q, k, v, pos, nc, w5, b5, span)
-    blank_logit = torch.einsum("bhnc,hc->bhn", q, blank_k)[..., None]
-    s = torch.where(valid, s, torch.full_like(s, -torch.inf))
-    lse = torch.logsumexp(torch.cat([s, blank_logit], -1), -1, keepdim=True)
-    out, blank = sfc_cluster_attention_plain(q, k, v, pos, nc, w5, b5, blank_k, span)
-    return out, blank, lse
-
-
-def _fake_backward(q, k, v, pos, nc, w5, b5, g, lse, delta, span):
-    member, valid, s, rel5 = _attn_launchers(q, k, v, pos, nc, w5, b5, span)
-    p = torch.where(valid, torch.exp(s - lse), torch.zeros_like(s))
-    ds = p * (tc.cluster_qk(g, v, member) - delta)
-    with torch.enable_grad():             # a Function's backward runs without
-        kk, vv = k.clone().requires_grad_(), v.clone().requires_grad_()
-        dk, dv = torch.autograd.grad((ds * tc.cluster_qk(q, kk, member)).sum()
-                                     + (p * tc.cluster_qk(g, vv, member)).sum(), [kk, vv])
-    drow = torch.cat([torch.einsum("bhnm,bnmf->bhnf", ds, rel5), ds.sum(-1, keepdim=True),
-                      torch.zeros_like(ds[..., :2])], -1)
-    return tc.cluster_av(ds, k, member), dk, dv, drow
-
-
 def test_local_attention_function_wiring(monkeypatch, rng):
     """The CUDA path's autograd Function, with its two launchers replaced by
-    plain PyTorch stand-ins, has a grad_fn and gives the plain version's
+    the package's plain versions of them, has a grad_fn and gives the plain version's
     gradients: the blank-sink terms and the w5/b5/blank_k reductions around
     the kernels are right (regression: the CUDA forward returned tensors
     without a grad_fn, so training cut the gradient silently)."""
-    monkeypatch.setattr(la, "local_attn_forward", _fake_forward)
-    monkeypatch.setattr(la, "sfc_cluster_attention_backward", _fake_backward)
+    monkeypatch.setattr(la, "local_attn_forward", la.local_attn_forward_plain)
+    monkeypatch.setattr(la, "sfc_cluster_attention_backward",
+                        la.sfc_cluster_attention_backward_plain)
     args = list(map(_t, _attn_case(rng, n=64, c=5, span=8, nnc=3)))
     g, gb = map(_t, _attn_cots(rng, args[0]))
 
