@@ -23,13 +23,24 @@
 // queries mostly share, so L2 serves most of it; the arithmetic is ~2 flops
 // per byte.
 //
-// Design: one warp per (batch, query), looping over heads, so the geometry
-// (neighbour indices and the five rel-pos features) is computed once and
-// shared by every head from shared memory.  Lanes split the neighbour slots
-// for q.k and the softmax (warp shuffles for max and sum), then split the
-// channels for p.v, reading value rows coalesced.  The TPU kernel's
-// 128-token blocks and visit lists exist for its (8,128) tiling and VMEM and
-// are not carried over.
+// Design (local_attn_kernel): one warp per (batch, query), looping over
+// heads, so the geometry (neighbour indices and the five rel-pos features)
+// is computed once and shared by every head from shared memory; the 8 warps
+// of a block take 8 consecutive queries (one cluster where span is 8), whose
+// neighbour lists are nearly the same, so L1 serves most rows after the
+// first warp.  Two passes, each reading its rows coalesced as the backward's
+// query side does (local_attn_common.cuh: LPR lanes per row, 16 bytes per
+// lane, two row groups in flight): q.k into shared memory with a lane-group
+// shuffle sum and the bias computed once per head and slot, the softmax with
+// lanes over slots, then p.v over the value rows.  Two passes rather than an
+// online softmax: each row is read once either way, and the second pass
+// needs no rescaling.  The TPU kernel's 128-token blocks and visit lists
+// exist for its (8,128) tiling and VMEM and are not carried over.  One warp
+// serving 2 or 4 queries of a cluster (the union of their clusters walked
+// once, every row scored against all their q rows in registers) ran 1.7-2.0
+// times slower than this kernel over a step of either model (PERF.md): the
+// union is larger than one list, and the per-query masks and biases cost
+// more than the shared reads save.
 //
 // Backward: a query-side and a key-side kernel, as the TPU's pair
 // (_bwd_dq_kernel over row blocks, _bwd_dkv_kernel over column blocks and
@@ -93,87 +104,109 @@ namespace {
 
 using namespace local_attn;
 
-constexpr int kWarps = 4;
+constexpr int kFwdWarps = 8;      // one cluster of queries per block where span is 8
 
-__global__ void __launch_bounds__(kWarps * 32)
+// Forward.  VEC floats per lane and LPR lanes per row (32 / LPR rows per load
+// instruction); a lane holds UNITS units of VEC channels: channel
+// (lig + u * LPR) * VEC, lig its place in the row's lane group -- the layout
+// of the backward's query side, whose row reads this kernel shares.
+template <int VEC, int LPR, int UNITS>
+__global__ void __launch_bounds__(kFwdWarps * 32)
 local_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ pos,
                   const int* __restrict__ nc, const float* __restrict__ w5,
                   const float* __restrict__ b5, const float* __restrict__ blank_k,
                   float* __restrict__ out, float* __restrict__ blank_prob,
                   float* __restrict__ lse, int B, int H, int N, int C, int NNC, int SPAN) {
-  __shared__ float s_feat[kWarps][5][kMaxSlots];
-  __shared__ int s_key[kWarps][kMaxSlots];
-  __shared__ float s_p[kWarps][kMaxSlots];
-  __shared__ float s_q[kWarps][kMaxC];
+  constexpr int RPI = 32 / LPR;   // rows per load instruction
+  constexpr int kStep = 2;        // row groups in flight
+  __shared__ float s_feat[kFwdWarps][5][kMaxSlots];
+  __shared__ int s_key[kFwdWarps][kMaxSlots];
+  __shared__ float s_p[kFwdWarps][kMaxSlots];
+  __shared__ float s_bias[kFwdWarps][kMaxSlots];
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + warp;  // over B*N
+  const long long row = (long long)blockIdx.x * kFwdWarps + warp;  // over B*N
   if (row >= (long long)B * N) return;  // the whole warp leaves together
   const int bi = (int)(row / N);
   const int i = (int)(row % N);
   const int M = NNC * SPAN;
+  const int lig = lane % LPR;
+  const int rl = lane / LPR;
 
   // geometry shared by all heads
-  const float* pb = pos + (size_t)bi * N * 2;
-  const float qx = pb[2 * i];
-  const float qy = pb[2 * i + 1];
-  const int* nci = nc + ((size_t)bi * N + i) * NNC;
-  for (int s = lane; s < M; s += 32) {
-    const int j = nci[s / SPAN] * SPAN + s % SPAN;
-    const bool valid = j >= 0 && j < N;
-    float dx = 0.f, dy = 0.f, dist = 0.f, sn = 0.f, cs = 0.f;
-    if (valid) {
-      dx = fminf(fmaxf(pb[2 * j] - qx, -kRelPosWidth), kRelPosWidth);
-      dy = fminf(fmaxf(pb[2 * j + 1] - qy, -kRelPosWidth), kRelPosWidth);
-      dist = sqrtf(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)));
-      if (dist > 0.f) {
-        sn = dy / dist;
-        cs = dx / dist;
-      }
-    }
-    s_key[warp][s] = valid ? j : -1;
-    s_feat[warp][0][s] = dx;
-    s_feat[warp][1][s] = dy;
-    s_feat[warp][2][s] = dist;
-    s_feat[warp][3][s] = sn;
-    s_feat[warp][4][s] = cs;
-  }
+  neighbourhood(pos + (size_t)bi * N * 2, nc + ((size_t)bi * N + i) * NNC, i, N, NNC, SPAN,
+                lane, s_key[warp], s_feat[warp]);
   __syncwarp();
 
   for (int hh = 0; hh < H; ++hh) {
     const size_t head = (size_t)bi * H + hh;
-    const float* qrow = q + (head * N + i) * C;
-    for (int c = lane; c < C; c += 32) s_q[warp][c] = qrow[c];
-    __syncwarp();
-
+    const size_t qi = head * N + i;
+    float qv[UNITS][VEC];
+    float bl = 0.f;   // the blank logit, over this lane's channels first
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u) {
+      const int ch = (lig + u * LPR) * VEC;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qv[u][e] = 0.f;
+      if (ch < C) {
+        float bk[VEC];
+        load_unit<VEC>(q + qi * C + ch, qv[u]);
+        load_unit<VEC>(blank_k + (size_t)hh * C + ch, bk);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) bl += qv[u][e] * bk[e];
+      }
+    }
+    bl = group_sum<LPR>(bl);
     const float* kh = k + head * N * C;
     const float* vh = v + head * N * C;
     const float w0 = w5[hh * 5 + 0], w1 = w5[hh * 5 + 1], w2 = w5[hh * 5 + 2];
     const float w3 = w5[hh * 5 + 3], w4 = w5[hh * 5 + 4], bb = b5[hh];
 
-    float mx = -CUDART_INF_F;
-    for (int s = lane; s < M; s += 32) {
-      const int j = s_key[warp][s];
-      float logit = -CUDART_INF_F;
-      if (j >= 0) {
-        const float* kr = kh + (size_t)j * C;
-        float acc = 0.f;
-        for (int c = 0; c < C; ++c) acc += s_q[warp][c] * kr[c];
-        const float bias = s_feat[warp][0][s] * w0 + s_feat[warp][1][s] * w1 +
-                           s_feat[warp][2][s] * w2 + s_feat[warp][3][s] * w3 +
-                           s_feat[warp][4][s] * w4 + bb;
-        logit = acc + bias;
-      }
-      s_p[warp][s] = logit;
-      mx = fmaxf(mx, logit);
-    }
-    float bl = 0.f;
-    for (int c = lane; c < C; c += 32) bl += s_q[warp][c] * blank_k[hh * C + c];
-    bl = warp_sum(bl);
-    mx = fmaxf(warp_max(mx), bl);
+    // the rel-pos bias of every slot, lanes over slots
+    for (int s = lane; s < M; s += 32)
+      s_bias[warp][s] = s_feat[warp][0][s] * w0 + s_feat[warp][1][s] * w1 +
+                        s_feat[warp][2][s] * w2 + s_feat[warp][3][s] * w3 +
+                        s_feat[warp][4][s] * w4 + bb;
+    __syncwarp();
 
+    // pass 1: the logits, key rows read coalesced, kStep row groups per
+    // step; the bound is uniform over the warp, which shuffles
+    float mx = -CUDART_INF_F;
+    for (int s0 = 0; s0 < M; s0 += kStep * RPI) {
+      int j[kStep];
+      float qk[kStep];
+#pragma unroll
+      for (int y = 0; y < kStep; ++y) {
+        const int s = s0 + y * RPI + rl;
+        j[y] = s < M ? s_key[warp][s] : -1;
+        qk[y] = 0.f;
+#pragma unroll
+        for (int u = 0; u < UNITS; ++u) {
+          const int ch = (lig + u * LPR) * VEC;
+          if (j[y] >= 0 && ch < C) {
+            float kr[VEC];
+            load_unit<VEC>(kh + (size_t)j[y] * C + ch, kr);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) qk[y] += qv[u][e] * kr[e];
+          }
+        }
+      }
+#pragma unroll
+      for (int y = 0; y < kStep; ++y) qk[y] = group_sum<LPR>(qk[y]);
+#pragma unroll
+      for (int y = 0; y < kStep; ++y) {
+        const int s = s0 + y * RPI + rl;
+        const float logit = j[y] >= 0 ? qk[y] + s_bias[warp][s] : -CUDART_INF_F;
+        if (lig == 0 && s < M) s_p[warp][s] = logit;
+        mx = fmaxf(mx, logit);
+      }
+    }
+    mx = fmaxf(warp_max(mx), bl);
+    __syncwarp();
+
+    // the softmax, lanes over slots
     float sum = 0.f;
     for (int s = lane; s < M; s += 32) {
       const float e = s_key[warp][s] >= 0 ? expf(s_p[warp][s] - mx) : 0.f;
@@ -185,20 +218,43 @@ local_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / total;
     __syncwarp();
 
-    float* orow = out + (head * N + i) * C;
-    for (int c = lane; c < C; c += 32) {
-      float acc = 0.f;
-      for (int s = 0; s < M; ++s) {
-        const int j = s_key[warp][s];
-        if (j >= 0) acc += s_p[warp][s] * vh[(size_t)j * C + c];
+    // pass 2: p.v, value rows read coalesced as the key rows were
+    float acc[UNITS][VEC];
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[u][e] = 0.f;
+    for (int s0 = 0; s0 < M; s0 += kStep * RPI) {
+#pragma unroll
+      for (int y = 0; y < kStep; ++y) {
+        const int s = s0 + y * RPI + rl;
+        const int j = s < M ? s_key[warp][s] : -1;
+        if (j < 0) continue;
+        const float p = s_p[warp][s];
+#pragma unroll
+        for (int u = 0; u < UNITS; ++u) {
+          const int ch = (lig + u * LPR) * VEC;
+          if (ch < C) {
+            float vr[VEC];
+            load_unit<VEC>(vh + (size_t)j * C + ch, vr);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[u][e] += p * vr[e];
+          }
+        }
       }
-      orow[c] = acc * inv;
+    }
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[u][e] = across_groups_sum<LPR>(acc[u][e]) * inv;
+      const int ch = (lig + u * LPR) * VEC;
+      if (rl == 0 && ch < C) store_unit<VEC>(out + qi * C + ch, acc[u]);
     }
     if (lane == 0) {
-      blank_prob[head * N + i] = pblank * inv;
-      lse[head * N + i] = mx + logf(total);
+      blank_prob[qi] = pblank * inv;
+      lse[qi] = mx + logf(total);
     }
-    __syncwarp();  // s_q / s_p are rewritten by the next head
+    __syncwarp();  // s_p / s_bias are rewritten by the next head
   }
 }
 
@@ -468,12 +524,22 @@ extern "C" int aff_local_attn(const float* q, const float* k, const float* v,
                               const float* b5, const float* blank_k, float* out,
                               float* blank_prob, float* lse, int b, int h, int n,
                               int c, int nnc, int span, void* stream_ptr) {
-  if (nnc * span > kMaxSlots || c > kMaxC || nnc * span <= 0 || c <= 0)
+  if (nnc * span > kMaxSlots || c > kMaxC || nnc <= 0 || span <= 0 || c <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long rows = (long long)b * n;
-  const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
-  local_attn_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-      q, k, v, pos, nc, w5, b5, blank_k, out, blank_prob, lse, b, h, n, c, nnc, span);
+  const unsigned blocks = (unsigned)((rows + kFwdWarps - 1) / kFwdWarps);
+#define FWD_LAUNCH(VEC, LPR, UNITS)                                                     \
+  local_attn_kernel<VEC, LPR, UNITS><<<blocks, kFwdWarps * 32, 0, stream>>>(             \
+      q, k, v, pos, nc, w5, b5, blank_k, out, blank_prob, lse, b, h, n, c, nnc, span)
+  // 16 bytes per lane where every row starts at a multiple of 16 bytes
+  const bool vec = c % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+                   aligned16(blank_k) && aligned16(out);
+  if (vec && c <= 16) FWD_LAUNCH(4, 4, 1);
+  else if (vec && c <= 32) FWD_LAUNCH(4, 8, 1);
+  else if (vec) FWD_LAUNCH(4, 16, 1);
+  else FWD_LAUNCH(1, 32, 2);
+#undef FWD_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

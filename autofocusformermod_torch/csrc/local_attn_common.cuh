@@ -1,6 +1,7 @@
 // Device functions shared by the local_attn kernels (csrc/local_attn.cu):
 // the limits, the warp and lane-group reductions, the neighbourhood geometry
-// of one query, and the coalesced read of a key or value row.
+// of one query, and the coalesced read of a key or value row (which the
+// msdetrpc backward, csrc/msdetrpc.cu, uses for its value rows too).
 //
 // A head's rows lie C floats apart in the (b, h, n, c_) layout and tokens are
 // sorted along the curve, so the span rows of one neighbour cluster are one

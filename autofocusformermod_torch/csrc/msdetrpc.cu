@@ -25,14 +25,38 @@
 //
 // Backward, for g = d out (bh, n, c_):
 //   d_w[r, q, jp] = <g[r, q, :], val[r, row(jp), :]>
-//   d_val[r, row(jp), :] += w[r, q, jp] * g[r, q, :]
-// with the same warp-per-query layout: each pair is one coalesced row read,
-// a warp-shuffle dot product and one coalesced row of atomicAdd reductions
-// (many queries sample the same value row; the TPU kernel accumulates
-// one-hot matmuls into a VMEM-resident d_val instead).  Bound by those
-// reductions in L2: L*P*c_ per query.
+//   d_val[r, row, :] = sum over the (q, jp) with row(jp) = row of w[r, q, jp] * g[r, q, :]
+// Many queries sample the same value row (at n = 4096 each of level 0's 256
+// rows ~256 times per image-head), so d_val is a reduction by row.  The TPU
+// kernel accumulates it with one-hot matmuls into VMEM-resident band windows
+// (_bwd_kernel_v4).  Here, with no float atomic and no zero-fill, two
+// kernels:
+//   1. msdetrpc_bwd_tile_kernel: a block per (r, tile of T consecutive
+//      queries; T * L*P <= 1536 entries, T = 32 at 3 x 16 pairs).  A warp per
+//      query computes d_w with the g row in registers and its value rows read
+//      coalesced (LPR lanes per row, 16 bytes per lane, several pairs in
+//      flight, a lane-group shuffle sum per pair).  The block sorts its
+//      (row, entry) pairs by row (a stable block radix sort, so equal rows
+//      keep the entry order) and sums each run of one row in that order:
+//      one partial row per distinct row, stored with its row in the tile's
+//      part of a scratch pool.  Queries come in curve order, so a tile's rows
+//      at a level are few and close.
+//   2. msdetrpc_bwd_band_kernel: a warp per (r, band of 32 value rows) walks
+//      the tiles in order and adds the partial rows of those with rows in
+//      the band (pass 1 leaves, per tile, where each band starts in its
+//      sorted list); every d_val row is written once.
+// The order of every sum is fixed, so two calls give the same bits.  What
+// bounds it: the value-row reads of d_w (as the forward) and the block sort.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+#include <cub/block/block_radix_sort.cuh>
+#include <cub/block/block_scan.cuh>
+
+#include "local_attn_common.cuh"
 
 namespace {
 
@@ -77,37 +101,278 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__global__ void __launch_bounds__(32 * kQueriesPerBlock)
-msdetrpc_bwd_kernel(const int* __restrict__ idx, const float* __restrict__ w,
-                    const float* __restrict__ val, const float* __restrict__ g,
-                    float* __restrict__ dval, float* __restrict__ dw,
-                    int N, int NTOT, int C, int P, Levels lv) {
+// The row reads of the local_attn kernels: LPR lanes per row, VEC floats per
+// lane, a lane-group shuffle sum.
+using local_attn::group_sum;
+using local_attn::load_unit;
+using local_attn::store_unit;
+
+inline bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+
+// The backward of the stacked layout.  Pass 1, per (r, tile of T queries).
+constexpr int kBwdThreads = 256;
+constexpr int kBwdItems = 6;                          // sort keys per thread
+constexpr int kBwdCap = kBwdThreads * kBwdItems;      // (query, pair) entries per tile
+constexpr int kBwdMaxQueries = 32;
+constexpr int kEntBits = 11, kEntMask = (1 << kEntBits) - 1;
+static_assert(kBwdCap <= 1 << kEntBits, "an entry id must fit its bits of the sort value");
+constexpr int kBwdMaxC = 64;
+constexpr int kBand = 32;                             // value rows per warp of pass 2
+constexpr int kBandWarps = 4;
+
+int bwd_tile_queries(int lp) { return lp > kBwdCap ? 0 : std::min(kBwdMaxQueries, kBwdCap / lp); }
+
+// Distinct rows a tile can leave: at most its entries, and per level at most
+// the level's rows.
+int bwd_pool_rows(int tile, int pairs, const Levels& lv) {
+  int rows = 0;
+  for (int j = 0; j < lv.count; ++j) rows += std::min(tile * pairs, lv.size[j]);
+  return rows;
+}
+
+// VEC floats per lane and LPR lanes per value row for d_w, as the local_attn
+// kernels read their rows (UNITS units of VEC channels per lane).
+template <int VEC, int LPR, int UNITS>
+__global__ void __launch_bounds__(kBwdThreads, 5)
+msdetrpc_bwd_tile_kernel(const int* __restrict__ idx, const float* __restrict__ w,
+                         const float* __restrict__ val, const float* __restrict__ g,
+                         float* __restrict__ dw, int* __restrict__ pool_row,
+                         float* __restrict__ pool_val, int* __restrict__ band_start, int N,
+                         int NTOT, int C, int P, int T, int key_bits, int cap, Levels lv) {
+  using Sort = cub::BlockRadixSort<unsigned, kBwdThreads, kBwdItems, int>;
+  using Scan = cub::BlockScan<int, kBwdThreads>;
+  constexpr int RPI = 32 / LPR;   // rows per load instruction
+  constexpr int kStep = 6;        // row groups in flight
+  __shared__ union {
+    typename Sort::TempStorage sort;
+    typename Scan::TempStorage scan;
+    int start[kBwdCap + 1];       // first sorted place of each run, after the scan
+  } tmp;
+  __shared__ int s_row[kBwdCap];  // entry order, then sorted
+  __shared__ int s_ent[kBwdCap];  // sorted: the entries, with their queries
+  __shared__ float s_w[kBwdCap];
+  __shared__ __align__(16) float s_g[kBwdMaxQueries * kBwdMaxC];
+  __shared__ int s_off[kMaxLevels], s_size[kMaxLevels];
+
   const int r = blockIdx.y;
-  const int qi = blockIdx.x * kQueriesPerBlock + threadIdx.y;
-  if (qi >= N) return;  // the whole warp leaves together
+  const int tile = blockIdx.x;
+  const int q0 = tile * T;
+  const int nq = min(T, N - q0);
   const int LP = lv.count * P;
-  const int* ir = idx + ((size_t)r * N + qi) * LP;
-  const float* wr = w + ((size_t)r * N + qi) * LP;
+  const int ne = nq * LP;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const size_t ent0 = ((size_t)r * N + q0) * LP;     // the tile's entries are contiguous
   const float* vr = val + (size_t)r * NTOT * C;
-  float* dvr = dval + (size_t)r * NTOT * C;
-  const float* grow = g + ((size_t)r * N + qi) * C;
-  float* dwr = dw + ((size_t)r * N + qi) * LP;
-  for (int j = 0; j < lv.count; ++j) {
-    const int off = lv.off[j];
-    const int last = lv.size[j] - 1;
-    for (int p = 0; p < P; ++p) {
-      const size_t row = (size_t)(off + min(max(ir[j * P + p], 0), last));
-      const float wp = wr[j * P + p];
-      float dot = 0.f;
-      for (int c = threadIdx.x; c < C; c += 32) {
-        const float gc = grow[c];
-        dot += gc * vr[row * C + c];
-        atomicAdd(dvr + row * C + c, wp * gc);
-      }
-      dot = warp_sum(dot);
-      if (threadIdx.x == 0) dwr[j * P + p] = dot;
+
+  // the level table to shared memory, read at fixed offsets (an index known
+  // only at run time would copy the struct to local memory)
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l) {
+    if (tid == l) {
+      s_off[l] = lv.off[l];
+      s_size[l] = lv.size[l];
     }
   }
+  __syncthreads();
+  // thread tid takes entries tid * kBwdItems + x (the blocked arrangement the
+  // sort wants), walking (query, level, pair) from one division.  The sort's
+  // value carries the entry and its query: q << kEntBits | e.  Past the
+  // entries: the key NTOT.
+  unsigned keys[kBwdItems];
+  int ents[kBwdItems];
+  {
+    const int e0 = tid * kBwdItems;
+    int q = e0 / LP, s = e0 - q * LP;
+    int j = s / P, pj = s - j * P;
+#pragma unroll
+    for (int x = 0; x < kBwdItems; ++x) {
+      const int e = e0 + x;
+      keys[x] = NTOT;
+      if (e < ne) {
+        const int row = s_off[j] + min(max(idx[ent0 + e], 0), s_size[j] - 1);
+        s_row[e] = row;
+        s_w[e] = w[ent0 + e];
+        keys[x] = row;
+      }
+      ents[x] = q << kEntBits | e;
+      if (++pj == P) {
+        pj = 0;
+        ++j;
+      }
+      if (++s == LP) {
+        s = j = 0;
+        ++q;
+      }
+    }
+  }
+  for (int x = tid; x < nq * C; x += kBwdThreads) s_g[x] = g[((size_t)r * N + q0) * C + x];
+  __syncthreads();
+
+  // d_w: a warp per query, the g row in registers, kStep row groups in flight
+  const int lig = lane % LPR, rl = lane / LPR;
+  for (int ql = warp; ql < nq; ql += kBwdThreads / 32) {
+    float gv[UNITS][VEC];
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u) {
+      const int ch = (lig + u * LPR) * VEC;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) gv[u][e] = ch + e < C ? s_g[ql * C + ch + e] : 0.f;
+    }
+    for (int s0 = 0; s0 < LP; s0 += kStep * RPI) {
+      float dot[kStep];
+#pragma unroll
+      for (int y = 0; y < kStep; ++y) {
+        const int s = s0 + y * RPI + rl;
+        dot[y] = 0.f;
+        if (s < LP) {
+          const float* vrow = vr + (size_t)s_row[ql * LP + s] * C;
+#pragma unroll
+          for (int u = 0; u < UNITS; ++u) {
+            const int ch = (lig + u * LPR) * VEC;
+            if (ch < C) {
+              float x[VEC];
+              load_unit<VEC>(vrow + ch, x);
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) dot[y] += gv[u][e] * x[e];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int y = 0; y < kStep; ++y) {
+        const int s = s0 + y * RPI + rl;
+        dot[y] = group_sum<LPR>(dot[y]);
+        if (lig == 0 && s < LP) dw[ent0 + (size_t)ql * LP + s] = dot[y];
+      }
+    }
+  }
+
+  // sort the entries by row; entry e sits at place e, so the sort's
+  // stability keeps equal rows in entry order
+  __syncthreads();              // every warp is done with s_row in entry order
+  Sort(tmp.sort).Sort(keys, ents, 0, key_bits);
+#pragma unroll
+  for (int x = 0; x < kBwdItems; ++x) {
+    s_row[tid * kBwdItems + x] = keys[x];
+    s_ent[tid * kBwdItems + x] = ents[x];
+  }
+  __syncthreads();
+
+  // runs of one row: a run starts where the row changes
+  int heads = 0;
+#pragma unroll
+  for (int x = 0; x < kBwdItems; ++x) {
+    const int e = tid * kBwdItems + x;
+    heads += e < ne && (e == 0 || s_row[e - 1] != s_row[e]);
+  }
+  int first, runs;
+  Scan(tmp.scan).ExclusiveSum(heads, first, runs);
+  __syncthreads();              // the scan's storage becomes tmp.start
+#pragma unroll
+  for (int x = 0; x < kBwdItems; ++x) {
+    const int e = tid * kBwdItems + x;
+    if (e < ne && (e == 0 || s_row[e] != s_row[e - 1])) tmp.start[first++] = e;
+  }
+  if (tid == 0) tmp.start[runs] = ne;
+  __syncthreads();
+
+  // where each band of kBand value rows starts in the tile's list of
+  // distinct rows (band-major, so that pass 2 reads 32 tiles at once): band
+  // k starts at the first run whose row lies in band k or later
+  const int tiles = gridDim.x, bands = (NTOT + kBand - 1) / kBand;
+  int* bs = band_start + (size_t)r * (bands + 1) * tiles + tile;
+  for (int run = tid; run < runs; run += kBwdThreads) {
+    const int band = s_row[tmp.start[run]] / kBand;
+    const int prev = run == 0 ? -1 : s_row[tmp.start[run - 1]] / kBand;
+    for (int k = prev + 1; k <= band; ++k) bs[(size_t)k * tiles] = run;
+  }
+  const int last = runs == 0 ? -1 : s_row[tmp.start[runs - 1]] / kBand;
+  for (int k = last + 1 + tid; k <= bands; k += kBwdThreads) bs[(size_t)k * tiles] = runs;
+
+  // one partial row per run, summed in entry order; a group of LPR lanes per
+  // run (32 / LPR runs per warp at once), channels as in d_w
+  const size_t tile_lin = (size_t)r * tiles + tile;
+  int* prow = pool_row + tile_lin * cap;
+  float* pval = pool_val + tile_lin * cap * C;
+  for (int run = warp * RPI + rl; run < runs; run += kBwdThreads / 32 * RPI) {
+    const int beg = tmp.start[run], end = tmp.start[run + 1];
+    float acc[UNITS][VEC];
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[u][e] = 0.f;
+    for (int x = beg; x < end; ++x) {
+      const int ent = s_ent[x];
+      const float wt = s_w[ent & kEntMask];
+      const float* gq = s_g + (ent >> kEntBits) * C;
+#pragma unroll
+      for (int u = 0; u < UNITS; ++u) {
+        const int ch = (lig + u * LPR) * VEC;
+        if (ch < C) {
+          float gx[VEC];
+          load_unit<VEC>(gq + ch, gx);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[u][e] += wt * gx[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNITS; ++u) {
+      const int ch = (lig + u * LPR) * VEC;
+      if (ch < C) store_unit<VEC>(pval + (size_t)run * C + ch, acc[u]);
+    }
+    if (lig == 0) prow[run] = s_row[beg];
+  }
+}
+
+// Pass 2: a warp per (r, band of kBand value rows), kBandWarps bands a block.
+// The warp walks the tiles in order, 32 at a time (one per lane), and adds
+// the partial rows of those with rows in the band into the band's rows in
+// shared memory, lanes over channels; every d_val row is written once.
+__global__ void __launch_bounds__(kBandWarps * 32)
+msdetrpc_bwd_band_kernel(const int* __restrict__ pool_row, const float* __restrict__ pool_val,
+                         const int* __restrict__ band_start, float* __restrict__ dval,
+                         int tiles, int NTOT, int C, int cap) {
+  __shared__ float s_acc[kBandWarps][kBand][kBwdMaxC];
+  __shared__ int s_xr[kBandWarps][kBand];       // the band rows of the tile at hand
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.y;
+  const int bands = (NTOT + kBand - 1) / kBand;
+  const int band = blockIdx.x * kBandWarps + warp;
+  if (band >= bands) return;                    // the whole warp leaves together
+  const int x0 = band * kBand;
+  float (*acc)[kBwdMaxC] = s_acc[warp];
+  for (int x = 0; x < kBand; ++x)
+    for (int c = lane; c < C; c += 32) acc[x][c] = 0.f;
+
+  const int* bs = band_start + ((size_t)r * (bands + 1) + band) * tiles;
+  for (int b0 = 0; b0 < tiles; b0 += 32) {
+    // the tiles with rows in the band: [begin, end) of their lists
+    const int t = b0 + lane;
+    const int begin = t < tiles ? bs[t] : 0;
+    const int end = t < tiles ? bs[tiles + t] : 0;
+    for (unsigned mask = __ballot_sync(0xffffffffu, end > begin); mask; mask &= mask - 1) {
+      const int y0 = __ffs(mask) - 1;
+      const int tb = __shfl_sync(0xffffffffu, begin, y0);
+      const int m = __shfl_sync(0xffffffffu, end, y0) - tb;    // distinct rows: m <= kBand
+      const size_t at = ((size_t)r * tiles + b0 + y0) * cap + tb;
+      if (lane < m) s_xr[warp][lane] = pool_row[at + lane] - x0;
+      __syncwarp();
+      const float* part = pool_val + at * C;
+      for (int c = lane; c < C; c += 32) {
+        float v[kBand];             // the tile's rows, all loads issued before the sums
+#pragma unroll
+        for (int y = 0; y < kBand; ++y) v[y] = y < m ? part[(size_t)y * C + c] : 0.f;
+#pragma unroll
+        for (int y = 0; y < kBand; ++y)
+          if (y < m) acc[s_xr[warp][y]][c] += v[y];
+      }
+      __syncwarp();                 // s_xr is rewritten for the next tile
+    }
+  }
+  for (int x = 0; x < min(kBand, NTOT - x0); ++x)
+    for (int c = lane; c < C; c += 32) dval[((size_t)r * NTOT + x0 + x) * C + c] = acc[x][c];
 }
 
 bool make_levels(int n_levels, const int* level_sizes, int ntot, Levels* lv) {
@@ -371,19 +636,59 @@ extern "C" int aff_msdetrpc(const int* idx, const float* w, const float* val,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The forward's operands plus g (bh, n, c) = d out -> dval (bh, ntot, c),
-// which must arrive zeroed (atomic scatter), and dw (bh, n, L*P).
-extern "C" int aff_msdetrpc_bwd(const int* idx, const float* w, const float* val,
-                                const float* g, float* dval, float* dw, int bh, int n,
-                                int ntot, int c, int n_levels, const int* level_sizes,
-                                int pairs, void* stream_ptr) {
+// The backward's scratch for bh image-heads of n queries: ints[0] tiles per
+// image-head, ints[1] pool rows per tile, ints[2] band starts per tile.  The
+// caller allocates pool_row (bh * tiles * rows) int32, pool_val (bh * tiles
+// * rows, c) f32 and band_start (bh * tiles * starts) int32.
+extern "C" int aff_msdetrpc_bwd_scratch(int n, int n_levels, const int* level_sizes,
+                                        int pairs, int* ints) {
   Levels lv;
-  if (pairs < 1 || c < 1 || !make_levels(n_levels, level_sizes, ntot, &lv))
+  int ntot = 0;
+  for (int j = 0; j < n_levels && j < kMaxLevels; ++j) ntot += level_sizes[j];
+  const int tile = pairs < 1 ? 0 : bwd_tile_queries(n_levels * pairs);
+  if (n < 1 || tile < 1 || !make_levels(n_levels, level_sizes, ntot, &lv))
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 block(32, kQueriesPerBlock);
-  dim3 grid((n + kQueriesPerBlock - 1) / kQueriesPerBlock, bh);
-  msdetrpc_bwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-      idx, w, val, g, dval, dw, n, ntot, c, pairs, lv);
+  ints[0] = (n + tile - 1) / tile;
+  ints[1] = bwd_pool_rows(tile, pairs, lv);
+  ints[2] = (ntot + kBand - 1) / kBand + 1;
+  return 0;
+}
+
+// The forward's operands plus g (bh, n, c) = d out -> dval (bh, ntot, c) and
+// dw (bh, n, L*P), every element written; the scratch as
+// aff_msdetrpc_bwd_scratch gives it.  c <= 64; L*P <= 1536.
+extern "C" int aff_msdetrpc_bwd(const int* idx, const float* w, const float* val,
+                                const float* g, float* dval, float* dw, int* pool_row,
+                                float* pool_val, int* band_start, int bh, int n, int ntot, int c,
+                                int n_levels, const int* level_sizes, int pairs,
+                                void* stream_ptr) {
+  Levels lv;
+  const int tile = pairs < 1 ? 0 : bwd_tile_queries(n_levels * pairs);
+  if (tile < 1 || c < 1 || c > kBwdMaxC || n < 1 || bh < 1 || bh > 65535 ||
+      !make_levels(n_levels, level_sizes, ntot, &lv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int tiles = (n + tile - 1) / tile;
+  const int cap = bwd_pool_rows(tile, pairs, lv);
+  const int key_bits = 32 - __builtin_clz((unsigned)ntot);   // rows and the past-end key ntot
+  const dim3 grid(tiles, bh);
+#define TILE_LAUNCH(VEC, LPR, UNITS)                                                       \
+  msdetrpc_bwd_tile_kernel<VEC, LPR, UNITS><<<grid, kBwdThreads, 0, stream>>>(              \
+      idx, w, val, g, dw, pool_row, pool_val, band_start, n, ntot, c, pairs, tile, key_bits, \
+      cap, lv)
+  // 16 bytes per lane where every value row starts at a multiple of 16 bytes
+  const bool vec = c % 4 == 0 && aligned16(val);
+  if (vec && c <= 16) TILE_LAUNCH(4, 4, 1);
+  else if (vec && c <= 32) TILE_LAUNCH(4, 8, 1);
+  else if (vec) TILE_LAUNCH(4, 16, 1);
+  else TILE_LAUNCH(1, 32, 2);
+#undef TILE_LAUNCH
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int bands = (ntot + kBand - 1) / kBand;
+  msdetrpc_bwd_band_kernel<<<dim3((bands + kBandWarps - 1) / kBandWarps, bh), kBandWarps * 32,
+                             0, stream>>>(pool_row, pool_val, band_start, dval, tiles, ntot, c,
+                                          cap);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,16 +1,25 @@
-"""The weights bridge: the JAX package's parameter tree -> this port's state dict.
+"""The weights bridges: the JAX package's parameter tree -> this port's state
+dict, and a reference checkpoint file -> the port's model.
 
-Inverse of ``autofocusformermod_tpu/engine/convert_checkpoint.py:
+``flax_to_torch_state_dict`` is the inverse of
+``autofocusformermod_tpu/engine/convert_checkpoint.py:
 convert_reference_state_dict``.  The port's parameter names are the
 reference PyTorch state-dict names, so the JAX-trained (or JAX-initialized)
 weights load into the port and the two can be compared on the same inputs.
 Numpy only on the way in (no flax needed); tensors come out.
+
+``load_reference_weights`` is the counterpart of the same module's
+``load_torch_state_dict`` + ``_strip_prefix`` + ``load_reference_weights``:
+a reference ``.pth`` or detectron2 ``.pkl`` (for one the backbone-only
+``aff_mini.pth`` that the yamls name as ``MODEL.WEIGHTS``) merged by name
+into the model, no renaming needed.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,3 +94,50 @@ def flax_to_torch_state_dict(params: Mapping, batch_stats: Mapping = None) -> Di
         if leaf == "mean":
             sd[_module_name(tuple(mod)) + ".num_batches_tracked"] = np.zeros((), np.int64)
     return {k: torch.from_numpy(np.array(v)).contiguous() for k, v in sd.items()}
+
+
+def read_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A reference checkpoint -> {name: tensor}: a detectron2 ``.pkl``
+    (pickle, latin1) or a torch file; the weights are unwrapped from a
+    ``"model"`` entry, then from a ``"state_dict"`` entry, where the file has
+    them, entries that are not arrays are dropped and a leading ``module.``
+    (a DataParallel save) is stripped from every name."""
+    if path.endswith(".pkl"):
+        import pickle
+
+        with open(path, "rb") as f:
+            data = pickle.load(f, encoding="latin1")
+    else:
+        data = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("model", "state_dict"):
+        if isinstance(data, Mapping) and isinstance(data.get(key), Mapping):
+            data = data[key]
+    return {re.sub(r"^module\.", "", k): torch.as_tensor(v)
+            for k, v in data.items() if hasattr(v, "shape")}
+
+
+def load_reference_weights(model: torch.nn.Module, path: str
+                           ) -> Optional[Tuple[int, List[str]]]:
+    """Copy every entry of ``model.state_dict()`` that the checkpoint at
+    ``path`` has into the model; the rest keep their values.  A shape that
+    differs raises.  Prints the count as the reference's loader does and
+    returns (hits, the names the file lacks); None, with a note, when the
+    file is missing (training from scratch)."""
+    if not os.path.exists(path):
+        print(f"[convert_checkpoint] {path} not found; training from scratch", flush=True)
+        return None
+    loaded = read_reference_state_dict(path)
+    merged, misses = model.state_dict(), []
+    for name, cur in merged.items():
+        if name not in loaded:
+            misses.append(name)
+            continue
+        if tuple(loaded[name].shape) != tuple(cur.shape):
+            raise ValueError(f"shape mismatch at {name}: {tuple(cur.shape)} vs "
+                             f"{tuple(loaded[name].shape)}")
+        merged[name] = loaded[name].to(dtype=cur.dtype)
+    model.load_state_dict(merged)
+    hits = len(merged) - len(misses)
+    print(f"[convert_checkpoint] loaded {hits}/{len(merged)} tensors"
+          + (f"; missing e.g. {misses[:5]}" if misses else ""), flush=True)
+    return hits, misses

@@ -25,6 +25,7 @@ import torch
 from ..losses.criterion import device_draw
 from ..models.maskformer import maskformer_from_config
 from .checkpoint import Checkpointer
+from .convert_checkpoint import load_reference_weights
 from .hooks import MetricLogger, device_memory_stats, nan_check
 from .train_step import TrainStep
 
@@ -66,17 +67,15 @@ class Trainer:
 
     def resume_or_load(self, resume: bool = True) -> None:
         """Continue from the latest checkpoint under OUTPUT_DIR when ``resume``
-        is set and there is one; else start from MODEL.WEIGHTS, a state dict
-        of the model saved with ``torch.save``, when that file exists."""
+        is set and there is one; else merge the reference checkpoint
+        MODEL.WEIGHTS (``convert_checkpoint.load_reference_weights``: the
+        entries it has, by name, with a count) when that file exists."""
         weights = self.cfg.MODEL.WEIGHTS
         if resume and self.checkpointer.latest_step() is not None:
             self.load_state(self.checkpointer.restore())
             print(f"resumed from step {self.start_step}", flush=True)
-        elif weights and os.path.exists(weights):
-            self.model.load_state_dict(torch.load(weights, map_location=self.device,
-                                                  weights_only=True))
         elif weights:
-            print(f"[trainer] {weights} not found; training from scratch", flush=True)
+            load_reference_weights(self.model, weights)
 
     # --------------------------------------------------------------- train
     def build_train_loader(self):

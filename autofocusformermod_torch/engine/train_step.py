@@ -21,10 +21,13 @@ from .optimizer import build_optimizer, clip_by_global_norm_, global_norm
 
 
 def device_masks(batch: Dict) -> torch.Tensor:
-    """The (b, t, H, W) float target masks, made on the batch's device from
-    the sem_seg map and the per-slot labels: a slot's mask is
+    """The (b, t, H, W) float target masks: the batch's own ``masks`` where
+    it ships them (panoptic and instance batches), else made on the batch's
+    device from the sem_seg map and the per-slot labels: a slot's mask is
     ``sem_seg_map == label``, gated by ``valid`` so padded slots (label 0)
     cannot alias class 0."""
+    if "masks" in batch:
+        return batch["masks"].float()
     sem = batch["sem_seg_map"].long()
     eq = sem[:, None] == batch["labels"].long()[:, :, None, None]
     return (eq & batch["valid"][:, :, None, None]).float()
@@ -35,7 +38,7 @@ class TrainStep:
 
     batch: {'image': (b, H, W, 3) uint8 or float RGB, 'sem_seg_map': (b, H,
     W) int, 'labels': (b, t) int, 'valid': (b, t) bool}, all on the model's
-    device."""
+    device; a batch that ships 'masks' (b, t, H, W) is trained on those."""
 
     def __init__(self, model: nn.Module, cfg):
         self.model = model

@@ -38,7 +38,8 @@ SIGNATURES = {
     "aff_local_attn_bwd_dq": [P] * 14 + [I] * 6 + [P],
     "aff_local_attn_bwd_dkv": [P] * 8 + [I] * 6 + [P],
     "aff_msdetrpc": [P, P, P, P, I, I, I, I, I, P, I, P],
-    "aff_msdetrpc_bwd": [P] * 6 + [I] * 5 + [P, I, P],
+    "aff_msdetrpc_bwd": [P] * 9 + [I] * 5 + [P, I, P],
+    "aff_msdetrpc_bwd_scratch": [I, I, P, I, P],
     "aff_msdetrpc_levels": [P] * 4 + [I] * 5 + [P, I, P],
     "aff_msdetrpc_levels_bwd": [P] * 6 + [I] * 5 + [P, I, P],
     "aff_msdetrpc_levels_t": [P] * 4 + [I] * 5 + [P, I, P],

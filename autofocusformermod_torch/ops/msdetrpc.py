@@ -94,18 +94,32 @@ msdetrpc_levels_s.launches = 0
 
 
 def msdetrpc_levels_s_backward(idx_s, w_s, val, g, level_sizes: Sequence[int]):
-    """Launch the backward kernel for g = d out (bh, n, c_) -> (d_val (bh,
-    ntot, c_), d_w (bh, n, L*P))."""
+    """Launch the backward kernels for g = d out (bh, n, c_) -> (d_val (bh,
+    ntot, c_), d_w (bh, n, L*P)).  No atomics: two calls on the same inputs
+    return the same bits.  One launch is counted per call, both kernels
+    together."""
     bh, n, lp, ntot, c_, n_levels, sizes = _check_operands(idx_s, w_s, val, level_sizes)
     require(g, "g", torch.float32, (bh, n, c_))
-    d_val = torch.zeros_like(val)
-    d_w = torch.empty_like(w_s)
     lib = load_kernels()
-    with torch.cuda.device(val.device):
+    dims = (ctypes.c_int * 3)()
+    check(lib.aff_msdetrpc_bwd_scratch(n, n_levels, ctypes.cast(sizes, ctypes.c_void_p),
+                                       lp // n_levels, ctypes.cast(dims, ctypes.c_void_p)),
+          "aff_msdetrpc_bwd_scratch")
+    tiles, rows, starts = dims
+    dev = val.device
+    # the tiles' partial rows and their row ids (a tile writes only what it
+    # needs of its part), and where each band of value rows starts in them
+    pool_row = torch.empty((bh * tiles * rows,), dtype=torch.int32, device=dev)
+    pool_val = torch.empty((bh * tiles * rows, c_), dtype=torch.float32, device=dev)
+    band_start = torch.empty((bh * tiles * starts,), dtype=torch.int32, device=dev)
+    d_val = torch.empty_like(val)
+    d_w = torch.empty_like(w_s)
+    with torch.cuda.device(dev):
         err = lib.aff_msdetrpc_bwd(
             idx_s.data_ptr(), w_s.data_ptr(), val.data_ptr(), g.data_ptr(), d_val.data_ptr(),
-            d_w.data_ptr(), bh, n, ntot, c_, n_levels, ctypes.cast(sizes, ctypes.c_void_p),
-            lp // n_levels, stream_of(val))
+            d_w.data_ptr(), pool_row.data_ptr(), pool_val.data_ptr(), band_start.data_ptr(),
+            bh, n, ntot, c_, n_levels, ctypes.cast(sizes, ctypes.c_void_p), lp // n_levels,
+            stream_of(val))
     check(err, "aff_msdetrpc_bwd")
     msdetrpc_levels_s_backward.launches += 1
     return d_val, d_w

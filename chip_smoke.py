@@ -18,10 +18,12 @@ resume, and the pixel decoder's alternate operand layouts -- on one NVIDIA GPU.
 5. holds every kernel of a training step against its plain version at the
    shapes a 512x512 batch-8 step of each trained model gives it, and times
    both: local_attn forward and backward at AFF-Mini's and at AFF-Small's
-   stage shapes (the backward's two kernels timed apart, its reverse lists'
-   build timed too, two calls compared bit for bit, and once more on a random
-   neighbour list), and what is the same for both models at one batch
-   (msdetrpc forward and backward, knn, point_sample forward and backward,
+   stage shapes (the forward also on the card alone; the backward's two
+   kernels timed apart, its reverse lists' build timed too, two calls
+   compared bit for bit; both once more on random neighbour lists), and what
+   is the same for both models at one batch (msdetrpc forward and backward,
+   the backward on a uniform draw and on the operands of a real batch-8
+   forward, two calls bit for bit; knn, point_sample forward and backward,
    the lapjv matcher);
 6. trains: the full-width AFF-Mini step (batch 8, 512x512, 100 target slots,
    12544 points, fp32, the default criterion with the nearest-tap ranking)
@@ -99,9 +101,10 @@ LOCAL_ATTN_ATOL = 1e-4
 MSDETRPC_ATOL = 1e-4
 POINT_SAMPLE_ATOL = 1e-5
 # gradients, error relative to the largest entry (at least 1) of each
-# gradient tensor: the msdetrpc and point_sample backward kernels scatter
-# with atomics (run-to-run order; the local_attn pair sums in a fixed order)
-# and the w5/b5 reductions sum ~1e6 terms in another order
+# gradient tensor: the point_sample backward and the alternate layouts'
+# msdetrpc backwards scatter with atomics (run-to-run order; the local_attn
+# pair and the stacked msdetrpc backward sum in a fixed order) and the w5/b5
+# reductions sum ~1e6 terms in another order
 GRAD_RTOL = 1e-3
 # the two training steps: loss terms (relative), and gradient norms per
 # parameter group (relative; a flipped near-tie in the matcher or in token
@@ -114,10 +117,10 @@ GROUP_NORM_RTOL = 2e-2
 # depend on them, still agree within LOSS_RTOL)
 MATCH_AGREE_MIN = 0.9
 # a resumed run against the uninterrupted one: the restored state (model,
-# optimizer, schedule, generators) is equal bit for bit, but the msdetrpc and
-# point_sample backward kernels and PyTorch's index_add scatter with atomics,
-# whose order changes from run to run (the local_attn backward does not: its
-# key side sums in a fixed order), so the two runs' weights differ in the
+# optimizer, schedule, generators) is equal bit for bit, but the point_sample
+# backward kernel and PyTorch's index_add scatter with atomics, whose order
+# changes from run to run (the local_attn and msdetrpc backwards do not: they
+# sum in a fixed order), so the two runs' weights differ in the
 # last bits after the first update and the later steps' loss terms agree only to this
 # (relative; two runs of the same steps mostly differ by 1e-5 to 3e-5).  At
 # random initialisation a near-tied match that flips amplifies the
@@ -288,7 +291,8 @@ def per_path(paths: dict, first: str) -> dict:
 
 def check_local_attn(dev, gen, model, b):
     """K1 at the four backbone stages' shapes of `model` at batch b; ms sums
-    the calls of one forward (one per block)."""
+    the calls of one forward (one per block), device_ms the same calls' time
+    on the card alone (queued_ms)."""
     import torch
     from autofocusformermod_torch.geometry.cluster import space_filling_cluster
     from autofocusformermod_torch.geometry.knn import knn
@@ -299,7 +303,7 @@ def check_local_attn(dev, gen, model, b):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
 
     heads, dims, depths = BACKBONES[model]
-    err, ms, plain_ms, bnd = 0.0, 0.0, 0.0, {}
+    err, ms, device_ms, plain_ms, bnd = 0.0, 0.0, 0.0, 0.0, {}
     for s in range(4):
         h, c_ = heads[s], dims[s] // heads[s]
         pos, means, _, _, _ = space_filling_cluster(grid_pos(128 >> s, 1 << s, 1, dev), 8, 128, 128)
@@ -315,21 +319,65 @@ def check_local_attn(dev, gen, model, b):
             rout, rblank = sfc_cluster_attention(*args)
             t_p = cuda_ms(lambda: sfc_cluster_attention(*args), iters=5, warmup=1)
         t_k = cuda_ms(lambda: sfc_cluster_attention(*args))
+        d_k = queued_ms(lambda: sfc_cluster_attention(*args))
         e = max((out - rout).abs().max().item(), (blank - rblank).abs().max().item())
         err = max(err, e)
         ms, plain_ms = ms + depths[s] * t_k, plain_ms + depths[s] * t_p
+        device_ms += depths[s] * d_k
         # per (query, head, neighbour): q.k and p.v (4 c_) and the 5-feature
         # rel-pos bias (10); lse is the third output
         bnd = add_bounds(bnd, bound(nbytes(q, k, v, pos, nc, w5, b5, bk, out, blank, blank),
                                     b * h * n * 48 * (4 * c_ + 10)), depths[s])
         log(f"  local_attn {model} b{b} stage {s + 1} q={tuple(q.shape)} nnc*span=48: max_abs_err "
-            f"{e:.3e} (rel {e / rout.abs().max().item():.3e}) kernel {t_k:.4f} ms, plain "
-            f"{t_p:.4f} ms")
+            f"{e:.3e} (rel {e / rout.abs().max().item():.3e}) kernel {t_k:.4f} ms (on the card "
+            f"{d_k:.4f}), plain {t_p:.4f} ms")
         del q, k, v, out, blank, rout, rblank, args
         torch.cuda.empty_cache()
     if not err <= LOCAL_ATTN_ATOL:
         raise SystemExit(f"local_attn {model} b{b}: max abs err {err} > {LOCAL_ATTN_ATOL}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd}
+    log(f"  local_attn {model} b{b}: per forward {ms:.3f} ms in calls, {device_ms:.3f} on the card")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "device_ms": device_ms}
+
+
+def random_neighbour_case(gen, dev, b, h, n, c_, nnc):
+    """Operands of local_attn on a neighbour list with no locality: random
+    cluster ids with duplicates and ids past the last cluster, at an n that
+    cuts the last cluster (so the plain version masks)."""
+    import torch
+
+    n_cl = -(-n // 8)
+    nc = torch.randint(0, n_cl + 2, (b, n, nnc), generator=gen).int()
+    nc[:, ::3, 1] = nc[:, ::3, 0]
+    pos = torch.randint(0, 128, (b, n, 2), generator=gen).float()
+    diff = [(torch.randn(shape, generator=gen) * scale).to(dev)
+            for shape, scale in (((b, h, n, c_), c_ ** -0.5), ((b, h, n, c_), 1.0),
+                                 ((b, h, n, c_), 1.0), ((h, 5), 0.1), ((h,), 0.1),
+                                 ((h, c_), c_ ** -0.5))]
+    return nc.to(dev), pos.to(dev), diff
+
+
+RANDOM_NC_CASES = ((2, 3, 1021, 32, 6), (2, 2, 203, 5, 6))   # (b, h, n, c_, nnc)
+
+
+def check_local_attn_random(dev, gen):
+    """K1 on random neighbour lists (random_neighbour_case) at 32- and
+    5-channel heads (16-byte and 4-byte reads): out and blank_prob against
+    the plain version at LOCAL_ATTN_ATOL."""
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.local_attn import sfc_cluster_attention
+
+    worst = 0.0
+    for b, h, n, c_, nnc in RANDOM_NC_CASES:
+        nc, pos, (q, k, v, w5, b5, bk) = random_neighbour_case(gen, dev, b, h, n, c_, nnc)
+        got = sfc_cluster_attention(q, k, v, pos, nc, w5, b5, bk, 8)
+        with plain_versions():
+            want = sfc_cluster_attention(q, k, v, pos, nc, w5, b5, bk, 8)
+        e = max((a - r).abs().max().item() for a, r in zip(got, want))
+        worst = max(worst, e)
+        log(f"  local_attn random nc n={n} c_={c_}: max_abs_err {e:.3e}")
+    if not worst <= LOCAL_ATTN_ATOL:
+        raise SystemExit(f"local_attn on a random nc: max abs err {worst} > {LOCAL_ATTN_ATOL}")
+    return {"max_abs_err": worst, "cases": [list(c) for c in RANDOM_NC_CASES]}
 
 
 def local_attn_record(paths: dict) -> dict:
@@ -500,16 +548,9 @@ def check_local_attn_bwd_random(dev, gen):
     from autofocusformermod_torch.ops.local_attn import sfc_cluster_attention
 
     worst = 0.0
-    for b, h, n, c_, nnc in ((2, 3, 1021, 32, 6), (2, 2, 203, 5, 6)):
-        n_cl = -(-n // 8)
-        nc = torch.randint(0, n_cl + 2, (b, n, nnc), generator=gen).int()
-        nc[:, ::3, 1] = nc[:, ::3, 0]
-        nc = nc.to(dev)
-        pos = torch.randint(0, 128, (b, n, 2), generator=gen).float().to(dev)
-        leaves = [(torch.randn(shape, generator=gen) * scale).to(dev).requires_grad_()
-                  for shape, scale in (((b, h, n, c_), c_ ** -0.5), ((b, h, n, c_), 1.0),
-                                       ((b, h, n, c_), 1.0), ((h, 5), 0.1), ((h,), 0.1),
-                                       ((h, c_), c_ ** -0.5))]
+    for b, h, n, c_, nnc in RANDOM_NC_CASES:
+        nc, pos, diff = random_neighbour_case(gen, dev, b, h, n, c_, nnc)
+        leaves = [t.requires_grad_() for t in diff]
         g, gb = torch.randn((b, h, n, c_), generator=gen).to(dev), torch.randn(
             (b, h, n, 1), generator=gen).to(dev)
 
@@ -541,9 +582,45 @@ def local_attn_bwd_record(paths: dict) -> dict:
             **per_path(paths, f"aff_mini_b{TRAIN_BATCH}_step")}
 
 
+def path_msdetrpc_operands(dev, b=TRAIN_BATCH):
+    """The operands (idx_s, w_s, val, level sizes) of every msdetrpc call of
+    one batch-b AFF-Mini forward at 512x512 (seeded weights and images), as
+    the main path makes them: 18 calls.  A query samples the 4 nearest cells
+    around its own position plus small offsets, and queries come in the
+    backbone's curve order, so neighbouring queries read neighbouring rows."""
+    import torch
+    from autofocusformermod_torch.config import aff_mini_cfg
+    from autofocusformermod_torch.models import pixel_decoder
+    from autofocusformermod_torch.models.maskformer import init_random_weights, maskformer_from_config
+
+    model = maskformer_from_config(aff_mini_cfg())
+    init_random_weights(model, torch.Generator().manual_seed(SEED))
+    model = model.to(dev).eval()
+    images = torch.randint(0, 256, (b, SIZE, SIZE, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(SEED + 2)).to(dev)
+    calls, real = [], pixel_decoder.msdetrpc_levels_s
+
+    def capture(idx_s, w_s, val, level_sizes):
+        calls.append((idx_s.clone(), w_s.clone(), val.clone(), tuple(level_sizes)))
+        return real(idx_s, w_s, val, level_sizes)
+
+    pixel_decoder.msdetrpc_levels_s = capture
+    try:
+        with torch.no_grad():
+            model(images)
+    finally:
+        pixel_decoder.msdetrpc_levels_s = real
+    return calls
+
+
 def check_msdetrpc_bwd(dev, gen):
-    """K4 at a batch-8 step's shapes (bh=64, 3 levels x 16 pairs, c_=32);
-    ms sums the 18 backward calls of a step."""
+    """K4 at a batch-8 step's shapes (bh=64, 3 levels x 16 pairs, c_=32) on
+    two index sets: the uniform draw of earlier records, and the path's own
+    operands (path_msdetrpc_operands: the 18 calls of a batch-8 AFF-Mini
+    forward), whose figures are the record's own.  Each against the plain
+    version's autograd, and twice, bit for bit (the kernels sum in a fixed
+    order).  ms sums the 18 backward calls of a step; device_ms the same on
+    the card alone (queued_ms)."""
     import torch
     from autofocusformermod_torch.ops.dispatch import plain_versions
     from autofocusformermod_torch.ops.msdetrpc import (
@@ -551,36 +628,58 @@ def check_msdetrpc_bwd(dev, gen):
 
     bh, p, c_, sizes = TRAIN_BATCH * 8, 16, 32, (256, 1024, 4096)
     val = torch.randn((bh, sum(sizes), c_), generator=gen).to(dev)
-    err, worst, ms, plain_ms, bnd = 0.0, 0.0, 0.0, 0.0, {}
+    uniform = []
     for n in sizes:
         idx = torch.cat([torch.randint(0, s, (bh, n, p), generator=gen) for s in sizes], 2)
-        idx = idx.int().to(dev).contiguous()
         w = torch.rand((bh, n, 3 * p), generator=gen)
-        w = (w / w.sum(-1, keepdim=True)).to(dev).contiguous()
-        g = torch.randn((bh, n, c_), generator=gen).to(dev)
-        leaves = [w.clone().requires_grad_(), val.clone().requires_grad_()]
+        uniform.append((idx.int().to(dev).contiguous(),
+                        (w / w.sum(-1, keepdim=True)).to(dev).contiguous(), val, sizes, 6))
+    sets = {"uniform": uniform,
+            "path": [(*call, 1) for call in path_msdetrpc_operands(dev)]}
+    paths = {}
+    for label in list(sets):
+        calls = sets.pop(label)          # each set's operands are freed after its turn
+        err, worst, ms, device_ms, plain_ms, bnd = 0.0, 0.0, 0.0, 0.0, 0.0, {}
+        for idx, w, v, lv_sizes, times in calls:
+            n = idx.shape[1]
+            g = torch.randn((bh, n, c_), generator=gen).to(dev)
+            leaves = [w.clone().requires_grad_(), v.clone().requires_grad_()]
 
-        def fwd():
-            return msdetrpc_levels_s(idx, leaves[0], leaves[1], sizes)
+            def fwd():
+                return msdetrpc_levels_s(idx, leaves[0], leaves[1], lv_sizes)
 
-        got = torch.autograd.grad(fwd(), leaves, g)
-        with plain_versions():
-            want = torch.autograd.grad(fwd(), leaves, g)
-        e, rel = grad_errs(got, want)
-        err, worst = max(err, e), max(worst, rel)
-        t_k = cuda_ms(lambda: msdetrpc_levels_s_backward(idx, w, val, g, sizes))
-        t_p = plain_grad_ms(fwd, leaves, g)
-        ms, plain_ms = ms + 6 * t_k, plain_ms + 6 * t_p
-        # d_val += w * g and d_w = g . val: 4 operations per (query, pair, channel)
-        bnd = add_bounds(bnd, bound(nbytes(idx, w, val, g, w, val), 4 * bh * n * 3 * p * c_), 6)
-        log(f"  msdetrpc bwd n={n} idx={tuple(idx.shape)} val={tuple(val.shape)}: max_abs_err "
-            f"{e:.3e} (rel {rel:.3e}; d_w d_val) kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-    if not worst <= GRAD_RTOL:
-        raise SystemExit(f"msdetrpc backward: max rel err {worst} > {GRAD_RTOL}")
+            got = torch.autograd.grad(fwd(), leaves, g)
+            with plain_versions():
+                want = torch.autograd.grad(fwd(), leaves, g)
+            e, rel = grad_errs(got, want)
+            err, worst = max(err, e), max(worst, rel)
+            first = msdetrpc_levels_s_backward(idx, w, v, g, lv_sizes)
+            again = msdetrpc_levels_s_backward(idx, w, v, g, lv_sizes)
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise SystemExit(f"msdetrpc backward ({label}, n={n}): two calls on the same "
+                                 "inputs differ")
+            t_k = cuda_ms(lambda: msdetrpc_levels_s_backward(idx, w, v, g, lv_sizes))
+            d_k = queued_ms(lambda: msdetrpc_levels_s_backward(idx, w, v, g, lv_sizes))
+            t_p = plain_grad_ms(fwd, leaves, g)
+            ms, device_ms, plain_ms = ms + times * t_k, device_ms + times * d_k, plain_ms + times * t_p
+            # d_val += w * g and d_w = g . val: 4 operations per (query, pair, channel)
+            bnd = add_bounds(bnd, bound(nbytes(idx, w, v, g, w, v), 4 * bh * n * 3 * p * c_), times)
+            log(f"  msdetrpc bwd {label} n={n} idx={tuple(idx.shape)} val={tuple(v.shape)}: "
+                f"max_abs_err {e:.3e} (rel {rel:.3e}; d_w d_val), bit-identical twice; kernel "
+                f"{t_k:.4f} ms (on the card {d_k:.4f}), plain {t_p:.4f} ms")
+            del g, leaves, got, want, first, again
+        if not worst <= GRAD_RTOL:
+            raise SystemExit(f"msdetrpc backward ({label}): max rel err {worst} > {GRAD_RTOL}")
+        log(f"  msdetrpc bwd {label}: per step {ms:.3f} ms in calls, {device_ms:.3f} on the card, "
+            f"bound {bnd['bound_ms']:.3f} ms")
+        paths[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+                        "device_ms": device_ms}
+        del calls
+        torch.cuda.empty_cache()
     return {"name": "msdetrpc_bwd", "route": "cuda",
             "source": "autofocusformermod_torch/csrc/msdetrpc.cu",
             "replaces": "autofocusformermod_tpu/ops/pallas/msdetrpc_kernel.py:2078",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **bnd}
+            "library_ms": None, "deterministic": True, **per_path(paths, "path")}
 
 
 def check_point_sample(dev, gen):
@@ -1683,6 +1782,7 @@ def main() -> int:
     for path, (name, b) in steps.items():
         local_attn_paths[path] = check_local_attn(dev, gen, name, b)
         local_attn_bwd_paths[path] = check_local_attn_bwd(dev, gen, name, b)
+    local_attn_paths["random_nc"] = check_local_attn_random(dev, gen)
     check_local_attn_bwd_random(dev, gen)
     for b in sorted({TRAIN_BATCH, SMALL_BATCH}):
         msdetrpc_paths[f"b{b}_step"] = check_msdetrpc(dev, gen, b)

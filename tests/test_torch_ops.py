@@ -445,6 +445,81 @@ def test_msdetrpc_backward_kernel_matches_plain_on_card(rng, cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 24, 32, 5])
+def test_local_attn_forward_kernel_routes_on_card(rng, cuda, c):
+    """K1 on each route of its launcher (16-byte row reads at c_ 16, 24 and
+    32, 4-byte at 5), n = 61 so the last cluster is cut: out, blank_prob and
+    the lse the backward reads against the plain versions."""
+    args = [_t(a).to(cuda) for a in _attn_case(rng, n=64, c=c, span=8, nnc=6, pad=3)]
+    got = la.local_attn_forward(*args, 8)
+    with plain_versions():
+        want = la.local_attn_forward_plain(*args, 8)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **TOL)
+
+
+def _morton(x, y, bits):
+    """Morton code of integer grid positions (numpy)."""
+    code = np.zeros_like(x)
+    for i in range(bits):
+        code |= ((x >> i) & 1) << (2 * i) | ((y >> i) & 1) << (2 * i + 1)
+    return code
+
+
+def _local_stacked_case(rng, bh=4, side=32, sizes_side=(8, 16, 32), p=16, c=32):
+    """Stacked operands as the pixel decoder's path makes them: queries and
+    every level's rows in Morton order on their grids, each query sampling p
+    cells near its own position at each level."""
+    ys, xs = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    order = np.argsort(_morton(xs.ravel(), ys.ravel(), 5))
+    qx, qy = xs.ravel()[order], ys.ravel()[order]              # queries in curve order
+    idx = []
+    for ls in sizes_side:
+        f = ls / side
+        sx = np.clip(np.round(qx[None, :, None] * f + rng.normal(0, 1.5, (bh, side * side, p))),
+                     0, ls - 1).astype(np.int64)
+        sy = np.clip(np.round(qy[None, :, None] * f + rng.normal(0, 1.5, (bh, side * side, p))),
+                     0, ls - 1).astype(np.int64)
+        idx.append(_morton(sx, sy, int(np.log2(ls))))
+    idx_s = np.concatenate(idx, 2).astype(np.int32)
+    w_s = rng.random(idx_s.shape).astype(np.float32)
+    val = rng.standard_normal((bh, sum(s * s for s in sizes_side), c)).astype(np.float32)
+    return idx_s, w_s, val, tuple(s * s for s in sizes_side)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("indices", ["morton_local", "uniform"])
+def test_msdetrpc_backward_kernel_is_exact_and_deterministic_on_card(rng, cuda, indices):
+    """K4 over many query tiles and value-row bands: on curve-local indices
+    (the path's kind: a tile's rows at a level are few and close) and on
+    uniform ones (every tile meets every band), against the plain version's
+    autograd, and two calls bit for bit (the sums have a fixed order)."""
+    idx_s, w_s, val, sizes = _local_stacked_case(rng)
+    if indices == "uniform":
+        idx_s = np.concatenate([rng.integers(0, s, (idx_s.shape[0], idx_s.shape[1], 16))
+                                for s in sizes], 2).astype(np.int32)
+    args = [_t(a).to(cuda) for a in (idx_s, w_s, val)]
+    cot = (torch.randn(idx_s.shape[0], idx_s.shape[1], val.shape[-1], device=cuda),)
+    got = _vjp_torch(lambda i, w, v: msdetrpc_levels_s(i, w, v, sizes), args, (1, 2), cot)
+    with plain_versions():
+        want = _vjp_torch(lambda i, w, v: msdetrpc_levels_s(i, w, v, sizes), args, (1, 2), cot)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+    first = md.msdetrpc_levels_s_backward(*args, cot[0], sizes)
+    again = md.msdetrpc_levels_s_backward(*args, cot[0], sizes)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    # indices outside their level are clamped into it (the plain version
+    # indexes without clamping, so it is not asked)
+    wild = args[0].clone()
+    wild[0, 0, :3] = torch.tensor([-5, 10 ** 6, sizes[0]], dtype=torch.int32)
+    clamped = wild.clone()
+    clamped[0, 0, :3] = torch.tensor([0, sizes[0] - 1, sizes[0] - 1], dtype=torch.int32)
+    for a, b in zip(md.msdetrpc_levels_s_backward(wild, *args[1:], cot[0], sizes),
+                    md.msdetrpc_levels_s_backward(clamped, *args[1:], cot[0], sizes)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_point_sample_kernel_matches_plain_on_card(rng, cuda):
     masks = _t(rng.standard_normal((4, 32, 48)).astype(np.float32)).to(cuda)
     coords = _t(rng.random((4, 300, 2)).astype(np.float32)).to(cuda)

@@ -359,6 +359,29 @@ def test_trainer_loads_weights_and_leaves_data_to_a_later_slice(tmp_path, capsys
             fn()
 
 
+def test_trainer_merges_a_wrapped_backbone_only_reference_file(tmp_path, capsys):
+    """MODEL.WEIGHTS as the yamls name it: a backbone-only pretrain file, here
+    wrapped in {"model": ...} with DataParallel's "module." prefix.  The
+    backbone's entries load, the rest keep their initial values, and the
+    count is printed."""
+    donor = Trainer(tiny_trainer_cfg(tmp_path, "SEED", "3"), torch.device("cpu"))
+    backbone = {k: v for k, v in donor.model.state_dict().items() if k.startswith("backbone.")}
+    path = tmp_path / "aff_small.pth"
+    torch.save({"model": {"module." + k: v for k, v in backbone.items()}}, path)
+    trainer = Trainer(tiny_trainer_cfg(tmp_path, "SEED", "4", "MODEL.WEIGHTS", str(path)),
+                      torch.device("cpu"))
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    trainer.resume_or_load(resume=True)
+    after = trainer.model.state_dict()
+    for k, v in after.items():
+        assert torch.equal(v, backbone[k] if k in backbone else before[k]), k
+    name = "backbone.layers.0.blocks.0.attn.blank_k"
+    assert name in backbone and not torch.equal(after[name], before[name])   # seeds differ
+    assert f"[convert_checkpoint] loaded {len(backbone)}/{len(after)} tensors; missing e.g. " \
+        in capsys.readouterr().out
+    assert trainer.start_step == 0
+
+
 # ------------------------------------------------------------- the checkpointer
 def test_checkpoint_round_trip_and_retention(tmp_path):
     ck = Checkpointer(str(tmp_path / "ck"), max_to_keep=2)
