@@ -12,16 +12,27 @@
 // level sizes, and w the 4-NN Shepard weight times the attention weight.
 // Indices are clamped into their level, as the XLA gather's mode="clip".
 //
-// What bounds it on the H100: memory latency of the value-row gathers.  Each
-// query reads L*P (48) rows of c_ (32) floats = 6 KB at ~2 flops per 8-byte
-// pair; rows of one level are shared by nearby queries and sit in L2.
+// What bounds it on the H100: the value-row reads.  Each query reads L*P (48)
+// rows of c_ (32) floats = 6 KB at ~2 flops per 8-byte pair; rows of one
+// level are shared by nearby queries (queries come in curve order and sample
+// cells around their own position), so most reads are served by L1 and L2,
+// and what bounds the kernel is how many row reads it keeps in flight.
 //
 // Design: one block per (r = batch*head, tile of 8 queries), one warp per
-// query with lanes over the channels, so each value row is one coalesced
-// 128-byte read; the (idx, w) pairs are warp-uniform broadcast loads;
-// accumulation is fp32 in registers.  The output keeps the natural
-// (bh, n, c_) layout (the TPU kernel's channel-major output and its
-// 128-row band windows exist for its tiling).
+// query.  The lanes load the query's L*P (idx, w) pairs in coalesced passes
+// of 32, each lane clamping its pair into its level and adding the level's
+// offset (levels chosen by compile-time comparisons, so the level table stays
+// in the constant bank); __shfl_sync then hands each pair to the lanes that
+// read its row.  Rows are read as the local_attn kernels read theirs
+// (local_attn_common.cuh load_unit): LPR = c_ / 4 lanes per row, 16 bytes
+// per lane, 32 / LPR rows per load instruction (4 at c_ = 32), up to 8 load
+// instructions in flight before their sums (at c_ = 32 all 32 rows of a
+// pass, where the old kernel had one row in flight).  Each lane group sums its
+// rows in fp32 registers, the groups combine by shuffles at the end, and one
+// group writes the output row with 16-byte stores.  L and P are compiled for
+// the path's (3, 16), with a generic instance for other shapes.  The output
+// keeps the natural (bh, n, c_) layout (the TPU kernel's channel-major output
+// and its 128-row band windows exist for its tiling).
 //
 // Backward, for g = d out (bh, n, c_):
 //   d_w[r, q, jp] = <g[r, q, :], val[r, row(jp), :]>
@@ -62,38 +73,13 @@ namespace {
 
 constexpr int kMaxLevels = 8;
 constexpr int kQueriesPerBlock = 8;
+constexpr int kMaxC = 64;             // channels of the stacked forward and backward
 
 struct Levels {
   int count;
   int off[kMaxLevels];
   int size[kMaxLevels];
 };
-
-__global__ void __launch_bounds__(32 * kQueriesPerBlock)
-msdetrpc_kernel(const int* __restrict__ idx, const float* __restrict__ w,
-                const float* __restrict__ val, float* __restrict__ out,
-                int N, int NTOT, int C, int P, Levels lv) {
-  const int r = blockIdx.y;
-  const int qi = blockIdx.x * kQueriesPerBlock + threadIdx.y;
-  if (qi >= N) return;
-  const int LP = lv.count * P;
-  const int* ir = idx + ((size_t)r * N + qi) * LP;
-  const float* wr = w + ((size_t)r * N + qi) * LP;
-  const float* vr = val + (size_t)r * NTOT * C;
-  float* orow = out + ((size_t)r * N + qi) * C;
-  for (int c = threadIdx.x; c < C; c += 32) {
-    float acc = 0.f;
-    for (int j = 0; j < lv.count; ++j) {
-      const int off = lv.off[j];
-      const int last = lv.size[j] - 1;
-      for (int p = 0; p < P; ++p) {
-        const int t = min(max(ir[j * P + p], 0), last);
-        acc += wr[j * P + p] * vr[(size_t)(off + t) * C + c];
-      }
-    }
-    orow[c] = acc;
-  }
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -103,11 +89,99 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // The row reads of the local_attn kernels: LPR lanes per row, VEC floats per
 // lane, a lane-group shuffle sum.
+using local_attn::across_groups_sum;
 using local_attn::group_sum;
 using local_attn::load_unit;
 using local_attn::store_unit;
 
 inline bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+
+// The stacked forward.  VEC floats per lane and LPR lanes per value row, UNITS
+// units of VEC channels per lane (c_ <= UNITS * LPR * VEC); L_CT levels of
+// P_CT pairs compiled in, or 0 for the run-time L and P.
+template <int VEC, int LPR, int UNITS, int L_CT, int P_CT>
+__global__ void __launch_bounds__(32 * kQueriesPerBlock)
+msdetrpc_kernel(const int* __restrict__ idx, const float* __restrict__ w,
+                const float* __restrict__ val, float* __restrict__ out, int N, int NTOT, int C,
+                int L_rt, int P_rt, Levels lv) {
+  constexpr int RPI = 32 / LPR;   // rows per load instruction
+  constexpr int STEPS = LPR;      // load instructions per pass of 32 pairs
+  constexpr int G = STEPS < 8 ? STEPS : 8;                      // ... in flight at once
+  constexpr int PASSES = L_CT ? (L_CT * P_CT + 31) / 32 : 1;    // unrolled passes
+  const int L = L_CT ? L_CT : L_rt;
+  const int P = P_CT ? P_CT : P_rt;
+  const int LP = L * P;
+  const int r = blockIdx.y;
+  const int qi = blockIdx.x * kQueriesPerBlock + threadIdx.y;
+  if (qi >= N) return;            // the whole warp leaves together
+  const int lane = threadIdx.x, lig = lane % LPR, rl = lane / LPR;
+  const int* ir = idx + ((size_t)r * N + qi) * LP;
+  const float* wr = w + ((size_t)r * N + qi) * LP;
+  const float* vr = val + (size_t)r * NTOT * C;
+  float acc[UNITS][VEC];
+#pragma unroll
+  for (int u = 0; u < UNITS; ++u)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[u][e] = 0.f;
+
+#pragma unroll (PASSES)
+  for (int s0 = 0; s0 < LP; s0 += 32) {
+    // this lane's pair of the pass: its global row and weight
+    const int s = s0 + lane;
+    int row = 0;
+    float wt = 0.f;
+    if (s < LP) {
+      int off = lv.off[0], last = lv.size[0] - 1;
+#pragma unroll
+      for (int j = 1; j < (L_CT ? L_CT : kMaxLevels); ++j) {
+        if (j < L && s >= j * P) {
+          off = lv.off[j];
+          last = lv.size[j] - 1;
+        }
+      }
+      row = off + min(max(ir[s], 0), last);
+      wt = wr[s];
+    }
+    // the pass's rows, G load instructions in flight before their sums
+#pragma unroll
+    for (int y0 = 0; y0 < STEPS; y0 += G) {
+      float x[G][UNITS][VEC];
+      float ws[G];
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        const int y = y0 + k, sl = y * RPI + rl;
+        const int rrow = __shfl_sync(0xffffffffu, row, sl);
+        ws[k] = __shfl_sync(0xffffffffu, wt, sl);
+        const float* vrow = vr + (size_t)rrow * C;
+#pragma unroll
+        for (int u = 0; u < UNITS; ++u) {
+          const int ch = (lig + u * LPR) * VEC;
+          if (s0 + y * RPI < LP && s0 + sl < LP && ch < C) {
+            load_unit<VEC>(vrow + ch, x[k][u]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) x[k][u][e] = 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < G; ++k)
+#pragma unroll
+        for (int u = 0; u < UNITS; ++u)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[u][e] += ws[k] * x[k][u][e];
+    }
+  }
+  // the lane groups' sums to every group; the first group writes
+  float* orow = out + ((size_t)r * N + qi) * C;
+#pragma unroll
+  for (int u = 0; u < UNITS; ++u) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[u][e] = across_groups_sum<LPR>(acc[u][e]);
+    const int ch = (lig + u * LPR) * VEC;
+    if (rl == 0 && ch < C) store_unit<VEC>(orow + ch, acc[u]);
+  }
+}
 
 // The backward of the stacked layout.  Pass 1, per (r, tile of T queries).
 constexpr int kBwdThreads = 256;
@@ -116,7 +190,6 @@ constexpr int kBwdCap = kBwdThreads * kBwdItems;      // (query, pair) entries p
 constexpr int kBwdMaxQueries = 32;
 constexpr int kEntBits = 11, kEntMask = (1 << kEntBits) - 1;
 static_assert(kBwdCap <= 1 << kEntBits, "an entry id must fit its bits of the sort value");
-constexpr int kBwdMaxC = 64;
 constexpr int kBand = 32;                             // value rows per warp of pass 2
 constexpr int kBandWarps = 4;
 
@@ -151,7 +224,7 @@ msdetrpc_bwd_tile_kernel(const int* __restrict__ idx, const float* __restrict__ 
   __shared__ int s_row[kBwdCap];  // entry order, then sorted
   __shared__ int s_ent[kBwdCap];  // sorted: the entries, with their queries
   __shared__ float s_w[kBwdCap];
-  __shared__ __align__(16) float s_g[kBwdMaxQueries * kBwdMaxC];
+  __shared__ __align__(16) float s_g[kBwdMaxQueries * kMaxC];
   __shared__ int s_off[kMaxLevels], s_size[kMaxLevels];
 
   const int r = blockIdx.y;
@@ -334,7 +407,7 @@ __global__ void __launch_bounds__(kBandWarps * 32)
 msdetrpc_bwd_band_kernel(const int* __restrict__ pool_row, const float* __restrict__ pool_val,
                          const int* __restrict__ band_start, float* __restrict__ dval,
                          int tiles, int NTOT, int C, int cap) {
-  __shared__ float s_acc[kBandWarps][kBand][kBwdMaxC];
+  __shared__ float s_acc[kBandWarps][kBand][kMaxC];
   __shared__ int s_xr[kBandWarps][kBand];       // the band rows of the tile at hand
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = blockIdx.y;
@@ -342,7 +415,7 @@ msdetrpc_bwd_band_kernel(const int* __restrict__ pool_row, const float* __restri
   const int band = blockIdx.x * kBandWarps + warp;
   if (band >= bands) return;                    // the whole warp leaves together
   const int x0 = band * kBand;
-  float (*acc)[kBwdMaxC] = s_acc[warp];
+  float (*acc)[kMaxC] = s_acc[warp];
   for (int x = 0; x < kBand; ++x)
     for (int c = lane; c < C; c += 32) acc[x][c] = 0.f;
 
@@ -622,17 +695,37 @@ int run_layout(const void* const* idxs, const void* const* ws, void* const* dws,
 
 // idx (bh, n, L*P) i32 level-local; w (bh, n, L*P) f32; val (bh, ntot, c) f32
 // -> out (bh, n, c) f32.  level_sizes: host array of L ints summing to ntot.
+// c <= 64.
 extern "C" int aff_msdetrpc(const int* idx, const float* w, const float* val,
                             float* out, int bh, int n, int ntot, int c,
                             int n_levels, const int* level_sizes, int pairs,
                             void* stream_ptr) {
   Levels lv;
-  if (pairs < 1 || c < 1 || !make_levels(n_levels, level_sizes, ntot, &lv))
+  if (pairs < 1 || c < 1 || c > kMaxC || n < 1 || bh < 1 || bh > 65535 ||
+      !make_levels(n_levels, level_sizes, ntot, &lv))
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 block(32, kQueriesPerBlock);
-  dim3 grid((n + kQueriesPerBlock - 1) / kQueriesPerBlock, bh);
-  msdetrpc_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-      idx, w, val, out, n, ntot, c, pairs, lv);
+  const dim3 block(32, kQueriesPerBlock);
+  const dim3 grid((n + kQueriesPerBlock - 1) / kQueriesPerBlock, bh);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  // the path's 3 levels x 16 pairs compiled in, else the run-time count
+  const bool path = n_levels == 3 && pairs == 16;
+#define FWD_LAUNCH(VEC, LPR, UNITS)                                                         \
+  do {                                                                                      \
+    if (path)                                                                               \
+      msdetrpc_kernel<VEC, LPR, UNITS, 3, 16><<<grid, block, 0, stream>>>(                  \
+          idx, w, val, out, n, ntot, c, n_levels, pairs, lv);                               \
+    else                                                                                    \
+      msdetrpc_kernel<VEC, LPR, UNITS, 0, 0><<<grid, block, 0, stream>>>(                   \
+          idx, w, val, out, n, ntot, c, n_levels, pairs, lv);                               \
+  } while (0)
+  // 16 bytes per lane where every value row and output row starts at a
+  // multiple of 16 bytes
+  const bool vec = c % 4 == 0 && aligned16(val) && aligned16(out);
+  if (vec && c <= 16) FWD_LAUNCH(4, 4, 1);
+  else if (vec && c <= 32) FWD_LAUNCH(4, 8, 1);
+  else if (vec) FWD_LAUNCH(4, 16, 1);
+  else FWD_LAUNCH(1, 32, 2);
+#undef FWD_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -664,7 +757,7 @@ extern "C" int aff_msdetrpc_bwd(const int* idx, const float* w, const float* val
                                 void* stream_ptr) {
   Levels lv;
   const int tile = pairs < 1 ? 0 : bwd_tile_queries(n_levels * pairs);
-  if (tile < 1 || c < 1 || c > kBwdMaxC || n < 1 || bh < 1 || bh > 65535 ||
+  if (tile < 1 || c < 1 || c > kMaxC || n < 1 || bh < 1 || bh > 65535 ||
       !make_levels(n_levels, level_sizes, ntot, &lv))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);

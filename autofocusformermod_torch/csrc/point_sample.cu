@@ -10,33 +10,68 @@
 //               img[m, y0 + b, x0 + a] * (a ? wx : 1 - wx) * (b ? wy : 1 - wy)
 // with x0 = floor(x), wx = x - x0: torch grid_sample(align_corners=False,
 // padding_mode='zeros') on coordinates in [0, 1], the clamp as the TPU
-// kernel's _prep_coords (it leaves every in-bounds tap as it is).
+// kernel's _prep_coords (it leaves every in-bounds tap as it is).  The
+// gradient goes to the masks only.
 //
-// What bounds it on the H100: the four scattered 4-byte reads per point
-// (and, backward, four atomicAdd reductions per point).  A mask is 64 KB at
-// 128x128, so the points of one mask hit L2; the TPU kernel's separable
-// one-hot matmuls exist because the TPU's element gathers are slow, and are
-// not carried over.
+// What bounds it on the H100: bytes.  At a training step's shapes the
+// coordinates (8 bytes a point) and the outputs or gradients (4 bytes) are
+// most of them; the masks are read (forward) or written (backward) once.  The
+// TPU kernel's separable one-hot matmuls exist because the TPU's element
+// gathers are slow, and are not carried over.
 //
-// Design: one thread per point, consecutive threads on consecutive points of
-// one mask.  The gradient goes to the masks only; d img must arrive zeroed.
+// Two routes, chosen by the wrapper from the mask's shape alone
+// (ops/point_sample.py:point_sample_route), both counted:
+//
+// Shared route, for a mask whose fp32 image fits a block's shared memory
+// (227 KB; the criterion's 128x128 logits are 64 KB): one block of 512
+// threads per mask.
+//   forward: the block brings the mask into shared memory with 16-byte
+//     asynchronous copies, then reads every point's four taps there.  The
+//     random tap reads, which cost the direct route a 32-byte L2 sector for 4
+//     useful bytes, become bank accesses; device memory and L2 see the mask
+//     once.
+//   backward: the block zeroes a tile of the mask's size in shared memory,
+//     adds every point's four tap contributions there with shared-memory
+//     atomics, and writes the tile out once with 16-byte stores.  No global
+//     atomic, no zero-fill pass over the gradient: each element of d img is
+//     written exactly once.  The order of the adds into one cell is the
+//     order in which the warps reach them, which is not fixed: two calls
+//     may differ in the last bits.  The H100 has no fp32 add among its
+//     shared-memory atomics: atomicAdd there compiles to a compare-and-swap
+//     loop (ATOMS.CAST.SPIN), which keeps this kernel at ~2x its bytes
+//     bound.  A fixed-order form (a stable block sort of each chunk's
+//     (cell, value) pairs, then sums in entry order) ran several times
+//     slower on the card (PERF.md section 6) and is not used.
+// Both read two points' coordinates with one 16-byte load and write two
+// results (or read two gradients) with one 8-byte access where the point
+// count is even.
+//
+// Direct route, for a mask that does not fit (the criterion's 512x512 target
+// masks, 1 MB): one thread per point, consecutive threads on consecutive
+// points of one mask, the coordinates read as one 8-byte load; the backward
+// scatters with global atomicAdd into a d img that arrives zeroed.
+//
+// On both routes a tap is chosen with the plain version's rounding
+// (__fmul_rn, __fsub_rn, then floorf), clamped to [-1, w] x [-1, h], and read
+// or written only inside the image: a y-stratified y can be exactly 1.0,
+// whose lower taps lie outside.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTileThreads = 512;
+// the largest mask of the shared route: the 227 KB a block may use on the H100
+constexpr int kMaxTileBytes = 227 * 1024;
 
 struct Taps {
-  long long base;
   int x0, y0;
   float wx, wy;
 };
 
-__device__ __forceinline__ Taps taps_of(const float* coords, long long pt, int P, int H,
-                                        int W) {
-  const float cx = coords[2 * pt];
-  const float cy = coords[2 * pt + 1];
+__device__ __forceinline__ Taps taps_of(float cx, float cy, int H, int W) {
   // rounded as the plain version rounds it (no FMA), so floor() picks the
   // same taps
   const float x = fminf(fmaxf(__fsub_rn(__fmul_rn(cx, (float)W), 0.5f), -1.f), (float)W);
@@ -44,7 +79,6 @@ __device__ __forceinline__ Taps taps_of(const float* coords, long long pt, int P
   const float x0 = floorf(x);
   const float y0 = floorf(y);
   Taps t;
-  t.base = (pt / P) * (long long)H * W;
   t.x0 = (int)x0;
   t.y0 = (int)y0;
   t.wx = x - x0;
@@ -56,41 +90,157 @@ __device__ __forceinline__ bool inside(int x, int y, int H, int W) {
   return x >= 0 && x < W && y >= 0 && y < H;
 }
 
+// The bilinear blend of one mask's image `im` (global or shared memory).
+__device__ __forceinline__ float blend(const float* im, const Taps& t, int H, int W) {
+  const int x1 = t.x0 + 1, y1 = t.y0 + 1;
+  const float v00 = inside(t.x0, t.y0, H, W) ? im[t.y0 * W + t.x0] : 0.f;
+  const float v01 = inside(x1, t.y0, H, W) ? im[t.y0 * W + x1] : 0.f;
+  const float v10 = inside(t.x0, y1, H, W) ? im[y1 * W + t.x0] : 0.f;
+  const float v11 = inside(x1, y1, H, W) ? im[y1 * W + x1] : 0.f;
+  const float top = v00 * (1.f - t.wx) + v01 * t.wx;
+  const float bot = v10 * (1.f - t.wx) + v11 * t.wx;
+  return top * (1.f - t.wy) + bot * t.wy;
+}
+
+// One point's four tap contributions g * weight, added into `d` (global or
+// shared memory) with atomicAdd.
+__device__ __forceinline__ void scatter(float* d, const Taps& t, float gp, int H, int W) {
+  const float gt = gp * (1.f - t.wy), gb = gp * t.wy;
+  const int x1 = t.x0 + 1, y1 = t.y0 + 1;
+  if (inside(t.x0, t.y0, H, W)) atomicAdd(d + t.y0 * W + t.x0, gt * (1.f - t.wx));
+  if (inside(x1, t.y0, H, W)) atomicAdd(d + t.y0 * W + x1, gt * t.wx);
+  if (inside(t.x0, y1, H, W)) atomicAdd(d + y1 * W + t.x0, gb * (1.f - t.wx));
+  if (inside(x1, y1, H, W)) atomicAdd(d + y1 * W + x1, gb * t.wx);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------ direct route
 __global__ void __launch_bounds__(kThreads)
-point_sample_kernel(const float* __restrict__ img, const float* __restrict__ coords,
+point_sample_kernel(const float* __restrict__ img, const float2* __restrict__ coords,
                     float* __restrict__ out, long long total, int P, int H, int W) {
   const long long pt = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (pt >= total) return;
-  const Taps t = taps_of(coords, pt, P, H, W);
-  const float* im = img + t.base;
-  const int x1 = t.x0 + 1, y1 = t.y0 + 1;
-  const float v00 = inside(t.x0, t.y0, H, W) ? im[(size_t)t.y0 * W + t.x0] : 0.f;
-  const float v01 = inside(x1, t.y0, H, W) ? im[(size_t)t.y0 * W + x1] : 0.f;
-  const float v10 = inside(t.x0, y1, H, W) ? im[(size_t)y1 * W + t.x0] : 0.f;
-  const float v11 = inside(x1, y1, H, W) ? im[(size_t)y1 * W + x1] : 0.f;
-  const float top = v00 * (1.f - t.wx) + v01 * t.wx;
-  const float bot = v10 * (1.f - t.wx) + v11 * t.wx;
-  out[pt] = top * (1.f - t.wy) + bot * t.wy;
+  const float2 c = coords[pt];
+  out[pt] = blend(img + (pt / P) * (long long)H * W, taps_of(c.x, c.y, H, W), H, W);
 }
 
 __global__ void __launch_bounds__(kThreads)
-point_sample_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ g,
+point_sample_bwd_kernel(const float2* __restrict__ coords, const float* __restrict__ g,
                         float* __restrict__ dimg, long long total, int P, int H, int W) {
   const long long pt = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (pt >= total) return;
-  const Taps t = taps_of(coords, pt, P, H, W);
-  float* d = dimg + t.base;
-  const float gp = g[pt];
-  const float gt = gp * (1.f - t.wy), gb = gp * t.wy;
-  const int x1 = t.x0 + 1, y1 = t.y0 + 1;
-  if (inside(t.x0, t.y0, H, W)) atomicAdd(d + (size_t)t.y0 * W + t.x0, gt * (1.f - t.wx));
-  if (inside(x1, t.y0, H, W)) atomicAdd(d + (size_t)t.y0 * W + x1, gt * t.wx);
-  if (inside(t.x0, y1, H, W)) atomicAdd(d + (size_t)y1 * W + t.x0, gb * (1.f - t.wx));
-  if (inside(x1, y1, H, W)) atomicAdd(d + (size_t)y1 * W + x1, gb * t.wx);
+  const float2 c = coords[pt];
+  scatter(dimg + (pt / P) * (long long)H * W, taps_of(c.x, c.y, H, W), g[pt], H, W);
 }
 
 unsigned blocks_for(long long total) {
   return (unsigned)((total + kThreads - 1) / kThreads);
+}
+
+// ------------------------------------------------------------ shared route
+// VN: the mask's H * W is a multiple of 4 and the image (or gradient) starts
+// at a multiple of 16 bytes (16-byte copies of the tile, else 4-byte); VP:
+// the point count is even and the coordinates start at a multiple of 16
+// bytes (two points per 16-byte load, else one per 8-byte load).
+template <bool VN, bool VP>
+__global__ void __launch_bounds__(kTileThreads, 3)
+point_sample_tile_kernel(const float* __restrict__ img, const float* __restrict__ coords,
+                         float* __restrict__ out, int P, int H, int W) {
+  extern __shared__ __align__(16) float tile[];
+  const long long m = blockIdx.x;
+  const int hw = H * W, tid = threadIdx.x;
+  const float* src = img + m * hw;
+  if constexpr (VN) {
+    for (int i = tid * 4; i < hw; i += kTileThreads * 4) cp_async16(tile + i, src + i);
+    cp_async_wait_all();
+  } else {
+    for (int i = tid; i < hw; i += kTileThreads) tile[i] = src[i];
+  }
+  __syncthreads();
+  const float* cm = coords + m * P * 2;
+  float* om = out + m * P;
+  if constexpr (VP) {
+    for (int i = tid; i < P / 2; i += kTileThreads) {
+      const float4 c = reinterpret_cast<const float4*>(cm)[i];
+      float2 o;
+      o.x = blend(tile, taps_of(c.x, c.y, H, W), H, W);
+      o.y = blend(tile, taps_of(c.z, c.w, H, W), H, W);
+      reinterpret_cast<float2*>(om)[i] = o;
+    }
+  } else {
+    for (int i = tid; i < P; i += kTileThreads) {
+      const float2 c = reinterpret_cast<const float2*>(cm)[i];
+      om[i] = blend(tile, taps_of(c.x, c.y, H, W), H, W);
+    }
+  }
+}
+
+template <bool VN, bool VP>
+__global__ void __launch_bounds__(kTileThreads, 3)
+point_sample_tile_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ g,
+                             float* __restrict__ dimg, int P, int H, int W) {
+  extern __shared__ __align__(16) float tile[];
+  const long long m = blockIdx.x;
+  const int hw = H * W, tid = threadIdx.x;
+  if constexpr (VN) {
+    for (int i = tid * 4; i < hw; i += kTileThreads * 4)
+      *reinterpret_cast<float4*>(tile + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    for (int i = tid; i < hw; i += kTileThreads) tile[i] = 0.f;
+  }
+  __syncthreads();
+  const float* cm = coords + m * P * 2;
+  const float* gm = g + m * P;
+  if constexpr (VP) {
+    for (int i = tid; i < P / 2; i += kTileThreads) {
+      const float4 c = reinterpret_cast<const float4*>(cm)[i];
+      const float2 gp = reinterpret_cast<const float2*>(gm)[i];
+      scatter(tile, taps_of(c.x, c.y, H, W), gp.x, H, W);
+      scatter(tile, taps_of(c.z, c.w, H, W), gp.y, H, W);
+    }
+  } else {
+    for (int i = tid; i < P; i += kTileThreads) {
+      const float2 c = reinterpret_cast<const float2*>(cm)[i];
+      scatter(tile, taps_of(c.x, c.y, H, W), gm[i], H, W);
+    }
+  }
+  __syncthreads();
+  float* dst = dimg + m * hw;
+  if constexpr (VN) {
+    for (int i = tid * 4; i < hw; i += kTileThreads * 4)
+      *reinterpret_cast<float4*>(dst + i) = *reinterpret_cast<const float4*>(tile + i);
+  } else {
+    for (int i = tid; i < hw; i += kTileThreads) dst[i] = tile[i];
+  }
+}
+
+inline bool aligned(const void* ptr, int bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+}
+
+// Launch a shared-route kernel on n masks of hw floats: the leave to use more
+// than 48 KB of dynamic shared memory is asked for at every launch (a host
+// call of a microsecond; it is per device).
+template <typename Kernel, typename... Args>
+int launch_tile(Kernel kernel, int n, int hw, void* stream_ptr, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kMaxTileBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<n, kTileThreads, (size_t)hw * sizeof(float),
+           static_cast<cudaStream_t>(stream_ptr)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool tile_fits(int n, int p, int h, int w) {
+  return n >= 1 && p >= 1 && h >= 1 && w >= 1 && (long long)h * w * 4 <= kMaxTileBytes;
 }
 
 // ---------------------------------------------------------------------------
@@ -170,26 +320,69 @@ point_sample_nearest_rows_kernel(const float* __restrict__ img, const int4* __re
 
 }  // namespace
 
-// img (n, h, w) f32; coords (n, p, 2) f32 in [0, 1], (x, y) -> out (n, p)
+// img (n, h, w) f32; coords (n, p, 2) f32 in [0, 1], (x, y), 8-byte aligned
+// -> out (n, p).  The direct route.
 extern "C" int aff_point_sample(const float* img, const float* coords, float* out,
                                 int n, int p, int h, int w, void* stream_ptr) {
   if (n < 1 || p < 1 || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long total = (long long)n * p;
   point_sample_kernel<<<blocks_for(total), kThreads, 0,
-                        static_cast<cudaStream_t>(stream_ptr)>>>(img, coords, out, total,
-                                                                 p, h, w);
+                        static_cast<cudaStream_t>(stream_ptr)>>>(
+      img, reinterpret_cast<const float2*>(coords), out, total, p, h, w);
   return static_cast<int>(cudaGetLastError());
 }
 
-// coords (n, p, 2); g (n, p) = d out -> dimg (n, h, w), zeroed on entry
+// The same on the shared route: h * w * 4 bytes must fit 227 KB.
+extern "C" int aff_point_sample_shared(const float* img, const float* coords, float* out,
+                                       int n, int p, int h, int w, void* stream_ptr) {
+  if (!tile_fits(n, p, h, w)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vn = (h * w) % 4 == 0 && aligned(img, 16);
+  const bool vp = p % 2 == 0 && aligned(coords, 16) && aligned(out, 8);
+  const int hw = h * w;
+  if (vn && vp)
+    return launch_tile(point_sample_tile_kernel<true, true>, n, hw, stream_ptr, img, coords, out,
+                       p, h, w);
+  if (vn)
+    return launch_tile(point_sample_tile_kernel<true, false>, n, hw, stream_ptr, img, coords,
+                       out, p, h, w);
+  if (vp)
+    return launch_tile(point_sample_tile_kernel<false, true>, n, hw, stream_ptr, img, coords,
+                       out, p, h, w);
+  return launch_tile(point_sample_tile_kernel<false, false>, n, hw, stream_ptr, img, coords, out,
+                     p, h, w);
+}
+
+// coords (n, p, 2), 8-byte aligned; g (n, p) = d out -> dimg (n, h, w),
+// zeroed on entry.  The direct route.
 extern "C" int aff_point_sample_bwd(const float* coords, const float* g, float* dimg,
                                     int n, int p, int h, int w, void* stream_ptr) {
   if (n < 1 || p < 1 || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long total = (long long)n * p;
   point_sample_bwd_kernel<<<blocks_for(total), kThreads, 0,
-                            static_cast<cudaStream_t>(stream_ptr)>>>(coords, g, dimg,
-                                                                     total, p, h, w);
+                            static_cast<cudaStream_t>(stream_ptr)>>>(
+      reinterpret_cast<const float2*>(coords), g, dimg, total, p, h, w);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same on the shared route: every element of dimg written, no zeroing
+// needed; h * w * 4 bytes must fit 227 KB.
+extern "C" int aff_point_sample_bwd_shared(const float* coords, const float* g, float* dimg,
+                                           int n, int p, int h, int w, void* stream_ptr) {
+  if (!tile_fits(n, p, h, w)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vn = (h * w) % 4 == 0 && aligned(dimg, 16);
+  const bool vp = p % 2 == 0 && aligned(coords, 16) && aligned(g, 8);
+  const int hw = h * w;
+  if (vn && vp)
+    return launch_tile(point_sample_tile_bwd_kernel<true, true>, n, hw, stream_ptr, coords, g,
+                       dimg, p, h, w);
+  if (vn)
+    return launch_tile(point_sample_tile_bwd_kernel<true, false>, n, hw, stream_ptr, coords, g,
+                       dimg, p, h, w);
+  if (vp)
+    return launch_tile(point_sample_tile_bwd_kernel<false, true>, n, hw, stream_ptr, coords, g,
+                       dimg, p, h, w);
+  return launch_tile(point_sample_tile_bwd_kernel<false, false>, n, hw, stream_ptr, coords, g,
+                     dimg, p, h, w);
 }
 
 // img (n, h, w) f32; coords (n, p, 2) f32 (x, y) -> out (n, p): the value of

@@ -50,8 +50,10 @@ SIGNATURES = {
     "aff_msdetrpc_interleaved_bwd": [P] * 8 + [I] * 6 + [P],
     "aff_point_sample": [P, P, P, I, I, I, I, P],
     "aff_point_sample_bwd": [P, P, P, I, I, I, I, P],
+    "aff_point_sample_bwd_shared": [P, P, P, I, I, I, I, P],
     "aff_point_sample_nearest": [P, P, P, I, I, I, I, P],
     "aff_point_sample_nearest_rows": [P, P, P, P, I, I, I, I, P],
+    "aff_point_sample_shared": [P, P, P, I, I, I, I, P],
     "aff_window_gather": [P, P, P, I, I, I, I, P],
     "aff_window_gather_shared": [P, P, P, I, I, I, I, P],
 }

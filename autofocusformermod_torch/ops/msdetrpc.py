@@ -19,15 +19,18 @@ Each kernel reads its layout in place.  On CUDA tensors each call is an
 autograd Function differentiable in the weights and the values (the indices
 get no gradient), whose backward is a kernel reading the same layout; on CPU
 tensors the plain version runs.  The interleaved fifth layout is
-``ops/clusten.py:msdetrpc``.
+``ops/clusten.py:msdetrpc``.  ``msdetrpc_levels_s_library`` computes the
+stacked layout's function with one PyTorch call (``F.embedding_bag``), as a
+yardstick of the kernels' speed; nothing in the port calls it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from .build import check, load_kernels
 from .dispatch import require, stream_of, use_kernel
@@ -137,6 +140,37 @@ def msdetrpc_levels_s_plain(idx_s, w_s, val, level_sizes: Sequence[int]) -> torc
         p)
     rows = take_rows(val, idx_s.long() + offs)                  # (bh, n, L*P, c_)
     return torch.einsum("bnp,bnpc->bnc", w_s, rows)
+
+
+def msdetrpc_bag_rows(idx_s: torch.Tensor, level_sizes: Sequence[int]) -> torch.Tensor:
+    """The value rows of ``msdetrpc_levels_s``'s pairs in the flattened (bh *
+    ntot, c_) table: (bh * n, L*P) int64, r * ntot + off_j + the index clamped
+    into level j (as the kernel clamps it)."""
+    bh, n, lp = idx_s.shape
+    p = lp // len(level_sizes)
+    dev = idx_s.device
+    sizes = torch.tensor(list(level_sizes), device=dev)
+    offs = torch.repeat_interleave(torch.cumsum(sizes, 0) - sizes, p)
+    local = torch.minimum(idx_s.long().clamp(min=0), torch.repeat_interleave(sizes - 1, p))
+    heads = torch.arange(bh, device=dev)[:, None, None] * int(sizes.sum())
+    return (local + offs + heads).reshape(bh * n, lp)
+
+
+def msdetrpc_levels_s_library(idx_s, w_s, val, level_sizes: Sequence[int],
+                              rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``msdetrpc_levels_s`` as one PyTorch call: ``F.embedding_bag`` in sum
+    mode with ``w_s`` as the per-sample weights, one bag of L*P rows per
+    query, over the flattened table; its autograd backward gives d_val and
+    d_w.  The port runs it nowhere: it is the library yardstick of the
+    stacked forward and backward kernels.  ``rows``: ``msdetrpc_bag_rows``
+    made ahead, to time the call alone."""
+    bh, n, lp = idx_s.shape
+    ntot, c_ = val.shape[1:]
+    if rows is None:
+        rows = msdetrpc_bag_rows(idx_s, level_sizes)
+    out = F.embedding_bag(rows, val.reshape(bh * ntot, c_), mode="sum",
+                          per_sample_weights=w_s.reshape(bh * n, lp))
+    return out.reshape(bh, n, c_)
 
 
 # --------------------------------------------------- per-level operand layouts

@@ -7,7 +7,14 @@ Counterpart of ``autofocusformermod_tpu/ops/pallas/point_sample_kernel.py``:
   ``grid_sample(align_corners=False, padding_mode='zeros')`` of (n, h, w)
   masks at (n, p, 2) coordinates in [0, 1]; on CUDA tensors an autograd
   Function whose gradient goes to the masks only.  Its plain version is
-  ``losses.point_sample.point_sample``.
+  ``losses.point_sample.point_sample``.  The kernel, forward and backward,
+  has two routes, chosen from the mask's shape alone
+  (``point_sample_route``): ``"shared"`` holds one mask in a block's shared
+  memory (the backward sums its gradient there and writes it once),
+  ``"direct"`` reads the mask where it lies and scatters the gradient with
+  global atomics into a zeroed tensor.  ``point_sample_bilinear.launches``
+  and ``point_sample_backward.launches`` count both routes,
+  ``launches_by_route`` each.
 - ``point_sample_nearest`` (``point_sample_nearest_pallas``) and
   ``point_sample_nearest_rows`` (``point_sample_nearest_rows_pallas``): the
   value of the cell each point falls in, for the uncertainty ranking.  They
@@ -16,6 +23,8 @@ Counterpart of ``autofocusformermod_tpu/ops/pallas/point_sample_kernel.py``:
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -46,42 +55,76 @@ class _PointSample(torch.autograd.Function):
         return point_sample_backward(coords.contiguous(), g.contiguous(), ctx.mask_shape), None
 
 
-def point_sample_forward(masks: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernel -> (n, p)."""
+# the largest mask of the shared route: the 227 KB of shared memory a block
+# may use on the H100 (csrc/point_sample.cu kMaxTileBytes)
+SHARED_MASK_BYTES = 227 * 1024
+
+
+def point_sample_route(h: int, w: int) -> str:
+    """The kernel route for (h, w) masks, forward and backward: "shared" where
+    one mask's fp32 image fits a block's shared memory, else "direct"."""
+    return "shared" if h * w * 4 <= SHARED_MASK_BYTES else "direct"
+
+
+def point_sample_forward(masks: torch.Tensor, coords: torch.Tensor,
+                         route: Optional[str] = None) -> torch.Tensor:
+    """Launch the forward kernel -> (n, p), on ``route`` (default: the one
+    ``point_sample_route`` picks; a forced "shared" must fit)."""
     n, h, w = masks.shape
     p = coords.shape[1]
+    route = _route(route, h, w)
     require(masks, "masks", torch.float32, (n, h, w))
-    require(coords, "coords", torch.float32, (n, p, 2))
+    require(coords, "coords", torch.float32, (n, p, 2), align=8)
     out = torch.empty((n, p), dtype=torch.float32, device=masks.device)
+    name = "aff_point_sample_shared" if route == "shared" else "aff_point_sample"
     lib = load_kernels()
     with torch.cuda.device(masks.device):
-        err = lib.aff_point_sample(masks.data_ptr(), coords.data_ptr(), out.data_ptr(),
-                                   n, p, h, w, stream_of(masks))
-    check(err, "aff_point_sample")
+        err = getattr(lib, name)(masks.data_ptr(), coords.data_ptr(), out.data_ptr(),
+                                 n, p, h, w, stream_of(masks))
+    check(err, name)
     point_sample_bilinear.launches += 1
+    point_sample_bilinear.launches_by_route[route] += 1
     return out
 
 
 point_sample_bilinear.launches = 0
+point_sample_bilinear.launches_by_route = {"shared": 0, "direct": 0}
 
 
-def point_sample_backward(coords: torch.Tensor, g: torch.Tensor, mask_shape) -> torch.Tensor:
-    """Launch the backward kernel: g = d out (n, p) -> d masks (n, h, w)."""
+def point_sample_backward(coords: torch.Tensor, g: torch.Tensor, mask_shape,
+                          route: Optional[str] = None) -> torch.Tensor:
+    """Launch the backward kernel: g = d out (n, p) -> d masks (n, h, w), on
+    ``route`` as ``point_sample_forward``.  The shared route writes every
+    element; the direct one adds into zeros."""
     n, h, w = mask_shape
     p = coords.shape[1]
-    require(coords, "coords", torch.float32, (n, p, 2))
+    route = _route(route, h, w)
+    require(coords, "coords", torch.float32, (n, p, 2), align=8)
     require(g, "g", torch.float32, (n, p))
-    dmasks = torch.zeros((n, h, w), dtype=torch.float32, device=g.device)
+    alloc = torch.empty if route == "shared" else torch.zeros
+    dmasks = alloc((n, h, w), dtype=torch.float32, device=g.device)
+    name = "aff_point_sample_bwd_shared" if route == "shared" else "aff_point_sample_bwd"
     lib = load_kernels()
     with torch.cuda.device(g.device):
-        err = lib.aff_point_sample_bwd(coords.data_ptr(), g.data_ptr(), dmasks.data_ptr(),
-                                       n, p, h, w, stream_of(g))
-    check(err, "aff_point_sample_bwd")
+        err = getattr(lib, name)(coords.data_ptr(), g.data_ptr(), dmasks.data_ptr(),
+                                 n, p, h, w, stream_of(g))
+    check(err, name)
     point_sample_backward.launches += 1
+    point_sample_backward.launches_by_route[route] += 1
     return dmasks
 
 
 point_sample_backward.launches = 0
+point_sample_backward.launches_by_route = {"shared": 0, "direct": 0}
+
+
+def _route(route: Optional[str], h: int, w: int) -> str:
+    if route is None:
+        return point_sample_route(h, w)
+    if route not in ("shared", "direct") or (route == "shared"
+                                              and point_sample_route(h, w) != "shared"):
+        raise ValueError(f"point_sample: no route {route!r} for {h}x{w} masks")
+    return route
 
 
 def point_sample_nearest_plain(masks: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,8 @@ resume, and the pixel decoder's alternate operand layouts -- on one NVIDIA GPU.
 1. builds the hand-written CUDA kernels (csrc/) with nvcc, one process per
    source;
 2. holds each inference kernel against its plain PyTorch version on the
-   card, at the shapes a 512x512 batch-4 forward gives it, and times both;
+   card, at the shapes a 512x512 batch-4 forward gives it, and times both
+   (msdetrpc also at other levels, pairs and widths: its generic instance);
 3. runs the full AFF-Mini + Mask2Former forward (published ADE20K widths,
    seeded random weights) at 512x512, batch 4, through the kernels, checks
    that every kernel launched the expected number of times, and compares the
@@ -22,9 +23,12 @@ resume, and the pixel decoder's alternate operand layouts -- on one NVIDIA GPU.
    kernels timed apart, its reverse lists' build timed too, two calls
    compared bit for bit; both once more on random neighbour lists), and what
    is the same for both models at one batch (msdetrpc forward and backward,
-   the backward on a uniform draw and on the operands of a real batch-8
-   forward, two calls bit for bit; knn, point_sample forward and backward,
-   the lapjv matcher);
+   each on a uniform draw and on the operands of a real batch-8 forward, the
+   backward two calls bit for bit, both beside F.embedding_bag, the forward
+   against the least time the card's L2 needs for its value rows; knn;
+   point_sample forward and backward on each route, on uniform coordinates
+   and on those of a real batch-8 criterion call, beside F.grid_sample; the
+   lapjv matcher);
 6. trains: the full-width AFF-Mini step (batch 8, 512x512, 100 target slots,
    12544 points, fp32, the default criterion with the nearest-tap ranking)
    on seeded synthetic label maps, once through the kernels and once
@@ -387,45 +391,114 @@ def local_attn_record(paths: dict) -> dict:
             "library_ms": None, **per_path(paths, "aff_mini_b4_forward")}
 
 
-def check_msdetrpc(dev, gen, b):
-    """K3 at batch b (bh = 8 b; the pixel decoder is the same for both
-    models): 3 levels x 16 pairs, c_=32 at the three query levels; ms sums
-    the 18 calls of a forward (6 encoder layers x 3 levels)."""
+def msdetrpc_uniform_calls(dev, gen, b, times=6):
+    """K3 and K4 operands at batch b (bh = 8 b; the pixel decoder is the same
+    for both models) drawn uniformly: 3 levels x 16 pairs, c_=32, one call
+    per query level (n = 256, 1024, 4096), each standing for `times` calls (6
+    encoder layers).  -> [(idx_s, w_s, val, level sizes, times)]."""
     import torch
-    from autofocusformermod_torch.ops.dispatch import plain_versions
-    from autofocusformermod_torch.ops.msdetrpc import msdetrpc_levels_s
 
     bh, p, c_, sizes = b * 8, 16, 32, (256, 1024, 4096)
     val = torch.randn((bh, sum(sizes), c_), generator=gen).to(dev)
-    err, ms, plain_ms, bnd = 0.0, 0.0, 0.0, {}
+    calls = []
     for n in sizes:
         idx = torch.cat([torch.randint(0, s, (bh, n, p), generator=gen) for s in sizes], 2)
         w = torch.rand((bh, n, 3 * p), generator=gen)
-        idx = idx.int().to(dev).contiguous()
-        w = (w / w.sum(-1, keepdim=True)).to(dev).contiguous()
+        calls.append((idx.int().to(dev).contiguous(),
+                      (w / w.sum(-1, keepdim=True)).to(dev).contiguous(), val, sizes, times))
+    return calls
+
+
+def check_msdetrpc(label, calls, l2_rate=None):
+    """K3 on `calls` [(idx_s, w_s, val, level sizes, times)], each against the
+    plain version within MSDETRPC_ATOL; ms sums the calls, each `times` times
+    (a forward's 18).  Times: the kernel in calls (cuda_ms) and on the card
+    alone (device_ms, queued_ms); the plain version; the library call
+    (F.embedding_bag on its rows made ahead) and, apart, the making of its
+    rows (msdetrpc_bag_rows).  With the L2 read rate, l2_rows_ms is the least
+    time in which the card's L2 serves every query's L*P value rows."""
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.msdetrpc import (
+        msdetrpc_bag_rows, msdetrpc_levels_s, msdetrpc_levels_s_library)
+
+    err, lib_err, ms, device_ms, plain_ms, lib_ms, rows_ms, row_bytes, bnd = (
+        0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, {})
+    for idx, w, val, sizes, times in calls:
+        bh, n, lp = idx.shape
+        c_ = val.shape[2]
         out = msdetrpc_levels_s(idx, w, val, sizes)
         with plain_versions():
             ref = msdetrpc_levels_s(idx, w, val, sizes)
             t_p = cuda_ms(lambda: msdetrpc_levels_s(idx, w, val, sizes), iters=5, warmup=1)
         t_k = cuda_ms(lambda: msdetrpc_levels_s(idx, w, val, sizes))
+        d_k = queued_ms(lambda: msdetrpc_levels_s(idx, w, val, sizes))
+        rows = msdetrpc_bag_rows(idx, sizes)
+        t_r = cuda_ms(lambda: msdetrpc_bag_rows(idx, sizes), iters=5, warmup=1)
+        lib = msdetrpc_levels_s_library(idx, w, val, sizes, rows=rows)
+        t_l = cuda_ms(lambda: msdetrpc_levels_s_library(idx, w, val, sizes, rows=rows))
         e = (out - ref).abs().max().item()
-        err = max(err, e)
-        ms, plain_ms = ms + 6 * t_k, plain_ms + 6 * t_p
+        err, lib_err = max(err, e), max(lib_err, (lib - ref).abs().max().item())
+        ms, device_ms, plain_ms = ms + times * t_k, device_ms + times * d_k, plain_ms + times * t_p
+        lib_ms, rows_ms = lib_ms + times * t_l, rows_ms + times * t_r
+        row_bytes += times * bh * n * lp * c_ * 4
         # a multiply and an add per (query, pair, channel)
-        bnd = add_bounds(bnd, bound(nbytes(idx, w, val, out), 2 * bh * n * 3 * p * c_), 6)
-        log(f"  msdetrpc b{b} n={n} idx={tuple(idx.shape)} val={tuple(val.shape)}: max_abs_err "
-            f"{e:.3e} (rel {e / ref.abs().max().item():.3e}) kernel {t_k:.4f} ms, "
-            f"plain {t_p:.4f} ms")
+        bnd = add_bounds(bnd, bound(nbytes(idx, w, val, out), 2 * bh * n * lp * c_), times)
+        log(f"  msdetrpc {label} n={n} idx={tuple(idx.shape)} val={tuple(val.shape)}: "
+            f"max_abs_err {e:.3e} (rel {e / ref.abs().max().item():.3e}) kernel {t_k:.4f} ms "
+            f"(on the card {d_k:.4f}), plain {t_p:.4f} ms, embedding_bag {t_l:.4f} ms (+ rows "
+            f"{t_r:.4f})")
+        del out, ref, rows, lib
     if not err <= MSDETRPC_ATOL:
-        raise SystemExit(f"msdetrpc b{b}: max abs err {err} > {MSDETRPC_ATOL}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd}
+        raise SystemExit(f"msdetrpc {label}: max abs err {err} > {MSDETRPC_ATOL}")
+    if not lib_err <= MSDETRPC_ATOL:
+        raise SystemExit(f"msdetrpc_levels_s_library {label}: max abs err {lib_err}")
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "device_ms": device_ms,
+           "library_ms": lib_ms, "library_rows_ms": rows_ms, "row_bytes": row_bytes}
+    if l2_rate:
+        rec["l2_rows_ms"] = row_bytes / l2_rate * 1e3
+    log(f"  msdetrpc {label}: {ms:.3f} ms in calls, {device_ms:.3f} on the card; embedding_bag "
+        f"{lib_ms:.3f} (+ rows {rows_ms:.3f}); bound {bnd['bound_ms']:.3f} ms; value rows "
+        f"{row_bytes / 1e9:.2f} GB" + (f", {rec['l2_rows_ms']:.3f} ms at the L2 rate"
+                                       if l2_rate else ""))
+    return rec
+
+
+# the generic instance of K3: levels, pairs and channels other than the
+# path's (3, 16, 32), level sizes not multiples of 8, and a c_ read 4 bytes a
+# lane
+MSDETRPC_GENERIC_CASES = ((16, 300, (37, 150, 613), 8, 24), (4, 97, (11, 29), 5, 5))
+
+
+def check_msdetrpc_generic(dev, gen):
+    """K3 on its generic instance (run-time levels and pairs), against the
+    plain version within MSDETRPC_ATOL.  -> max abs err."""
+    import torch
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.msdetrpc import msdetrpc_levels_s
+
+    err = 0.0
+    for bh, n, sizes, p, c_ in MSDETRPC_GENERIC_CASES:
+        val = torch.randn((bh, sum(sizes), c_), generator=gen).to(dev)
+        idx = torch.cat([torch.randint(0, s, (bh, n, p), generator=gen) for s in sizes], 2)
+        idx = idx.int().to(dev).contiguous()
+        w = torch.rand((bh, n, len(sizes) * p), generator=gen).to(dev)
+        out = msdetrpc_levels_s(idx, w, val, sizes)
+        with plain_versions():
+            ref = msdetrpc_levels_s(idx, w, val, sizes)
+        e = (out - ref).abs().max().item()
+        log(f"  msdetrpc generic instance: bh {bh}, n {n}, levels {sizes}, {p} pairs, c_ {c_}: "
+            f"max_abs_err {e:.3e}")
+        err = max(err, e)
+    if not err <= MSDETRPC_ATOL:
+        raise SystemExit(f"msdetrpc generic instance: max abs err {err} > {MSDETRPC_ATOL}")
+    return err
 
 
 def msdetrpc_record(paths: dict) -> dict:
     return {"name": "msdetrpc", "route": "cuda",
             "source": "autofocusformermod_torch/csrc/msdetrpc.cu",
             "replaces": "autofocusformermod_tpu/ops/pallas/msdetrpc_kernel.py:2061",
-            "library_ms": None, **per_path(paths, "b4_forward")}
+            "library_ms": paths["b4_forward"]["library_ms"], **per_path(paths, "b4_forward")}
 
 
 def grad_errs(got, want):
@@ -613,35 +686,29 @@ def path_msdetrpc_operands(dev, b=TRAIN_BATCH):
     return calls
 
 
-def check_msdetrpc_bwd(dev, gen):
+def check_msdetrpc_bwd(dev, gen, path_calls):
     """K4 at a batch-8 step's shapes (bh=64, 3 levels x 16 pairs, c_=32) on
     two index sets: the uniform draw of earlier records, and the path's own
-    operands (path_msdetrpc_operands: the 18 calls of a batch-8 AFF-Mini
-    forward), whose figures are the record's own.  Each against the plain
-    version's autograd, and twice, bit for bit (the kernels sum in a fixed
-    order).  ms sums the 18 backward calls of a step; device_ms the same on
-    the card alone (queued_ms)."""
+    operands (`path_calls`, from path_msdetrpc_operands: the 18 calls of a
+    batch-8 AFF-Mini forward), whose figures are the record's own.  Each
+    against the plain version's autograd, and twice, bit for bit (the kernels
+    sum in a fixed order).  ms sums the 18 backward calls of a step; device_ms
+    the same on the card alone (queued_ms); library_ms the autograd backward
+    of msdetrpc_levels_s_library (F.embedding_bag) on the same operands."""
     import torch
     from autofocusformermod_torch.ops.dispatch import plain_versions
     from autofocusformermod_torch.ops.msdetrpc import (
-        msdetrpc_levels_s, msdetrpc_levels_s_backward)
+        msdetrpc_bag_rows, msdetrpc_levels_s, msdetrpc_levels_s_backward,
+        msdetrpc_levels_s_library)
 
-    bh, p, c_, sizes = TRAIN_BATCH * 8, 16, 32, (256, 1024, 4096)
-    val = torch.randn((bh, sum(sizes), c_), generator=gen).to(dev)
-    uniform = []
-    for n in sizes:
-        idx = torch.cat([torch.randint(0, s, (bh, n, p), generator=gen) for s in sizes], 2)
-        w = torch.rand((bh, n, 3 * p), generator=gen)
-        uniform.append((idx.int().to(dev).contiguous(),
-                        (w / w.sum(-1, keepdim=True)).to(dev).contiguous(), val, sizes, 6))
-    sets = {"uniform": uniform,
-            "path": [(*call, 1) for call in path_msdetrpc_operands(dev)]}
+    sets = {"uniform": msdetrpc_uniform_calls(dev, gen, TRAIN_BATCH), "path": path_calls}
     paths = {}
     for label in list(sets):
         calls = sets.pop(label)          # each set's operands are freed after its turn
-        err, worst, ms, device_ms, plain_ms, bnd = 0.0, 0.0, 0.0, 0.0, 0.0, {}
+        err, worst, ms, device_ms, plain_ms, lib_ms, bnd = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, {}
         for idx, w, v, lv_sizes, times in calls:
-            n = idx.shape[1]
+            bh, n, lp = idx.shape
+            c_ = v.shape[2]
             g = torch.randn((bh, n, c_), generator=gen).to(dev)
             leaves = [w.clone().requires_grad_(), v.clone().requires_grad_()]
 
@@ -661,102 +728,196 @@ def check_msdetrpc_bwd(dev, gen):
             t_k = cuda_ms(lambda: msdetrpc_levels_s_backward(idx, w, v, g, lv_sizes))
             d_k = queued_ms(lambda: msdetrpc_levels_s_backward(idx, w, v, g, lv_sizes))
             t_p = plain_grad_ms(fwd, leaves, g)
+            rows = msdetrpc_bag_rows(idx, lv_sizes)
+            lib_out = msdetrpc_levels_s_library(idx, leaves[0], leaves[1], lv_sizes, rows=rows)
+            t_l = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True))
             ms, device_ms, plain_ms = ms + times * t_k, device_ms + times * d_k, plain_ms + times * t_p
+            lib_ms += times * t_l
             # d_val += w * g and d_w = g . val: 4 operations per (query, pair, channel)
-            bnd = add_bounds(bnd, bound(nbytes(idx, w, v, g, w, v), 4 * bh * n * 3 * p * c_), times)
+            bnd = add_bounds(bnd, bound(nbytes(idx, w, v, g, w, v), 4 * bh * n * lp * c_), times)
             log(f"  msdetrpc bwd {label} n={n} idx={tuple(idx.shape)} val={tuple(v.shape)}: "
                 f"max_abs_err {e:.3e} (rel {rel:.3e}; d_w d_val), bit-identical twice; kernel "
-                f"{t_k:.4f} ms (on the card {d_k:.4f}), plain {t_p:.4f} ms")
-            del g, leaves, got, want, first, again
+                f"{t_k:.4f} ms (on the card {d_k:.4f}), plain {t_p:.4f} ms, embedding_bag's "
+                f"backward {t_l:.4f} ms")
+            del g, leaves, got, want, first, again, rows, lib_out
         if not worst <= GRAD_RTOL:
             raise SystemExit(f"msdetrpc backward ({label}): max rel err {worst} > {GRAD_RTOL}")
         log(f"  msdetrpc bwd {label}: per step {ms:.3f} ms in calls, {device_ms:.3f} on the card, "
-            f"bound {bnd['bound_ms']:.3f} ms")
+            f"embedding_bag's backward {lib_ms:.3f}, bound {bnd['bound_ms']:.3f} ms")
         paths[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
-                        "device_ms": device_ms}
+                        "device_ms": device_ms, "library_ms": lib_ms}
         del calls
         torch.cuda.empty_cache()
     return {"name": "msdetrpc_bwd", "route": "cuda",
             "source": "autofocusformermod_torch/csrc/msdetrpc.cu",
             "replaces": "autofocusformermod_tpu/ops/pallas/msdetrpc_kernel.py:2078",
-            "library_ms": None, "deterministic": True, **per_path(paths, "path")}
+            "library_ms": paths["path"]["library_ms"], "deterministic": True,
+            **per_path(paths, "path")}
 
 
-def check_point_sample(dev, gen):
-    """K10 at a batch-8 step's calls: the target labels (800 512x512 masks x
-    10 x 12544 points), the matched logits (8000 x 12544) and the one
-    backward (the logits'); ms sums the three.  The ranking read of the
-    reference sampler (8000 masks x 37632 candidates), which the default
-    criterion no longer makes, is held and timed too but not summed.  The
-    library call is F.grid_sample on the same masks and points."""
+def path_point_sample_operands(dev, b=TRAIN_BATCH):
+    """The operands of K10's calls in one batch-b AFF-Mini training step at
+    512x512 (seeded weights, label maps and draws), as the criterion makes
+    them: {"targets": (masks, coords)}, the target labels' forward (b * 100
+    512x512 masks, 10 layers x 12544 points each), and {"logits": (masks,
+    coords, g)}, the matched logits' forward (10 * b * 100 128x128 masks,
+    12544 points each: 9408 y-stratified importance points in chunk order, top
+    to bottom, then 3136 uniform ones) with the gradient its backward got.
+    Captured by wrapping the criterion's point_sample_auto."""
+    import torch
+    from autofocusformermod_torch.config import aff_mini_cfg
+    from autofocusformermod_torch.data.synthetic import synthetic_batch
+    from autofocusformermod_torch.engine.train_step import TrainStep
+    from autofocusformermod_torch.losses import criterion
+    from autofocusformermod_torch.models.maskformer import init_random_weights, maskformer_from_config
+
+    cfg = aff_mini_cfg()
+    model = maskformer_from_config(cfg)
+    init_random_weights(model, torch.Generator().manual_seed(SEED))
+    model = model.to(dev)
+    batch = synthetic_batch(torch.Generator().manual_seed(SEED + 1), dev, b, (SIZE, SIZE),
+                            cfg.TPU.MAX_GT_INSTANCES, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
+    calls, real = [], criterion.point_sample_auto
+
+    def capture(masks, coords):
+        out = real(masks, coords)
+        entry = [masks.detach().clone(), coords.detach().clone(), None]
+        calls.append(entry)
+        if out.requires_grad:
+            out.register_hook(lambda g: entry.__setitem__(2, g.detach().clone()))
+        return out
+
+    criterion.point_sample_auto = capture
+    try:
+        TrainStep(model, cfg).loss_and_grads(
+            batch, criterion.device_draw(torch.Generator(device=dev).manual_seed(SEED)))
+    finally:
+        criterion.point_sample_auto = real
+    if len(calls) != 2 or calls[0][2] is not None or calls[1][2] is None:
+        raise SystemExit(f"the criterion made {len(calls)} point_sample calls; expected the "
+                         "targets' (no gradient) and the logits' (with one)")
+    (tm, tc, _), (lm, lc, lg) = calls
+    del model, batch, calls
+    torch.cuda.empty_cache()
+    return {"targets": (tm, tc), "logits": (lm, lc, lg)}
+
+
+def point_sample_uniform_operands(dev, gen):
+    """K10's operands at a batch-8 step's shapes with uniform coordinates, in
+    the layout of path_point_sample_operands."""
+    import torch
+
+    n_t, layers, pts = TRAIN_BATCH * 100, 10, 12544
+    tm = (torch.rand((n_t, SIZE, SIZE), generator=gen) < 0.3).float().to(dev)
+    tc = torch.rand((n_t, layers * pts, 2), generator=gen).to(dev)
+    lm = (torch.randn((layers * n_t, 128, 128), generator=gen) * 3).to(dev)
+    lc = torch.rand((layers * n_t, pts, 2), generator=gen).to(dev)
+    lg = torch.randn((layers * n_t, pts), generator=gen).to(dev)
+    return {"targets": (tm, tc), "logits": (lm, lc, lg)}
+
+
+def check_point_sample(dev, gen, path_ops):
+    """K10 at a batch-8 step's calls: the target labels' forward, the matched
+    logits' forward and the logits' backward; ms sums the three on the routes
+    the wrapper picks (the targets' 512x512 masks take the direct route, the
+    logits' 128x128 masks the shared one).  Two operand sets: uniform
+    coordinates, and the path's own (`path_ops`, path_point_sample_operands),
+    whose figures are the record's.  Every route that fits a call (shared and
+    direct, forward and backward) is held against the plain version and timed
+    (`routes`).  The ranking read of the reference sampler (8000 masks x 37632
+    candidates), which the default criterion no longer makes, is held and
+    timed on uniform coordinates but not summed.  The library call is
+    F.grid_sample (and its backward) on the same masks and points."""
     import torch
     import torch.nn.functional as F
     from autofocusformermod_torch.ops.dispatch import plain_versions
     from autofocusformermod_torch.ops.point_sample import (
-        point_sample_backward, point_sample_bilinear)
+        point_sample_backward, point_sample_bilinear, point_sample_forward, point_sample_route)
 
     def grid_sample(m, grid):
         return F.grid_sample(m[:, None], grid, mode="bilinear", padding_mode="zeros",
                              align_corners=False)
 
-    n_t, layers, pts = TRAIN_BATCH * 100, 10, 12544
-    masks = torch.randn((layers * n_t, 128, 128), generator=gen).to(dev) * 3
-    cases = (("ranking", masks, (layers * n_t, 3 * pts)),
-             ("targets", None, (n_t, layers * pts)),
-             ("logits", masks, (layers * n_t, pts)))
-    fwd_err, bwd_err, bwd_rel, ms, plain_ms, lib_ms, bnd = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, {}
-    for label, m, (n, p) in cases:
-        if m is None:
-            m = (torch.rand((n, SIZE, SIZE), generator=gen) < 0.3).float().to(dev)
-        coords = torch.rand((n, p, 2), generator=gen).to(dev)
-        out = point_sample_bilinear(m, coords)
-        with plain_versions():
-            ref = point_sample_bilinear(m, coords)
-            t_p = cuda_ms(lambda: point_sample_bilinear(m, coords), iters=3, warmup=1)
-        t_k = cuda_ms(lambda: point_sample_bilinear(m, coords), iters=5, warmup=1)
-        grid = (coords * 2 - 1)[:, None]
-        lib = grid_sample(m, grid)[:, 0, 0]
-        t_l = cuda_ms(lambda: grid_sample(m, grid), iters=5, warmup=1)
-        e = (out - ref).abs().max().item()
-        e_lib = (lib - ref).abs().max().item()
-        fwd_err = max(fwd_err, e)
-        on_path = label != "ranking"
-        if on_path:
-            ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
-            # per point: the pixel coordinate, four weights and the blend, ~20
-            bnd = add_bounds(bnd, bound(nbytes(m, coords, out), 20 * n * p))
-        log(f"  point_sample fwd {label:8s} masks={tuple(m.shape)} points={p}: max_abs_err "
-            f"{e:.3e} kernel {t_k:.4f} ms, plain {t_p:.4f} ms, grid_sample {t_l:.4f} ms "
-            f"(its err vs plain {e_lib:.3e}){'' if on_path else ' [not on the default path]'}")
-        del out, ref, lib
-        if label == "logits":
-            g = torch.randn((n, p), generator=gen).to(dev)
-            leaf = m.clone().requires_grad_()
-            got = torch.autograd.grad(point_sample_bilinear(leaf, coords), leaf, g)[0]
+    def routes_of(m):
+        return ("shared", "direct") if point_sample_route(*m.shape[1:]) == "shared" else ("direct",)
+
+    sets = {"uniform": lambda: point_sample_uniform_operands(dev, gen), "path": lambda: path_ops}
+    paths = {}
+    for label, make in sets.items():
+        ops = make()
+        fwd_err, ms, plain_ms, lib_ms, bnd, routes = 0.0, 0.0, 0.0, 0.0, {}, {}
+        lm, lc, lg = ops["logits"]
+        calls = [("targets", *ops["targets"]), ("logits", lm, lc)]
+        if label == "uniform":
+            calls.insert(0, ("ranking", lm, torch.rand((lm.shape[0], 3 * lc.shape[1], 2),
+                                                       generator=gen).to(dev)))
+        for name, m, coords in calls:
             with plain_versions():
-                want = torch.autograd.grad(point_sample_bilinear(leaf, coords), leaf, g)[0]
-            bwd_err, bwd_rel = grad_errs([got], [want])
-            t_k = cuda_ms(lambda: point_sample_backward(coords, g, tuple(m.shape)), iters=5,
-                          warmup=1)
-            t_p = plain_grad_ms(lambda: point_sample_bilinear(leaf, coords), [leaf], g)
-            lib_out = grid_sample(leaf, grid)
-            t_l = cuda_ms(lambda: torch.autograd.grad(lib_out, leaf, g[:, None, None],
-                                                      retain_graph=True), iters=5, warmup=1)
-            ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
-            bnd = add_bounds(bnd, bound(nbytes(coords, g, m), 20 * n * p))
-            log(f"  point_sample bwd {label:8s}: max_abs_err {bwd_err:.3e} (rel {bwd_rel:.3e}) "
-                f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, grid_sample's backward {t_l:.4f} ms")
-            del got, want, leaf, lib_out
-        del coords, grid
+                ref = point_sample_bilinear(m, coords)
+                t_p = cuda_ms(lambda: point_sample_bilinear(m, coords), iters=3, warmup=1)
+            t_k = cuda_ms(lambda: point_sample_bilinear(m, coords), iters=5, warmup=1)
+            for route in routes_of(m):
+                e = (point_sample_forward(m, coords, route=route) - ref).abs().max().item()
+                fwd_err = max(fwd_err, e)
+                routes[f"{name}_fwd_{route}"] = {
+                    "max_abs_err": e,
+                    "ms": cuda_ms(lambda: point_sample_forward(m, coords, route=route), iters=5,
+                                  warmup=1)}
+            grid = (coords * 2 - 1)[:, None]
+            e_lib = (grid_sample(m, grid)[:, 0, 0] - ref).abs().max().item()
+            t_l = cuda_ms(lambda: grid_sample(m, grid), iters=5, warmup=1)
+            on_path = name != "ranking"
+            if on_path:
+                ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
+                # per point: the pixel coordinate, four weights and the blend, ~20
+                bnd = add_bounds(bnd, bound(nbytes(m, coords, ref), 20 * coords.shape[0]
+                                            * coords.shape[1]))
+            log(f"  point_sample {label} fwd {name:8s} masks={tuple(m.shape)} points="
+                f"{coords.shape[1]}: kernel {t_k:.4f} ms on the {point_sample_route(*m.shape[1:])} "
+                f"route; " + ", ".join(f"{r} err {routes[f'{name}_fwd_{r}']['max_abs_err']:.3e} "
+                                       f"{routes[f'{name}_fwd_{r}']['ms']:.4f} ms"
+                                       for r in routes_of(m))
+                + f"; plain {t_p:.4f} ms, grid_sample {t_l:.4f} ms (its err vs plain {e_lib:.3e})"
+                + ("" if on_path else " [not on the default path]"))
+            del ref, grid
+        # the logits' backward
+        leaf = lm.clone().requires_grad_()
+        with plain_versions():
+            want = torch.autograd.grad(point_sample_bilinear(leaf, lc), leaf, lg)[0]
+        bwd_err, bwd_rel = 0.0, 0.0
+        for route in routes_of(lm):
+            got = point_sample_backward(lc, lg, tuple(lm.shape), route=route)
+            e, rel = grad_errs([got], [want])
+            bwd_err, bwd_rel = max(bwd_err, e), max(bwd_rel, rel)
+            routes[f"logits_bwd_{route}"] = {
+                "max_abs_err": e, "rel_err": rel,
+                "ms": cuda_ms(lambda: point_sample_backward(lc, lg, tuple(lm.shape), route=route),
+                              iters=5, warmup=1)}
+            del got
+        t_k = routes[f"logits_bwd_{point_sample_route(*lm.shape[1:])}"]["ms"]
+        t_p = plain_grad_ms(lambda: point_sample_bilinear(leaf, lc), [leaf], lg)
+        lib_out = grid_sample(leaf, (lc * 2 - 1)[:, None])
+        t_l = cuda_ms(lambda: torch.autograd.grad(lib_out, leaf, lg[:, None, None],
+                                                  retain_graph=True), iters=5, warmup=1)
+        ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
+        bnd = add_bounds(bnd, bound(nbytes(lc, lg, lm), 20 * lc.shape[0] * lc.shape[1]))
+        log(f"  point_sample {label} bwd logits: " + ", ".join(
+            f"{r} err {routes[f'logits_bwd_{r}']['max_abs_err']:.3e} (rel "
+            f"{routes[f'logits_bwd_{r}']['rel_err']:.3e}) {routes[f'logits_bwd_{r}']['ms']:.4f} ms"
+            for r in routes_of(lm)) + f"; plain {t_p:.4f} ms, grid_sample's backward {t_l:.4f} ms")
+        log(f"  point_sample {label}: per step {ms:.3f} ms, grid_sample {lib_ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms")
+        if not (fwd_err <= POINT_SAMPLE_ATOL and bwd_rel <= GRAD_RTOL):
+            raise SystemExit(f"point_sample ({label}): forward err {fwd_err} > {POINT_SAMPLE_ATOL} "
+                             f"or backward rel err {bwd_rel} > {GRAD_RTOL}")
+        paths[label] = {"max_abs_err": max(fwd_err, bwd_err), "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": lib_ms, **bnd, "routes": routes}
+        del ops, calls, lm, lc, lg, leaf, want, lib_out
         torch.cuda.empty_cache()
-    if not (fwd_err <= POINT_SAMPLE_ATOL and bwd_rel <= GRAD_RTOL):
-        raise SystemExit(f"point_sample: forward err {fwd_err} > {POINT_SAMPLE_ATOL} or "
-                         f"backward rel err {bwd_rel} > {GRAD_RTOL}")
     return {"name": "point_sample", "route": "cuda",
             "source": "autofocusformermod_torch/csrc/point_sample.cu",
             "replaces": "autofocusformermod_tpu/ops/pallas/point_sample_kernel.py:200",
-            "max_abs_err": max(fwd_err, bwd_err), "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, **bnd}
+            "library_ms": paths["path"]["library_ms"], **per_path(paths, "path")}
 
 
 def check_lapjv(dev, gen):
@@ -1697,6 +1858,7 @@ def main() -> int:
     from autofocusformermod_torch.ops.point_sample import (
         point_sample_backward, point_sample_bilinear, point_sample_nearest,
         point_sample_nearest_rows)
+    from autofocusformermod_torch.tools.l2_rate import l2_read_rate
 
     dev = torch.device("cuda", 0)
     log("phase 1: build")
@@ -1708,7 +1870,9 @@ def main() -> int:
     log("phase 2: kernels against their plain versions, 512x512 batch-4 shapes")
     gen = torch.Generator().manual_seed(SEED)
     local_attn_paths = {"aff_mini_b4_forward": check_local_attn(dev, gen, "aff_mini", BATCH)}
-    msdetrpc_paths = {"b4_forward": check_msdetrpc(dev, gen, BATCH)}
+    msdetrpc_paths = {"b4_forward": check_msdetrpc("b4_forward",
+                                                   msdetrpc_uniform_calls(dev, gen, BATCH)),
+                      "generic": {"max_abs_err": check_msdetrpc_generic(dev, gen)}}
     knn_paths = {"b4_forward": check_knn(dev, gen, BATCH)}
 
     log("phase 3: AFF-Mini forward, 512x512, batch 4, seeded random weights")
@@ -1784,12 +1948,23 @@ def main() -> int:
         local_attn_bwd_paths[path] = check_local_attn_bwd(dev, gen, name, b)
     local_attn_paths["random_nc"] = check_local_attn_random(dev, gen)
     check_local_attn_bwd_random(dev, gen)
+    l2_rate = l2_read_rate()
+    log(f"  the card's L2 read rate (tools/l2_rate.py: 24 MiB resident in L2, 16-byte loads "
+        f"past L1): {l2_rate / 1e12:.3f} TB/s")
     for b in sorted({TRAIN_BATCH, SMALL_BATCH}):
-        msdetrpc_paths[f"b{b}_step"] = check_msdetrpc(dev, gen, b)
+        msdetrpc_paths[f"b{b}_step"] = check_msdetrpc(
+            f"b{b}_step", msdetrpc_uniform_calls(dev, gen, b), l2_rate)
         knn_paths[f"b{b}_step"] = check_knn(dev, gen, b)
+    # the operands the main path gives K3, K4 and K10 at a batch-8 step
+    md_path = [(*call, 1) for call in path_msdetrpc_operands(dev)]
+    msdetrpc_paths[f"b{TRAIN_BATCH}_path"] = check_msdetrpc(f"b{TRAIN_BATCH}_path", md_path,
+                                                            l2_rate)
+    ps_path = path_point_sample_operands(dev)
     kernels = [local_attn_record(local_attn_paths), msdetrpc_record(msdetrpc_paths),
                knn_record(knn_paths), local_attn_bwd_record(local_attn_bwd_paths),
-               check_msdetrpc_bwd(dev, gen), check_point_sample(dev, gen), check_lapjv(dev, gen)]
+               check_msdetrpc_bwd(dev, gen, md_path), check_point_sample(dev, gen, ps_path),
+               check_lapjv(dev, gen)]
+    del md_path, ps_path
     torch.cuda.empty_cache()
 
     log(f"phase 6: AFF-Mini training step, 512x512, batch {TRAIN_BATCH}, fp32, the default "
@@ -1807,11 +1982,24 @@ def main() -> int:
     per_step = {"local_attn": 12, "local_attn_bwd": 12, "msdetrpc": 18, "msdetrpc_bwd": 18,
                 "point_sample": 2, "point_sample_bwd": 1, "lapjv": 1, "knn": 10,
                 "point_sample_nearest": 0, "point_sample_nearest_rows": 1}
+    by_route = {fn: dict(fn.launches_by_route)
+                for fn in (point_sample_bilinear, point_sample_backward)}
     mini_launches = train_phase(dev, smi, train_counters)
     for name, n in per_step.items():
         if mini_launches[name] != n * TRAIN_STEPS:
             raise SystemExit(f"{name}: launched {mini_launches[name]} times in {TRAIN_STEPS} "
                              f"training steps, expected {n} per step")
+    # per step: the targets' 512x512 masks on the direct route, the logits'
+    # 128x128 masks (forward and backward) on the shared one
+    by_route = {fn.__name__: {r: fn.launches_by_route[r] - k for r, k in routes.items()}
+                for fn, routes in by_route.items()}
+    log(f"  point_sample launches by route, all of phase 6: {by_route}")
+    if (by_route["point_sample_bilinear"]["direct"] < TRAIN_STEPS
+            or by_route["point_sample_bilinear"]["shared"] < TRAIN_STEPS
+            or by_route["point_sample_backward"]["shared"] < TRAIN_STEPS
+            or by_route["point_sample_backward"]["direct"]):
+        raise SystemExit(f"point_sample took the routes {by_route}; the targets belong to the "
+                         "direct route, the logits and their backward to the shared one")
     torch.cuda.empty_cache()
 
     log(f"phase 7: the ranking's nearest-read kernels against their plain versions, batch-"

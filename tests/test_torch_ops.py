@@ -9,9 +9,10 @@ gather-einsums and the kernels' plain versions: rtol = atol = 1e-5, the
 room fp32 leaves for the two frameworks summing the same products in another
 order (inner sizes <= 48 here).  Gradients: rtol = atol = 1e-4 (the
 cotangents are O(1) and every gradient sums <= 3 * 48 products more).  The
-msdetrpc and point_sample kernels scatter their gradients with atomics, whose
-order changes from run to run (the local_attn pair sums in a fixed order), so
-on the card the gradients are held to the same 1e-4."""
+point_sample kernel sums its gradient with atomics (in shared memory on its
+shared route), whose order changes from run to run (the local_attn pair and
+the msdetrpc backward sum in a fixed order), so on the card the gradients are
+held to the same 1e-4."""
 
 import numpy as np
 import pytest
@@ -373,6 +374,74 @@ def test_msdetrpc_and_point_sample_function_wiring(monkeypatch, rng):
     torch.testing.assert_close(dm, want, **GRAD_TOL)
 
 
+def test_point_sample_route_choice():
+    """The kernel's route for (h, w) masks, forward and backward: shared where
+    one mask's fp32 image fits the 227 KB of shared memory a block may use,
+    else direct; a forced route that does not exist or does not fit is
+    refused before anything launches."""
+    assert ps.point_sample_route(128, 128) == "shared"       # the criterion's logits
+    assert ps.point_sample_route(7, 9) == "shared"
+    assert ps.point_sample_route(241, 241) == "shared"       # 232324 bytes
+    assert ps.point_sample_route(242, 241) == "direct"       # 233288 bytes
+    assert ps.point_sample_route(256, 320) == "direct"
+    assert ps.point_sample_route(512, 512) == "direct"       # the criterion's targets
+    with pytest.raises(ValueError):
+        ps.point_sample_forward(torch.zeros(1, 256, 320), torch.zeros(1, 4, 2), route="shared")
+    with pytest.raises(ValueError):
+        ps.point_sample_backward(torch.zeros(1, 4, 2), torch.zeros(1, 4), (1, 256, 320),
+                                 route="shared")
+    with pytest.raises(ValueError):
+        ps.point_sample_forward(torch.zeros(1, 8, 8), torch.zeros(1, 4, 2), route="tiled")
+
+
+def _level_case(rng, bh=2, n=140, sizes=(128, 256, 1024), p=16, c=32):
+    """Stacked operands at levels the TPU kernel tiles (multiples of 128)."""
+    idx_s = np.concatenate([rng.integers(0, s, (bh, n, p)) for s in sizes], 2).astype(np.int32)
+    w_s = rng.standard_normal((bh, n, len(sizes) * p)).astype(np.float32)
+    val = rng.standard_normal((bh, sum(sizes), c)).astype(np.float32)
+    g = rng.standard_normal((bh, n, c)).astype(np.float32)
+    return idx_s, w_s, val, sizes, g
+
+
+def test_msdetrpc_library_matches_plain_and_pallas_interpret(jnp, rng):
+    """msdetrpc_levels_s_library (one F.embedding_bag: the kernels' library
+    yardstick) and its autograd backward against the plain version and its
+    autograd, and against the TPU kernel msdetrpc_pallas_levels_s and its
+    backward in Pallas interpret mode (both channel-major there); an index
+    outside its level is clamped into it, as the kernel clamps it."""
+    from autofocusformermod_tpu.ops.pallas.msdetrpc_kernel import (
+        msdetrpc_pallas_levels_s_bwd_impl, msdetrpc_pallas_levels_s_impl)
+
+    idx_s, w_s, val, sizes, g = _level_case(rng)
+
+    def lib(w, v):
+        return md.msdetrpc_levels_s_library(_t(idx_s), w, v, sizes)
+
+    def plain(w, v):
+        return msdetrpc_levels_s_plain(_t(idx_s), w, v, sizes)
+
+    want = np.asarray(msdetrpc_pallas_levels_s_impl(
+        jnp.asarray(idx_s), jnp.asarray(w_s), jnp.asarray(val), sizes,
+        interpret=True)).transpose(0, 2, 1)
+    _close(lib(_t(w_s), _t(val)), want)
+    _close(plain(_t(w_s), _t(val)), want)
+    _, dw, dv = msdetrpc_pallas_levels_s_bwd_impl(
+        jnp.asarray(idx_s), jnp.asarray(w_s), jnp.asarray(val),
+        jnp.asarray(g.transpose(0, 2, 1)), sizes, interpret=True)
+    got = _vjp_torch(lib, [_t(w_s), _t(val)], (0, 1), (_t(g),))
+    ref = _vjp_torch(plain, [_t(w_s), _t(val)], (0, 1), (_t(g),))
+    _close(got[0], dw, **GRAD_TOL)
+    _close(got[1], dv, **GRAD_TOL)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+    wild, clamped = idx_s.copy(), idx_s.copy()
+    wild[0, 0, :3] = [-5, 10 ** 6, sizes[0]]
+    clamped[0, 0, :3] = [0, sizes[0] - 1, sizes[0] - 1]
+    torch.testing.assert_close(md.msdetrpc_levels_s_library(_t(wild), _t(w_s), _t(val), sizes),
+                               md.msdetrpc_levels_s_library(_t(clamped), _t(w_s), _t(val), sizes),
+                               rtol=0, atol=0)
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def cuda():
@@ -533,6 +602,57 @@ def test_point_sample_kernel_matches_plain_on_card(rng, cuda):
     torch.testing.assert_close(out, point_sample(masks, coords), **TOL)
     torch.testing.assert_close(run(), _vjp_torch(lambda m: point_sample(m, coords), [masks],
                                                  (0,), cot)[0], **GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,p", [(128, 128, 512), (128, 128, 513), (256, 320, 300),
+                                   (256, 320, 301)])
+def test_point_sample_routes_on_card(rng, cuda, h, w, p):
+    """K10 on each route that fits the masks (shared and direct at 128x128,
+    direct only at 256x320, which does not fit shared memory), with even and
+    odd point counts (16-byte and 8-byte coordinate reads) and points on the
+    image's edges, whose outer taps lie outside it (x, y in {0, 1}; a
+    y-stratified y can be exactly 1.0): forward and backward against the
+    plain version and its autograd, and the default route counted."""
+    masks = _t(rng.standard_normal((5, h, w)).astype(np.float32)).to(cuda)
+    coords = _t(rng.random((5, p, 2)).astype(np.float32)).to(cuda)
+    coords[:, :6] = torch.tensor([[0, 0], [1, 1], [0, 1], [1, 0], [0.5, 1], [1, 0.5]],
+                                 device=cuda)
+    g = torch.randn(5, p, device=cuda)
+    want = point_sample(masks, coords)
+    (dwant,) = _vjp_torch(lambda m: point_sample(m, coords), [masks], (0,), (g,))
+    routes = ("shared", "direct") if (h, w) == (128, 128) else ("direct",)
+    for route in routes:
+        torch.testing.assert_close(ps.point_sample_forward(masks, coords, route=route), want,
+                                   **TOL)
+        torch.testing.assert_close(ps.point_sample_backward(coords, g, (5, h, w), route=route),
+                                   dwant, **GRAD_TOL)
+    before = dict(ps.point_sample_bilinear.launches_by_route)
+    (got,) = _vjp_torch(lambda m: ps.point_sample_bilinear(m, coords), [masks], (0,), (g,))
+    torch.testing.assert_close(got, dwant, **GRAD_TOL)
+    assert ps.point_sample_bilinear.launches_by_route[routes[0]] == before[routes[0]] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,c", [(8, 24), (8, 5), (16, 32)])
+def test_msdetrpc_generic_instance_on_card(rng, cuda, p, c):
+    """K3's generic instance (run-time levels and pairs: 8 pairs a level;
+    c_ 24 read 16 bytes a lane, c_ 5 read 4 bytes a lane) and, at (16, 32)
+    with 3 levels, the instance the path compiles, at level sizes that are
+    not multiples of 8 and more queries than one block, against the plain
+    version; an index outside its level is clamped into it."""
+    sizes = (13, 37, 150)
+    idx_s = np.concatenate([rng.integers(0, s, (3, 50, p)) for s in sizes], 2).astype(np.int32)
+    w_s = rng.standard_normal(idx_s.shape).astype(np.float32)
+    val = rng.standard_normal((3, sum(sizes), c)).astype(np.float32)
+    args = [_t(a).to(cuda) for a in (idx_s, w_s, val)]
+    out = md.msdetrpc_forward(*args, sizes)
+    torch.testing.assert_close(out, msdetrpc_levels_s_plain(*args, sizes), **TOL)
+    wild, clamped = args[0].clone(), args[0].clone()
+    wild[0, 0, :3] = torch.tensor([-5, 10 ** 6, sizes[0]], dtype=torch.int32)
+    clamped[0, 0, :3] = torch.tensor([0, sizes[0] - 1, sizes[0] - 1], dtype=torch.int32)
+    torch.testing.assert_close(md.msdetrpc_forward(wild, *args[1:], sizes),
+                               md.msdetrpc_forward(clamped, *args[1:], sizes), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
