@@ -33,7 +33,8 @@ I = ctypes.c_int
 # C entry points: name -> argument types (pointers and the stream as void*)
 SIGNATURES = {
     "aff_knn": [P, P, P, P, I, I, I, I, P],
-    "aff_lapjv": [P, P, I, I, I, P],
+    "aff_knn_pruned": [P] * 5 + [ctypes.c_longlong] + [I] * 5 + [P],
+    "aff_lapjv": [P, P, I, I, I, I, P],
     "aff_local_attn": [P] * 11 + [I] * 6 + [P],
     "aff_local_attn_bwd_dq": [P] * 14 + [I] * 6 + [P],
     "aff_local_attn_bwd_dkv": [P] * 8 + [I] * 6 + [P],

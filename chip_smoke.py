@@ -9,11 +9,15 @@ resume, and the pixel decoder's alternate operand layouts -- on one NVIDIA GPU.
    source;
 2. holds each inference kernel against its plain PyTorch version on the
    card, at the shapes a 512x512 batch-4 forward gives it, and times both
-   (msdetrpc also at other levels, pairs and widths: its generic instance);
+   (msdetrpc also at other levels, pairs and widths: its generic instance;
+   knn on both its routes, bit for bit, at grid positions and at the
+   positions of a real seeded forward, each call's route and time on the
+   card under "by_case");
 3. runs the full AFF-Mini + Mask2Former forward (published ADE20K widths,
    seeded random weights) at 512x512, batch 4, through the kernels, checks
-   that every kernel launched the expected number of times, and compares the
-   outputs with the same model run through the plain versions;
+   that every kernel launched the expected number of times (knn on the
+   routes its shapes give), and compares the outputs with the same model run
+   through the plain versions;
 4. serves 8 random uint8 512x512 images through the predictor at batch 1
    and batch 4 and checks the label maps;
 5. holds every kernel of a training step against its plain version at the
@@ -28,7 +32,9 @@ resume, and the pixel decoder's alternate operand layouts -- on one NVIDIA GPU.
    against the least time the card's L2 needs for its value rows; knn;
    point_sample forward and backward on each route, on uniform coordinates
    and on those of a real batch-8 criterion call, beside F.grid_sample; the
-   lapjv matcher);
+   lapjv matcher on both its routes, bit for bit, on a uniform draw and on
+   the costs of a real batch-8 criterion call, with the plain version's
+   Dijkstra step counts, and on NaN / inf costs under a time limit);
 6. trains: the full-width AFF-Mini step (batch 8, 512x512, 100 target slots,
    12544 points, fp32, the default criterion with the nearest-tap ranking)
    on seeded synthetic label maps, once through the kernels and once
@@ -231,14 +237,14 @@ def grid_pos(side: int, step: int, b: int, dev):
     return pos.expand(b, -1, -1).contiguous().to(dev)
 
 
-def check_knn(dev, gen, batch):
-    """Every knn shape of one forward at this batch (the same for both
-    models); indices and distances must be identical."""
+def knn_grid_cases(dev, gen, batch):
+    """[(label, query, database, k)]: every knn shape of one forward at this
+    batch (the same for both models) on grid positions, each database in a
+    random order (ties go by index), and one case of exact ties."""
     import torch
     from autofocusformermod_torch.geometry.cluster import space_filling_cluster
-    from autofocusformermod_torch.geometry.knn import _knn_cuda, knn_plain
 
-    cases = []   # (label, query, database, k)
+    cases = []
     for s in range(4):                                  # backbone cluster neighbours
         b = 1 if s == 0 else batch                      # stage 1 runs on the constant grid
         pos, means, _, _, _ = space_filling_cluster(grid_pos(128 >> s, 1 << s, b, dev), 8, 128, 128)
@@ -252,35 +258,65 @@ def check_knn(dev, gen, batch):
     cases.append(("fpn_shepard", q, grid_pos(64, 2, batch, dev), 4))
     # exact ties: integer queries exactly between half-integer database points
     cases.append(("tie_half_integer", q, grid_pos(64, 2, batch, dev) + 0.5, 4))
-
-    ms, plain_ms, bnd = 0.0, 0.0, {}
+    out = []
     for label, query, db, k in cases:
         perm = torch.randperm(db.shape[1], generator=gen).to(dev)   # tie order by index
-        db = db[:, perm].contiguous()
-        query = query.contiguous()
-        idx, d2 = _knn_cuda(query, db, k)
+        out.append((label, query.contiguous(), db[:, perm].contiguous(), k))
+    return out
+
+
+def check_knn(label, cases):
+    """K9 on the calls of one forward, `cases` [(case, query, database, k)]
+    (knn_grid_cases or path_knn_operands): on every route, indices and
+    distances must equal the plain version's.  ms and device_ms (the card's
+    time alone, queued_ms) sum the calls on the routes the wrapper picks;
+    `by_case` has each call's route and times, and the sweep's device time
+    beside the pruned route's where the pruned one is taken.  The bound is
+    the bytes: a pruned search need not evaluate every pair, so the brute
+    force's operations are no longer its least work (`pairs_bound_ms` keeps
+    that figure: 5 operations a pair)."""
+    import torch
+    from autofocusformermod_torch.geometry.knn import ROUTES, _knn_cuda, knn_plain, knn_route
+
+    ms = device_ms = plain_ms = 0.0
+    bnd, pairs_bnd, by_case = {}, {}, {}
+    for case, query, db, k in cases:
         ridx, rd2 = knn_plain(query, db, k)
-        torch.cuda.synchronize()
-        same = torch.equal(idx, ridx) and torch.equal(d2, rd2)
-        t_k = cuda_ms(lambda: _knn_cuda(query, db, k))
+        for route in ROUTES:
+            idx, d2 = _knn_cuda(query, db, k, route=route)
+            torch.cuda.synchronize()
+            if not (torch.equal(idx, ridx) and torch.equal(d2, rd2)):
+                raise SystemExit(f"knn {label} {case} ({route} route): kernel and plain version "
+                                 "disagree")
+        route = knn_route(db.shape[1])
+        rec = {"route": route, "ms": cuda_ms(lambda: _knn_cuda(query, db, k)),
+               "device_ms": queued_ms(lambda: _knn_cuda(query, db, k))}
+        if route != "sweep":
+            rec["sweep_device_ms"] = queued_ms(lambda: _knn_cuda(query, db, k, route="sweep"))
         t_p = cuda_ms(lambda: knn_plain(query, db, k), iters=5, warmup=1)
-        if label != "tie_half_integer":
-            ms, plain_ms = ms + t_k, plain_ms + t_p
-            # 5 operations per (query, database point) pair: two differences,
-            # two squares, a sum; the selection's comparisons not counted
+        on_path = case != "tie_half_integer"
+        if on_path:
+            ms, device_ms, plain_ms = ms + rec["ms"], device_ms + rec["device_ms"], plain_ms + t_p
+            bnd = add_bounds(bnd, bound(nbytes(query, db, ridx, rd2), 0))
             pairs = query.shape[0] * query.shape[1] * db.shape[1]
-            bnd = add_bounds(bnd, bound(nbytes(query, db, idx, d2), 5 * pairs))
-        log(f"  knn b{batch} {label:18s} q={tuple(query.shape)} db={tuple(db.shape)} k={k}: "
-            f"identical={same} kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-        if not same:
-            raise SystemExit(f"knn b{batch} {label}: kernel and plain version disagree")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bnd}
+            pairs_bnd = add_bounds(pairs_bnd, bound(0, 5 * pairs))
+        by_case[case] = rec
+        log(f"  knn {label} {case:18s} q={tuple(query.shape)} db={tuple(db.shape)} k={k}: "
+            f"identical on {ROUTES}; {route} {rec['ms']:.4f} ms, on the card "
+            f"{rec['device_ms']:.4f} ms" + (f" (sweep {rec['sweep_device_ms']:.4f})"
+                                             if route != "sweep" else "")
+            + f", plain {t_p:.4f} ms" + ("" if on_path else " [not on the path]"))
+    log(f"  knn {label}: per forward {ms:.4f} ms, on the card {device_ms:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms (every pair: {pairs_bnd['bound_ms']:.4f})")
+    return {"max_abs_err": 0.0, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, **bnd,
+            "pairs_bound_ms": pairs_bnd["bound_ms"], "by_case": by_case}
 
 
 def knn_record(paths: dict) -> dict:
     return {"name": "knn", "route": "cuda", "source": "autofocusformermod_torch/csrc/knn.cu",
             "replaces": "autofocusformermod_tpu/ops/pallas/knn_kernel.py:136",
-            "library_ms": None, **per_path(paths, "b4_forward")}
+            "library_ms": None, "device_ms": paths["b4_forward"]["device_ms"],
+            **per_path(paths, "b4_forward")}
 
 
 def per_path(paths: dict, first: str) -> dict:
@@ -755,15 +791,10 @@ def check_msdetrpc_bwd(dev, gen, path_calls):
             **per_path(paths, "path")}
 
 
-def path_point_sample_operands(dev, b=TRAIN_BATCH):
-    """The operands of K10's calls in one batch-b AFF-Mini training step at
-    512x512 (seeded weights, label maps and draws), as the criterion makes
-    them: {"targets": (masks, coords)}, the target labels' forward (b * 100
-    512x512 masks, 10 layers x 12544 points each), and {"logits": (masks,
-    coords, g)}, the matched logits' forward (10 * b * 100 128x128 masks,
-    12544 points each: 9408 y-stratified importance points in chunk order, top
-    to bottom, then 3136 uniform ones) with the gradient its backward got.
-    Captured by wrapping the criterion's point_sample_auto."""
+def seeded_step(dev, b, module, name, capture):
+    """One batch-b AFF-Mini training step at 512x512 (seeded weights, label
+    maps and draws) with `module.name` replaced by capture(real) for the
+    step; the model and batch are freed after it."""
     import torch
     from autofocusformermod_torch.config import aff_mini_cfg
     from autofocusformermod_torch.data.synthetic import synthetic_batch
@@ -777,29 +808,107 @@ def path_point_sample_operands(dev, b=TRAIN_BATCH):
     model = model.to(dev)
     batch = synthetic_batch(torch.Generator().manual_seed(SEED + 1), dev, b, (SIZE, SIZE),
                             cfg.TPU.MAX_GT_INSTANCES, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
-    calls, real = [], criterion.point_sample_auto
-
-    def capture(masks, coords):
-        out = real(masks, coords)
-        entry = [masks.detach().clone(), coords.detach().clone(), None]
-        calls.append(entry)
-        if out.requires_grad:
-            out.register_hook(lambda g: entry.__setitem__(2, g.detach().clone()))
-        return out
-
-    criterion.point_sample_auto = capture
+    real = getattr(module, name)
+    setattr(module, name, capture(real))
     try:
         TrainStep(model, cfg).loss_and_grads(
             batch, criterion.device_draw(torch.Generator(device=dev).manual_seed(SEED)))
     finally:
-        criterion.point_sample_auto = real
+        setattr(module, name, real)
+    del model, batch
+    torch.cuda.empty_cache()
+
+
+def path_point_sample_operands(dev, b=TRAIN_BATCH):
+    """The operands of K10's calls in one batch-b AFF-Mini training step at
+    512x512 (seeded weights, label maps and draws), as the criterion makes
+    them: {"targets": (masks, coords)}, the target labels' forward (b * 100
+    512x512 masks, 10 layers x 12544 points each), and {"logits": (masks,
+    coords, g)}, the matched logits' forward (10 * b * 100 128x128 masks,
+    12544 points each: 9408 y-stratified importance points in chunk order, top
+    to bottom, then 3136 uniform ones) with the gradient its backward got.
+    Captured by wrapping the criterion's point_sample_auto."""
+    from autofocusformermod_torch.losses import criterion
+
+    calls = []
+
+    def capture(real):
+        def wrapped(masks, coords):
+            out = real(masks, coords)
+            entry = [masks.detach().clone(), coords.detach().clone(), None]
+            calls.append(entry)
+            if out.requires_grad:
+                out.register_hook(lambda g: entry.__setitem__(2, g.detach().clone()))
+            return out
+        return wrapped
+
+    seeded_step(dev, b, criterion, "point_sample_auto", capture)
     if len(calls) != 2 or calls[0][2] is not None or calls[1][2] is None:
         raise SystemExit(f"the criterion made {len(calls)} point_sample calls; expected the "
                          "targets' (no gradient) and the logits' (with one)")
     (tm, tc, _), (lm, lc, lg) = calls
-    del model, batch, calls
-    torch.cuda.empty_cache()
     return {"targets": (tm, tc), "logits": (lm, lc, lg)}
+
+
+def path_lapjv_operands(dev, b=TRAIN_BATCH):
+    """The cost K13 solves in one batch-b AFF-Mini training step at 512x512
+    (seeded weights, label maps and draws): the 10 layers' (b, 100 queries,
+    100 target slots) matching costs stacked into one (10 * b, 100, 100), the
+    8-12 real targets of each image first and the padded slots at the
+    matcher's 1e8.  Captured by wrapping the criterion's solve_lsap."""
+    from autofocusformermod_torch.losses import criterion
+
+    costs = []
+
+    def capture(real):
+        def wrapped(cost):
+            costs.append(cost.detach().float().contiguous().clone())
+            return real(cost)
+        return wrapped
+
+    seeded_step(dev, b, criterion, "solve_lsap", capture)
+    if len(costs) != 1:
+        raise SystemExit(f"the criterion made {len(costs)} assignment solves; expected one")
+    return costs[0]
+
+
+def path_knn_operands(dev, b=BATCH):
+    """The operands of K9's calls in one seeded batch-b AFF-Mini forward at
+    512x512: [(label, query, database, k)] in call order (the four stages'
+    cluster neighbours, the two merges' nearest-neighbour distances, the
+    pixel decoder's three 4-NN tables and the FPN's Shepard upsampling).
+    From stage 2 on the positions are the kept tokens, not a grid.
+    Captured by wrapping the kernel call inside geometry.knn.knn."""
+    import torch
+    from autofocusformermod_torch.config import aff_mini_cfg
+    from autofocusformermod_torch.geometry import knn as knn_mod
+    from autofocusformermod_torch.models.maskformer import init_random_weights, maskformer_from_config
+
+    cfg = aff_mini_cfg()
+    model = maskformer_from_config(cfg)
+    init_random_weights(model, torch.Generator().manual_seed(SEED))
+    model = model.to(dev).eval()
+    images = torch.randint(0, 256, (b, SIZE, SIZE, 3), generator=torch.Generator().manual_seed(
+        SEED + 2), dtype=torch.uint8).to(dev)
+    calls, real = [], knn_mod._knn_cuda
+
+    def capture(query, database, k):
+        calls.append((query.clone(), database.clone(), k))
+        return real(query, database, k)
+
+    knn_mod._knn_cuda = capture
+    try:
+        with torch.no_grad():
+            model(images)
+    finally:
+        knn_mod._knn_cuda = real
+    del model, images
+    torch.cuda.empty_cache()
+    labels = ["cluster_s1", "cluster_s2", "merge_s2", "cluster_s3", "merge_s3", "cluster_s4",
+              "table_16", "table_32", "table_64", "fpn_shepard"]
+    if len(calls) != len(labels):
+        raise SystemExit(f"the forward made {len(calls)} knn calls; expected {len(labels)}")
+    return [(label, *call) for label, call in zip(labels, calls)]
 
 
 def point_sample_uniform_operands(dev, gen):
@@ -920,36 +1029,61 @@ def check_point_sample(dev, gen, path_ops):
             "library_ms": paths["path"]["library_ms"], **per_path(paths, "path")}
 
 
-def check_lapjv(dev, gen):
+def check_lapjv(dev, gen, path_cost):
     """K13 on a step's stacked problems: 10 layers x 8 images, 100 queries x
     100 target slots, 8-12 valid targets per image (the rest at the 1e8
-    sentinel).  The assignments must be identical."""
+    sentinel), on a uniform draw and on the path's own costs (`path_cost`,
+    path_lapjv_operands).  The assignments of both routes must equal the
+    plain version's.  ms and device_ms (the card's time alone, queued_ms)
+    are those of the route lapjv_route picks; the block route's device time
+    stands beside it.  The plain version counts each problem's Dijkstra
+    steps: the longest chain (steps_max) sets the kernel's time, hence
+    ns_per_step; real and padded target rows apart."""
     import torch
-    from autofocusformermod_torch.losses.lapjv import hungarian_lsap, lapjv
+    from autofocusformermod_torch.losses.lapjv import ROUTES, hungarian_lsap, lapjv, lapjv_route
 
     b = 10 * TRAIN_BATCH
     cost = torch.rand((b, 100, 100), generator=gen) * 10 - 5
     n_valid = torch.randint(8, 13, (b,), generator=gen)
     cost = torch.where(torch.arange(100)[None, None] < n_valid[:, None, None], cost, 1e8)
-    cost = cost.to(dev)
-    got = lapjv(cost)
-    ref = hungarian_lsap(cost)
-    torch.cuda.synchronize()
-    same = torch.equal(got, ref)
-    t_k = cuda_ms(lambda: lapjv(cost), iters=5, warmup=1)
-    t_p = cuda_ms(lambda: hungarian_lsap(cost), iters=2, warmup=1)
-    log(f"  lapjv cost={tuple(cost.shape)}: identical={same} kernel {t_k:.4f} ms, "
-        f"plain {t_p:.4f} ms")
-    if not same:
-        raise SystemExit("lapjv: kernel and plain version disagree")
+    paths = {}
+    for label, c in (("b8_uniform", cost.to(dev)), ("b8_path", path_cost)):
+        t0 = time.time()
+        ref, steps = hungarian_lsap(c, return_steps=True)
+        torch.cuda.synchronize()
+        t_p = (time.time() - t0) * 1e3
+        for route in ROUTES:
+            if not torch.equal(lapjv(c, route=route), ref):
+                raise SystemExit(f"lapjv {label} ({route} route): kernel and plain version "
+                                 "disagree")
+        route = lapjv_route(*c.shape[1:])
+        real = (c < 1e7).any(1)                           # (b, T): the real target slots
+        per = steps.sum(1).double()
+        rec = {"route": route, "max_abs_err": 0.0,
+               "ms": cuda_ms(lambda: lapjv(c), iters=5, warmup=1),
+               "device_ms": queued_ms(lambda: lapjv(c), iters=10),
+               "block_device_ms": queued_ms(lambda: lapjv(c, route="block"), iters=5),
+               "plain_ms": t_p, "steps_max": int(per.max()), "steps_mean": float(per.mean()),
+               "real_steps_mean": float((steps * real).sum(1).double().mean()),
+               "padded_steps_mean": float((steps * ~real).sum(1).double().mean()),
+               # every cost read and reduced at least once (a comparison and
+               # a subtraction); the solver's sequential steps, which set its
+               # real time, are in neither term
+               **bound(nbytes(c, ref), 2 * c.numel())}
+        rec["ns_per_step"] = rec["device_ms"] * 1e6 / rec["steps_max"]
+        paths[label] = rec
+        log(f"  lapjv {label} cost={tuple(c.shape)}: identical on {ROUTES}; {route} "
+            f"{rec['ms']:.4f} ms, on the card {rec['device_ms']:.4f} ms (block "
+            f"{rec['block_device_ms']:.4f}); steps per problem max {rec['steps_max']} mean "
+            f"{rec['steps_mean']:.1f} (real rows {rec['real_steps_mean']:.1f}, padded "
+            f"{rec['padded_steps_mean']:.1f}), {rec['ns_per_step']:.1f} ns a step; plain "
+            f"{t_p:.1f} ms")
     check_lapjv_bad_costs(dev, gen)
     return {"name": "lapjv", "route": "cuda", "source": "autofocusformermod_torch/csrc/lapjv.cu",
             "replaces": "autofocusformermod_tpu/ops/pallas/lapjv_kernel.py:161",
-            "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p, "library_ms": None,
-            # every cost read and reduced at least once (a comparison and a
-            # subtraction); the solver's sequential augmenting steps, which
-            # set its real time, are in neither term
-            **bound(nbytes(cost, got), 2 * cost.numel())}
+            "library_ms": None, "device_ms": paths["b8_path"]["device_ms"],
+            **{k: paths["b8_path"][k] for k in ("steps_max", "steps_mean", "ns_per_step")},
+            **per_path(paths, "b8_path")}
 
 
 def check_nearest(dev, gen):
@@ -1263,12 +1397,13 @@ def check_window_gather(dev, gen, b):
 
 
 def check_lapjv_bad_costs(dev, gen, limit_s=20.0):
-    """The matcher's kernel on NaN and +-inf costs: it must end (a NaN counts
-    as the largest cost) and agree with the plain version.  A loop that never
-    ends would hang the process, so the launch is watched from the host: the
-    stream is polled against a time limit of its own."""
+    """The matcher's kernel on NaN and +-inf costs, on both routes: it must
+    end (a NaN counts as the largest cost) and agree with the plain version.
+    A loop that never ends would hang the process, so each launch is
+    watched from the host: the stream is polled against a time limit of its
+    own."""
     import torch
-    from autofocusformermod_torch.losses.lapjv import hungarian_lsap, lapjv
+    from autofocusformermod_torch.losses.lapjv import ROUTES, hungarian_lsap, lapjv
 
     cost = torch.rand((6, 100, 100), generator=gen) * 10 - 5
     cost[0] = float("nan")
@@ -1279,29 +1414,33 @@ def check_lapjv_bad_costs(dev, gen, limit_s=20.0):
     cost[5, ::2, ::3] = float("nan")
     cost[:, :, 90:] = 1e8
     cost = cost.to(dev)
-    done = torch.cuda.Event()
-    t0 = time.time()
-    got = lapjv(cost)
-    done.record()
-    while not done.query():
-        if time.time() - t0 > limit_s:
-            log(f"  lapjv on NaN / inf costs: still running after {limit_s} s")
-            sys.stdout.flush()
-            import os
-            os._exit(1)       # the kernel cannot be stopped; leave without waiting for it
-        time.sleep(0.01)
-    took = time.time() - t0
-    same = torch.equal(got, hungarian_lsap(cost))
-    distinct = all(len(set(row)) == 100 for row in got.tolist())
+    ref = hungarian_lsap(cost)
     # the same problems with the bad values written out: what the 90 real
     # targets of each cost, NaN or not (a step's problems have 8-12)
     clean = torch.nan_to_num(cost, nan=3e4).clamp(-3e4, 3e4)
-    t_clean = cuda_ms(lambda: lapjv(clean), iters=1, warmup=0)
-    log(f"  lapjv on NaN / inf costs {tuple(cost.shape)}, 90 real targets each: ended in "
-        f"{took:.3f} s (the same costs cleaned beforehand: {t_clean:.1f} ms), identical to the "
-        f"plain version={same}, distinct queries={distinct}")
-    if not (same and distinct):
-        raise SystemExit("lapjv on NaN / inf costs: kernel and plain version disagree")
+    for route in ROUTES:
+        done = torch.cuda.Event()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = lapjv(cost, route=route)
+        done.record()
+        while not done.query():
+            if time.time() - t0 > limit_s:
+                log(f"  lapjv ({route} route) on NaN / inf costs: still running after {limit_s} s")
+                sys.stdout.flush()
+                import os
+                os._exit(1)       # the kernel cannot be stopped; leave without waiting for it
+            time.sleep(0.01)
+        took = time.time() - t0
+        same = torch.equal(got, ref)
+        distinct = all(len(set(row)) == 100 for row in got.tolist())
+        t_clean = cuda_ms(lambda: lapjv(clean, route=route), iters=1, warmup=0)
+        log(f"  lapjv ({route} route) on NaN / inf costs {tuple(cost.shape)}, 90 real targets "
+            f"each: ended in {took:.3f} s (the same costs cleaned beforehand: {t_clean:.1f} ms), "
+            f"identical to the plain version={same}, distinct queries={distinct}")
+        if not (same and distinct):
+            raise SystemExit(f"lapjv ({route} route) on NaN / inf costs: kernel and plain "
+                             "version disagree")
 
 
 def device_busy(fn, runs=3):
@@ -1873,7 +2012,16 @@ def main() -> int:
     msdetrpc_paths = {"b4_forward": check_msdetrpc("b4_forward",
                                                    msdetrpc_uniform_calls(dev, gen, BATCH)),
                       "generic": {"max_abs_err": check_msdetrpc_generic(dev, gen)}}
-    knn_paths = {"b4_forward": check_knn(dev, gen, BATCH)}
+    from autofocusformermod_torch.geometry.knn import knn_route
+
+    knn_path = path_knn_operands(dev)
+    knn_paths = {"b4_forward": check_knn("b4 grid", knn_grid_cases(dev, gen, BATCH)),
+                 "b4_path": check_knn("b4 path", knn_path)}
+    # the routes the forward's knn calls take, from their shapes
+    knn_routes = {r: 0 for r in knn.launches_by_route}
+    for _, query, db, k in knn_path:
+        knn_routes[knn_route(db.shape[1])] += 1
+    del knn_path
 
     log("phase 3: AFF-Mini forward, 512x512, batch 4, seeded random weights")
     cfg = aff_mini_cfg()
@@ -1889,17 +2037,23 @@ def main() -> int:
     with torch.no_grad():
         for fn in counters.values():
             fn.launches = 0
+        knn_before = dict(knn.launches_by_route)
         torch.cuda.synchronize()
         t0 = time.time()
         out = model(images)
         torch.cuda.synchronize()
         t_fwd = time.time() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
+        knn_by_route = {r: n - knn_before[r] for r, n in knn.launches_by_route.items()}
         with plain_versions():
             ref = model(images)
             fp = model.backbone(model.normalize(images))
         fk = model.backbone(model.normalize(images))
-    log(f"  first forward {t_fwd:.3f} s; launches {launches} (expected {expected})")
+    log(f"  first forward {t_fwd:.3f} s; launches {launches} (expected {expected}); knn by "
+        f"route {knn_by_route} (expected from the shapes {knn_routes})")
+    if knn_by_route != knn_routes:
+        raise SystemExit(f"knn took the routes {knn_by_route} in the forward; its shapes give "
+                         f"{knn_routes}")
     for name, n in launches.items():
         if n != expected[name]:
             raise SystemExit(f"{name}: launched {n} times in the forward, expected {expected[name]}")
@@ -1954,17 +2108,18 @@ def main() -> int:
     for b in sorted({TRAIN_BATCH, SMALL_BATCH}):
         msdetrpc_paths[f"b{b}_step"] = check_msdetrpc(
             f"b{b}_step", msdetrpc_uniform_calls(dev, gen, b), l2_rate)
-        knn_paths[f"b{b}_step"] = check_knn(dev, gen, b)
+        knn_paths[f"b{b}_step"] = check_knn(f"b{b} grid", knn_grid_cases(dev, gen, b))
     # the operands the main path gives K3, K4 and K10 at a batch-8 step
     md_path = [(*call, 1) for call in path_msdetrpc_operands(dev)]
     msdetrpc_paths[f"b{TRAIN_BATCH}_path"] = check_msdetrpc(f"b{TRAIN_BATCH}_path", md_path,
                                                             l2_rate)
     ps_path = path_point_sample_operands(dev)
+    lapjv_path = path_lapjv_operands(dev)
     kernels = [local_attn_record(local_attn_paths), msdetrpc_record(msdetrpc_paths),
                knn_record(knn_paths), local_attn_bwd_record(local_attn_bwd_paths),
                check_msdetrpc_bwd(dev, gen, md_path), check_point_sample(dev, gen, ps_path),
-               check_lapjv(dev, gen)]
-    del md_path, ps_path
+               check_lapjv(dev, gen, lapjv_path)]
+    del md_path, ps_path, lapjv_path
     torch.cuda.empty_cache()
 
     log(f"phase 6: AFF-Mini training step, 512x512, batch {TRAIN_BATCH}, fp32, the default "
@@ -1983,7 +2138,7 @@ def main() -> int:
                 "point_sample": 2, "point_sample_bwd": 1, "lapjv": 1, "knn": 10,
                 "point_sample_nearest": 0, "point_sample_nearest_rows": 1}
     by_route = {fn: dict(fn.launches_by_route)
-                for fn in (point_sample_bilinear, point_sample_backward)}
+                for fn in (point_sample_bilinear, point_sample_backward, lapjv)}
     mini_launches = train_phase(dev, smi, train_counters)
     for name, n in per_step.items():
         if mini_launches[name] != n * TRAIN_STEPS:
@@ -1993,7 +2148,10 @@ def main() -> int:
     # 128x128 masks (forward and backward) on the shared one
     by_route = {fn.__name__: {r: fn.launches_by_route[r] - k for r, k in routes.items()}
                 for fn, routes in by_route.items()}
-    log(f"  point_sample launches by route, all of phase 6: {by_route}")
+    log(f"  point_sample and lapjv launches by route, all of phase 6: {by_route}")
+    if by_route["lapjv"]["warp"] < TRAIN_STEPS or by_route["lapjv"]["block"]:
+        raise SystemExit(f"lapjv took the routes {by_route['lapjv']}; the matcher's 100 x 100 "
+                         "problems belong to the warp route")
     if (by_route["point_sample_bilinear"]["direct"] < TRAIN_STEPS
             or by_route["point_sample_bilinear"]["shared"] < TRAIN_STEPS
             or by_route["point_sample_backward"]["shared"] < TRAIN_STEPS

@@ -15,7 +15,9 @@ import torch
 from autofocusformermod_torch.geometry import cluster as tcl
 from autofocusformermod_torch.geometry import gridnn as tg
 from autofocusformermod_torch.geometry import shepard as tsh
-from autofocusformermod_torch.geometry.knn import _knn_cuda, knn, knn_plain
+from autofocusformermod_torch.geometry.knn import (
+    MAX_CELLS, PRUNED_MIN_DB, ROUTES, _knn_cuda, knn, knn_cells, knn_plain, knn_route,
+    knn_scratch_stride)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -209,15 +211,85 @@ def test_upsample_and_postprocess_match_jax(jnp, rng):
         np.asarray(ji.sem_seg_postprocess(jnp.asarray(sem.numpy()), (30, 28), (60, 56))), **TOL)
 
 
+def test_knn_route_by_shape():
+    """Sweep below PRUNED_MIN_DB database points, prune from there on (the
+    forward's 16384 x 4096 tables, its 4096-token merges and its 512-mean
+    cluster neighbours), about 16 points a cell up to MAX_CELLS cells, and
+    the scratch layout of csrc/knn.cu."""
+    assert knn_route(4096) == "pruned" and knn_route(2048) == "pruned"
+    assert knn_route(512) == "pruned" and knn_route(1024) == "pruned"
+    assert knn_route(32) == "sweep" and knn_route(256) == "sweep"
+    assert knn_route(PRUNED_MIN_DB) == "pruned" and knn_route(PRUNED_MIN_DB - 1) == "sweep"
+    assert knn_cells(4096) == 256 and knn_cells(20) == 1 and knn_cells(10 ** 6) == MAX_CELLS
+    assert knn_scratch_stride(4096, 256) == 70672      # 16 * 4096 + 16 * 256 + 4 * 257, to 16
+    assert knn_scratch_stride(5, 1) % 16 == 0 and knn_scratch_stride(5, 1) >= 80 + 16 + 8
+    q, db = torch.zeros((1, 8, 2)), torch.zeros((1, 40, 2))
+    with pytest.raises(ValueError):
+        _knn_cuda(q, db, 4, route="grid")
+    with pytest.raises(ValueError):
+        _knn_cuda(q, db, 41)
+
+
+def test_knn_cell_bound_never_exceeds_a_distance(rng):
+    """The pruned route's exactness rests on this: a cell's box-to-box bound,
+    computed in fp32 with the distance's own round-to-nearest operations,
+    is at most every computed distance from a query in the query box to a
+    point in the cell.  Checked in torch (unfused fp32 on the CPU) on boxes
+    at large offsets, where the differences round."""
+    f = torch.float32
+    for trial in range(200):
+        off = float(rng.choice([0.0, 1e3, 7e5, 3e6]))
+        q = _t((rng.uniform(-8, 8, (32, 2)) + off).astype(np.float32))
+        p = _t((rng.uniform(-8, 8, (40, 2)) * rng.uniform(0.1, 3) + off
+                + rng.uniform(-30, 30, 2)).astype(np.float32))
+        qlo, qhi = q.min(0).values, q.max(0).values
+        clo, chi = p.min(0).values, p.max(0).values
+        g = torch.clamp(torch.maximum(clo - qhi, qlo - chi), min=0).to(f)
+        bound = g[0] * g[0] + g[1] * g[1]
+        diff = q[:, None, :] - p[None, :, :]
+        d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+        assert bool((d2 >= bound).all()), (trial, off)
+
+
+def _knn_case(rng, case):
+    """(query (b, nq, 2), database (b, ndb, 2)) float32, every database in a
+    random order (as the model's importance-ordered tokens are)."""
+    if case == "half_integer_ties":        # queries exactly between grid points
+        q, db = _grid(64, 64, b=2), _grid(32, 32, 2.0, b=2) + 0.5
+    elif case == "coarse_grid":
+        q, db = _grid(64, 64, b=2), _grid(16, 16, 4.0, b=2)
+    elif case == "duplicates":             # every position three times
+        q, db = _grid(40, 40, b=2), np.concatenate([_grid(16, 16, 3.0, b=2)] * 3, 1)
+    elif case == "clustered_outliers":     # a dense cluster, far outliers, a ragged warp
+        db = np.concatenate([rng.normal(30, 2, (2, 2000, 2)),
+                             rng.uniform(-1e4, 1e4, (2, 48, 2))], 1)
+        q = np.concatenate([rng.uniform(0, 64, (2, 2001, 2)),
+                            rng.uniform(-2e4, 2e4, (2, 7, 2))], 1)
+    elif case == "small_db":               # fewer points than one cell
+        q, db = rng.uniform(0, 16, (2, 300, 2)), rng.uniform(0, 16, (2, 20, 2))
+    elif case == "ragged_db":              # not a multiple of the cell size
+        q, db = rng.uniform(0, 64, (2, 1500, 2)), rng.uniform(0, 64, (2, 1037, 2))
+    else:                                  # queries all around the database's box
+        q, db = rng.uniform(-100, 110, (2, 999, 2)), rng.uniform(0, 10, (2, 1500, 2))
+    db = np.stack([d[rng.permutation(d.shape[0])] for d in db])
+    return _t(q.astype(np.float32)), _t(db.astype(np.float32))
+
+
 @pytest.mark.cuda
-def test_knn_kernel_matches_plain_on_card(rng):
+@pytest.mark.parametrize("case", ["half_integer_ties", "coarse_grid", "duplicates",
+                                  "clustered_outliers", "small_db", "ragged_db", "outside_box"])
+def test_knn_kernel_matches_plain_on_card(rng, case):
+    """Both routes equal the plain version bit for bit (indices and
+    distances, ties by lowest index) for every k from 1 to 16."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    q = _t(_grid(64, 64, b=2)).cuda()
-    for db in (_grid(32, 32, 2.0, b=2) + 0.5, _grid(16, 16, 4.0, b=2)):
-        db = np.stack([d[rng.permutation(d.shape[0])] for d in db])
-        db = _t(db).cuda()
-        for k in (1, 2, 4, 6, 9, 16):
-            idx, d2 = _knn_cuda(q, db, k)
-            ridx, rd2 = knn_plain(q, db, k)
-            assert torch.equal(idx, ridx) and torch.equal(d2, rd2)
+    q, db = (a.cuda() for a in _knn_case(rng, case))
+    for k in range(1, 17):
+        ridx, rd2 = knn_plain(q, db, k)
+        for route in ROUTES:
+            idx, d2 = _knn_cuda(q, db, k, route=route)
+            assert torch.equal(idx, ridx) and torch.equal(d2, rd2), (case, k, route)
+    before = dict(knn.launches_by_route)
+    knn(q, db, 4)
+    route = knn_route(db.shape[1])
+    assert knn.launches_by_route[route] == before[route] + 1

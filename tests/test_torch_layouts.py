@@ -624,10 +624,12 @@ def test_window_gather_kernel_is_exact_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_lapjv_kernel_terminates_on_nan_and_inf_on_card(cuda):
+@pytest.mark.parametrize("route", ["warp", "block"])
+def test_lapjv_kernel_terminates_on_nan_and_inf_on_card(cuda, route):
     """The kernel's Dijkstra loop ends on NaN and +-inf costs and gives the
-    plain version's assignment (a hang would never reach the comparison: the
-    test's process is then cut by the caller's time limit)."""
+    plain version's assignment on both routes (a hang would never reach the
+    comparison: the test's process is then cut by the caller's time
+    limit)."""
     rng = np.random.default_rng(12)
     cost = rng.standard_normal((8, 100, 100)).astype(np.float32) * 3
     cost[0] = np.nan
@@ -638,7 +640,7 @@ def test_lapjv_kernel_terminates_on_nan_and_inf_on_card(cuda):
     cost[5, ::2, ::3] = np.nan
     cost[:, :, 80:] = 1e8
     cost = _t(cost).to(cuda)
-    got = lapjv(cost)
+    got = lapjv(cost, route=route)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, hungarian_lsap(cost), rtol=0, atol=0)
     assert all(len(set(row)) == 100 for row in got.tolist())

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from autofocusformermod_torch.losses.lapjv import hungarian_lsap, lapjv
+from autofocusformermod_torch.losses.lapjv import ROUTES, hungarian_lsap, lapjv, lapjv_route
 from autofocusformermod_torch.losses.point_sample import point_sample
 from autofocusformermod_torch.ops import clusten as tc
 from autofocusformermod_torch.ops import local_attn as la
@@ -655,12 +655,68 @@ def test_msdetrpc_generic_instance_on_card(rng, cuda, p, c):
                                md.msdetrpc_forward(clamped, *args[1:], sizes), rtol=0, atol=0)
 
 
+def _lapjv_case(rng, case):
+    """(b, Q, T) costs of one kind: the matcher's padded target slots at the
+    1e8 sentinel packed after the real ones (as the synthetic batches pack
+    them) or interleaved, integer costs (ties everywhere), more queries than
+    targets, a small square problem, and a shape too wide for the warp."""
+    b, q, t = {"q_gt_t": (5, 100, 20), "square_7": (9, 7, 7), "wide": (2, 300, 40)}.get(
+        case, (6, 100, 100))
+    cost = rng.standard_normal((b, q, t)).astype(np.float32) * 3
+    if case == "packed":
+        cost[:, :, 60:] = 1e8
+    elif case == "interleaved":
+        for i in range(b):
+            cost[i, :, rng.permutation(t)[: t - 12]] = 1e8
+    elif case == "integer_ties":
+        cost = rng.integers(0, 4, (b, q, t)).astype(np.float32)
+        cost[:, :, 50:] = 1e8
+    return cost
+
+
+def test_lapjv_route_by_shape():
+    """The warp route takes Q + 1 <= 256 columns whose (Q, T | 1) costs fit
+    the shared memory; everything else takes the block route."""
+    assert lapjv_route(100, 100) == "warp"
+    assert lapjv_route(7, 7) == "warp" and lapjv_route(100, 20) == "warp"
+    assert lapjv_route(255, 200) == "warp"                 # 255 x 201 floats fit
+    assert lapjv_route(255, 255) == "block"                # 255 x 255 floats do not
+    assert lapjv_route(256, 10) == "block"                 # 257 columns
+    assert lapjv_route(300, 40) == "block"
+    with pytest.raises(ValueError):
+        lapjv(torch.zeros((1, 4, 3)), route="lanes")
+
+
+def test_plain_lsap_step_counter_hand_worked():
+    """c[target i, query j] = i * j (1-based): the rows take 1, 2 and 3
+    Dijkstra steps and end on the anti-diagonal (cost 3 + 4 + 3 = 10).
+    Worked by hand: row 1 takes query 1 at once; row 2 reaches query 1
+    (held by row 1), then query 2 (free); row 3 reaches queries 1, 2 (both
+    held), then query 3, and the path flips all three."""
+    cost = torch.tensor([[[float((q + 1) * (t + 1)) for t in range(3)] for q in range(3)]])
+    got, steps = hungarian_lsap(cost, return_steps=True)
+    assert got.tolist() == [[2, 1, 0]]
+    assert steps.tolist() == [[1, 2, 3]]
+    assert torch.equal(hungarian_lsap(cost), got)
+
+
 @pytest.mark.cuda
-def test_lapjv_kernel_matches_plain_on_card(rng, cuda):
-    """The same float operations in the same order: identical assignments,
-    sentinel ties included."""
-    cost = rng.standard_normal((6, 100, 100)).astype(np.float32) * 3
-    cost[:, :, 60:] = 1e8
-    cost = _t(cost).to(cuda)
+@pytest.mark.parametrize("case", ["packed", "interleaved", "integer_ties", "q_gt_t", "square_7",
+                                  "wide"])
+def test_lapjv_kernel_matches_plain_on_card(rng, cuda, case):
+    """The same float operations in the same order: identical assignments on
+    every route that takes the shape, sentinel and integer ties included; the
+    warp route refuses a shape too wide for it."""
+    cost = _t(_lapjv_case(rng, case)).to(cuda)
+    want = hungarian_lsap(cost)
+    before = dict(lapjv.launches_by_route)
     got = lapjv(cost)
-    torch.testing.assert_close(got, hungarian_lsap(cost), rtol=0, atol=0)
+    assert lapjv.launches_by_route[lapjv_route(*cost.shape[1:])] == before[lapjv_route(
+        *cost.shape[1:])] + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for route in ROUTES:
+        if route == "warp" and lapjv_route(*cost.shape[1:]) != "warp":
+            with pytest.raises(RuntimeError):
+                lapjv(cost, route=route)
+            continue
+        torch.testing.assert_close(lapjv(cost, route=route), want, rtol=0, atol=0)
