@@ -42,11 +42,11 @@ SIGNATURES = {
     "aff_msdetrpc_bwd": [P] * 9 + [I] * 5 + [P, I, P],
     "aff_msdetrpc_bwd_scratch": [I, I, P, I, P],
     "aff_msdetrpc_levels": [P] * 4 + [I] * 5 + [P, I, P],
-    "aff_msdetrpc_levels_bwd": [P] * 6 + [I] * 5 + [P, I, P],
+    "aff_msdetrpc_levels_bwd": [P] * 9 + [I] * 5 + [P, I, P],
     "aff_msdetrpc_levels_t": [P] * 4 + [I] * 5 + [P, I, P],
-    "aff_msdetrpc_levels_t_bwd": [P] * 6 + [I] * 5 + [P, I, P],
+    "aff_msdetrpc_levels_t_bwd": [P] * 9 + [I] * 5 + [P, I, P],
     "aff_msdetrpc_bh": [P] * 4 + [I] * 6 + [P, I, P],
-    "aff_msdetrpc_bh_bwd": [P] * 6 + [I] * 6 + [P, I, P],
+    "aff_msdetrpc_bh_bwd": [P] * 9 + [I] * 6 + [P, I, P],
     "aff_msdetrpc_interleaved": [P] * 5 + [I] * 6 + [P],
     "aff_msdetrpc_interleaved_bwd": [P] * 8 + [I] * 6 + [P],
     "aff_point_sample": [P, P, P, I, I, I, I, P],

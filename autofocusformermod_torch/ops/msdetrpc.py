@@ -15,10 +15,12 @@ levels j with level-LOCAL indices; they differ in where the operands lie:
 - ``msdetrpc_bh`` (``msdetrpc_pallas_bh``): per level (b, n, h, P), values
   (b, ntot, h, c_), result (b, n, h, c_), heads where the Linear put them.
 
-Each kernel reads its layout in place.  On CUDA tensors each call is an
-autograd Function differentiable in the weights and the values (the indices
-get no gradient), whose backward is a kernel reading the same layout; on CPU
-tensors the plain version runs.  The interleaved fifth layout is
+One forward kernel and one backward pair (``csrc/msdetrpc.cu``) serve the
+four layouts, each read in place.  On CUDA tensors each call is an autograd
+Function differentiable in the weights and the values (the indices get no
+gradient), whose backward writes d_val and d_w without atomics, in a fixed
+order: two calls on the same inputs return the same bits.  On CPU tensors
+the plain version runs.  The interleaved fifth layout is
 ``ops/clusten.py:msdetrpc``.  ``msdetrpc_levels_s_library`` computes the
 stacked layout's function with one PyTorch call (``F.embedding_bag``), as a
 yardstick of the kernels' speed; nothing in the port calls it.
@@ -27,6 +29,7 @@ yardstick of the kernels' speed; nothing in the port calls it.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -104,31 +107,36 @@ def msdetrpc_levels_s_backward(idx_s, w_s, val, g, level_sizes: Sequence[int]):
     bh, n, lp, ntot, c_, n_levels, sizes = _check_operands(idx_s, w_s, val, level_sizes)
     require(g, "g", torch.float32, (bh, n, c_))
     lib = load_kernels()
-    dims = (ctypes.c_int * 3)()
-    check(lib.aff_msdetrpc_bwd_scratch(n, n_levels, ctypes.cast(sizes, ctypes.c_void_p),
-                                       lp // n_levels, ctypes.cast(dims, ctypes.c_void_p)),
-          "aff_msdetrpc_bwd_scratch")
-    tiles, rows, starts = dims
-    dev = val.device
-    # the tiles' partial rows and their row ids (a tile writes only what it
-    # needs of its part), and where each band of value rows starts in them
-    pool_row = torch.empty((bh * tiles * rows,), dtype=torch.int32, device=dev)
-    pool_val = torch.empty((bh * tiles * rows, c_), dtype=torch.float32, device=dev)
-    band_start = torch.empty((bh * tiles * starts,), dtype=torch.int32, device=dev)
+    scratch = _bwd_scratch(lib, sizes, lp // n_levels, bh, n, c_, val.device)
     d_val = torch.empty_like(val)
     d_w = torch.empty_like(w_s)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(val.device):
         err = lib.aff_msdetrpc_bwd(
             idx_s.data_ptr(), w_s.data_ptr(), val.data_ptr(), g.data_ptr(), d_val.data_ptr(),
-            d_w.data_ptr(), pool_row.data_ptr(), pool_val.data_ptr(), band_start.data_ptr(),
-            bh, n, ntot, c_, n_levels, ctypes.cast(sizes, ctypes.c_void_p), lp // n_levels,
-            stream_of(val))
+            d_w.data_ptr(), *(t.data_ptr() for t in scratch), bh, n, ntot, c_, n_levels,
+            ctypes.cast(sizes, ctypes.c_void_p), lp // n_levels, stream_of(val))
     check(err, "aff_msdetrpc_bwd")
     msdetrpc_levels_s_backward.launches += 1
     return d_val, d_w
 
 
 msdetrpc_levels_s_backward.launches = 0
+
+
+def _bwd_scratch(lib, sizes, pairs, units, n, c_, dev):
+    """The backward's scratch for `units` image-heads of n queries, as
+    aff_msdetrpc_bwd_scratch sizes it: the query tiles' partial rows and
+    their row ids (a tile writes only what it needs of its part), and where
+    each band of value rows starts in them.  sizes: the level sizes as a C
+    array."""
+    dims = (ctypes.c_int * 3)()
+    check(lib.aff_msdetrpc_bwd_scratch(n, len(sizes), ctypes.cast(sizes, ctypes.c_void_p), pairs,
+                                       ctypes.cast(dims, ctypes.c_void_p)),
+          "aff_msdetrpc_bwd_scratch")
+    tiles, rows, starts = dims
+    return (torch.empty((units * tiles * rows,), dtype=torch.int32, device=dev),
+            torch.empty((units * tiles * rows, c_), dtype=torch.float32, device=dev),
+            torch.empty((units * tiles * starts,), dtype=torch.int32, device=dev))
 
 
 def msdetrpc_levels_s_plain(idx_s, w_s, val, level_sizes: Sequence[int]) -> torch.Tensor:
@@ -201,7 +209,9 @@ def _check_level_operands(idxs, ws, val, level_sizes, op_shape, val_shape):
 class _Layout:
     """One per-level layout: its C entry points, its plain version, and
     ``shapes(idx0, val)`` -> (the launcher's ints before n_levels, pairs,
-    shape of every idx and w, shape of val, shape of the result)."""
+    shape of every idx and w, shape of val, shape of the result).  The
+    result is (units, n, c_) rows with the units (image-heads) split over
+    its other axes."""
 
     def __init__(self, name, entry, shapes, plain):
         self.name, self.entry, self.shapes, self.plain = name, entry, shapes, plain
@@ -228,10 +238,17 @@ class _Layout:
 
     def backward(self, idxs, ws, val, g, level_sizes):
         """g = d out in the result's layout -> (d_val in val's layout, one
-        d_w per level in its w's layout)."""
-        d_val = torch.zeros_like(val)
+        d_w per level in its w's layout), every element written by the
+        kernels, in a fixed order."""
+        _, pairs, _, _, out_shape = self.shapes(idxs[0], val)
+        n, c_ = out_shape[1], out_shape[-1]
+        sizes = (ctypes.c_int * len(level_sizes))(*(int(s) for s in level_sizes))
+        scratch = _bwd_scratch(load_kernels(), sizes, pairs, math.prod(out_shape) // (n * c_), n,
+                               c_, val.device)
+        d_val = torch.empty_like(val)
         d_ws = [torch.empty_like(w) for w in ws]
-        self._launch(self.entry + "_bwd", idxs, ws, val, level_sizes, (g, d_val), (d_ws,))
+        self._launch(self.entry + "_bwd", idxs, ws, val, level_sizes, (g, d_val, *scratch),
+                     (d_ws,))
         return d_val, d_ws
 
 

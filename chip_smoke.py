@@ -64,7 +64,10 @@ resume, and the pixel decoder's alternate operand layouts -- on one NVIDIA GPU.
    shared-memory route; the interleaved msdetrpc at a level
    split that is not all multiples of 128, forward and backward) against
    their plain versions at the shapes of a batch-4 forward and a batch-8
-   step; runs the phase-3 forward (same weights and images) once per layout
+   step, the first three also on the operands of a real batch-8 step under
+   each layout's flag, the four msdetrpc kernels beside F.embedding_bag on
+   their operands relaid to the stacked form, and the fixed-order backwards
+   twice, bit for bit; runs the phase-3 forward (same weights and images) once per layout
    and compares launch counts and outputs with the default layout's, with
    ms per forward and device busy ms of each; the same at 384x384, where the
    decoder's levels are not all multiples of 128, through the interleaved
@@ -111,10 +114,10 @@ LOCAL_ATTN_ATOL = 1e-4
 MSDETRPC_ATOL = 1e-4
 POINT_SAMPLE_ATOL = 1e-5
 # gradients, error relative to the largest entry (at least 1) of each
-# gradient tensor: the point_sample backward and the alternate layouts'
-# msdetrpc backwards scatter with atomics (run-to-run order; the local_attn
-# pair and the stacked msdetrpc backward sum in a fixed order) and the w5/b5
-# reductions sum ~1e6 terms in another order
+# gradient tensor: the point_sample backward and the interleaved msdetrpc
+# backward scatter with atomics (run-to-run order; the local_attn pair and the
+# other msdetrpc backwards sum in a fixed order) and the w5/b5 reductions sum
+# ~1e6 terms in another order
 GRAD_RTOL = 1e-3
 # the two training steps: loss terms (relative), and gradient norms per
 # parameter group (relative; a flipped near-tie in the matcher or in token
@@ -1214,83 +1217,240 @@ def layout_operands(gen, dev, bh, n, sizes, p=16, heads=8):
 
 # the four sampling kernels of the alternate layouts: record name (for the
 # first three also the wrapper's name in ops/msdetrpc.py) -> (key of its
-# operands in layout_operands, line of the TPU function in msdetrpc_kernel.py)
-SAMPLING = {"msdetrpc_levels": ("levels", 1841), "msdetrpc_levels_t": ("levels_t", 1912),
-            "msdetrpc_bh": ("bh", 2359), "msdetrpc_interleaved": ("interleaved", 1204)}
+# operands in layout_operands, line of the TPU function in msdetrpc_kernel.py,
+# the decoder layout that launches it at 512x512)
+SAMPLING = {"msdetrpc_levels": ("levels", 1841, "per_level"),
+            "msdetrpc_levels_t": ("levels_t", 1912, "fused_prep"),
+            "msdetrpc_bh": ("bh", 2359, "head_natural"),
+            "msdetrpc_interleaved": ("interleaved", 1204, None)}
 
 
-def check_sampling_layouts(dev, gen, b, backward):
-    """K5, K7, K8 at a batch-b 512x512 pass's shapes and K6 at a 384x384
-    one's (bh = 8 b, 3 levels x 16 pairs, c_ = 32), each against its plain
-    version on its own operands; with `backward`, the gradients and the
-    backward kernels' times instead of the forward's.  ms sums the calls of
-    one pass: 6 encoder layers x the query levels that reach the kernel (all
-    three; the 4096-token level alone for the pair-major one)."""
+def sampling_uniform_calls(gen, dev, key, b):
+    """One alternate-layout kernel's operands at a batch-b pass's shapes (bh =
+    8 b, 3 levels x 16 pairs, c_ = 32; levels of 256, 1024 and 4096 tokens,
+    144, 576 and 2304 for the interleaved kernel at 384x384), drawn
+    uniformly: one set per query level that reaches the kernel (all three;
+    the 4096-token level alone for the pair-major one), each standing for the
+    6 encoder layers' calls.  -> [(ops, val, level sizes, g, times)]."""
+    import torch
+
+    bh, c_, heads = b * 8, 32, 8
+    sizes = (144, 576, 2304) if key == "interleaved" else (256, 1024, 4096)
+    val = torch.randn((bh, sum(sizes), c_), generator=gen).to(dev)
+    if key == "bh":
+        val = val.reshape(b, heads, -1, c_).transpose(1, 2).contiguous()
+    calls = []
+    for n in (sizes[-1:] if key == "levels_t" else sizes):
+        g = torch.randn((bh, n, c_), generator=gen).to(dev)
+        if key == "bh":
+            g = g.reshape(b, heads, n, c_).transpose(1, 2).contiguous()
+        calls.append((layout_operands(gen, dev, bh, n, sizes)[key], val, sizes, g, 6))
+    return calls
+
+
+def path_layout_operands(dev, layout, b=TRAIN_BATCH):
+    """The operands of every call of `layout`'s sampling kernel in one
+    batch-b AFF-Mini training step at 512x512 (seeded weights, label maps and
+    draws), as the decoder makes them under the layout's flag, with the
+    gradient each call's backward got: 18 calls (6 of the pair-major kernel,
+    which takes the 4096-token level alone).  -> [(ops, val, level sizes, g,
+    1)].  Captured by wrapping the decoder's call of the kernel's wrapper."""
+    from autofocusformermod_torch.models import pixel_decoder
+
+    name = next(k for k, (_, _, lay) in SAMPLING.items() if lay == layout)
+    calls = []
+
+    def capture(real):
+        def wrapped(idxs, ws, val, level_sizes):
+            out = real(idxs, ws, val, level_sizes)
+            entry = [([i.detach().clone() for i in idxs], [w.detach().clone() for w in ws]),
+                     val.detach().clone(), tuple(level_sizes), None, 1]
+            calls.append(entry)
+            out.register_hook(lambda g: entry.__setitem__(3, g.detach().contiguous().clone()))
+            return out
+        return wrapped
+
+    with decoder_layout(layout):
+        seeded_step(dev, b, pixel_decoder, name, capture)
+    if len(calls) != (6 if layout == "fused_prep" else 18) or any(c[3] is None for c in calls):
+        raise SystemExit(f"layout {layout}: the step made {len(calls)} {name} calls, "
+                         f"{sum(c[3] is None for c in calls)} of them without a gradient")
+    return [tuple(c) for c in calls]
+
+
+def stacked_form(key, ops, val, sizes):
+    """An alternate-layout kernel's operands relaid to the stacked layout's
+    (idx_s, w_s, val, level sizes), as msdetrpc_levels_s_library takes them:
+    the head-natural layout's heads moved into the image axis, the
+    interleaved kernel's global indices as one level with its attention
+    folded into the weights."""
+    import torch
+
+    if key == "interleaved":
+        idx, w, attn = ops
+        bh, n = idx.shape[:2]
+        return idx.reshape(bh, n, -1), (w * attn[..., None]).reshape(bh, n, -1), val, (val.shape[1],)
+    idxs, ws = ops
+    if key == "levels_t":
+        idxs, ws = [i.transpose(1, 2) for i in idxs], [w.transpose(1, 2) for w in ws]
+    idx_s, w_s = torch.cat(idxs, -1), torch.cat(ws, -1)
+    if key == "bh":
+        idx_s, w_s, val = (unit_rows(key, t) for t in (idx_s, w_s, val))
+    return idx_s.contiguous(), w_s.contiguous(), val.contiguous(), sizes
+
+
+def unit_rows(key, x):
+    """The head-natural layout's (b, n, h, X) as (b * h, n, X); other
+    layouts' arrays as they are."""
+    return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[-1]) if key == "bh" else x
+
+
+def check_sampling(name, key, calls, l2_rate, backward=True, time_plain=True):
+    """One alternate-layout kernel on `calls` [(ops, val, level sizes, g,
+    times)]; ms figures sum the calls, each `times` times.  The forward
+    against its plain version within MSDETRPC_ATOL, timed in calls (cuda_ms)
+    and on the card alone (device_ms, queued_ms), beside the plain version
+    (with time_plain) and the library call: F.embedding_bag on the operands
+    relaid to the stacked form (msdetrpc_levels_s_library), the relayout and
+    the bag's rows timed apart (library_rows_ms); l2_rows_ms is the least
+    time in which the card's L2 serves every query's value rows.  With
+    `backward` the same for the backward kernels (bwd_*: the gradients
+    against the plain version's autograd within GRAD_RTOL, beside
+    embedding_bag's autograd backward), and two calls compared bit for bit
+    where the kernels sum in a fixed order (all but the interleaved
+    kernel)."""
     import torch
     from autofocusformermod_torch.ops import clusten, msdetrpc as md
     from autofocusformermod_torch.ops.dispatch import plain_versions
 
-    bh, p, c_, heads = b * 8, 16, 32, 8
-    results = {}
-    for name, (key, _) in SAMPLING.items():
-        sizes = (144, 576, 2304) if key == "interleaved" else (256, 1024, 4096)
-        val = torch.randn((bh, sum(sizes), c_), generator=gen).to(dev)
-        if key == "bh":
-            val = val.reshape(b, heads, -1, c_).transpose(1, 2).contiguous()
-        err, worst, ms, plain_ms, bnd = 0.0, 0.0, 0.0, 0.0, {}
-        for n in (sizes[-1:] if key == "levels_t" else sizes):
-            ops = layout_operands(gen, dev, bh, n, sizes)[key]
-            g = torch.randn((bh, n, c_), generator=gen).to(dev)
-            if key == "bh":
-                g = g.reshape(b, heads, n, c_).transpose(1, 2).contiguous()
-            if key == "interleaved":
-                idx, w, attn = ops
-                diff = [w, attn, val]
-                launch_bwd = lambda: clusten.msdetrpc_backward(idx, w, attn, val, g)
+    fixed_order = key != "interleaved"
+    t = dict.fromkeys(("ms", "device_ms", "plain_ms", "library_ms", "library_rows_ms", "bwd_ms",
+                       "bwd_device_ms", "bwd_plain_ms", "bwd_library_ms"), 0.0)
+    err, lib_err, bwd_err, worst, row_bytes, bnd, bwd_bnd = 0.0, 0.0, 0.0, 0.0, 0, {}, {}
+    for ops, val, sizes, g, times in calls:
+        if key == "interleaved":
+            idx, w, attn = ops
+            diff = [w, attn, val]
 
-                def fwd(leaves=diff):
-                    return clusten.msdetrpc(idx, *leaves)
-            else:
-                fn = getattr(md, name)
-                idxs, ws = ops
-                diff = [val, *ws]
-                launch_bwd = lambda: fn.backward_launcher(idxs, ws, val, g, sizes)
+            def fwd(leaves=diff):
+                return clusten.msdetrpc(idx, *leaves)
 
-                def fwd(leaves=diff):
-                    return fn(idxs, leaves[1:], leaves[0], sizes)
-            moved = nbytes(*(ops[0] if key != "interleaved" else ops[:1]), *diff)
-            if not backward:
-                out = fwd()
-                with plain_versions():
-                    ref = fwd()
-                    t_p = cuda_ms(fwd, iters=5, warmup=1)
-                t_k = cuda_ms(fwd)
-                e = (out - ref).abs().max().item()
-                err, rel = max(err, e), e / ref.abs().max().item()
-                # a multiply and an add per (query, pair, channel)
-                bnd = add_bounds(bnd, bound(moved + nbytes(out), 2 * bh * n * 3 * p * c_), 6)
-            else:
-                leaves = [t.clone().requires_grad_() for t in diff]
-                got = torch.autograd.grad(fwd(leaves), leaves, g)
-                with plain_versions():
-                    want = torch.autograd.grad(fwd(leaves), leaves, g)
-                e, rel = grad_errs(got, want)
-                err, worst = max(err, e), max(worst, rel)
-                t_k = cuda_ms(launch_bwd)
-                t_p = plain_grad_ms(lambda: fwd(leaves), leaves, g)
-                # d_val += w g and d_w = g . val: 4 operations per (query, pair, channel)
-                bnd = add_bounds(bnd, bound(moved + nbytes(g, *diff), 4 * bh * n * 3 * p * c_), 6)
-            ms, plain_ms = ms + 6 * t_k, plain_ms + 6 * t_p
-            log(f"  {name} {'bwd' if backward else 'fwd'} b{b} n={n} levels={sizes}: max_abs_err "
-                f"{e:.3e} (rel {rel:.3e}) kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-            del ops, g
-        if (worst > GRAD_RTOL) if backward else (err > MSDETRPC_ATOL):
-            raise SystemExit(f"{name} {'backward' if backward else 'forward'} b{b}: kernel and "
-                             f"plain version disagree (abs {err}, rel {worst})")
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd}
-        del val
+            def bwd():
+                return clusten.msdetrpc_backward(idx, w, attn, val, g)
+        else:
+            fn = getattr(md, name)
+            idxs, ws = ops
+            diff = [val, *ws]
+
+            def fwd(leaves=diff):
+                return fn(idxs, leaves[1:], leaves[0], sizes)
+
+            def bwd():
+                d_val, d_ws = fn.backward_launcher(idxs, ws, val, g, sizes)
+                return [d_val, *d_ws]
+        out = fwd()
+        with plain_versions():
+            ref = fwd()
+            t_p = cuda_ms(fwd, iters=5, warmup=1) if time_plain else 0.0
+        e = (out - ref).abs().max().item()
+        err = max(err, e)
+        rows, c_ = out.numel() // out.shape[-1], out.shape[-1]
+        lp = ops[0].numel() // rows if key == "interleaved" else sum(i.numel() for i in ops[0]) // rows
+
+        def library_operands():
+            idx_s, w_s, val_s, sizes_s = stacked_form(key, ops, val, sizes)
+            return md.msdetrpc_bag_rows(idx_s, sizes_s), idx_s, w_s, val_s, sizes_s
+
+        bag, idx_s, w_s, val_s, sizes_s = library_operands()
+        lib = md.msdetrpc_levels_s_library(idx_s, w_s, val_s, sizes_s, rows=bag)
+        lib_err = max(lib_err, (lib - unit_rows(key, ref)).abs().max().item())
+        step = {"ms": cuda_ms(fwd), "device_ms": queued_ms(fwd), "plain_ms": t_p,
+                "library_ms": cuda_ms(lambda: md.msdetrpc_levels_s_library(
+                    idx_s, w_s, val_s, sizes_s, rows=bag)),
+                "library_rows_ms": cuda_ms(library_operands, iters=5, warmup=1)}
+        moved = nbytes(*(ops[0] if key != "interleaved" else ops[:1]), *diff)
+        # a multiply and an add per (query, pair, channel)
+        bnd = add_bounds(bnd, bound(moved + nbytes(out), 2 * rows * lp * c_), times)
+        row_bytes += times * rows * lp * c_ * 4
+        msg = (f"  {name} {len(calls)} calls{'' if times == 1 else f' x {times}'} n={out.shape[1]} "
+               f"levels={sizes}: fwd max_abs_err {e:.3e} kernel {step['ms']:.4f} ms (on the card "
+               f"{step['device_ms']:.4f}), plain {t_p:.4f}, embedding_bag {step['library_ms']:.4f} "
+               f"(+ relayout and rows {step['library_rows_ms']:.4f})")
+        if backward:
+            leaves = [x.clone().requires_grad_() for x in diff]
+            got = torch.autograd.grad(fwd(leaves), leaves, g)
+            with plain_versions():
+                want = torch.autograd.grad(fwd(leaves), leaves, g)
+            be, rel = grad_errs(got, want)
+            bwd_err, worst = max(bwd_err, be), max(worst, rel)
+            if fixed_order and not all(torch.equal(a, b) for a, b in zip(bwd(), bwd())):
+                raise SystemExit(f"{name} backward ({len(calls)} calls, n={out.shape[1]}): two "
+                                 "calls on the same inputs differ")
+            lib_leaves = [w_s.clone().requires_grad_(), val_s.clone().requires_grad_()]
+            lib_out = md.msdetrpc_levels_s_library(idx_s, *lib_leaves, sizes_s, rows=bag)
+            g_s = unit_rows(key, g).contiguous()
+            step.update({"bwd_ms": cuda_ms(bwd), "bwd_device_ms": queued_ms(bwd),
+                         "bwd_plain_ms": (plain_grad_ms(lambda: fwd(leaves), leaves, g)
+                                          if time_plain else 0.0),
+                         "bwd_library_ms": cuda_ms(lambda: torch.autograd.grad(
+                             lib_out, lib_leaves, g_s, retain_graph=True))})
+            # d_val += w g and d_w = g . val: 4 operations per (query, pair, channel)
+            bwd_bnd = add_bounds(bwd_bnd, bound(moved + nbytes(g, *diff), 4 * rows * lp * c_),
+                                 times)
+            msg += (f"; bwd max_abs_err {be:.3e} (rel {rel:.3e})"
+                    f"{', bit-identical twice' if fixed_order else ''}, kernels "
+                    f"{step['bwd_ms']:.4f} ms (on the card {step['bwd_device_ms']:.4f}), plain "
+                    f"{step['bwd_plain_ms']:.4f}, embedding_bag's backward "
+                    f"{step['bwd_library_ms']:.4f}")
+            del leaves, got, want, lib_leaves, lib_out
+        for k, v in step.items():
+            t[k] += times * v
+        log(msg)
+        del out, ref, bag, idx_s, w_s, val_s, lib
+    if err > MSDETRPC_ATOL or lib_err > MSDETRPC_ATOL or worst > GRAD_RTOL:
+        raise SystemExit(f"{name}: kernel, plain version and embedding_bag disagree (forward abs "
+                         f"{err}, library abs {lib_err}, backward rel {worst})")
+    rec = {"max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"] if time_plain else None,
+           **bnd, "device_ms": t["device_ms"], "library_ms": t["library_ms"],
+           "library_rows_ms": t["library_rows_ms"], "row_bytes": row_bytes,
+           "l2_rows_ms": row_bytes / l2_rate * 1e3}
+    if backward:
+        rec.update({"bwd_max_abs_err": bwd_err, "bwd_max_rel_err": worst, "bwd_ms": t["bwd_ms"],
+                    "bwd_device_ms": t["bwd_device_ms"],
+                    "bwd_plain_ms": t["bwd_plain_ms"] if time_plain else None,
+                    "bwd_library_ms": t["bwd_library_ms"], "bwd_bound_ms": bwd_bnd["bound_ms"],
+                    "bwd_bound_by": bwd_bnd["bound_by"], "bit_identical": fixed_order})
+    log(f"  {name}: {t['ms']:.3f} ms in calls, {t['device_ms']:.3f} on the card; embedding_bag "
+        f"{t['library_ms']:.3f} (+ {t['library_rows_ms']:.3f}); bound {bnd['bound_ms']:.3f} ms; "
+        f"value rows at the L2 rate {rec['l2_rows_ms']:.3f} ms"
+        + (f"; backward {t['bwd_ms']:.3f} ms in calls, {t['bwd_device_ms']:.3f} on the card, "
+           f"embedding_bag's {t['bwd_library_ms']:.3f}, bound {bwd_bnd['bound_ms']:.3f}"
+           if backward else ""))
+    return rec
+
+
+def sampling_record(name, key, line, layout, gen, dev, l2_rate):
+    """The record of one alternate-layout kernel: the forward at a batch-4
+    forward's shapes (the record's own figures, as in earlier records), both
+    passes at a batch-8 step's, on the uniform draw and (the three per-level
+    kernels) on the operands of a real step under its layout's flag."""
+    import torch
+
+    paths = {f"b{BATCH}_forward": check_sampling(
+        name, key, sampling_uniform_calls(gen, dev, key, BATCH), l2_rate, backward=False)}
+    paths[f"b{TRAIN_BATCH}_step"] = check_sampling(
+        name, key, sampling_uniform_calls(gen, dev, key, TRAIN_BATCH), l2_rate)
+    torch.cuda.empty_cache()
+    if layout:
+        paths[f"b{TRAIN_BATCH}_path"] = check_sampling(
+            name, key, path_layout_operands(dev, layout), l2_rate, time_plain=False)
         torch.cuda.empty_cache()
-    return results
+    own = paths[f"b{BATCH}_forward"]
+    return {"name": name, "route": "cuda", "source": "autofocusformermod_torch/csrc/msdetrpc.cu",
+            "replaces": f"autofocusformermod_tpu/ops/pallas/msdetrpc_kernel.py:{line}", **own,
+            "max_abs_err": max(max(p["max_abs_err"], p.get("bwd_max_abs_err", 0.0))
+                               for p in paths.values()),
+            "deterministic": key != "interleaved", "by_path": paths}
 
 
 def path_sample_ranks(dev, gen, b, heads=8, points=4):
@@ -2186,16 +2346,8 @@ def main() -> int:
     from autofocusformermod_torch.ops import msdetrpc as md
     from autofocusformermod_torch.ops.window_gather import windowed_row_gather
 
-    layout_fwd = check_sampling_layouts(dev, gen, BATCH, backward=False)
-    layout_bwd = check_sampling_layouts(dev, gen, TRAIN_BATCH, backward=True)
-    for name, (_, line) in SAMPLING.items():
-        f, b = layout_fwd[name], layout_bwd[name]
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "autofocusformermod_torch/csrc/msdetrpc.cu",
-                        "replaces": f"autofocusformermod_tpu/ops/pallas/msdetrpc_kernel.py:{line}",
-                        "library_ms": None, **f, "max_abs_err": max(f["max_abs_err"],
-                                                                    b["max_abs_err"]),
-                        "by_path": {f"b{BATCH}_forward": f, f"b{TRAIN_BATCH}_step_backward": b}})
+    for name, (key, line, layout) in SAMPLING.items():
+        kernels.append(sampling_record(name, key, line, layout, gen, dev, l2_rate))
     kernels.append({"name": "window_gather", "route": "cuda",
                     "source": "autofocusformermod_torch/csrc/window_gather.cu",
                     "replaces": "autofocusformermod_tpu/ops/pallas/window_gather.py:92",

@@ -137,12 +137,16 @@ def _to_bh(arrays, h):
             for a in arrays]
 
 
-def _layout_case(layout, seed, h=2):
+def _layout_case(layout, seed, h=2, uniform=False, **shape):
     """One case in the operands of `layout` -> (port function, its plain
-    version, idxs, ws, val, sizes, g), numpy arrays."""
+    version, idxs, ws, val, sizes, g), numpy arrays.  shape: _make_case's;
+    uniform: indices drawn over each whole level instead of near a
+    per-query centre."""
     rng = np.random.default_rng(seed)
-    nn_idx, nn_w, attn, val, sizes = _make_case(rng)
+    nn_idx, nn_w, attn, val, sizes = _make_case(rng, **shape)
     idxs, ws = _to_levels(nn_idx, nn_w, attn, sizes)
+    if uniform:
+        idxs = [rng.integers(0, s, i.shape).astype(np.int32) for i, s in zip(idxs, sizes)]
     g = rng.standard_normal((val.shape[0], nn_idx.shape[1], val.shape[2])).astype(np.float32)
     if layout == "levels":
         return md.msdetrpc_levels, md.msdetrpc_levels_plain, idxs, ws, val, sizes, g
@@ -191,27 +195,92 @@ def _grads(fn, idxs, ws, val, sizes, g):
     return torch.autograd.grad((out * g).sum(), [val, *ws])
 
 
-@pytest.mark.parametrize("layout", ["levels", "levels_t", "bh"])
-def test_layout_plain_backward_matches_pallas_interpret(jnp, layout):
-    """d_val and every d_w of each plain version against the TPU backward of
-    the same layout in interpret mode (the pair-major layout's is the
-    per-level one on untransposed operands, as in the JAX package)."""
+def _pallas_backward(layout, idxs, ws, val, g, sizes, jnp):
+    """(d_val, [d_w per level]) of the TPU backward of `layout` in interpret
+    mode (the pair-major layout's is the per-level one on untransposed
+    operands, as in the JAX package)."""
     from autofocusformermod_tpu.ops.pallas import msdetrpc_kernel as mk
 
-    _, plain, idxs, ws, val, sizes, g = _layout_case(layout, seed=4)
-    got = _grads(plain, list(map(_t, idxs)), list(map(_t, ws)), _t(val), sizes, _t(g))
     if layout == "bh":
         _, dws, dval = mk.msdetrpc_pallas_bh_bwd_impl(
             tuple(map(jnp.asarray, idxs)), tuple(map(jnp.asarray, ws)), jnp.asarray(val),
             jnp.asarray(g), sizes, interpret=True)
-    else:
-        un_t = (lambda a: a.transpose(0, 2, 1)) if layout == "levels_t" else (lambda a: a)
-        _, dws, dval = mk._bwd_levels_impl(
-            tuple(jnp.asarray(un_t(i)) for i in idxs), tuple(jnp.asarray(un_t(w)) for w in ws),
-            jnp.asarray(val), jnp.asarray(g), sizes, interpret=True)
-        dws = [un_t(np.asarray(d)) for d in dws]
+        return dval, dws
+    un_t = (lambda a: a.transpose(0, 2, 1)) if layout == "levels_t" else (lambda a: a)
+    _, dws, dval = mk._bwd_levels_impl(
+        tuple(jnp.asarray(un_t(i)) for i in idxs), tuple(jnp.asarray(un_t(w)) for w in ws),
+        jnp.asarray(val), jnp.asarray(g), sizes, interpret=True)
+    return dval, [un_t(np.asarray(d)) for d in dws]
+
+
+@pytest.mark.parametrize("layout", ["levels", "levels_t", "bh"])
+def test_layout_plain_backward_matches_pallas_interpret(jnp, layout):
+    """d_val and every d_w of each plain version against the TPU backward of
+    the same layout in interpret mode."""
+    _, plain, idxs, ws, val, sizes, g = _layout_case(layout, seed=4)
+    got = _grads(plain, list(map(_t, idxs)), list(map(_t, ws)), _t(val), sizes, _t(g))
+    dval, dws = _pallas_backward(layout, idxs, ws, val, g, sizes, jnp)
     _close(got[0], dval, **GRAD_TOL)
     for a, r in zip(got[1:], dws):
+        _close(a, r, **GRAD_TOL)
+
+
+# shapes where the CUDA kernels' structure shows: n = 100 spans four of the
+# backward's 32-query tiles, the last cut, and is no multiple of the
+# forward's 8-query blocks; 8 heads, interleaved in the head-natural value
+# table; indices near a per-query centre (a tile's rows repeat) and uniform
+# ones (every tile meets every 32-row band)
+ACROSS_TILES = dict(bh=8, n=100, sizes=(128, 256, 512))
+
+
+@pytest.mark.parametrize("indices", ["centred", "uniform"])
+@pytest.mark.parametrize("layout", ["levels", "levels_t", "bh"])
+def test_layout_plain_matches_pallas_interpret_across_tiles(jnp, layout, indices):
+    """Each plain version's forward, d_val and d_w against the TPU kernels of
+    the same layout in interpret mode, at ACROSS_TILES."""
+    _, plain, idxs, ws, val, sizes, g = _layout_case(
+        layout, seed=13, h=8, uniform=indices == "uniform", **ACROSS_TILES)
+    _close(plain(list(map(_t, idxs)), list(map(_t, ws)), _t(val), sizes),
+           _jax_forward(layout, idxs, ws, val, sizes, jnp))
+    got = _grads(plain, list(map(_t, idxs)), list(map(_t, ws)), _t(val), sizes, _t(g))
+    dval, dws = _pallas_backward(layout, idxs, ws, val, g, sizes, jnp)
+    _close(got[0], dval, **GRAD_TOL)
+    for a, r in zip(got[1:], dws):
+        _close(a, r, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("layout", ["levels", "levels_t", "bh"])
+def test_layout_plain_matches_jax_definition_at_odd_level_sizes(jnp, layout):
+    """Level sizes that are no multiples of 128 (ntot = 1300: no multiple of
+    the backward's 32-row bands either; n = 77), which the TPU forwards do not
+    take: each plain version's forward and gradients against jax.vjp of the
+    JAX package's definition (ops/clusten.msdetrpc on the interleaved
+    operands, its attention 1 so that its weights are the layout's)."""
+    import jax
+
+    from autofocusformermod_tpu.ops import clusten as jc
+
+    rng = np.random.default_rng(14)
+    nn_idx, nn_w, _, val, sizes = _make_case(rng, bh=8, n=77, sizes=(100, 200, 1000))
+    ones = np.ones(nn_idx.shape[:3], np.float32)
+    idxs, ws = _to_levels(nn_idx, nn_w, ones, sizes)
+    g = rng.standard_normal((8, 77, val.shape[2])).astype(np.float32)
+    out, vjp = jax.vjp(lambda w, v: jc.msdetrpc(jnp.asarray(nn_idx), w, jnp.asarray(ones), v),
+                       jnp.asarray(nn_w), jnp.asarray(val))
+    d_nn_w, d_val = vjp(jnp.asarray(g))
+    _, d_ws = _to_levels(nn_idx, np.asarray(d_nn_w), ones, sizes)
+    want, want_val, h = np.asarray(out), np.asarray(d_val), 8
+    if layout == "levels_t":
+        idxs, ws, d_ws = _to_t(idxs), _to_t(ws), _to_t(d_ws)
+    elif layout == "bh":
+        idxs, ws, d_ws = _to_bh(idxs, h), _to_bh(ws, h), _to_bh(d_ws, h)
+        (val, g, want, want_val) = _to_bh([val, g, want, want_val], h)
+    plain = {"levels": md.msdetrpc_levels_plain, "levels_t": md.msdetrpc_levels_t_plain,
+             "bh": md.msdetrpc_bh_plain}[layout]
+    _close(plain(list(map(_t, idxs)), list(map(_t, ws)), _t(val), sizes), want)
+    got = _grads(plain, list(map(_t, idxs)), list(map(_t, ws)), _t(val), sizes, _t(g))
+    _close(got[0], want_val, **GRAD_TOL)
+    for a, r in zip(got[1:], d_ws):
         _close(a, r, **GRAD_TOL)
 
 
@@ -581,6 +650,55 @@ def test_layout_kernels_match_plain_on_card(cuda, layout):
     out = fn(idxs, ws, val, sizes)
     got = _grads(fn, idxs, ws, val, sizes, g)
     assert (fn.launches, fn.backward_launcher.launches) == (before[0] + 2, before[1] + 1)
+    with plain_versions():
+        torch.testing.assert_close(out, fn(idxs, ws, val, sizes), **TOL)
+        want = _grads(fn, idxs, ws, val, sizes, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("indices", ["centred", "uniform"])
+@pytest.mark.parametrize("layout", ["levels", "levels_t", "bh"])
+def test_layout_kernels_are_exact_and_deterministic_on_card(cuda, layout, indices):
+    """The forward kernel and the fixed-order backward pair of each layout
+    over many query tiles and value-row bands: n = 300 (not a multiple of
+    32), level sizes (100, 200, 1000) (ntot not a multiple of the 32-row
+    band), 8 heads, 16 image-heads; indices near a per-query centre and
+    uniform ones.  Against the plain version, and two backward calls bit for
+    bit (no atomics: the sums have a fixed order)."""
+    fn, _, idxs, ws, val, sizes, g = _layout_case(
+        layout, seed=15, h=8, uniform=indices == "uniform", bh=16, n=300,
+        sizes=(100, 200, 1000))
+    idxs = [_t(a).to(cuda) for a in idxs]
+    ws = [_t(a).to(cuda) for a in ws]
+    val, g = _t(val).to(cuda), _t(g).to(cuda)
+    out = fn(idxs, ws, val, sizes)
+    got = _grads(fn, idxs, ws, val, sizes, g)
+    with plain_versions():
+        torch.testing.assert_close(out, fn(idxs, ws, val, sizes), **TOL)
+        want = _grads(fn, idxs, ws, val, sizes, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+    first = fn.backward_launcher(idxs, ws, val, g, sizes)
+    again = fn.backward_launcher(idxs, ws, val, g, sizes)
+    assert torch.equal(first[0], again[0])
+    assert all(torch.equal(a, b) for a, b in zip(first[1], again[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["levels", "levels_t", "bh"])
+def test_layout_kernels_generic_instance_on_card(cuda, layout):
+    """The kernels' generic instance (2 levels of 8 pairs, not the path's
+    compiled 3 x 16) with 5-channel heads (4-byte row reads) against the
+    plain version."""
+    fn, _, idxs, ws, val, sizes, g = _layout_case(
+        layout, seed=16, h=4, bh=8, n=45, L=2, kpts=2, c_=5, sizes=(128, 256))
+    idxs = [_t(a).to(cuda) for a in idxs]
+    ws = [_t(a).to(cuda) for a in ws]
+    val, g = _t(val).to(cuda), _t(g).to(cuda)
+    out = fn(idxs, ws, val, sizes)
+    got = _grads(fn, idxs, ws, val, sizes, g)
     with plain_versions():
         torch.testing.assert_close(out, fn(idxs, ws, val, sizes), **TOL)
         want = _grads(fn, idxs, ws, val, sizes, g)
