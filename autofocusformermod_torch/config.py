@@ -1,8 +1,9 @@
-"""Yaml-free presets of the published AFF-Mini and AFF-Small models.
+"""Yaml-free presets of the published AFF-Mini, AFF-Mini-1/5 and AFF-Small
+models.
 
-``configs/ade20k/maskformer2_aff_{mini,small}_bs32_80k.yaml`` merged over the
-defaults give the published AFF + Mask2Former ADE20K models and their
-training recipe.  Reading those files needs PyYAML; these presets carry the
+``configs/ade20k/maskformer2_aff_{mini,mini_15,small}_bs32_80k.yaml`` merged
+over the defaults give the published AFF + Mask2Former ADE20K models and
+their training recipe.  Reading those files needs PyYAML; these presets carry the
 same values for every field the port's ``*_from_config`` functions, its
 optimizer, its training step and its trainer read, so a machine without
 PyYAML can build and train the models.  Those functions also accept the JAX
@@ -156,4 +157,16 @@ def aff_small_cfg(num_classes: int = 150) -> Cfg:
     return cfg
 
 
-PRESETS = {"aff_mini": aff_mini_cfg, "aff_small": aff_small_cfg}
+def aff_mini_15_cfg(num_classes: int = 150) -> Cfg:
+    """AFF-Mini-1/5 + Mask2Former, ADE20K semantic segmentation at 512x512
+    (``configs/ade20k/maskformer2_aff_mini_15_bs32_80k.yaml``): AFF-Mini
+    whose cluster merging keeps a fifth of the tokens per stage, so at
+    512x512 the decoder's levels hold 3276, 655 and 131 tokens (no multiples
+    of 128: with ``USE_STACKED_GLUE`` off the interleaved sampling runs)."""
+    cfg = aff_mini_cfg(num_classes)
+    cfg.MODEL.WEIGHTS = "aff_mini_15.pth"
+    cfg.MODEL.AFF.DS_RATE = 0.2
+    return cfg
+
+
+PRESETS = {"aff_mini": aff_mini_cfg, "aff_mini_15": aff_mini_15_cfg, "aff_small": aff_small_cfg}

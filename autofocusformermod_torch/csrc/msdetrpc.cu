@@ -1,7 +1,7 @@
 // Deformable point sampling (msdetrpc), forward and backward, in every
 // operand layout the pixel decoder builds.  One forward body and one backward
-// pair serve the stacked, per-level, pair-major and head-natural layouts;
-// the interleaved layout follows them.
+// pair serve the stacked, per-level, pair-major, head-natural and interleaved
+// layouts.
 //
 // Replaces autofocusformermod_tpu/ops/pallas/msdetrpc_kernel.py:
 //   msdetrpc_pallas_levels_s (:2061, forward _run_fwd_v14 / _kernel_v14) and
@@ -13,12 +13,21 @@
 //   msdetrpc_pallas_levels_t (:1912): per level (bh, P, n), queries minor;
 //   msdetrpc_pallas_bh       (:2359, _kernel_v12 / _bwd_kernel_v12): per level
 //                            (b, n, h, P), values (b, ntot, h, c), result
-//                            (b, n, h, c), heads where the Linear put them.
+//                            (b, n, h, c), heads where the Linear put them;
+//   msdetrpc_pallas          (:1204, forward :1090 with _regroup :1072, VJP
+//                            :1355): interleaved nn_idx, nn_weight (bh, n, M,
+//                            K) with GLOBAL indices and attn (bh, n, M).
 // All compute
 //   out[r, q, :] = sum_{j < L} sum_{p < P} w_j[r, q, p] * val[r, off_j + idx_j[r, q, p], :]
 // with level-local indices idx, level offsets off_j = sum of the earlier
 // level sizes, and w the 4-NN Shepard weight times the attention weight.
-// Indices are clamped into their level, as the XLA gather's mode="clip".  On
+// Indices are clamped into their level, as the XLA gather's mode="clip".  The
+// interleaved layout is the stacked one with one level of P = M * K pairs
+// over the whole table (offset 0, size ntot: the global indices clamped into
+// it), its attention a second weight: pair p of a query weighs
+// nn_weight[p] * attn[p / K], the product taken before the row sum as the
+// plain version and the JAX function fold it (the TPU wrapper folds it in
+// XLA and regroups the slots by level before its kernel).  On
 // the TPU each layout is its own kernel because a relayout of the minor axes
 // costs a pass over the operand; here the kernels read every layout in place
 // through a PairLayout: per-level pointers and batch / head / query / pair
@@ -46,8 +55,10 @@
 // 32), up to 8 load instructions in flight before their sums (at c_ = 32 all
 // 32 rows of a pass).  Each lane group sums its rows in fp32 registers, the
 // groups combine by shuffles at the end, and one group writes the output row
-// with 16-byte stores.  L and P are compiled for the path's (3, 16), with a
-// generic instance for other shapes.  The kernel is held to 40 registers (6
+// with 16-byte stores.  L and P are compiled for the path's (3, 16) and, with
+// the attention, the interleaved layout's (1, 48) (12 slots of 4 taps: two
+// passes), with a generic instance for other shapes; the lane that loads a
+// pair multiplies its attention in.  The kernel is held to 40 registers (6
 // blocks an SM): the rows in flight are worth less than the warps.  The
 // output keeps the unit's row layout (the TPU kernel's channel-major output
 // and its 128-row band windows exist for its tiling).
@@ -81,6 +92,17 @@
 //      walks the tiles in order and adds the partial rows of those with rows
 //      in the band (pass 1 leaves, per tile, where each band starts in its
 //      sorted list); every d_val row is written once.
+// With the interleaved layout's attention, the folded weight w = nn_weight *
+// attn enters the d_val sums, and the d_w write-out turns each staged
+//   dot[s, t] = <g[r, q, :], val[r, row(s, t), :]>
+// into d_nn_weight[s, t] = attn[s] * dot[s, t] and d_attn[s] = sum_t
+// nn_weight[s, t] * dot[s, t], summed over t in order.  One level of ntot
+// rows: a tile holds 32 queries of 48 pairs, at most min(1536, ntot) distinct
+// rows; at AFF-Mini-1/5's batch-8 shapes (bh 64, levels 3276 + 655 + 131 =
+// 4062 rows, c_ 32) the scratch of the 3276-query call is 103 tiles a unit:
+// 1.30 GB of partial rows, 40.5 MB of row ids and 3.4 MB of band starts
+// (0.26 GB and 0.06 GB of partial rows for the other two levels), allocated
+// by the wrapper and written only as far as each tile needs.
 // The order of every sum is fixed, so two calls give the same bits.  What
 // bounds it: the value-row reads of d_w (as the forward), the block sort, and
 // the band pass, which visits every (band, tile) of a unit.
@@ -111,13 +133,19 @@ struct Levels {
 //   idx[j] + (r / heads) * batch_stride + (r % heads) * head_stride
 //          + q * query_stride + p * pair_stride
 // and at the same offset in w[j] and (the backward's d_w) dw[j].  The value
-// table, g and out of unit r are (R / heads, rows, heads, C) arrays.
+// table, g and out of unit r are (R / heads, rows, heads, C) arrays.  The
+// interleaved layout (one level, one head, pair stride 1) adds the attention:
+// attn (R, N, LP / attn_k), one weight per attn_k consecutive pairs, and the
+// backward's d_attn of the same shape.
 struct PairLayout {
   const int* idx[kMaxLevels];
   const float* w[kMaxLevels];
   float* dw[kMaxLevels];  // backward only
   long long batch_stride, head_stride, query_stride, pair_stride;
   int heads;
+  const float* attn;      // null: no attention
+  float* dattn;           // backward only
+  int attn_k;
 };
 
 // Row t of unit r in a (R / heads, rows, heads, C) array.
@@ -170,18 +198,19 @@ using local_attn::across_groups_sum;
 using local_attn::group_sum;
 using local_attn::load_unit;
 using local_attn::store_unit;
-using local_attn::warp_sum;
 
 inline bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
 // The forward.  VEC floats per lane and LPR lanes per value row, UNITS units
 // of VEC channels per lane (c_ <= UNITS * LPR * VEC); L_CT levels of P_CT
 // pairs compiled in, or 0 for the run-time L and P; kQueriesMinor: the pairs
-// are staged through shared memory along the query axis.
-template <int VEC, int LPR, int UNITS, int L_CT, int P_CT, bool kQueriesMinor>
+// are staged through shared memory along the query axis; kAttn: each pair's
+// weight times its slot's attention (the interleaved layout).
+template <int VEC, int LPR, int UNITS, int L_CT, int P_CT, bool kQueriesMinor, bool kAttn>
 __global__ void __launch_bounds__(32 * kQueriesPerBlock, 6)
 msdetrpc_kernel(PairLayout lay, const float* __restrict__ val, float* __restrict__ out, int N,
                 int NTOT, int C, int L_rt, int P_rt, Levels lv) {
+  static_assert(!(kAttn && kQueriesMinor), "the attention comes with query-major pairs");
   constexpr int Q = kQueriesPerBlock;
   constexpr int RPI = 32 / LPR;   // rows per load instruction
   constexpr int STEPS = LPR;      // load instructions per pass of 32 pairs
@@ -238,11 +267,15 @@ msdetrpc_kernel(PairLayout lay, const float* __restrict__ val, float* __restrict
     } else {
 #pragma unroll
       for (int x = 0; x < PASSES; ++x) {
+        const int s = s0 + x * 32 + lane;
         row[x] = 0;
         wt[x] = 0.f;
-        if (s0 + x * 32 + lane < LP)
-          load_pair<L_CT>(lay, lv, L, P, s0 + x * 32 + lane,
-                          pairs0 + (size_t)qi * lay.query_stride, 1, row[x], wt[x]);
+        if (s < LP) {
+          load_pair<L_CT>(lay, lv, L, P, s, pairs0 + (size_t)qi * lay.query_stride, 1, row[x],
+                          wt[x]);
+          if constexpr (kAttn)
+            wt[x] *= lay.attn[((size_t)r * N + qi) * (LP / lay.attn_k) + s / lay.attn_k];
+        }
       }
     }
     // each pass's rows, G load instructions in flight before their sums
@@ -312,8 +345,9 @@ int bwd_pool_rows(int tile, int pairs, const Levels& lv) {
 }
 
 // VEC floats per lane and LPR lanes per value row for d_w, as the local_attn
-// kernels read their rows (UNITS units of VEC channels per lane).
-template <int VEC, int LPR, int UNITS>
+// kernels read their rows (UNITS units of VEC channels per lane); kAttn: the
+// interleaved layout's attention (one level, pair stride 1).
+template <int VEC, int LPR, int UNITS, bool kAttn>
 __global__ void __launch_bounds__(kBwdThreads, 5)
 msdetrpc_bwd_tile_kernel(PairLayout lay, const float* __restrict__ val,
                          const float* __restrict__ g, int* __restrict__ pool_row,
@@ -384,8 +418,11 @@ msdetrpc_bwd_tile_kernel(PairLayout lay, const float* __restrict__ val,
       if (e < ne) {
         const size_t at = pairs0 + (size_t)q * qs + (size_t)pj * ps;
         const int row = s_off[j] + min(max(s_ip[j][at], 0), s_size[j] - 1);
+        float wt = s_wp[j][at];
+        if constexpr (kAttn)
+          wt *= lay.attn[((size_t)r * N + q0 + q) * (LP / lay.attn_k) + pj / lay.attn_k];
         s_row[e] = row;
-        s_w[e] = s_wp[j][at];
+        s_w[e] = wt;
         keys[x] = row;
       }
       ents[x] = q << kEntBits | e;
@@ -447,8 +484,21 @@ msdetrpc_bwd_tile_kernel(PairLayout lay, const float* __restrict__ val,
   __syncthreads();
   // each d_w at its weight's address, along the operand's minor axis: a
   // warp per query and lanes over its pairs, or (queries minor) a warp per
-  // pair and lanes over the queries
-  if (ps == 1) {
+  // pair and lanes over the queries; with the attention, d_nn_weight and then
+  // d_attn, a lane per slot summing its K taps in order
+  if constexpr (kAttn) {
+    const int K = lay.attn_k, M = LP / K;
+    for (int ql = warp; ql < nq; ql += kBwdThreads / 32) {
+      const size_t qa = ((size_t)r * N + q0 + ql) * M, at = pairs0 + (size_t)ql * qs;
+      const float* dot = s_x.dw + ql * LP;
+      for (int s = lane; s < LP; s += 32) s_dwp[0][at + s] = lay.attn[qa + s / K] * dot[s];
+      for (int m = lane; m < M; m += 32) {
+        float da = 0.f;
+        for (int t = m * K; t < (m + 1) * K; ++t) da += s_wp[0][at + t] * dot[t];
+        lay.dattn[qa + m] = da;
+      }
+    }
+  } else if (ps == 1) {
     for (int ql = warp; ql < nq; ql += kBwdThreads / 32)
       for (int s = lane; s < LP; s += 32) {
         const int j = level_of(s, P, lv.count);
@@ -603,86 +653,6 @@ bool make_levels(int n_levels, const int* level_sizes, int ntot, Levels* lv) {
   return off == ntot;
 }
 
-// ---------------------------------------------------------------------------
-// The interleaved layout: replaces msdetrpc_kernel.py: msdetrpc_pallas
-// (:1204, forward :1090 with _regroup :1072, VJP :1355), the kernel of the
-// op ops/clusten.py: msdetrpc,
-//   out[r, q, :] = sum_s attn[r, q, s] * sum_t nn_weight[r, q, s, t]
-//                  * val[r, nn_idx[r, q, s, t], :]
-// with M slots s of K taps t and GLOBAL row indices (clamped into the table).
-// The TPU wrapper folds the attention into the weights and regroups the slots
-// by level in XLA before its kernel, and splits the folded gradient after it;
-// here the kernel reads (bh, n, M, K) and (bh, n, M) as they are, multiplies
-// the attention in, and the backward emits d_nn_weight, d_attn and d_val:
-//   dot[s, t]         = <g[r, q, :], val[r, idx[s, t], :]>
-//   d_nn_weight[s, t] = attn[s] * dot[s, t]
-//   d_attn[s]         = sum_t nn_weight[s, t] * dot[s, t]
-//   d_val[r, idx, :] += attn[s] * nn_weight[s, t] * g[r, q, :]
-// A slot's level is not needed: the indices are global.  Same warp-per-query
-// design and the same bound (the value-row gathers) as the kernels above.
-
-__global__ void __launch_bounds__(32 * kQueriesPerBlock)
-msdetrpc_interleaved_kernel(const int* __restrict__ idx, const float* __restrict__ w,
-                            const float* __restrict__ attn, const float* __restrict__ val,
-                            float* __restrict__ out, int N, int NTOT, int C, int M, int K) {
-  const int r = blockIdx.y;
-  const int qi = blockIdx.x * kQueriesPerBlock + threadIdx.y;
-  if (qi >= N) return;
-  const size_t q = (size_t)r * N + qi;
-  const int* ir = idx + q * M * K;
-  const float* wr = w + q * M * K;
-  const float* ar = attn + q * M;
-  const float* vr = val + (size_t)r * NTOT * C;
-  for (int c = threadIdx.x; c < C; c += 32) {
-    float acc = 0.f;
-    for (int s = 0; s < M; ++s) {
-      float slot = 0.f;
-      for (int t = 0; t < K; ++t) {
-        const int row = min(max(ir[s * K + t], 0), NTOT - 1);
-        slot += wr[s * K + t] * vr[(size_t)row * C + c];
-      }
-      acc += ar[s] * slot;
-    }
-    out[q * C + c] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(32 * kQueriesPerBlock)
-msdetrpc_interleaved_bwd_kernel(const int* __restrict__ idx, const float* __restrict__ w,
-                                const float* __restrict__ attn, const float* __restrict__ val,
-                                const float* __restrict__ g, float* __restrict__ dw,
-                                float* __restrict__ dattn, float* __restrict__ dval,
-                                int N, int NTOT, int C, int M, int K) {
-  const int r = blockIdx.y;
-  const int qi = blockIdx.x * kQueriesPerBlock + threadIdx.y;
-  if (qi >= N) return;  // the whole warp leaves together
-  const size_t q = (size_t)r * N + qi;
-  const int* ir = idx + q * M * K;
-  const float* wr = w + q * M * K;
-  const float* ar = attn + q * M;
-  const float* vr = val + (size_t)r * NTOT * C;
-  float* dvr = dval + (size_t)r * NTOT * C;
-  const float* grow = g + q * C;
-  for (int s = 0; s < M; ++s) {
-    const float a = ar[s];
-    float da = 0.f;
-    for (int t = 0; t < K; ++t) {
-      const size_t row = (size_t)min(max(ir[s * K + t], 0), NTOT - 1) * C;
-      const float wt = wr[s * K + t];
-      float dot = 0.f;
-      for (int c = threadIdx.x; c < C; c += 32) {
-        const float gc = grow[c];
-        dot += gc * vr[row + c];
-        atomicAdd(dvr + row + c, a * wt * gc);
-      }
-      dot = warp_sum(dot);
-      da += wt * dot;
-      if (threadIdx.x == 0) dw[q * M * K + s * K + t] = a * dot;
-    }
-    if (threadIdx.x == 0) dattn[q * M + s] = da;
-  }
-}
-
 // A layout over one (idx, w[, dw]) array per level; dws null in the forward.
 bool level_arrays(const void* const* idxs, const void* const* ws, void* const* dws,
                   int n_levels, PairLayout* lay) {
@@ -712,6 +682,13 @@ PairLayout stacked_layout(const int* idx, const float* w, float* dw, int n, int 
   return lay;
 }
 
+// The attention's layout: one level, one head, pairs along the query (the
+// interleaved layout), whole slots of attn_k pairs.
+bool attention_ok(const PairLayout& lay, int n_levels, int pairs) {
+  return n_levels == 1 && lay.heads == 1 && lay.pair_stride == 1 && lay.attn_k >= 1 &&
+         pairs % lay.attn_k == 0;
+}
+
 // Checks and launches the forward over `units` units of n queries.
 int launch_forward(const PairLayout& lay, const float* val, float* out, int units, int n,
                    int ntot, int c, int n_levels, const int* level_sizes, int pairs,
@@ -723,22 +700,26 @@ int launch_forward(const PairLayout& lay, const float* val, float* out, int unit
   const dim3 block(32, kQueriesPerBlock);
   const dim3 grid((n + kQueriesPerBlock - 1) / kQueriesPerBlock, units);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  // the path's 3 levels x 16 pairs compiled in, else the run-time count
-  const bool path = n_levels == 3 && pairs == 16;
+  // the path's 3 levels x 16 pairs compiled in (with the attention: 1 level
+  // of 48 pairs), else the run-time count
+  const bool attn = lay.attn != nullptr;
+  const bool path = attn ? n_levels == 1 && pairs == 48 : n_levels == 3 && pairs == 16;
   const bool minor = lay.pair_stride != 1;
-#define FWD_ROUTE(VEC, LPR, UNITS, MINOR)                                                   \
+  if (attn && !attention_ok(lay, n_levels, pairs)) return static_cast<int>(cudaErrorInvalidValue);
+#define FWD_ROUTE(VEC, LPR, UNITS, L, P, MINOR, ATTN)                                       \
   do {                                                                                      \
     if (path)                                                                               \
-      msdetrpc_kernel<VEC, LPR, UNITS, 3, 16, MINOR><<<grid, block, 0, stream>>>(           \
+      msdetrpc_kernel<VEC, LPR, UNITS, L, P, MINOR, ATTN><<<grid, block, 0, stream>>>(      \
           lay, val, out, n, ntot, c, n_levels, pairs, lv);                                  \
     else                                                                                    \
-      msdetrpc_kernel<VEC, LPR, UNITS, 0, 0, MINOR><<<grid, block, 0, stream>>>(            \
+      msdetrpc_kernel<VEC, LPR, UNITS, 0, 0, MINOR, ATTN><<<grid, block, 0, stream>>>(      \
           lay, val, out, n, ntot, c, n_levels, pairs, lv);                                  \
   } while (0)
 #define FWD_LAUNCH(VEC, LPR, UNITS)                                                         \
   do {                                                                                      \
-    if (minor) FWD_ROUTE(VEC, LPR, UNITS, true);                                            \
-    else FWD_ROUTE(VEC, LPR, UNITS, false);                                                 \
+    if (attn) FWD_ROUTE(VEC, LPR, UNITS, 1, 48, false, true);                               \
+    else if (minor) FWD_ROUTE(VEC, LPR, UNITS, 3, 16, true, false);                         \
+    else FWD_ROUTE(VEC, LPR, UNITS, 3, 16, false, false);                                   \
   } while (0)
   // 16 bytes per lane where every value row and output row starts at a
   // multiple of 16 bytes
@@ -761,16 +742,22 @@ int launch_backward(const PairLayout& lay, const float* val, const float* g, flo
   Levels lv;
   const int tile = pairs < 1 ? 0 : bwd_tile_queries(n_levels * pairs);
   if (tile < 1 || c < 1 || c > kMaxC || n < 1 || units < 1 || units > 65535 || lay.heads < 1 ||
-      !make_levels(n_levels, level_sizes, ntot, &lv))
+      !make_levels(n_levels, level_sizes, ntot, &lv) ||
+      (lay.attn && !attention_ok(lay, n_levels, pairs)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int tiles = (n + tile - 1) / tile;
   const int cap = bwd_pool_rows(tile, pairs, lv);
   const int key_bits = 32 - __builtin_clz((unsigned)ntot);   // rows and the past-end key ntot
   const dim3 grid(tiles, units);
-#define TILE_LAUNCH(VEC, LPR, UNITS)                                                       \
-  msdetrpc_bwd_tile_kernel<VEC, LPR, UNITS><<<grid, kBwdThreads, 0, stream>>>(              \
+#define TILE_ROUTE(VEC, LPR, UNITS, ATTN)                                                 \
+  msdetrpc_bwd_tile_kernel<VEC, LPR, UNITS, ATTN><<<grid, kBwdThreads, 0, stream>>>(        \
       lay, val, g, pool_row, pool_val, band_start, n, ntot, c, pairs, tile, key_bits, cap, lv)
+#define TILE_LAUNCH(VEC, LPR, UNITS)                                                       \
+  do {                                                                                      \
+    if (lay.attn) TILE_ROUTE(VEC, LPR, UNITS, true);                                        \
+    else TILE_ROUTE(VEC, LPR, UNITS, false);                                                \
+  } while (0)
   // 16 bytes per lane where every value row starts at a multiple of 16 bytes
   const bool vec = c % 4 == 0 && aligned16(val);
   if (vec && c <= 16) TILE_LAUNCH(4, 4, 1);
@@ -778,6 +765,7 @@ int launch_backward(const PairLayout& lay, const float* val, const float* g, flo
   else if (vec) TILE_LAUNCH(4, 16, 1);
   else TILE_LAUNCH(1, 32, 2);
 #undef TILE_LAUNCH
+#undef TILE_ROUTE
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int bands = (ntot + kBand - 1) / kBand;
@@ -836,6 +824,17 @@ int layout_backward(PairLayout lay, const void* const* idxs, const void* const* 
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_backward(lay, val, g, dval, pool_row, pool_val, band_start, units, n, ntot, c,
                          n_levels, level_sizes, pairs, stream_ptr);
+}
+
+// The interleaved layout: one level of m * k pairs over the whole table, the
+// attention each slot's second weight.
+PairLayout interleaved_layout(const int* nn_idx, const float* nn_weight, float* d_nn_weight,
+                              const float* attn, float* d_attn, int n, int m, int k) {
+  PairLayout lay = stacked_layout(nn_idx, nn_weight, d_nn_weight, n, 1, m * k);
+  lay.attn = attn;
+  lay.dattn = d_attn;
+  lay.attn_k = k;
+  return lay;
 }
 
 }  // namespace
@@ -947,32 +946,31 @@ extern "C" int aff_msdetrpc_bh_bwd(const void* const* idxs, const void* const* w
                          pairs, stream_ptr);
 }
 
-// nn_idx, nn_weight (bh, n, m, k); attn (bh, n, m); val (bh, ntot, c) -> out (bh, n, c).
+// The interleaved layout: nn_idx, nn_weight (bh, n, m, k) with GLOBAL indices
+// (clamped into [0, ntot - 1]), attn (bh, n, m); val (bh, ntot, c) -> out (bh,
+// n, c).  One level of m * k pairs over the whole table, the attention each
+// slot's second weight.  m * k <= 1536 for the backward.
 extern "C" int aff_msdetrpc_interleaved(const int* nn_idx, const float* nn_weight,
                                         const float* attn, const float* val, float* out,
                                         int bh, int n, int ntot, int c, int m, int k,
                                         void* stream_ptr) {
-  if (m < 1 || k < 1 || c < 1 || ntot < 1 || bh > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 block(32, kQueriesPerBlock);
-  dim3 grid((n + kQueriesPerBlock - 1) / kQueriesPerBlock, bh);
-  msdetrpc_interleaved_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-      nn_idx, nn_weight, attn, val, out, n, ntot, c, m, k);
-  return static_cast<int>(cudaGetLastError());
+  if (m < 1 || k < 1 || ntot < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_forward(interleaved_layout(nn_idx, nn_weight, nullptr, attn, nullptr, n, m, k),
+                        val, out, bh, n, ntot, c, 1, &ntot, m * k, stream_ptr);
 }
 
-// The forward's operands plus g (bh, n, c) -> d_nn_weight (bh, n, m, k),
-// d_attn (bh, n, m) and dval (bh, ntot, c), which must arrive zeroed.
+// The forward's operands plus g (bh, n, c) = d out -> d_nn_weight (bh, n, m,
+// k), d_attn (bh, n, m) and dval (bh, ntot, c), every element written; the
+// scratch as aff_msdetrpc_bwd_scratch gives it for one level of ntot rows and
+// m * k pairs.
 extern "C" int aff_msdetrpc_interleaved_bwd(const int* nn_idx, const float* nn_weight,
                                             const float* attn, const float* val,
                                             const float* g, float* d_nn_weight,
-                                            float* d_attn, float* dval, int bh, int n,
+                                            float* d_attn, float* dval, int* pool_row,
+                                            float* pool_val, int* band_start, int bh, int n,
                                             int ntot, int c, int m, int k, void* stream_ptr) {
-  if (m < 1 || k < 1 || c < 1 || ntot < 1 || bh > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 block(32, kQueriesPerBlock);
-  dim3 grid((n + kQueriesPerBlock - 1) / kQueriesPerBlock, bh);
-  msdetrpc_interleaved_bwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-      nn_idx, nn_weight, attn, val, g, d_nn_weight, d_attn, dval, n, ntot, c, m, k);
-  return static_cast<int>(cudaGetLastError());
+  if (m < 1 || k < 1 || ntot < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_backward(
+      interleaved_layout(nn_idx, nn_weight, d_nn_weight, attn, d_attn, n, m, k), val, g, dval,
+      pool_row, pool_val, band_start, bh, n, ntot, c, 1, &ntot, m * k, stream_ptr);
 }

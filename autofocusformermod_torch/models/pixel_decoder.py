@@ -94,6 +94,16 @@ def scale_pos(pos: torch.Tensor, last_ss, cur_ss, no_bias: bool = False) -> torc
     return pos * ratio
 
 
+def grid_cells(loc: torch.Tensor, shape, grid_hw) -> torch.Tensor:
+    """The finest-grid cell each sampling location (in the canvas of
+    ``shape``) snaps to: rounded half to even, as jnp.round, and clamped into
+    the grid; its raster index, int32."""
+    sl = torch.round(scale_pos(loc, shape, grid_hw, no_bias=True)).int()
+    gx = torch.clamp(sl[..., 0], 0, grid_hw[1] - 1)
+    gy = torch.clamp(sl[..., 1], 0, grid_hw[0] - 1) * grid_hw[1]
+    return gx + gy
+
+
 @functools.lru_cache(maxsize=8)
 def _grid9_static(h: int, w: int):
     """Border cells of an h x w grid, their 6x6 candidate windows (cell ids)
@@ -246,12 +256,10 @@ class MSDeformAttnPc(nn.Module):
                 loc = s_pos[:, :, None, None, :] + offs[:, :, :, j]          # (b, n_i, h, k, 2)
                 loc = loc.permute(0, 2, 1, 3, 4).reshape(b * h, n_i * k, 2)
                 # snap to the finest grid; one packed row gives the 4 neighbour
-                # indices and their positions
-                sl = torch.round(scale_pos(loc, spatial_shapes[j], grid_hw, no_bias=True)).int()
-                gx = torch.clamp(sl[..., 0], 0, grid_hw[1] - 1)
-                gy = torch.clamp(sl[..., 1], 0, grid_hw[0] - 1) * grid_hw[1]
-                # the tables are geometry, constant in the parameters
-                packed = take_rows(nb_packed[j].detach(), (gx + gy).reshape(b, h * n_i * k))
+                # indices and their positions (the tables are geometry,
+                # constant in the parameters)
+                cells = grid_cells(loc, spatial_shapes[j], grid_hw)
+                packed = take_rows(nb_packed[j].detach(), cells.reshape(b, h * n_i * k))
                 packed = packed.reshape(b * h, n_i * k, 12)
                 d2 = (loc[..., 0:1] - packed[..., 4:8]) ** 2 + (loc[..., 1:2] - packed[..., 8:12]) ** 2
                 w = shepard_decay_weights(d2, power=power)
@@ -355,10 +363,8 @@ class MSDeformAttnPc(nn.Module):
             for j in range(l):
                 s_pos = scale_pos(poss[i], spatial_shapes[i], spatial_shapes[j], no_bias=True)
                 loc = (s_pos[:, :, None, None, :] + offs[:, :, :, j]).reshape(b, n_i * h * k, 2)
-                sl = torch.round(scale_pos(loc, spatial_shapes[j], grid_hw, no_bias=True)).int()
-                gx = torch.clamp(sl[..., 0], 0, grid_hw[1] - 1)
-                gy = torch.clamp(sl[..., 1], 0, grid_hw[0] - 1) * grid_hw[1]
-                packed = take_rows(nb_packed[j].detach(), gx + gy)           # (b, nhk, 12)
+                packed = take_rows(nb_packed[j].detach(),
+                                   grid_cells(loc, spatial_shapes[j], grid_hw))  # (b, nhk, 12)
                 d2 = (loc[..., 0:1] - packed[..., 4:8]) ** 2 + (loc[..., 1:2] - packed[..., 8:12]) ** 2
                 w = shepard_decay_weights(d2, power=power).reshape(b, n_i, h, k, 4)
                 w = w * attn[:, :, :, j, :, None]

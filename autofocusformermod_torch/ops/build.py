@@ -48,7 +48,7 @@ SIGNATURES = {
     "aff_msdetrpc_bh": [P] * 4 + [I] * 6 + [P, I, P],
     "aff_msdetrpc_bh_bwd": [P] * 9 + [I] * 6 + [P, I, P],
     "aff_msdetrpc_interleaved": [P] * 5 + [I] * 6 + [P],
-    "aff_msdetrpc_interleaved_bwd": [P] * 8 + [I] * 6 + [P],
+    "aff_msdetrpc_interleaved_bwd": [P] * 11 + [I] * 6 + [P],
     "aff_point_sample": [P, P, P, I, I, I, I, P],
     "aff_point_sample_bwd": [P, P, P, I, I, I, I, P],
     "aff_point_sample_bwd_shared": [P, P, P, I, I, I, I, P],

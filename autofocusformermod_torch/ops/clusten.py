@@ -2,19 +2,23 @@
 
 Plain PyTorch: gather the neighbour rows, then contract.  These are the
 semantic definitions the kernels are held against.  ``msdetrpc``, the
-interleaved deformable sampling, launches its CUDA kernels
-(``csrc/msdetrpc.cu``; counterpart of
-``autofocusformermod_tpu/ops/pallas/msdetrpc_kernel.py:msdetrpc_pallas``)
-on CUDA tensors.
+interleaved deformable sampling, launches its CUDA kernels on CUDA tensors:
+the forward and the fixed-order backward pair that every msdetrpc layout
+shares (``csrc/msdetrpc.cu``; counterpart of
+``autofocusformermod_tpu/ops/pallas/msdetrpc_kernel.py:msdetrpc_pallas``),
+with the attention as each slot's second weight.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .build import check, load_kernels
 from .dispatch import require, stream_of, use_kernel
 from .gather import take_rows
+from .msdetrpc import bwd_scratch
 
 
 def _gather_tokens_h(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -104,17 +108,21 @@ msdetrpc.launches = 0
 
 
 def msdetrpc_backward(nn_idx, nn_weight, attn, val, g):
-    """Launch the interleaved backward kernel for g = d out (bh, n, c) ->
-    (d_nn_weight, d_attn, d_val), each shaped as its operand."""
+    """Launch the interleaved backward kernels for g = d out (bh, n, c) ->
+    (d_nn_weight, d_attn, d_val), each shaped as its operand.  No atomics:
+    two calls on the same inputs return the same bits.  One launch is counted
+    per call, both kernels together."""
     dims = _check_interleaved(nn_idx, nn_weight, attn, val)
-    require(g, "g", torch.float32, (dims[0], dims[1], dims[3]))
-    d_w, d_attn, d_val = torch.empty_like(nn_weight), torch.empty_like(attn), torch.zeros_like(val)
+    bh, n, ntot, c, m, k = dims
+    require(g, "g", torch.float32, (bh, n, c))
     lib = load_kernels()
+    scratch = bwd_scratch(lib, (ctypes.c_int * 1)(ntot), m * k, bh, n, c, val.device)
+    d_w, d_attn, d_val = torch.empty_like(nn_weight), torch.empty_like(attn), torch.empty_like(val)
     with torch.cuda.device(val.device):
         err = lib.aff_msdetrpc_interleaved_bwd(
             nn_idx.data_ptr(), nn_weight.data_ptr(), attn.data_ptr(), val.data_ptr(),
-            g.data_ptr(), d_w.data_ptr(), d_attn.data_ptr(), d_val.data_ptr(), *dims,
-            stream_of(val))
+            g.data_ptr(), d_w.data_ptr(), d_attn.data_ptr(), d_val.data_ptr(),
+            *(t.data_ptr() for t in scratch), *dims, stream_of(val))
     check(err, "aff_msdetrpc_interleaved_bwd")
     msdetrpc_backward.launches += 1
     return d_w, d_attn, d_val

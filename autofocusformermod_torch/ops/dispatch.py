@@ -76,15 +76,22 @@ def local_cluster_attention_reference(
     """Unfused gather composition.
 
     q/key/v: (b, h, n, c_); member_idx: (b, n, m); pos_bias: (b, n, m, h);
-    cluster_mask: (b, n, m) or None (padded slots get -100); blank_attn:
-    (b, h, n, 1) pre-softmax logit.  Returns (feat (b, h, n, c_),
-    blank_prob (b, h, n, 1)).
+    cluster_mask: (b, n, m) or None; blank_attn: (b, h, n, 1) pre-softmax
+    logit.  Returns (feat (b, h, n, c_), blank_prob (b, h, n, 1)).
+
+    Padded slots (mask 0: past the last token of a cut last cluster) are
+    excluded exactly, as the kernels and the JAX package's semantic
+    definition (``sfc_attention_reference``, the mask formulation, and its
+    TPU kernel) exclude them.  The JAX gather composition adds -100 to them
+    instead, with token 0 standing in; where that token lies far from the
+    query its rel-pos bias can pass 100 (at random initialisation on
+    AFF-Mini-1/5's 655- and 131-token stages), and the slot keeps weight.
     """
     from .clusten import cluster_av, cluster_qk     # clusten imports this module
 
     b, h, n, _ = q.shape
     attn = cluster_qk(q, key, member_idx) + pos_bias.permute(0, 3, 1, 2)
     if cluster_mask is not None:
-        attn = attn + (1 - cluster_mask.reshape(b, 1, n, -1)) * (-100.0)
+        attn = attn.masked_fill(cluster_mask.reshape(b, 1, n, -1) == 0, -torch.inf)
     attn = torch.softmax(torch.cat([attn, blank_attn], dim=-1), dim=-1)
     return cluster_av(attn[..., :-1], v, member_idx), attn[..., -1:]

@@ -269,7 +269,7 @@ def sfc_cluster_attention_backward_plain(q, k, v, pos, nc, w5, b5, g, lse, delta
 
 def sfc_cluster_attention_plain(q, k, v, pos, nc, w5, b5, blank_k, cluster_size: int):
     """Plain version: gather the neighbourhoods, then the unfused composition
-    (padded slots get the reference's -100 instead of exact exclusion)."""
+    (padded slots excluded exactly, as the kernels exclude them)."""
     from ..geometry.cluster import nbhd_from_cluster_ids
 
     n = q.shape[2]

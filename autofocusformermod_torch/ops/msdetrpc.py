@@ -16,12 +16,12 @@ levels j with level-LOCAL indices; they differ in where the operands lie:
   (b, ntot, h, c_), result (b, n, h, c_), heads where the Linear put them.
 
 One forward kernel and one backward pair (``csrc/msdetrpc.cu``) serve the
-four layouts, each read in place.  On CUDA tensors each call is an autograd
+four layouts, each read in place, and the interleaved fifth,
+``ops/clusten.py:msdetrpc``.  On CUDA tensors each call is an autograd
 Function differentiable in the weights and the values (the indices get no
 gradient), whose backward writes d_val and d_w without atomics, in a fixed
 order: two calls on the same inputs return the same bits.  On CPU tensors
-the plain version runs.  The interleaved fifth layout is
-``ops/clusten.py:msdetrpc``.  ``msdetrpc_levels_s_library`` computes the
+the plain version runs.  ``msdetrpc_levels_s_library`` computes the
 stacked layout's function with one PyTorch call (``F.embedding_bag``), as a
 yardstick of the kernels' speed; nothing in the port calls it.
 """
@@ -107,7 +107,7 @@ def msdetrpc_levels_s_backward(idx_s, w_s, val, g, level_sizes: Sequence[int]):
     bh, n, lp, ntot, c_, n_levels, sizes = _check_operands(idx_s, w_s, val, level_sizes)
     require(g, "g", torch.float32, (bh, n, c_))
     lib = load_kernels()
-    scratch = _bwd_scratch(lib, sizes, lp // n_levels, bh, n, c_, val.device)
+    scratch = bwd_scratch(lib, sizes, lp // n_levels, bh, n, c_, val.device)
     d_val = torch.empty_like(val)
     d_w = torch.empty_like(w_s)
     with torch.cuda.device(val.device):
@@ -123,7 +123,7 @@ def msdetrpc_levels_s_backward(idx_s, w_s, val, g, level_sizes: Sequence[int]):
 msdetrpc_levels_s_backward.launches = 0
 
 
-def _bwd_scratch(lib, sizes, pairs, units, n, c_, dev):
+def bwd_scratch(lib, sizes, pairs, units, n, c_, dev):
     """The backward's scratch for `units` image-heads of n queries, as
     aff_msdetrpc_bwd_scratch sizes it: the query tiles' partial rows and
     their row ids (a tile writes only what it needs of its part), and where
@@ -243,7 +243,7 @@ class _Layout:
         _, pairs, _, _, out_shape = self.shapes(idxs[0], val)
         n, c_ = out_shape[1], out_shape[-1]
         sizes = (ctypes.c_int * len(level_sizes))(*(int(s) for s in level_sizes))
-        scratch = _bwd_scratch(load_kernels(), sizes, pairs, math.prod(out_shape) // (n * c_), n,
+        scratch = bwd_scratch(load_kernels(), sizes, pairs, math.prod(out_shape) // (n * c_), n,
                                c_, val.device)
         d_val = torch.empty_like(val)
         d_ws = [torch.empty_like(w) for w in ws]

@@ -1,14 +1,19 @@
 """Where a training step's time goes on the card.
 
     python3 -m autofocusformermod_torch.tools.profile_step --config aff_small --batch 8
+    MSDETRPC_STACKED=0 python3 -m autofocusformermod_torch.tools.profile_step \\
+        --config aff_mini --opts INPUT.CROP.SIZE "[384, 384]"
 
-Builds the Trainer of a preset (seeded weights, synthetic batches), takes 3
-steps to warm up, times 5 and profiles 2 more, and reports per step: the wall time (host clock around a synchronised
-step), the time on the stream of the criterion and, inside it, of the
-uncertainty sampler (CUDA events around the calls: device work and the gaps
-the host leaves, not busy time), the device's busy time and share (the sum
-of the profiler's kernel and memcpy rows), the number of kernels launched,
-and the kernels that take
+Builds the Trainer of a preset (seeded weights, synthetic batches; ``--opts``
+overrides config fields as KEY VALUE pairs; ``MSDETRPC_STACKED=0`` turns the
+pixel decoder's ``USE_STACKED_GLUE`` off, which takes the interleaved kernel
+where the levels are not all multiples of 128), takes 3 steps to warm up,
+times 5 and profiles 2 more, and reports per step: the wall time (host clock
+around a synchronised step), the time on the stream of the criterion and,
+inside it, of the uncertainty sampler (CUDA events around the calls: device
+work and the gaps the host leaves, not busy time), the device's busy time
+and share (the sum of the profiler's kernel and memcpy rows), the number of
+kernels launched, and the kernels that take
 the most device time.  The busy share is taken against the unprofiled
 steps' wall time: the profiler slows the host, not the kernels.  Prints one
 JSON object last.  Needs a CUDA device.
@@ -37,10 +42,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from ..engine import train_step
     from ..engine.train import Trainer
     from ..losses import criterion
+    from ..models import pixel_decoder
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", default="aff_small", choices=sorted(PRESETS))
     parser.add_argument("--batch", type=int, default=8)
+    parser.add_argument("--opts", nargs="*", default=[], metavar="KEY VALUE")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
@@ -64,7 +71,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     with tempfile.TemporaryDirectory() as out_dir:
         cfg = PRESETS[args.config]()
-        cfg.merge_from_list(["SOLVER.IMS_PER_BATCH", str(args.batch), "OUTPUT_DIR", out_dir])
+        cfg.merge_from_list([*args.opts, "SOLVER.IMS_PER_BATCH", str(args.batch),
+                             "OUTPUT_DIR", out_dir])
         trainer = Trainer(cfg, dev)
         batches = synthetic_batches(cfg, dev)
         originals = (train_step.set_criterion, criterion._uncertain_coords)
@@ -98,7 +106,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     launches = sum(e.count for e in rows) / PROFILED
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:15]
     result = {
-        "card": smi, "config": args.config, "batch": args.batch,
+        "card": smi, "config": args.config, "opts": args.opts,
+        "use_stacked_glue": pixel_decoder.USE_STACKED_GLUE,
+        "batch": args.batch, "image_size": list(cfg.INPUT.CROP.SIZE),
         "ms_per_step": statistics.median(wall), "ms_per_step_all": wall,
         "images_per_s": args.batch / statistics.median(wall) * 1e3, "peak_gib": peak,
         "criterion_stream_ms": on["criterion"], "sampler_stream_ms": on["sampler"],

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's semantic-segmentation paths -- AFF-Mini inference,
 the AFF-Mini training step, an AFF-Small training run with checkpoint and
-resume, and the pixel decoder's alternate operand layouts -- on one NVIDIA GPU.
+resume, the pixel decoder's alternate operand layouts and the AFF-Mini-1/5
+preset -- on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,9 @@ resume, and the pixel decoder's alternate operand layouts -- on one NVIDIA GPU.
    seeded random weights) at 512x512, batch 4, through the kernels, checks
    that every kernel launched the expected number of times (knn on the
    routes its shapes give), and compares the outputs with the same model run
-   through the plain versions;
+   through the plain versions, which replay the kernel run's discrete
+   choices (kept tokens, sampling cells, attention masks) and count how
+   many of them they would have made otherwise;
 4. serves 8 random uint8 512x512 images through the predictor at batch 1
    and batch 4 and checks the label maps;
 5. holds every kernel of a training step against its plain version at the
@@ -64,16 +67,25 @@ resume, and the pixel decoder's alternate operand layouts -- on one NVIDIA GPU.
    shared-memory route; the interleaved msdetrpc at a level
    split that is not all multiples of 128, forward and backward) against
    their plain versions at the shapes of a batch-4 forward and a batch-8
-   step, the first three also on the operands of a real batch-8 step under
-   each layout's flag, the four msdetrpc kernels beside F.embedding_bag on
-   their operands relaid to the stacked form, and the fixed-order backwards
+   step, the four msdetrpc kernels also on the operands of real batch-8
+   steps under their layout's flag (the interleaved one at 384x384 and of
+   the AFF-Mini-1/5 preset at 512x512), beside F.embedding_bag on their
+   operands relaid to the stacked form, and the fixed-order backwards
    twice, bit for bit; runs the phase-3 forward (same weights and images) once per layout
    and compares launch counts and outputs with the default layout's, with
    ms per forward and device busy ms of each; the same at 384x384, where the
    decoder's levels are not all multiples of 128, through the interleaved
    kernel; and one batch-8 training step per layout (and a batch-2 step at
    384x384 for the interleaved one) against the default layout's step from
-   the same weights, batch and generators.
+   the same weights, batch and generators;
+10. the published AFF-Mini-1/5 preset (cluster merging keeps a fifth of the
+   tokens: decoder levels of 3276, 655 and 131 tokens, clusters cut by n) at
+   512x512: a batch-4 forward and a batch-8 training step, in the default
+   layout and with USE_STACKED_GLUE off (the interleaved kernel), each
+   against the plain versions from the same weights, images, batch and
+   generators, replaying the discrete choices as in phase 3 (also the
+   ranked points and the matches), with every kernel's launch counts and
+   device busy per forward.
 
 Exits non-zero on any failure, and at once when no CUDA device is present.
 The last line is {"ok": true, "device": {...}}; the line before it is the
@@ -114,11 +126,26 @@ LOCAL_ATTN_ATOL = 1e-4
 MSDETRPC_ATOL = 1e-4
 POINT_SAMPLE_ATOL = 1e-5
 # gradients, error relative to the largest entry (at least 1) of each
-# gradient tensor: the point_sample backward and the interleaved msdetrpc
-# backward scatter with atomics (run-to-run order; the local_attn pair and the
-# other msdetrpc backwards sum in a fixed order) and the w5/b5 reductions sum
-# ~1e6 terms in another order
+# gradient tensor: the point_sample backward scatters with atomics (run-to-run
+# order; the local_attn pair and every msdetrpc backward sum in a fixed order,
+# another than the plain version's) and the w5/b5 reductions sum ~1e6 terms in
+# another order
 GRAD_RTOL = 1e-3
+# a forward whose plain run replays the kernel run's discrete choices
+# (same_choices): each output's max abs error, relative to its largest
+# |entry| (at least 1); the kernels sum in another order than the plain
+# versions (seen: 1.0e-6 on the logits, 3.9e-6 to 4.4e-6 on the masks,
+# phases 3 and 10)
+FORWARD_RTOL = 1e-4
+# the share of each discrete choice's elements that the plain run, made
+# beside the replayed choice, makes as the kernel run did (kept tokens and
+# ranked points as sets per row): near-tied scores flip between the two
+# orders of summation, a kernel that moves many choices fails.  Seen, worst
+# of phases 3 and 10: kept tokens 1 of 21504 flipped, sampling cells 20 of
+# 1.9e7, attention masks 64 of 7.9e7, ranked points 275 of 7.5e7, matches 2
+# of 8000 (target slots, padded ones included)
+CHOICE_AGREE_MIN = {"kept tokens": 0.999, "sampling cells": 0.9999, "attention masks": 0.9999,
+                    "ranked points": 0.9999, "matches": 0.99}
 # the two training steps: loss terms (relative), and gradient norms per
 # parameter group (relative; a flipped near-tie in the matcher or in token
 # selection moves them more than fp32 order does)
@@ -794,22 +821,22 @@ def check_msdetrpc_bwd(dev, gen, path_calls):
             **per_path(paths, "path")}
 
 
-def seeded_step(dev, b, module, name, capture):
-    """One batch-b AFF-Mini training step at 512x512 (seeded weights, label
-    maps and draws) with `module.name` replaced by capture(real) for the
-    step; the model and batch are freed after it."""
+def seeded_step(dev, b, module, name, capture, preset="aff_mini", size=SIZE):
+    """One batch-b training step of `preset` at size x size (seeded weights,
+    label maps and draws) with `module.name` replaced by capture(real) for
+    the step; the model and batch are freed after it."""
     import torch
-    from autofocusformermod_torch.config import aff_mini_cfg
+    from autofocusformermod_torch.config import PRESETS
     from autofocusformermod_torch.data.synthetic import synthetic_batch
     from autofocusformermod_torch.engine.train_step import TrainStep
     from autofocusformermod_torch.losses import criterion
     from autofocusformermod_torch.models.maskformer import init_random_weights, maskformer_from_config
 
-    cfg = aff_mini_cfg()
+    cfg = PRESETS[preset]()
     model = maskformer_from_config(cfg)
     init_random_weights(model, torch.Generator().manual_seed(SEED))
     model = model.to(dev)
-    batch = synthetic_batch(torch.Generator().manual_seed(SEED + 1), dev, b, (SIZE, SIZE),
+    batch = synthetic_batch(torch.Generator().manual_seed(SEED + 1), dev, b, (size, size),
                             cfg.TPU.MAX_GT_INSTANCES, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
     real = getattr(module, name)
     setattr(module, name, capture(real))
@@ -1218,11 +1245,17 @@ def layout_operands(gen, dev, bh, n, sizes, p=16, heads=8):
 # the four sampling kernels of the alternate layouts: record name (for the
 # first three also the wrapper's name in ops/msdetrpc.py) -> (key of its
 # operands in layout_operands, line of the TPU function in msdetrpc_kernel.py,
-# the decoder layout that launches it at 512x512)
-SAMPLING = {"msdetrpc_levels": ("levels", 1841, "per_level"),
-            "msdetrpc_levels_t": ("levels_t", 1912, "fused_prep"),
-            "msdetrpc_bh": ("bh", 2359, "head_natural"),
-            "msdetrpc_interleaved": ("interleaved", 1204, None)}
+# the decoder layout that launches it, and the training steps whose operands
+# it is held on: record path -> (preset, image size))
+MINI15 = "aff_mini_15"
+SAMPLING = {"msdetrpc_levels": ("levels", 1841, "per_level", {"b8_path": ("aff_mini", SIZE)}),
+            "msdetrpc_levels_t": ("levels_t", 1912, "fused_prep",
+                                  {"b8_path": ("aff_mini", SIZE)}),
+            "msdetrpc_bh": ("bh", 2359, "head_natural", {"b8_path": ("aff_mini", SIZE)}),
+            # where the decoder's level sizes are not all multiples of 128
+            "msdetrpc_interleaved": ("interleaved", 1204, "per_level",
+                                     {"b8_path": ("aff_mini", ODD_SIZE),
+                                      "b8_path_15": (MINI15, SIZE)})}
 
 
 def sampling_uniform_calls(gen, dev, key, b):
@@ -1248,32 +1281,41 @@ def sampling_uniform_calls(gen, dev, key, b):
     return calls
 
 
-def path_layout_operands(dev, layout, b=TRAIN_BATCH):
-    """The operands of every call of `layout`'s sampling kernel in one
-    batch-b AFF-Mini training step at 512x512 (seeded weights, label maps and
-    draws), as the decoder makes them under the layout's flag, with the
-    gradient each call's backward got: 18 calls (6 of the pair-major kernel,
-    which takes the 4096-token level alone).  -> [(ops, val, level sizes, g,
-    1)].  Captured by wrapping the decoder's call of the kernel's wrapper."""
+def path_layout_operands(dev, name, preset="aff_mini", size=SIZE, b=TRAIN_BATCH):
+    """The operands of every call of the alternate-layout sampling kernel
+    `name` (a SAMPLING key) in one batch-b training step of `preset` at size
+    x size (seeded weights, label maps and draws), as the decoder makes them
+    under the kernel's layout flag, with the gradient each call's backward
+    got: 18 calls (6 of the pair-major kernel, which takes the 4096-token
+    level alone).  -> [(ops, val, level sizes, g, 1)]; the interleaved
+    kernel's ops are (nn_idx, nn_weight, attn) and its level the whole table.
+    Captured by wrapping the decoder's call of the kernel's wrapper."""
     from autofocusformermod_torch.models import pixel_decoder
 
-    name = next(k for k, (_, _, lay) in SAMPLING.items() if lay == layout)
+    key, _, layout, _ = SAMPLING[name]
     calls = []
 
     def capture(real):
-        def wrapped(idxs, ws, val, level_sizes):
-            out = real(idxs, ws, val, level_sizes)
-            entry = [([i.detach().clone() for i in idxs], [w.detach().clone() for w in ws]),
-                     val.detach().clone(), tuple(level_sizes), None, 1]
+        def wrapped(*args):
+            out = real(*args)
+            if key == "interleaved":
+                *ops, val = args
+                entry = [tuple(t.detach().clone() for t in ops), val.detach().clone(),
+                         (val.shape[1],), None, 1]
+            else:
+                idxs, ws, val, level_sizes = args
+                entry = [([i.detach().clone() for i in idxs], [w.detach().clone() for w in ws]),
+                         val.detach().clone(), tuple(level_sizes), None, 1]
             calls.append(entry)
             out.register_hook(lambda g: entry.__setitem__(3, g.detach().contiguous().clone()))
             return out
         return wrapped
 
     with decoder_layout(layout):
-        seeded_step(dev, b, pixel_decoder, name, capture)
+        seeded_step(dev, b, pixel_decoder, "msdetrpc" if key == "interleaved" else name, capture,
+                    preset, size)
     if len(calls) != (6 if layout == "fused_prep" else 18) or any(c[3] is None for c in calls):
-        raise SystemExit(f"layout {layout}: the step made {len(calls)} {name} calls, "
+        raise SystemExit(f"{name} ({preset}, {size}x{size}): the step made {len(calls)} calls, "
                          f"{sum(c[3] is None for c in calls)} of them without a gradient")
     return [tuple(c) for c in calls]
 
@@ -1317,13 +1359,11 @@ def check_sampling(name, key, calls, l2_rate, backward=True, time_plain=True):
     `backward` the same for the backward kernels (bwd_*: the gradients
     against the plain version's autograd within GRAD_RTOL, beside
     embedding_bag's autograd backward), and two calls compared bit for bit
-    where the kernels sum in a fixed order (all but the interleaved
-    kernel)."""
+    (every kernel sums in a fixed order)."""
     import torch
     from autofocusformermod_torch.ops import clusten, msdetrpc as md
     from autofocusformermod_torch.ops.dispatch import plain_versions
 
-    fixed_order = key != "interleaved"
     t = dict.fromkeys(("ms", "device_ms", "plain_ms", "library_ms", "library_rows_ms", "bwd_ms",
                        "bwd_device_ms", "bwd_plain_ms", "bwd_library_ms"), 0.0)
     err, lib_err, bwd_err, worst, row_bytes, bnd, bwd_bnd = 0.0, 0.0, 0.0, 0.0, 0, {}, {}
@@ -1336,7 +1376,7 @@ def check_sampling(name, key, calls, l2_rate, backward=True, time_plain=True):
                 return clusten.msdetrpc(idx, *leaves)
 
             def bwd():
-                return clusten.msdetrpc_backward(idx, w, attn, val, g)
+                return list(clusten.msdetrpc_backward(idx, w, attn, val, g))
         else:
             fn = getattr(md, name)
             idxs, ws = ops
@@ -1383,7 +1423,7 @@ def check_sampling(name, key, calls, l2_rate, backward=True, time_plain=True):
                 want = torch.autograd.grad(fwd(leaves), leaves, g)
             be, rel = grad_errs(got, want)
             bwd_err, worst = max(bwd_err, be), max(worst, rel)
-            if fixed_order and not all(torch.equal(a, b) for a, b in zip(bwd(), bwd())):
+            if not all(torch.equal(a, b) for a, b in zip(bwd(), bwd())):
                 raise SystemExit(f"{name} backward ({len(calls)} calls, n={out.shape[1]}): two "
                                  "calls on the same inputs differ")
             lib_leaves = [w_s.clone().requires_grad_(), val_s.clone().requires_grad_()]
@@ -1398,7 +1438,7 @@ def check_sampling(name, key, calls, l2_rate, backward=True, time_plain=True):
             bwd_bnd = add_bounds(bwd_bnd, bound(moved + nbytes(g, *diff), 4 * rows * lp * c_),
                                  times)
             msg += (f"; bwd max_abs_err {be:.3e} (rel {rel:.3e})"
-                    f"{', bit-identical twice' if fixed_order else ''}, kernels "
+                    f", bit-identical twice, kernels "
                     f"{step['bwd_ms']:.4f} ms (on the card {step['bwd_device_ms']:.4f}), plain "
                     f"{step['bwd_plain_ms']:.4f}, embedding_bag's backward "
                     f"{step['bwd_library_ms']:.4f}")
@@ -1419,7 +1459,7 @@ def check_sampling(name, key, calls, l2_rate, backward=True, time_plain=True):
                     "bwd_device_ms": t["bwd_device_ms"],
                     "bwd_plain_ms": t["bwd_plain_ms"] if time_plain else None,
                     "bwd_library_ms": t["bwd_library_ms"], "bwd_bound_ms": bwd_bnd["bound_ms"],
-                    "bwd_bound_by": bwd_bnd["bound_by"], "bit_identical": fixed_order})
+                    "bwd_bound_by": bwd_bnd["bound_by"], "bit_identical": True})
     log(f"  {name}: {t['ms']:.3f} ms in calls, {t['device_ms']:.3f} on the card; embedding_bag "
         f"{t['library_ms']:.3f} (+ {t['library_rows_ms']:.3f}); bound {bnd['bound_ms']:.3f} ms; "
         f"value rows at the L2 rate {rec['l2_rows_ms']:.3f} ms"
@@ -1429,28 +1469,31 @@ def check_sampling(name, key, calls, l2_rate, backward=True, time_plain=True):
     return rec
 
 
-def sampling_record(name, key, line, layout, gen, dev, l2_rate):
+def sampling_record(name, gen, dev, l2_rate):
     """The record of one alternate-layout kernel: the forward at a batch-4
     forward's shapes (the record's own figures, as in earlier records), both
-    passes at a batch-8 step's, on the uniform draw and (the three per-level
-    kernels) on the operands of a real step under its layout's flag."""
+    passes at a batch-8 step's, on the uniform draw and on the operands of
+    real steps under its layout's flag (SAMPLING)."""
     import torch
 
+    key, line, _, steps = SAMPLING[name]
     paths = {f"b{BATCH}_forward": check_sampling(
         name, key, sampling_uniform_calls(gen, dev, key, BATCH), l2_rate, backward=False)}
     paths[f"b{TRAIN_BATCH}_step"] = check_sampling(
         name, key, sampling_uniform_calls(gen, dev, key, TRAIN_BATCH), l2_rate)
     torch.cuda.empty_cache()
-    if layout:
-        paths[f"b{TRAIN_BATCH}_path"] = check_sampling(
-            name, key, path_layout_operands(dev, layout), l2_rate, time_plain=False)
+    for path, (preset, size) in steps.items():
+        log(f"  {name} on the operands of a batch-{TRAIN_BATCH} {preset} step at {size}x{size}")
+        paths[path] = check_sampling(name, key, path_layout_operands(dev, name, preset, size),
+                                     l2_rate, time_plain=False)
+        paths[path]["preset"], paths[path]["size"] = preset, size
         torch.cuda.empty_cache()
     own = paths[f"b{BATCH}_forward"]
     return {"name": name, "route": "cuda", "source": "autofocusformermod_torch/csrc/msdetrpc.cu",
             "replaces": f"autofocusformermod_tpu/ops/pallas/msdetrpc_kernel.py:{line}", **own,
             "max_abs_err": max(max(p["max_abs_err"], p.get("bwd_max_abs_err", 0.0))
                                for p in paths.values()),
-            "deterministic": key != "interleaved", "by_path": paths}
+            "deterministic": True, "by_path": paths}
 
 
 def path_sample_ranks(dev, gen, b, heads=8, points=4):
@@ -1792,18 +1835,230 @@ def layouts_phase(dev, smi, images, default_out, counters):
     return total
 
 
-def kept_agreement(fk, fp):
-    """Per stage after res2: share of kept token positions common to both runs."""
+# AFF-Mini-1/5's decoder levels at 512x512: its cluster merging keeps
+# int(n * 0.2) tokens a stage, no multiples of 128
+MINI15_LEVELS = (3276, 655, 131)
+
+
+class same_choices:
+    """Within the block the run's discrete choices are recorded into `book`
+    (record=True), or the recorded ones are returned in their order
+    (record=False) -- the backbone's kept tokens (models/aff.py
+    topk_indices), the finest-grid cells the pixel decoder's sampling
+    locations snap to (models/pixel_decoder.py grid_cells: rounded), the
+    masked decoder's attention masks (sigmoid < 0.5,
+    MultiScaleMaskedTransformerDecoder._prediction_heads), the point
+    ranking's points (losses/point_sample.py topk_indices) and the
+    criterion's matches (criterion.solve_lsap).  When replaying, each choice
+    is also made, and book["agree"][kind] counts its elements equal to the
+    recorded ones (kept tokens and ranked points as sets per row) against
+    all of them.  At random initialisation near-tied scores flip between two
+    fp32 orders of summation and a flip changes the run downstream; with the
+    choices held, a kernel run and a plain run compute the same function of
+    the same inputs, and the counts say how many choices flipped."""
+
+    KINDS = (("kept tokens", "autofocusformermod_torch.models.aff", None, "topk_indices"),
+             ("sampling cells", "autofocusformermod_torch.models.pixel_decoder", None,
+              "grid_cells"),
+             ("attention masks", "autofocusformermod_torch.models.transformer_decoder",
+              "MultiScaleMaskedTransformerDecoder", "_prediction_heads"),
+             ("ranked points", "autofocusformermod_torch.losses.point_sample", None,
+              "topk_indices"),
+             ("matches", "autofocusformermod_torch.losses.criterion", None, "solve_lsap"))
+    SETS = ("kept tokens", "ranked points")
+
+    def __init__(self, book, record):
+        self.book, self.record = book, record
+
+    def __enter__(self):
+        import importlib
+
+        self.saved = []
+        for kind, module, cls, name in self.KINDS:
+            owner = importlib.import_module(module)
+            owner = getattr(owner, cls) if cls else owner
+            real = getattr(owner, name)
+            self.saved.append((owner, name, real))
+            setattr(owner, name, self.wrap(kind, real, part=2 if cls else None))
+        return self
+
+    def wrap(self, kind, real, part):
+        """part: the index of the choice in a tuple result (the attention
+        mask of the decoder's prediction heads), else the whole result."""
+        calls = self.book.setdefault(kind, [])
+        at = iter(range(len(calls)))
+        agree = self.book.setdefault("agree", {}).setdefault(kind, [0, 0])
+
+        def wrapped(*args, **kwargs):
+            out = real(*args, **kwargs)
+            own = out if part is None else out[part]
+            if self.record:
+                calls.append(own)
+                return out
+            want = calls[next(at)]
+            agree[0] += self.equal_elements(kind, own, want)
+            agree[1] += want.numel()
+            return want if part is None else (*out[:part], want, *out[part + 1:])
+        return wrapped
+
+    def __exit__(self, *exc):
+        for owner, name, real in self.saved:
+            setattr(owner, name, real)
+
+    @classmethod
+    def equal_elements(cls, kind, own, want) -> int:
+        import torch
+
+        if own.shape != want.shape:
+            return 0
+        if kind not in cls.SETS:
+            return int((own == want).sum())
+        rows = want.reshape(-1, want.shape[-1]).sort(-1).values
+        mine = own.reshape(-1, own.shape[-1]).contiguous()
+        at = torch.searchsorted(rows, mine).clamp(max=rows.shape[-1] - 1)
+        return int((rows.gather(-1, at) == mine).sum())
+
+    @staticmethod
+    def check(label, book):
+        """Log each choice's agreement; fail where it is below CHOICE_AGREE_MIN."""
+        shares = {kind: e / n for kind, (e, n) in book.get("agree", {}).items() if n}
+        log(f"    {label}: the plain run's own choices equal the kernel run's in "
+            + "; ".join(f"{kind} {book['agree'][kind][0]}/{book['agree'][kind][1]} "
+                        f"({shares[kind]:.6f})" for kind in shares))
+        low = {kind: v for kind, v in shares.items() if v < CHOICE_AGREE_MIN[kind]}
+        if low:
+            raise SystemExit(f"{label}: the plain run's choices part from the kernel run's in "
+                             f"{low} of their elements (floors {CHOICE_AGREE_MIN})")
+
+
+def check_forward(label, out, ref, book):
+    """A batch-4 forward's outputs through the kernels against the plain
+    run's, which replayed the kernel run's choices (`book`)."""
     import torch
 
-    out = {}
-    for i in (3, 4, 5):
-        a, b = fk[f"res{i}_pos"], fp[f"res{i}_pos"]
-        ida = (a[..., 1] * 4096 + a[..., 0]).long()
-        idb = (b[..., 1] * 4096 + b[..., 0]).long()
-        out[f"res{i}"] = torch.stack([torch.isin(ida[j], idb[j]).float().mean()
-                                      for j in range(a.shape[0])]).mean().item()
-    return out
+    for key, shape in (("pred_logits", (BATCH, 100, 151)), ("pred_masks", (BATCH, 100, 128, 128))):
+        a, r = out[key], ref[key]
+        if tuple(a.shape) != shape or not torch.isfinite(a).all():
+            raise SystemExit(f"{label} {key}: shape {tuple(a.shape)} (expected {shape}) or "
+                             "non-finite")
+        e = (a - r).abs().max().item()
+        scale = r.abs().max().item()
+        log(f"    {key}: max_abs_err vs plain {e:.3e} (max |ref| {scale:.3e}, rel "
+            f"{e / max(scale, 1.0):.3e})")
+        if e > FORWARD_RTOL * max(scale, 1.0):
+            raise SystemExit(f"{label} {key}: kernels and plain versions disagree by {e}")
+    same_choices.check(label, book)
+
+
+def mini15_phase(dev, smi, counters):
+    """Phase 10: the published AFF-Mini-1/5 preset at 512x512 (seeded random
+    weights), in the default layout and with USE_STACKED_GLUE off (the
+    interleaved kernel): one batch-4 forward and one batch-8 training step
+    each through the kernels, with every kernel's launches, then through the
+    plain versions from the same weights, images, batch and generators,
+    replaying the kernel run's discrete choices (same_choices); device busy
+    of each layout's forward.  Returns {counter name: launches}."""
+    import contextlib
+
+    import torch
+    from autofocusformermod_torch.config import PRESETS
+    from autofocusformermod_torch.data.synthetic import synthetic_batch
+    from autofocusformermod_torch.engine.train_step import TrainStep
+    from autofocusformermod_torch.losses.criterion import device_draw
+    from autofocusformermod_torch.models.maskformer import init_random_weights, maskformer_from_config
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+
+    cfg = PRESETS[MINI15]()
+    model = maskformer_from_config(cfg)
+    init_random_weights(model, torch.Generator().manual_seed(SEED))
+    model = model.to(dev).eval()
+    images = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(SEED + 2)).to(dev)
+    total = dict.fromkeys(counters, 0)
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {name: c.launches for name, c in counters.items() if c.launches}
+        for name, n in got.items():
+            total[name] += n
+        return out, got
+
+    with torch.no_grad():
+        feats = model.backbone(model.normalize(images))
+    sizes = tuple(feats[f"res{i}"].shape[1] for i in (3, 4, 5))
+    log(f"  decoder levels {sizes}")
+    if sizes != MINI15_LEVELS:
+        raise SystemExit(f"{MINI15}: decoder levels {sizes}, expected {MINI15_LEVELS}")
+    del feats
+    layouts = {None: "msdetrpc", "per_level": "msdetrpc_interleaved"}
+    for layout, op in layouts.items():
+        book = {}
+        with decoder_layout(layout), torch.no_grad():
+            t0 = time.time()
+            with same_choices(book, record=True):
+                out, got = counted(lambda: model(images))
+            dt = (time.time() - t0) * 1e3
+            with same_choices(book, record=False), plain_versions():
+                ref = model(images)
+            busy, rows = device_busy(lambda: model(images))
+        want = {"local_attn": 12, "knn": 10, op: 18}
+        log(f"  batch-{BATCH} forward, layout {layout or 'default'}: {dt:.1f} ms (first call), "
+            f"device busy {busy:.2f} ms in {rows:.0f} rows ({smi}), launches {got}")
+        if got != want:
+            raise SystemExit(f"{MINI15} forward, layout {layout}: launched {got}, expected {want}")
+        check_forward(f"{MINI15} forward, layout {layout or 'default'}", out, ref, book)
+        del out, ref
+    del images
+
+    model.train()
+    batch = synthetic_batch(torch.Generator().manual_seed(SEED + 1), dev, TRAIN_BATCH,
+                            (SIZE, SIZE), cfg.TPU.MAX_GT_INSTANCES,
+                            cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
+
+    def step(path=contextlib.nullcontext):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with path():
+            (total_loss, losses, _), got = counted(lambda: TrainStep(model, cfg).loss_and_grads(
+                batch, device_draw(torch.Generator(device=dev).manual_seed(SEED))))
+        dt = (time.time() - t0) * 1e3
+        terms = {"total_loss": total_loss.item(), **{k: v.item() for k, v in losses.items()}}
+        return terms, group_norms(model), got, dt
+
+    def worst_rel(a, b):
+        return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for k in b)
+
+    per_step = {"local_attn": 12, "local_attn_bwd": 12, "point_sample": 2, "point_sample_bwd": 1,
+                "lapjv": 1, "knn": 10, "point_sample_nearest_rows": 1}
+    for layout, op in layouts.items():
+        book = {}
+        with decoder_layout(layout):
+            with same_choices(book, record=True):
+                terms, norms, got, dt = step()
+            with same_choices(book, record=False):
+                ref_terms, ref_norms, _, ref_dt = step(plain_versions)
+        want = {**per_step, op: 18, op + "_bwd": 18}
+        rel, norm_rel = worst_rel(terms, ref_terms), worst_rel(norms, ref_norms)
+        log(f"  batch-{TRAIN_BATCH} step, layout {layout or 'default'}: total loss "
+            f"{terms['total_loss']:.6f} (plain {ref_terms['total_loss']:.6f}), {len(terms) - 1} "
+            f"loss terms worst rel diff {rel:.3e}, grad norms per group worst rel diff "
+            f"{norm_rel:.3e}; {dt:.1f} ms (first call; plain {ref_dt:.1f}); launches {got} "
+            f"({smi})")
+        same_choices.check(f"{MINI15} step, layout {layout or 'default'}", book)
+        if got != want:
+            raise SystemExit(f"{MINI15} step, layout {layout}: launched {got}, expected {want}")
+        if not all(v == v and abs(v) != float("inf") for v in terms.values()):
+            raise SystemExit(f"{MINI15} step, layout {layout}: non-finite loss terms")
+        if rel > LOSS_RTOL or norm_rel > GROUP_NORM_RTOL:
+            raise SystemExit(f"{MINI15} step, layout {layout}: loss terms differ by {rel}, "
+                             f"gradient norms by {norm_rel} (rel) from the plain versions'")
+    del model, batch
+    torch.cuda.empty_cache()
+    return total
 
 
 def group_norms(model):
@@ -2194,21 +2449,21 @@ def main() -> int:
     expected = {"local_attn": sum(cfg.MODEL.AFF.DEPTHS),                     # 12 blocks
                 "msdetrpc": cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS * 3,  # 18
                 "knn": 10}  # 4 stages + 2 merges + 3 decoder tables + 1 FPN upsample
+    book = {}
     with torch.no_grad():
         for fn in counters.values():
             fn.launches = 0
         knn_before = dict(knn.launches_by_route)
         torch.cuda.synchronize()
         t0 = time.time()
-        out = model(images)
+        with same_choices(book, record=True):
+            out = model(images)
         torch.cuda.synchronize()
         t_fwd = time.time() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
         knn_by_route = {r: n - knn_before[r] for r, n in knn.launches_by_route.items()}
-        with plain_versions():
+        with same_choices(book, record=False), plain_versions():
             ref = model(images)
-            fp = model.backbone(model.normalize(images))
-        fk = model.backbone(model.normalize(images))
     log(f"  first forward {t_fwd:.3f} s; launches {launches} (expected {expected}); knn by "
         f"route {knn_by_route} (expected from the shapes {knn_routes})")
     if knn_by_route != knn_routes:
@@ -2218,17 +2473,8 @@ def main() -> int:
         if n != expected[name]:
             raise SystemExit(f"{name}: launched {n} times in the forward, expected {expected[name]}")
     inference_launches = launches
-    agree = kept_agreement(fk, fp)
-    log(f"  kept-token agreement kernels vs plain: {agree}")
-    for key, shape in (("pred_logits", (BATCH, 100, 151)), ("pred_masks", (BATCH, 100, 128, 128))):
-        a, r = out[key], ref[key]
-        if tuple(a.shape) != shape or not torch.isfinite(a).all():
-            raise SystemExit(f"{key}: shape {tuple(a.shape)} (expected {shape}) or non-finite")
-        e = (a - r).abs().max().item()
-        scale = r.abs().max().item()
-        log(f"  {key}: max_abs_err vs plain {e:.3e} (max |ref| {scale:.3e}, rel {e / scale:.3e})")
-        if min(agree.values()) == 1.0 and e > 1e-3 * max(scale, 1.0):
-            raise SystemExit(f"{key}: kernels and plain versions disagree by {e}")
+    check_forward("AFF-Mini forward", out, ref, book)
+    del book
 
     log("phase 4: predictor, 8 random uint8 512x512 images")
     predictor = SemanticPredictor(model, cfg.MODEL.MASK_FORMER.SIZE_DIVISIBILITY)
@@ -2247,7 +2493,7 @@ def main() -> int:
             f"({smi}); label maps {tuple(labels[0].shape)}")
 
     default_out = {key: out[key] for key in ("pred_logits", "pred_masks")}
-    del model, predictor, out, ref, fk, fp
+    del model, predictor, out, ref
     torch.cuda.empty_cache()
 
     log(f"phase 5: the kernels against their plain versions at the shapes of a 512x512 batch-"
@@ -2346,8 +2592,8 @@ def main() -> int:
     from autofocusformermod_torch.ops import msdetrpc as md
     from autofocusformermod_torch.ops.window_gather import windowed_row_gather
 
-    for name, (key, line, layout) in SAMPLING.items():
-        kernels.append(sampling_record(name, key, line, layout, gen, dev, l2_rate))
+    for name in SAMPLING:
+        kernels.append(sampling_record(name, gen, dev, l2_rate))
     kernels.append({"name": "window_gather", "route": "cuda",
                     "source": "autofocusformermod_torch/csrc/window_gather.cu",
                     "replaces": "autofocusformermod_tpu/ops/pallas/window_gather.py:92",
@@ -2371,19 +2617,25 @@ def main() -> int:
     del images, default_out
     torch.cuda.empty_cache()
 
+    log(f"phase 10: the published 1/5 preset ({MINI15}) at {SIZE}x{SIZE}: a batch-{BATCH} "
+        f"forward and a batch-{TRAIN_BATCH} step in the default layout and with "
+        "USE_STACKED_GLUE off, against the plain versions")
+    mini15_launches = mini15_phase(dev, smi, {**train_counters, **layout_counters})
+
     for kr in kernels:
         names = [kr["name"]] + (["point_sample_bwd"] if kr["name"] == "point_sample" else [])
         kr["inference_launches"] = inference_launches.get(kr["name"], 0)
         kr["mini_step_launches"] = sum(mini_launches.get(n, 0) for n in names)
         kr["small_run_launches"] = sum(small_launches.get(n, 0) + k11_launches.get(n, 0)
                                        for n in names)
-        # on the layouts' forwards and steps; a sampling kernel's backward
-        # counts with it, as its TPU function holds both
-        kr["layouts_launches"] = sum(layout_launches.get(n, 0) for n in
-                                     (names + [kr["name"] + "_bwd"] if kr["name"] in SAMPLING
-                                      else names))
+        # on the layouts' and the 1/5 preset's forwards and steps; a sampling
+        # kernel's backward counts with it, as its TPU function holds both
+        with_bwd = names + [kr["name"] + "_bwd"] if kr["name"] in SAMPLING else names
+        kr["layouts_launches"] = sum(layout_launches.get(n, 0) for n in with_bwd)
+        kr["mini15_launches"] = sum(mini15_launches.get(n, 0) for n in with_bwd)
         kr["launches"] = (kr["inference_launches"] + kr["mini_step_launches"]
-                          + kr["small_run_launches"] + kr["layouts_launches"])
+                          + kr["small_run_launches"] + kr["layouts_launches"]
+                          + kr["mini15_launches"])
         if kr["launches"] < 1:
             raise SystemExit(f"{kr['name']}: never launched on a main path")
     if len(kernels) != 14:

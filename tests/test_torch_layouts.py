@@ -14,6 +14,8 @@ rtol = atol = 2e-4 on outputs and rtol 5e-3 / atol 5e-4 on parameter
 gradients, the limits of the JAX package's tests of the same routes
 (``tests/test_fused_prep.py``)."""
 
+import contextlib
+import ctypes
 import functools
 
 import numpy as np
@@ -342,9 +344,16 @@ def test_layout_function_wiring(monkeypatch, layout):
 
 
 def test_interleaved_function_wiring(monkeypatch):
+    """The CUDA path's autograd Function, its launchers replaced by the plain
+    version and its autograd gradients (a grad_fn, the gradients of
+    nn_weight, attn and val in their slots); then the backward launcher's
+    call of the C entry point, through a stand-in library: the scratch of
+    aff_msdetrpc_bwd_scratch for one level of ntot rows and m * k pairs,
+    sized as it answers, and every pointer and size in its place."""
     rng = np.random.default_rng(7)
     nn_idx, nn_w, attn, val, _ = _make_case(rng, bh=2, n=20)
     g = _t(rng.standard_normal((2, 20, val.shape[2])).astype(np.float32))
+    launcher = tc.msdetrpc_backward
 
     def bwd(idx, w, a, v, g):
         with torch.enable_grad():
@@ -360,6 +369,37 @@ def test_interleaved_function_wiring(monkeypatch):
     want = torch.autograd.grad((tc.msdetrpc_plain(_t(nn_idx), *leaves) * g).sum(), leaves)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, **GRAD_TOL)
+
+    bh, n, m, k = nn_idx.shape
+    ntot, c_ = val.shape[1:]
+    seen = {}
+
+    class Library:
+        def aff_msdetrpc_bwd_scratch(self, n_, n_levels, sizes, pairs, dims):
+            seen["scratch"] = (n_, n_levels, ctypes.cast(sizes, ctypes.POINTER(ctypes.c_int))[0],
+                               pairs)
+            ctypes.memmove(dims, (ctypes.c_int * 3)(3, 5, 7), 3 * ctypes.sizeof(ctypes.c_int))
+            return 0
+
+        def aff_msdetrpc_interleaved_bwd(self, *args):
+            seen["args"] = args
+            return 0
+
+    monkeypatch.setattr(tc, "msdetrpc_backward", launcher)
+    monkeypatch.setattr(tc, "load_kernels", Library)
+    monkeypatch.setattr(tc, "stream_of", lambda t: 99)
+    monkeypatch.setattr(tc.torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    ops = [_t(nn_idx), _t(nn_w), _t(attn), _t(val), g]
+    before = launcher.launches
+    d_w, d_attn, d_val = launcher(*ops)
+    assert launcher.launches == before + 1
+    assert seen["scratch"] == (n, 1, ntot, m * k)
+    args = seen["args"]
+    assert len(args) == 18 and args[:5] == tuple(t.data_ptr() for t in ops)
+    assert args[5:8] == (d_w.data_ptr(), d_attn.data_ptr(), d_val.data_ptr())
+    assert (d_w.shape, d_attn.shape, d_val.shape) == (nn_w.shape, attn.shape, val.shape)
+    assert len(set(args[:11])) == 11                       # the scratch: three tensors of its own
+    assert args[11:] == (bh, n, ntot, c_, m, k, 99)
 
 
 def test_more_levels_than_the_kernel_holds_raise():
@@ -657,19 +697,57 @@ def test_layout_kernels_match_plain_on_card(cuda, layout):
         torch.testing.assert_close(a, b, **GRAD_TOL)
 
 
+def _interleaved_on_card(cuda, seed, uniform=False, **shape):
+    """The interleaved op's kernels on one _make_case case (uniform: global
+    indices drawn over the whole table) against the plain version: the
+    forward, and the gradients of nn_weight, attn and val; one launch of
+    each.  Returns the operands (idx, [nn_weight, attn, val]) and g on the
+    card."""
+    rng = np.random.default_rng(seed)
+    nn_idx, nn_w, attn, val, _ = _make_case(rng, **shape)
+    if uniform:
+        nn_idx = rng.integers(0, val.shape[1], nn_idx.shape).astype(np.int32)
+    g = _t(rng.standard_normal((val.shape[0], nn_idx.shape[1], val.shape[2]))
+           .astype(np.float32)).to(cuda)
+    idx = _t(nn_idx).to(cuda)
+    ops = [_t(a).to(cuda) for a in (nn_w, attn, val)]
+
+    def run():
+        leaves = [a.clone().requires_grad_() for a in ops]
+        out = tc.msdetrpc(idx, *leaves)
+        return out, torch.autograd.grad((out * g).sum(), leaves)
+
+    before = tc.msdetrpc.launches, tc.msdetrpc_backward.launches
+    out, got = run()
+    assert (tc.msdetrpc.launches, tc.msdetrpc_backward.launches) == (before[0] + 1, before[1] + 1)
+    with plain_versions():
+        ref, want = run()
+    torch.testing.assert_close(out, ref, **TOL)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+    return idx, ops, g
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("indices", ["centred", "uniform"])
-@pytest.mark.parametrize("layout", ["levels", "levels_t", "bh"])
+@pytest.mark.parametrize("layout", ["levels", "levels_t", "bh", "interleaved"])
 def test_layout_kernels_are_exact_and_deterministic_on_card(cuda, layout, indices):
     """The forward kernel and the fixed-order backward pair of each layout
     over many query tiles and value-row bands: n = 300 (not a multiple of
     32), level sizes (100, 200, 1000) (ntot not a multiple of the 32-row
     band), 8 heads, 16 image-heads; indices near a per-query centre and
     uniform ones.  Against the plain version, and two backward calls bit for
-    bit (no atomics: the sums have a fixed order)."""
+    bit (no atomics: the sums have a fixed order); for the interleaved
+    layout d_nn_weight, d_attn and d_val."""
+    shape = dict(bh=16, n=300, sizes=(100, 200, 1000))
+    if layout == "interleaved":
+        idx, ops, g = _interleaved_on_card(cuda, 15, uniform=indices == "uniform", **shape)
+        first = tc.msdetrpc_backward(idx, *ops, g)
+        again = tc.msdetrpc_backward(idx, *ops, g)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        return
     fn, _, idxs, ws, val, sizes, g = _layout_case(
-        layout, seed=15, h=8, uniform=indices == "uniform", bh=16, n=300,
-        sizes=(100, 200, 1000))
+        layout, seed=15, h=8, uniform=indices == "uniform", **shape)
     idxs = [_t(a).to(cuda) for a in idxs]
     ws = [_t(a).to(cuda) for a in ws]
     val, g = _t(val).to(cuda), _t(g).to(cuda)
@@ -687,13 +765,17 @@ def test_layout_kernels_are_exact_and_deterministic_on_card(cuda, layout, indice
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["levels", "levels_t", "bh"])
+@pytest.mark.parametrize("layout", ["levels", "levels_t", "bh", "interleaved"])
 def test_layout_kernels_generic_instance_on_card(cuda, layout):
     """The kernels' generic instance (2 levels of 8 pairs, not the path's
-    compiled 3 x 16) with 5-channel heads (4-byte row reads) against the
-    plain version."""
-    fn, _, idxs, ws, val, sizes, g = _layout_case(
-        layout, seed=16, h=4, bh=8, n=45, L=2, kpts=2, c_=5, sizes=(128, 256))
+    compiled 3 x 16; for the interleaved layout 16 pairs, not its compiled
+    48) with 5-channel heads (4-byte row reads) against the plain
+    version."""
+    shape = dict(bh=8, n=45, L=2, kpts=2, c_=5, sizes=(128, 256))
+    if layout == "interleaved":
+        _interleaved_on_card(cuda, 16, **shape)
+        return
+    fn, _, idxs, ws, val, sizes, g = _layout_case(layout, seed=16, h=4, **shape)
     idxs = [_t(a).to(cuda) for a in idxs]
     ws = [_t(a).to(cuda) for a in ws]
     val, g = _t(val).to(cuda), _t(g).to(cuda)
@@ -708,24 +790,7 @@ def test_layout_kernels_generic_instance_on_card(cuda, layout):
 
 @pytest.mark.cuda
 def test_interleaved_kernels_match_plain_on_card(cuda):
-    rng = np.random.default_rng(10)
-    nn_idx, nn_w, attn, val, _ = _make_case(rng, sizes=(144, 100, 36))
-    g = _t(rng.standard_normal((4, 140, 32)).astype(np.float32)).to(cuda)
-    idx = _t(nn_idx).to(cuda)
-
-    def run():
-        leaves = [_t(a).to(cuda).requires_grad_() for a in (nn_w, attn, val)]
-        out = tc.msdetrpc(idx, *leaves)
-        return out, torch.autograd.grad((out * g).sum(), leaves)
-
-    before = tc.msdetrpc.launches, tc.msdetrpc_backward.launches
-    out, got = run()
-    assert (tc.msdetrpc.launches, tc.msdetrpc_backward.launches) == (before[0] + 1, before[1] + 1)
-    with plain_versions():
-        ref, want = run()
-    torch.testing.assert_close(out, ref, **TOL)
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, **GRAD_TOL)
+    _interleaved_on_card(cuda, 10, sizes=(144, 100, 36))
 
 
 @pytest.mark.cuda

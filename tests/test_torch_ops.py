@@ -164,7 +164,9 @@ def _attn_case(rng, b=2, h=2, n=48, c=4, span=4, nnc=3, pad=0):
 @pytest.mark.parametrize("pad", [0, 3])
 def test_local_attention_plain_matches_gather_composition(jnp, rng, pad):
     """Plain version == the JAX gather composition, with and without padded
-    slots (n % span != 0: both add the reference's -100)."""
+    slots (n % span != 0: the gather composition adds the reference's -100
+    to them, the plain version excludes them exactly; at this case's small
+    rel-pos biases the two differ by exp(-100))."""
     from autofocusformermod_tpu.ops.pallas.local_attn import gather_composition
 
     args = _attn_case(rng, pad=pad)
@@ -186,6 +188,34 @@ def test_local_attention_matches_mask_formulation(jnp, rng):
     rout, rblank = sfc_attention_reference(*map(jnp.asarray, args), 4)
     _close(out, rout)
     _close(blank, rblank)
+
+
+def test_local_attention_plain_excludes_padded_slots_exactly(jnp, rng):
+    """A cut last cluster whose padded slots stand for token 0, far from the
+    queries (as on AFF-Mini-1/5's 655- and 131-token stages): their rel-pos
+    bias passes 100, so the reference's -100 leaves them weight (the JAX
+    gather composition differs from its mask formulation here).  The plain
+    version excludes them exactly, as the kernels do: it equals JAX's mask
+    formulation (sfc_attention_reference), and its blank probability is
+    exp(blank logit - lse) with the lse of local_attn_forward_plain, over
+    the valid slots."""
+    from autofocusformermod_tpu.ops.pallas.local_attn import (gather_composition,
+                                                             sfc_attention_reference)
+
+    q, k, v, pos, nc, w5, b5, bk = _attn_case(rng, n=64, c=8, span=8, nnc=3, pad=3)
+    pos[:, 0] = 450.0             # token 0 far from the others (on an 8 x 8 grid)
+    w5 = np.full_like(w5, 0.3)    # its rel-pos bias from them ~460
+    args = (q, k, v, pos, nc, w5, b5, bk)
+    jargs = list(map(jnp.asarray, args))
+    want = sfc_attention_reference(*jargs, 8)
+    assert not np.allclose(np.asarray(gather_composition(*jargs, 8)[0]), np.asarray(want[0]),
+                           atol=1e-2)
+    out, blank = sfc_cluster_attention_plain(*map(_t, args), 8)
+    _close(out, want[0], **GRAD_TOL)
+    _close(blank, want[1], **GRAD_TOL)
+    _, _, lse = la.local_attn_forward_plain(*map(_t, args), 8)
+    blank_logit = torch.einsum("bhnc,hc->bhn", _t(q), _t(bk))[..., None]
+    _close(blank, torch.exp(blank_logit - lse).numpy(), **GRAD_TOL)
 
 
 def test_dispatch_rule():
