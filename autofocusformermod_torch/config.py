@@ -1,5 +1,5 @@
-"""Yaml-free presets of the published AFF-Mini, AFF-Mini-1/5 and AFF-Small
-models.
+"""Yaml-free presets of the published AFF-Mini, AFF-Mini-1/5, AFF-Small and
+MaskFiner-Mini models.
 
 ``configs/ade20k/maskformer2_aff_{mini,mini_15,small}_bs32_80k.yaml`` merged
 over the defaults give the published AFF + Mask2Former ADE20K models and
@@ -169,4 +169,92 @@ def aff_mini_15_cfg(num_classes: int = 150) -> Cfg:
     return cfg
 
 
-PRESETS = {"aff_mini": aff_mini_cfg, "aff_mini_15": aff_mini_15_cfg, "aff_small": aff_small_cfg}
+def maskfiner_mini_cfg(num_classes: int = 150) -> Cfg:
+    """MaskFiner-Mini, the MixRes cascade, ADE20K semantic segmentation at
+    512x512 (``configs/ade20k/semantic-segmentation/maskfiner/
+    maskfiner_mini_bs32_80k.yaml`` over ``../maskfiner_R50_bs16_160k.yaml``,
+    ``Base-ADE20K-SemanticSegmentation.yaml`` and the defaults): four stages
+    of patch 32, 16, 8 and 4, each splitting half of the newest scale's
+    tokens; fp32 (``SOLVER.AMP.ENABLED`` False)."""
+    return Cfg({
+        "MODEL": {
+            "META_ARCHITECTURE": "MaskFiner",
+            "BACKBONE": {"NAME": "MixRes"},
+            "WEIGHTS": "aff_mini.pkl",
+            "MR": {
+                "NAME": ["MixResViT", "MixResNeighbour", "MixResNeighbour", "MixResNeighbour"],
+                "EMBED_DIM": [512, 256, 128, 64],
+                "DEPTHS": [2, 2, 8, 12],
+                "NUM_HEADS": [32, 16, 8, 4],
+                "PATCH_SIZES": [32, 16, 8, 4],
+                "DROP_RATE": [0.0, 0.0, 0.0, 0.0],
+                "DROP_PATH_RATE": [0.0, 0.0, 0.0, 0.0],
+                "ATTN_DROP_RATE": [0.0, 0.0, 0.0, 0.0],
+                "UPSCALE_RATIO": [0.5, 0.5, 0.5, 0.5],
+                "SPLIT_RATIO": [4, 4, 4, 4],
+                "MLP_RATIO": [2.0, 2.0, 2.0, 2.0],
+                "CLUSTER_SIZE": [8, 8, 8, 8],
+                "NBHD_SIZE": [48, 48, 48, 48],
+                "OUT_FEATURES": ["res2", "res3", "res4", "res5"],
+                "KEEP_OLD_SCALE": True,
+                "LAYER_SCALE": 0.0,
+                "NUM_REGISTER_TOKENS": 0,
+            },
+            "MR_SEM_SEG_HEAD": {
+                "NAME": "MaskPredictor",
+                "NUM_CLASSES": num_classes,
+                "PIXEL_DECODER_NAME": "MSDeformAttnPixelDecoderMaskFiner",
+                "IN_FEATURES": ["res2", "res3", "res4", "res5"],
+                "DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES": ["res3", "res4", "res5"],
+                "CONVS_DIM": [512, 256, 128, 128],
+                "TRANSFORMER_ENC_LAYERS": [1, 2, 4, 6],
+                "MLP_RATIO": [4.0, 4.0, 4.0, 4.0],
+                "NHEADS": [16, 8, 8, 8],
+                "DROPOUT": 0.0,
+            },
+            "MASK_FINER": {
+                "TRANSFORMER_DECODER_NAME": "MultiScaleMaskFinerTransformerDecoder",
+                "NUM_RESOLUTION_SCALES": 4,
+                "DEC_LAYERS": [3, 3, 4, 9],
+                "DECODER_LEVELS": [1, 2, 3, 4],
+                "DIM_FEEDFORWARD": [1024, 1024, 1024, 1024],
+                "HIDDEN_DIM": [256, 256, 256, 256],
+                "MASK_DIM": [256, 256, 256, 256],
+                "NHEADS": [8, 8, 8, 8],
+                "NUM_OBJECT_QUERIES": 100,
+                "PRE_NORM": False,
+                "ENFORCE_INPUT_PROJ": False,
+                "MASK_DECODER_ALL_LEVELS": False,
+                "SHEPARD_POWER": 6.0,
+                "SHEPARD_POWER_LEARNABLE": True,
+                "SIZE_DIVISIBILITY": 32,
+            },
+            "PIXEL_MEAN": [123.675, 116.28, 103.53],
+            "PIXEL_STD": [58.395, 57.12, 57.375],
+        },
+        "SOLVER": {
+            "IMS_PER_BATCH": 32,
+            "BASE_LR": 0.0002,
+            "MAX_ITER": 80000,
+            "CHECKPOINT_PERIOD": 2500,
+            "WEIGHT_DECAY": 0.05,
+            "WEIGHT_DECAY_NORM": 0.0,
+            "WEIGHT_DECAY_EMBED": 0.0,
+            "BACKBONE_MULTIPLIER": 0.1,
+            "BETAS": [0.9, 0.999],
+            "EPSILON": 1e-08,
+            "WARMUP_FACTOR": 1.0,
+            "WARMUP_ITERS": 0,
+            "POLY_LR_POWER": 0.9,
+            "POLY_LR_CONSTANT_ENDING": 0.0,
+            "CLIP_GRADIENTS": {"ENABLED": True, "CLIP_TYPE": "full_model", "CLIP_VALUE": 1.0},
+            "AMP": {"ENABLED": False},
+        },
+        "INPUT": {"CROP": {"ENABLED": True, "SIZE": [512, 512]}},
+        "SEED": 0,
+        "OUTPUT_DIR": "./output",
+    })
+
+
+PRESETS = {"aff_mini": aff_mini_cfg, "aff_mini_15": aff_mini_15_cfg, "aff_small": aff_small_cfg,
+           "maskfiner_mini": maskfiner_mini_cfg}

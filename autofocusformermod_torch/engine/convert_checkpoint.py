@@ -26,8 +26,10 @@ import torch
 
 # flax module path (dotted) -> reference name, applied in order
 _RULES = (
+    (r"^mask_predictors_(\d+)", r"mask_predictors.\1"),
     (r"^backbone\.layers_(\d+)", r"backbone.layers.\1"),
     (r"\.blocks_(\d+)", r".blocks.\1"),
+    (r"\.conv_(\d+)\.", r".conv.\1."),
     (r"\.weight_net\.linear", r".weight_net.0"),
     (r"\.weight_net\.norm", r".weight_net.1"),
     (r"^head\.pixel_decoder", r"sem_seg_head.pixel_decoder"),
@@ -67,24 +69,37 @@ def _module_name(path: Tuple[str, ...]) -> str:
     return name
 
 
+def torch_name(path: Tuple[str, ...]) -> str:
+    """The port's name of the tensor that the JAX parameter leaf at ``path``
+    lands on (the three projections of an attention layer land on its one
+    ``in_proj_weight`` / ``in_proj_bias``)."""
+    *mod, leaf = path
+    if leaf == "level_embed" and mod[-1] == "pixel_decoder":
+        return _module_name(tuple(mod)) + ".transformer.level_embed"
+    if leaf in ("kernel", "bias") and mod[-1] in _MHA:
+        return _module_name(tuple(mod[:-1])) + (".in_proj_weight" if leaf == "kernel"
+                                                else ".in_proj_bias")
+    if leaf == "kernel":
+        return _module_name(tuple(mod)) + ".weight"
+    # a bare parameter (blank_k, blank_v, shepard_power, gamma1/2, rel_pos_emb,
+    # scale_emb) keeps its name
+    return _module_name(tuple(mod)) + "." + _LEAF.get(leaf, leaf)
+
+
 def flax_to_torch_state_dict(params: Mapping, batch_stats: Mapping = None) -> Dict[str, torch.Tensor]:
-    """params / batch_stats: the JAX MaskFormer's variable trees (arrays or
-    numpy) -> {reference name: tensor} for ``MaskFormer.load_state_dict``."""
+    """params / batch_stats: the JAX MaskFormer's or MaskFiner's variable
+    trees (arrays or numpy) -> {reference name: tensor} for the port model's
+    ``load_state_dict``."""
     sd: Dict[str, np.ndarray] = {}
     mha: Dict[str, Dict[str, np.ndarray]] = {}
     for path, value in _flatten(params).items():
         *mod, leaf = path
-        if leaf == "level_embed" and mod[-1] == "pixel_decoder":
-            sd[_module_name(tuple(mod)) + ".transformer.level_embed"] = value
-        elif leaf in ("kernel", "bias") and mod[-1] in _MHA:
+        if leaf in ("kernel", "bias") and mod[-1] in _MHA:
             mha.setdefault(_module_name(tuple(mod[:-1])), {})[f"{mod[-1]}.{leaf}"] = value
         elif leaf == "kernel":
-            w = np.transpose(value, (3, 2, 0, 1)) if value.ndim == 4 else value.T
-            sd[_module_name(tuple(mod)) + ".weight"] = w
-        elif leaf in _LEAF:
-            sd[_module_name(tuple(mod)) + "." + _LEAF[leaf]] = value
-        else:  # a bare parameter: blank_k, blank_v, shepard_power, gamma1/2
-            sd[_module_name(tuple(mod)) + "." + leaf] = value
+            sd[torch_name(path)] = np.transpose(value, (3, 2, 0, 1)) if value.ndim == 4 else value.T
+        else:
+            sd[torch_name(path)] = value
     for name, parts in mha.items():
         sd[name + ".in_proj_weight"] = np.concatenate([parts[f"{p}.kernel"].T for p in _MHA])
         sd[name + ".in_proj_bias"] = np.concatenate([parts[f"{p}.bias"] for p in _MHA])

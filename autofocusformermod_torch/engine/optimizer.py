@@ -2,8 +2,7 @@
 
 Counterpart of ``autofocusformermod_tpu/engine/optimizer.py``
 (``build_optimizer``): AdamW over six parameter groups -- backbone or not,
-times default / norm (LayerNorm and BatchNorm weights and biases; weight
-decay WEIGHT_DECAY_NORM) / embed (``nn.Embedding`` tables; weight decay
+times default / norm (weight decay WEIGHT_DECAY_NORM) / embed (weight decay
 WEIGHT_DECAY_EMBED) -- with the backbone's learning rate times
 BACKBONE_MULTIPLIER, detectron2's WarmupPolyLR, and optax's
 ``clip_by_global_norm`` applied to the whole model before the update.
@@ -16,20 +15,36 @@ from typing import Dict, Iterable, List, Tuple
 import torch
 from torch import nn
 
-_NORMS = (nn.LayerNorm, nn.BatchNorm2d)
+_NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)
+# parameters that make_label_fn puts in the norm group by their own name
+_NORM_TABLES = ("relative_position_bias_table", "absolute_pos_embed")
+
+
+def param_label(mod_name: str, leaf: str, mod: nn.Module) -> str:
+    """A parameter's group, as the JAX package's ``make_label_fn`` labels
+    its flax leaf: ``embed`` for embedding tables, ``norm`` for the
+    parameters of a norm (every flax module the JAX rule names as a norm is
+    one of ``_NORMS`` here) and for the relative-position and absolute
+    position tables, else ``default``; prefixed ``backbone_`` where a
+    component of the name contains "backbone"."""
+    name = f"{mod_name}.{leaf}" if mod_name else leaf
+    if isinstance(mod, nn.Embedding):
+        kind = "embed"
+    elif isinstance(mod, _NORMS) or leaf in _NORM_TABLES:
+        kind = "norm"
+    else:
+        kind = "default"
+    return ("backbone_" + kind) if any("backbone" in p for p in name.split(".")) else kind
 
 
 def param_groups(model: nn.Module) -> Dict[str, List[Tuple[str, nn.Parameter]]]:
     """{label: [(name, parameter)]} with the JAX package's labels
-    (``make_label_fn``): default / norm / embed, prefixed backbone_."""
+    (``param_label``)."""
     groups: Dict[str, List[Tuple[str, nn.Parameter]]] = {}
     for mod_name, mod in model.named_modules():
         for leaf, p in mod.named_parameters(recurse=False):
             name = f"{mod_name}.{leaf}" if mod_name else leaf
-            kind = ("embed" if isinstance(mod, nn.Embedding)
-                    else "norm" if isinstance(mod, _NORMS) else "default")
-            label = "backbone_" + kind if name.startswith("backbone.") else kind
-            groups.setdefault(label, []).append((name, p))
+            groups.setdefault(param_label(mod_name, leaf, mod), []).append((name, p))
     return groups
 
 

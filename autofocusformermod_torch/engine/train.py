@@ -23,7 +23,7 @@ from typing import Dict, Iterator, Optional
 import torch
 
 from ..losses.criterion import device_draw
-from ..models.maskformer import maskformer_from_config
+from ..models.registry import build_model
 from .checkpoint import Checkpointer
 from .convert_checkpoint import load_reference_weights
 from .hooks import MetricLogger, device_memory_stats, nan_check
@@ -34,11 +34,16 @@ class Trainer:
     """``Trainer(cfg, device)``; ``resume_or_load()``; ``train(batches)``."""
 
     def __init__(self, cfg, device: torch.device, wandb_name: Optional[str] = None):
+        arch = getattr(cfg.MODEL, "META_ARCHITECTURE", "MaskFormer")
+        if arch != "MaskFormer":
+            raise NotImplementedError(f"training the {arch} meta-architecture is not ported yet "
+                                      "(ROADMAP.md section 1 item 9); its inference is "
+                                      "(models.registry.build_model)")
         self.cfg = cfg
         self.device = torch.device(device)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.SEED)
-            model = maskformer_from_config(cfg)
+            model = build_model(cfg)
         self.model = model.to(self.device)
         self.step_fn = TrainStep(self.model, cfg)
         self.generators = {

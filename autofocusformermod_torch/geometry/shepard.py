@@ -23,12 +23,21 @@ def shepard_decay_weights(dist: torch.Tensor, power=3.0) -> torch.Tensor:
     return ipd / (ipd.sum(dim=2, keepdim=True) + 1e-6)
 
 
-def upsample_feature_shepard(query: torch.Tensor, database: torch.Tensor,
-                             feature: torch.Tensor, k: int = 4, power=3.0) -> torch.Tensor:
-    """Interpolate ``feature`` (b, n_, c), given at ``database`` (b, n_, 2),
-    at ``query`` (b, n, 2) from its k nearest database points -> (b, n, c)."""
+def shepard_neighbours(query: torch.Tensor, database: torch.Tensor, k: int = 4, power=3.0):
+    """The k nearest database points (b, n_, 2) of each query (b, n, 2) and
+    their normalized Shepard weights -> (nn_idx (b, n, k) int32, weights
+    (b, n, k)): what ``upsample_feature_shepard`` needs besides the feature,
+    so that several features upsampled between the same two point sets share
+    one ``knn``."""
     k = min(k, database.shape[1])
     nn_idx = knn(query, database, k)
     nn_pos = take_rows(database, nn_idx)                                  # (b, n, k, 2)
     nn_dist = ((query[:, :, None, :] - nn_pos) ** 2).sum(-1)              # squared
-    return weighted_gather(nn_idx, shepard_decay_weights(nn_dist, power), feature)
+    return nn_idx, shepard_decay_weights(nn_dist, power)
+
+
+def upsample_feature_shepard(query: torch.Tensor, database: torch.Tensor,
+                             feature: torch.Tensor, k: int = 4, power=3.0) -> torch.Tensor:
+    """Interpolate ``feature`` (b, n_, c), given at ``database`` (b, n_, 2),
+    at ``query`` (b, n, 2) from its k nearest database points -> (b, n, c)."""
+    return weighted_gather(*shepard_neighbours(query, database, k, power), feature)

@@ -136,6 +136,32 @@ class ClusterMerging(nn.Module):
         return new_pos, self.linear(self.norm(feat))
 
 
+def attention_context(pos, b: int, cluster_size: int, nbhd_size: int, h: int, w: int):
+    """The neighbourhoods one stage's blocks attend over, from positions
+    (1 or b, n, 2) on an h x w canvas -> (ctx for ClusterAttention, the
+    positions (b, n, 2) in the blocks' token order, rank (b, n): the
+    incoming index of each token in that order, None where it is kept).
+    nbhd_size >= n: global attention.  Else the tokens are sorted along the
+    space-filling curve into clusters of cluster_size and each finds its
+    nearest clusters (``knn``); with gradients on and on the kernel route,
+    the backward kernels' reverse lists (a function of nc alone) are built
+    here once for all the stage's blocks."""
+    n = pos.shape[1]
+    if nbhd_size >= n:
+        ctx = {"global": True,
+               "rel_feat5": rel_pos_features(pos[:, None, :, :] - pos[:, :, None, :])}
+        return ctx, pos.expand(b, n, 2), None
+    m = cluster_size
+    nnc = min(int(round(nbhd_size / float(m))), int(math.ceil(n / float(m))))
+    pos, cluster_mean_pos, _, _, pos_ranking = space_filling_cluster(pos, m, h, w)
+    nc = knn(pos, cluster_mean_pos, nnc).expand(b, n, nnc).contiguous()
+    pos = pos.expand(b, n, 2).contiguous()
+    ctx = {"global": False, "pos": pos, "nc": nc, "span": m}
+    if torch.is_grad_enabled() and use_kernel(pos, nc):
+        ctx["reverse"] = build_reverse_lists(nc, n, m)
+    return ctx, pos, pos_ranking[..., 0].long().expand(b, n)
+
+
 class BasicLayer(nn.Module):
     """One AFF stage: cluster -> neighbour clusters -> blocks -> downsample."""
 
@@ -156,25 +182,10 @@ class BasicLayer(nn.Module):
 
     def forward(self, pos, feat, h: int, w: int, stride: int):
         b, n, _ = feat.shape
-        m = self.cluster_size
-        if self.nbhd_size >= n:
-            ctx = {"global": True,
-                   "rel_feat5": rel_pos_features(pos[:, None, :, :] - pos[:, :, None, :])}
-            pos = pos.expand(b, n, 2)
-            nc = span = None
-        else:
-            # n > nbhd_size >= cluster_size, so there are fewer clusters than tokens
-            span = m
-            nnc = min(int(round(self.nbhd_size / float(m))), int(math.ceil(n / float(m))))
-            pos, cluster_mean_pos, _, _, pos_ranking = space_filling_cluster(pos, m, h, w)
-            feat = take_rows(feat, pos_ranking[..., 0].expand(b, n))
-            nc = knn(pos, cluster_mean_pos, nnc).expand(b, n, nnc).contiguous()
-            pos = pos.expand(b, n, 2).contiguous()
-            ctx = {"global": False, "pos": pos, "nc": nc, "span": span}
-            if torch.is_grad_enabled() and use_kernel(pos, nc):
-                # the backward kernels' reverse lists depend on nc alone:
-                # built once here for all the stage's blocks
-                ctx["reverse"] = build_reverse_lists(nc, n, span)
+        ctx, pos, rank = attention_context(pos, b, self.cluster_size, self.nbhd_size, h, w)
+        if rank is not None:
+            feat = take_rows(feat, rank)
+        nc, span = ctx.get("nc"), ctx.get("span")
 
         for blk in self.blocks:
             feat = blk(feat, ctx)

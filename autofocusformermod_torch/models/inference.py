@@ -12,7 +12,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .maskformer import MaskFormer, semantic_inference, upsample_masks
+from .maskformer import semantic_inference, upsample_masks
 
 
 def sem_seg_postprocess(result: torch.Tensor, img_hw: Tuple[int, int],
@@ -30,9 +30,11 @@ class SemanticPredictor:
 
     Pads to the size divisibility, then normalize -> forward ->
     upsample_masks -> semantic_inference -> argmax on the model's device,
-    and crops the padding off again."""
+    and crops the padding off again.  The model is a MaskFormer or a
+    MaskFiner (``models/registry.py:build_model``; ``size_divisibility``
+    gives the padding each needs)."""
 
-    def __init__(self, model: MaskFormer, size_divisibility: int = 32):
+    def __init__(self, model: nn.Module, size_divisibility: int = 32):
         self.model = model.eval()
         self.div = size_divisibility
         self.device = next(model.parameters()).device

@@ -1,0 +1,347 @@
+"""MaskFiner: cascaded mixed-resolution mask prediction.
+
+Counterpart of ``autofocusformermod_tpu/models/maskfiner.py`` for the base
+cascade's semantic inference.  Each stage is a ``MaskPredictor`` -- a MixRes
+backbone (``models/mixres.py``), a point-cloud deformable pixel decoder and a
+masked transformer decoder -- and hands the next stage its features, their
+(scale, x, y) positions and the decoder's per-token disagreement, from which
+the next backbone picks the tokens to split.
+
+The pixel decoder reuses ``models/pixel_decoder.py``'s encoder layers (the
+``msdetrpc`` kernels on CUDA) with every level on the min-patch canvas; the
+decoder reuses ``models/transformer_decoder.py``'s attention layers.  Its
+attention masks and rasterized masks Shepard-upsample the mask logits from
+the mask features' positions; the neighbours and weights of each pair of
+point sets are found once per forward (``shepard_neighbours``) where the
+JAX module calls ``upsample_feature_shepard`` in every round and leaves the
+repeats to XLA.  Ported: the ``relu`` pixel decoder without HierUp, and the
+decoder without dense mask features and without concatenated levels; the
+OracleTeacher, HierUp, Cat and Proj variants, ConvNeXtV2 stages and the
+eval-time dynamic split ratios raise (ROADMAP.md section 1).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import torch
+from torch import nn
+
+from ..geometry.knn import knn
+from ..geometry.rasterize import point2img
+from ..geometry.shepard import shepard_neighbours, upsample_feature_shepard
+from ..ops.clusten import weighted_gather
+from .layers import position_embedding_sine
+from .mixres import mixres_stage_from_config
+from .pixel_decoder import MSDeformAttnPixelDecoder, pack_neighbor_table, raster_grid, scale_pos
+from .transformer_decoder import MultiScaleMaskedTransformerDecoder
+
+
+def fix_pos_no_bias(pos: torch.Tensor, current_ss, finest_ss) -> torch.Tensor:
+    """Centre coarse-scale token positions within their footprint on the
+    finest canvas."""
+    sh = (finest_ss[0] / current_ss[0]) / 2 - 0.5
+    sw = (finest_ss[1] / current_ss[1]) / 2 - 0.5
+    return pos + torch.tensor([sw, sh], dtype=pos.dtype, device=pos.device)
+
+
+def attention_mask(logits: torch.Tensor) -> torch.Tensor:
+    """Where a query may not attend: sigmoid(logit) < 0.5 (True = blocked)."""
+    return torch.sigmoid(logits) < 0.5
+
+
+def predicted_classes(outputs_class: torch.Tensor) -> torch.Tensor:
+    """Each query's class (b, q, nc+1) -> (b, q), ties to the lower index."""
+    return torch.argmax(outputs_class, dim=-1)
+
+
+def gini_terms(outputs_mask: torch.Tensor, classes: torch.Tensor, ncp1: int):
+    """The parts of ``gini_disagreement`` for queries voting ``classes`` (b,
+    q) among ncp1: (each class's summed mask logits (b, nc+1, n), zero for
+    a class no query votes; the mean of the present classes' sigmoids (b,
+    n); their mean absolute difference over all pairs (b, n))."""
+    onehot = nn.functional.one_hot(classes, ncp1).to(outputs_mask.dtype)
+    per_class = torch.einsum("bqn,bqc->bcn", outputs_mask, onehot)          # (b, nc+1, n)
+    x = torch.sigmoid(per_class)
+    pm = (onehot.amax(dim=1) > 0).to(x.dtype)[:, :, None]                  # present classes
+    cnt = torch.clamp(pm.sum(dim=1), min=1.0)                                # (b, 1)
+    mean = (x * pm).sum(dim=1) / cnt
+    diff = (x[:, :, None, :] - x[:, None, :, :]).abs()                      # (b, c, c, n)
+    mad = (diff * (pm[:, :, None, :] * pm[:, None, :, :])).sum(dim=(1, 2))
+    return per_class, mean, mad / torch.clamp(cnt * cnt, min=1.0)
+
+
+def gini_disagreement(outputs_mask: torch.Tensor, outputs_class: torch.Tensor) -> torch.Tensor:
+    """Token-level disagreement that drives the next stage's split: the Gini
+    impurity of the sigmoids of each present class's summed mask logits.
+    outputs_mask: (b, q, n); outputs_class: (b, q, nc+1) -> (b, n)."""
+    _, mean, mad = gini_terms(outputs_mask, predicted_classes(outputs_class),
+                              outputs_class.shape[-1])
+    return 0.5 * mad / torch.clamp(mean, min=1e-6)
+
+
+class MaskFinerPixelDecoder(MSDeformAttnPixelDecoder):
+    """One stage's pixel decoder: per-level Linear+LN projections, deformable
+    encoder layers over the transformer levels, then the extra FPN levels
+    (Shepard upsample + the knn PointConv); every position is centred on the
+    min-patch canvas (``fix_pos_no_bias``).  The mask features are the
+    concatenation of all levels.  forward(features) -> (mask_features,
+    mf_pos, levels, level positions (uncentred), level scales, min canvas,
+    level canvases), levels coarse to fine.  Parameters as
+    ``pixel_decoder.MSDeformAttnPixelDecoder``'s, with an FPN level for each
+    of ``in_features`` that is not a transformer level."""
+
+    def __init__(self, feature_channels: Dict[str, int], in_features: Sequence[str],
+                 transformer_in_features: Sequence[str], conv_dim: int = 256,
+                 mask_dim: int = 256, transformer_nheads: int = 8,
+                 transformer_dim_feedforward: int = 1024, transformer_enc_layers: int = 6,
+                 n_points: int = 4, shepard_power: float = 3.0,
+                 shepard_power_learnable: bool = True):
+        super().__init__(feature_channels, in_features, transformer_in_features,
+                         conv_dim=conv_dim, mask_dim=mask_dim,
+                         transformer_nheads=transformer_nheads,
+                         transformer_dim_feedforward=transformer_dim_feedforward,
+                         transformer_enc_layers=transformer_enc_layers, n_points=n_points,
+                         shepard_power=shepard_power,
+                         shepard_power_learnable=shepard_power_learnable,
+                         num_fpn_levels=len(in_features) - len(transformer_in_features))
+
+    def forward(self, features: Dict):
+        min_ss = features["min_spatial_shape"]
+        b = features[self.in_features[0]].shape[0]
+        grid = raster_grid(min_ss, b, features[self.in_features[0]].device)
+
+        srcs, poss, scales, fixed_poss, pos_embed, nb_packed = [], [], [], [], [], []
+        for idx, f in enumerate(self.transformer_in_features[::-1]):      # coarse first
+            pos = features[f + "_pos"].float()
+            fixed = fix_pos_no_bias(pos, features[f + "_spatial_shape"], min_ss)
+            srcs.append(self.input_proj[idx](features[f]))
+            poss.append(pos)
+            scales.append(features[f + "_scale"].float())
+            fixed_poss.append(fixed)
+            pos_embed.append(position_embedding_sine(fixed, self.conv_dim // 2))
+            nb_packed.append(pack_neighbor_table(knn(grid, fixed, 4), fixed))
+        lvl_pos = [pe + self.transformer.level_embed[i][None, None]
+                   for i, pe in enumerate(pos_embed)]
+        # every level on the min-patch canvas
+        span_shapes = [min_ss] * (len(srcs) + 1)
+        out = srcs
+        for layer in self.transformer.encoder.layers:
+            out = layer(out, fixed_poss, span_shapes, lvl_pos, nb_packed)
+        out = list(out)
+
+        for idx, f in enumerate(self.in_features[:self.num_fpn_levels][::-1]):
+            pos = features[f + "_pos"].float()
+            fixed = fix_pos_no_bias(pos, features[f + "_spatial_shape"], min_ss)
+            poss.append(pos)
+            scales.append(features[f + "_scale"].float())
+            y = getattr(self, f"adapter_{idx + 1}")(features[f])
+            y = y + upsample_feature_shepard(fixed, fixed_poss[-1], out[-1])
+            conv, norm = getattr(self, f"layer_{idx + 1}")
+            out.append(torch.relu(norm(conv(y, fixed))))
+            fixed_poss.append(fixed)
+
+        mask_features = self.mask_features(torch.cat(out, dim=1))
+        input_shapes = [features[f + "_spatial_shape"] for f in self.in_features[::-1]]
+        return (mask_features, torch.cat(fixed_poss, dim=1), out, poss, scales, min_ss,
+                input_shapes)
+
+
+class MaskFinerTransformerDecoder(MultiScaleMaskedTransformerDecoder):
+    """One stage's masked transformer decoder: rounds of cross-attention
+    (cycling over the stage's ``num_feature_levels`` levels), self-attention
+    and FFN, with the prediction heads before the first round and after
+    each.  Mask logits live at the mask features' positions; they are
+    rasterized on the finest level's grid and, for the attention masks,
+    upsampled to the next level's token positions.  The last round's masks
+    give the stage's disagreement (``gini_disagreement``).  A stage whose
+    one level is the mask features itself attends unmasked.  Parameters as
+    ``MultiScaleMaskedTransformerDecoder``'s; ``final_layer``: the last
+    stage, whose last round is the cascade's prediction."""
+
+    def __init__(self, *args, final_layer: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.final_layer = final_layer
+
+    def _prediction_heads(self, output, mask_features, to_level):
+        """-> (class logits (b, q, nc+1), mask logits (b, q, n_mf), attention
+        mask (b, heads, q, n_level) or None); to_level: the Shepard
+        neighbours from the next level's tokens to the mask features."""
+        dec = self.decoder_norm(output)
+        outputs_class = self.class_embed(dec)
+        outputs_mask = torch.einsum("bqc,bnc->bqn", self.mask_embed(dec), mask_features)
+        if to_level is None:
+            return outputs_class, outputs_mask, None
+        am = attention_mask(weighted_gather(*to_level, outputs_mask.transpose(1, 2)).transpose(1, 2))
+        return outputs_class, outputs_mask, am[:, None].expand(am.shape[0], self.nheads,
+                                                               *am.shape[1:])
+
+    def forward(self, x: List, pos: List, mask_features, mf_pos, finest_input_shape,
+                input_shapes):
+        finest_feat_shape = input_shapes[-1]
+        nl = self.num_feature_levels
+        x, pos, shapes = x[:nl], pos[:nl], input_shapes[:nl]
+        b = x[0].shape[0]
+        masked = not (len(pos) == 1 and pos[0].shape == mf_pos.shape)
+        mf_pos_scaled = scale_pos(mf_pos, finest_input_shape, finest_feat_shape)
+        poss_scaled = [scale_pos(fix_pos_no_bias(p, s, finest_input_shape), finest_input_shape,
+                                 finest_feat_shape) for p, s in zip(pos, shapes)]
+        finest_pos = raster_grid(finest_feat_shape, b, mf_pos.device)
+        # the Shepard neighbours of every level's tokens and of the finest
+        # grid among the mask features, once for all rounds
+        to_levels = ([shepard_neighbours(p, mf_pos_scaled) for p in poss_scaled] if masked
+                     else [None] * nl)
+        to_grid = shepard_neighbours(finest_pos, mf_pos_scaled)
+
+        def rasterize(pred_mask):
+            up = weighted_gather(*to_grid, pred_mask.transpose(1, 2)).transpose(1, 2)
+            return point2img(up, finest_pos, finest_feat_shape)
+
+        hidden = self.query_feat.weight.shape[1]
+        src, pos_emb = [], []
+        for i in range(nl):
+            pos_emb.append(position_embedding_sine(poss_scaled[i], hidden // 2))
+            s = self.input_proj[i](x[i]) if self.has_input_proj else x[i]
+            src.append(s + self.level_embed.weight[i][None, None, :])
+        query_embed = self.query_embed.weight[None].expand(b, -1, -1)
+        output = self.query_feat.weight[None].expand(b, -1, -1)
+
+        preds_class, preds_mask = [], []
+        outputs_class, pred_mask, attn_mask = self._prediction_heads(output, mask_features,
+                                                                     to_levels[0])
+        preds_class.append(outputs_class)
+        preds_mask.append(rasterize(pred_mask))
+        for i, (cross, self_attn, ffn) in enumerate(zip(
+                self.transformer_cross_attention_layers,
+                self.transformer_self_attention_layers, self.transformer_ffn_layers)):
+            level = i % nl
+            if attn_mask is not None:
+                attn_mask = attn_mask & ~attn_mask.all(dim=-1, keepdim=True)
+            output = cross(output, src[level], attn_mask, pos_emb[level], query_embed)
+            output = ffn(self_attn(output, query_embed))
+            outputs_class, pred_mask, attn_mask = self._prediction_heads(
+                output, mask_features, to_levels[(i + 1) % nl])
+            preds_class.append(outputs_class)
+            preds_mask.append(rasterize(pred_mask))
+
+        disagreement = gini_disagreement(pred_mask, outputs_class)
+        aux = tuple({"pred_logits": a, "pred_masks": m} for a, m in zip(preds_class, preds_mask))
+        if self.final_layer:
+            return {"pred_logits": preds_class[-1], "pred_masks": preds_mask[-1],
+                    "aux_outputs": aux[:-1]}, disagreement
+        # earlier stages supervise every round as aux outputs
+        return {"aux_outputs": aux}, disagreement
+
+
+class MaskPredictor(nn.Module):
+    """One cascade stage: backbone -> pixel decoder -> mask decoder.
+    forward(im, features, features_pos, upsampling_mask, tokens_per_scale)
+    -> (predictions, the pixel decoder's levels concatenated, their (scale,
+    x, y), the disagreement, the levels' sizes)."""
+
+    def __init__(self, backbone: nn.Module, pixel_decoder: MaskFinerPixelDecoder,
+                 mask_decoder: MaskFinerTransformerDecoder):
+        super().__init__()
+        self.backbone = backbone
+        self.pixel_decoder = pixel_decoder
+        self.mask_decoder = mask_decoder
+
+    def forward(self, im, features, features_pos, upsampling_mask, tokens_per_scale):
+        feats, _ = self.backbone(im, features, features_pos, upsampling_mask, tokens_per_scale)
+        (mask_features, mf_pos, ms_feats, ms_poss, ms_scales, finest_input_shape,
+         input_shapes) = self.pixel_decoder(feats)
+        predictions, upsampling_mask = self.mask_decoder(
+            ms_feats, ms_poss, mask_features, mf_pos, finest_input_shape, input_shapes)
+        pos_scale = torch.cat([torch.cat(ms_scales, dim=1)[..., None], torch.cat(ms_poss, dim=1)],
+                              dim=2)
+        return (predictions, torch.cat(ms_feats, dim=1), pos_scale, upsampling_mask,
+                tuple(f.shape[1] for f in ms_feats))
+
+
+class MaskFiner(nn.Module):
+    """The cascade.  forward(raw NHWC RGB images, uint8 or float) ->
+    {'pred_logits' (b, q, nc+1), 'pred_masks' (b, q, H/p, W/p) with p the
+    last stage's patch size, 'aux_outputs' (every stage's rounds),
+    'disagreement_masks' (one per stage), 'features_pos' (the last stage's
+    (scale, x, y))}."""
+
+    def __init__(self, mask_predictors: Sequence[MaskPredictor],
+                 pixel_mean: Sequence[float] = (123.675, 116.28, 103.53),
+                 pixel_std: Sequence[float] = (58.395, 57.12, 57.375)):
+        super().__init__()
+        self.mask_predictors = nn.ModuleList(mask_predictors)
+        self.register_buffer("pixel_mean", torch.tensor(pixel_mean, dtype=torch.float32), False)
+        self.register_buffer("pixel_std", torch.tensor(pixel_std, dtype=torch.float32), False)
+
+    def normalize(self, images: torch.Tensor) -> torch.Tensor:
+        return (images.float() - self.pixel_mean) / self.pixel_std
+
+    def forward(self, images: torch.Tensor) -> Dict:
+        x = self.normalize(images)
+        features = features_pos = upsampling_mask = tokens_per_scale = None
+        aux, disagreements = (), []
+        for predictor in self.mask_predictors:
+            outs, features, features_pos, upsampling_mask, tokens_per_scale = predictor(
+                x, features, features_pos, upsampling_mask, tokens_per_scale)
+            disagreements.append(upsampling_mask)
+            aux = aux + tuple(outs["aux_outputs"])
+        return {"pred_logits": outs["pred_logits"], "pred_masks": outs["pred_masks"],
+                "aux_outputs": aux, "disagreement_masks": tuple(disagreements),
+                "features_pos": features_pos}
+
+
+def _refuse(cfg) -> None:
+    mfr, head = cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD
+    where = "(ROADMAP.md section 1)"
+    if head.NAME != "MaskPredictor":
+        raise NotImplementedError(f"cascade stage {head.NAME!r} is not ported {where}")
+    names = head.PIXEL_DECODER_NAME
+    for name in ([names] if isinstance(names, str) else names):
+        if name != "MSDeformAttnPixelDecoderMaskFiner":
+            raise NotImplementedError(f"pixel decoder {name!r} is not ported {where}")
+    if mfr.TRANSFORMER_DECODER_NAME != "MultiScaleMaskFinerTransformerDecoder":
+        raise NotImplementedError(f"decoder {mfr.TRANSFORMER_DECODER_NAME!r} is not ported {where}")
+    if mfr.PRE_NORM:
+        raise NotImplementedError(f"the pre-norm MaskFiner decoder is not ported {where}")
+    if mfr.MASK_DECODER_ALL_LEVELS:
+        raise NotImplementedError(f"MASK_DECODER_ALL_LEVELS is not ported {where}")
+    if head.DROPOUT:
+        raise NotImplementedError("the pixel decoder's dropout is not ported; the published "
+                                  "configs set MR_SEM_SEG_HEAD.DROPOUT 0")
+
+
+def maskfiner_from_config(cfg) -> MaskFiner:
+    """The cascade from a config (the JAX package's CfgNode or the preset
+    ``config.maskfiner_mini_cfg``): per stage li, the MixRes backbone, the
+    pixel decoder over the last li + 1 feature levels (all of them on the
+    last stage, whose finest ones are FPN levels) and the decoder."""
+    _refuse(cfg)
+    mr, mfr, head = cfg.MODEL.MR, cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD
+    n_stages, n_scales = len(mr.NAME), mfr.NUM_RESOLUTION_SCALES
+    all_in, all_trans = list(head.IN_FEATURES), list(head.DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES)
+    predictors = []
+    for li in range(n_stages):
+        final = li == n_stages - 1
+        in_features = all_in[-(li + 1):]
+        trans = all_trans if final else all_trans[len(all_trans) - li - 1:]
+        # stage li's backbone emits one scale s <= li each, as res{n_scales - s + 1},
+        # all of width EMBED_DIM[li]
+        channels = {f"res{n_scales - s + 1}": mr.EMBED_DIM[li] for s in range(li + 1)}
+        pixel_decoder = MaskFinerPixelDecoder(
+            channels, in_features, trans, conv_dim=head.CONVS_DIM[li], mask_dim=mfr.MASK_DIM[li],
+            transformer_nheads=head.NHEADS[li],
+            transformer_dim_feedforward=int(head.CONVS_DIM[li] * head.MLP_RATIO[li]),
+            transformer_enc_layers=head.TRANSFORMER_ENC_LAYERS[li],
+            # distances are squared, so halve the configured power
+            shepard_power=mfr.SHEPARD_POWER / 2.0,
+            shepard_power_learnable=mfr.SHEPARD_POWER_LEARNABLE)
+        mask_decoder = MaskFinerTransformerDecoder(
+            in_channels=head.CONVS_DIM[li], num_classes=head.NUM_CLASSES,
+            hidden_dim=mfr.HIDDEN_DIM[li], num_queries=mfr.NUM_OBJECT_QUERIES,
+            nheads=mfr.NHEADS[li], dim_feedforward=mfr.DIM_FEEDFORWARD[li],
+            dec_layers=mfr.DEC_LAYERS[li] - 1, mask_dim=mfr.MASK_DIM[li],
+            enforce_input_project=mfr.ENFORCE_INPUT_PROJ, num_feature_levels=mfr.DECODER_LEVELS[li],
+            final_layer=final)
+        predictors.append(MaskPredictor(mixres_stage_from_config(cfg, li), pixel_decoder,
+                                        mask_decoder))
+    return MaskFiner(predictors, tuple(cfg.MODEL.PIXEL_MEAN), tuple(cfg.MODEL.PIXEL_STD))

@@ -1,0 +1,342 @@
+"""MixRes backbones: the mixed-resolution token models of the MaskFiner
+cascade.
+
+Counterpart of ``autofocusformermod_tpu/models/mixres.py``:
+
+- ``MixResViT`` is cascade stage 0, a coarse global-attention ViT with an
+  overlapping conv patch embedding and depthwise-conv feed-forwards; its
+  tokens carry (scale, x, y) positions on the min-patch canvas;
+- ``MixResNeighbour`` is every later stage: the ``upscale_ratio`` share of
+  the newest scale's tokens that the previous stage's decoder disagreed on
+  most are split 4 ways (straight-through gradients), raw image pixels are
+  projected into the new tokens, and ``MixResLayer`` runs cluster attention
+  (``models/aff.py:ClusterTransformerBlock``, the ``local_attn`` kernel on
+  CUDA, ``knn`` for the clusters) over the mixed-scale point cloud.
+
+Tokens stay ordered by scale in contiguous segments whose lengths
+(``tokens_per_scale``) follow from the image size.  The global attention of
+stage 0 is a plain matrix product, as in the JAX package (an einsum there,
+outside any Pallas kernel).  The XAttn variant (``cross_attend_image``),
+register tokens, the eval-time dynamic split ratios and a MixResNeighbour
+first stage are not ported and raise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.gather import take_rows
+from .aff import ClusterTransformerBlock, attention_context
+from .layers import Mlp, layer_norm, position_embedding_sine
+
+# flax's GroupNorm epsilon (torch's default is 1e-5)
+GN_EPS = 1e-6
+
+
+def get_2dpos_of_curr_ps_in_min_ps(height: int, width: int, patch_size: int,
+                                   min_patch_size: int, scale: int) -> np.ndarray:
+    """(scale, x, y) of a regular patch grid on the min-patch canvas, raster
+    order -> (n, 3) float32."""
+    step = patch_size // min_patch_size
+    gx, gy = np.meshgrid(np.arange(0, width // min_patch_size, step),
+                         np.arange(0, height // min_patch_size, step), indexing="xy")
+    coords = np.stack([gx.reshape(-1), gy.reshape(-1)], axis=1)
+    return np.concatenate([np.full((len(coords), 1), scale), coords], axis=1).astype(np.float32)
+
+
+def split_order(scores: torch.Tensor) -> torch.Tensor:
+    """Tokens by ascending disagreement, ties to the lower index (a stable
+    sort, as jnp.argsort): (b, n) -> (b, n) int64.  The last k are split, in
+    this order, which is the order of the next stage's new tokens."""
+    return torch.argsort(scores, dim=1, stable=True)
+
+
+class DownSampleConvBlock(nn.Module):
+    """Conv 3x3 stride 2 -> LeakyReLU(0.01) -> GroupNorm(1), NCHW."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_dim, out_dim, 3, stride=2, padding=1)
+        self.norm = nn.GroupNorm(1, out_dim, eps=GN_EPS)
+
+    def forward(self, x):
+        return self.norm(nn.functional.leaky_relu(self.conv(x), 0.01))
+
+
+class OverlapPatchEmbedding(nn.Module):
+    """log2(patch_size) stride-2 conv blocks, then LayerNorm; NHWC image ->
+    (b, h * w, embed_dim) tokens in raster order."""
+
+    def __init__(self, patch_size: int, embed_dim: int, in_dim: int = 3):
+        super().__init__()
+        n_layers = int(math.log2(patch_size))
+        dims = [in_dim] + [embed_dim // 2 ** (n_layers - 1 - i) for i in range(n_layers)]
+        self.conv = nn.ModuleList(DownSampleConvBlock(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.out_norm = layer_norm(embed_dim)
+
+    def forward(self, im):
+        x = im.permute(0, 3, 1, 2)
+        for block in self.conv:
+            x = block(x)
+        return self.out_norm(x.flatten(2).transpose(1, 2))
+
+
+class DWConvFFN(nn.Module):
+    """fc1 -> depthwise 3x3 conv on the token grid -> exact GELU -> fc2."""
+
+    def __init__(self, dim: int, hidden_dim: int, out_dim: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden_dim)
+        self.dwconv = nn.Conv2d(hidden_dim, hidden_dim, 3, padding=1, groups=hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, out_dim)
+
+    def forward(self, x, h: int, w: int):
+        b, n, _ = x.shape
+        x = self.fc1(x)
+        x = self.dwconv(x.transpose(1, 2).reshape(b, -1, h, w)).flatten(2).transpose(1, 2)
+        return self.fc2(nn.functional.gelu(x))
+
+
+class ViTBlock(nn.Module):
+    """Pre-LN global attention + DWConv feed-forward."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_dim: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.norm1 = layer_norm(dim)
+        self.attn_qkv = nn.Linear(dim, 3 * dim)
+        self.attn_proj = nn.Linear(dim, dim)
+        self.norm2 = layer_norm(dim)
+        self.mlp = DWConvFFN(dim, mlp_dim, dim)
+
+    def forward(self, x, h: int, w: int):
+        b, n, c = x.shape
+        hh = self.num_heads
+        c_ = c // hh
+        qkv = self.attn_qkv(self.norm1(x)).reshape(b, n, 3, hh, c_).permute(2, 0, 3, 1, 4)
+        attn = torch.softmax(torch.matmul(qkv[0] * c_ ** -0.5, qkv[1].transpose(-1, -2)), dim=-1)
+        y = torch.matmul(attn, qkv[2]).transpose(1, 2).reshape(b, n, c)
+        x = x + self.attn_proj(y)
+        return x + self.mlp(self.norm2(x), h, w)
+
+
+class MixResViT(nn.Module):
+    """Cascade stage 0.  forward(im, ...) -> (outs, tokens_per_scale) with
+    outs {res{n_scales+1}: feat, _pos: (x, y), _scale, _spatial_shape,
+    min_spatial_shape}."""
+
+    def __init__(self, scale: int, n_scales: int, patch_size: int, min_patch_size: int,
+                 d_model: int, n_layers: int, n_heads: int, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.scale, self.n_scales = scale, n_scales
+        self.patch_size, self.min_patch_size, self.d_model = patch_size, min_patch_size, d_model
+        self.patch_embed = OverlapPatchEmbedding(patch_size, d_model)
+        self.blocks = nn.ModuleList(ViTBlock(d_model, n_heads, int(d_model * mlp_ratio))
+                                    for _ in range(n_layers))
+        self.norm_out = layer_norm(d_model)
+
+    def forward(self, im, features=None, features_pos=None, upsampling_mask=None,
+                tokens_per_scale=None):
+        b, H, W, _ = im.shape
+        patched = (H // self.patch_size, W // self.patch_size)
+        x = self.patch_embed(im)
+        pos_np = get_2dpos_of_curr_ps_in_min_ps(H, W, self.patch_size, self.min_patch_size,
+                                                self.scale)
+        pos = torch.from_numpy(pos_np).to(im.device)[None].expand(b, -1, 3)
+        x = x + position_embedding_sine(pos[:, :, 1:], self.d_model // 2)
+        for blk in self.blocks:
+            x = blk(x, *patched)
+        out = f"res{self.n_scales + 1}"
+        outs = {out: self.norm_out(x), out + "_pos": pos[:, :, 1:],
+                out + "_spatial_shape": patched, out + "_scale": pos[:, :, 0],
+                "min_spatial_shape": (H // self.min_patch_size, W // self.min_patch_size)}
+        return outs, (pos_np.shape[0],)
+
+
+class MixResLayer(nn.Module):
+    """Cluster-attention blocks over a mixed-scale point cloud: cluster on
+    (x, y) along the space-filling curve, find each token's nearest clusters,
+    run the blocks, then restore the incoming (scale-segment) token order."""
+
+    def __init__(self, dim: int, cluster_size: int, nbhd_size: int, depth: int, num_heads: int,
+                 mlp_ratio: float, drop_path: Sequence[float] = (), layer_scale: float = 0.0):
+        super().__init__()
+        self.cluster_size, self.nbhd_size = cluster_size, nbhd_size
+        drop_path = tuple(drop_path) or (0.0,) * depth
+        self.blocks = nn.ModuleList(
+            ClusterTransformerBlock(dim, num_heads, mlp_ratio, drop_path[i], layer_scale)
+            for i in range(depth))
+
+    def forward(self, pos, feat, h: int, w: int):
+        """pos: (b, n, 3) (scale, x, y); feat: (b, n, c) -> feat in the same
+        token order."""
+        b, n, _ = pos.shape
+        ctx, _, rank = attention_context(pos[:, :, 1:], b, self.cluster_size, self.nbhd_size,
+                                         h, w)
+        if rank is not None:
+            feat = take_rows(feat, rank)
+        for blk in self.blocks:
+            feat = blk(feat, ctx)
+        if rank is None:
+            return feat
+        inv = torch.empty_like(rank).scatter_(1, rank, torch.arange(n, device=rank.device)
+                                              .expand(b, n))
+        return take_rows(feat, inv)
+
+
+class MixResNeighbour(nn.Module):
+    """Cascade stages >= 1: split the newest scale's most disagreed-on tokens
+    4 ways, add raw image features to the new tokens, run ``MixResLayer``.
+    forward(im, features, features_pos, upsampling_mask, tokens_per_scale)
+    -> (outs, tokens_per_scale), one res{n_scales - s + 1} entry per scale
+    segment s."""
+
+    def __init__(self, scale: int, n_scales: int, patch_sizes: Sequence[int],
+                 min_patch_size: int, d_model: int, n_layers: int, n_heads: int,
+                 cluster_size: int = 8, nbhd_size: int = 48, mlp_ratio: float = 4.0,
+                 split_ratio: int = 4, upscale_ratio: float = 0.25,
+                 drop_path: Sequence[float] = (), layer_scale: float = 0.0,
+                 in_channels: int = 256, keep_old_scale: bool = True):
+        super().__init__()
+        self.scale, self.n_scales = scale, n_scales
+        self.patch_sizes, self.min_patch_size = tuple(patch_sizes), min_patch_size
+        self.split_ratio, self.upscale_ratio = split_ratio, upscale_ratio
+        self.keep_old_scale = keep_old_scale
+        self.rel_pos_emb = nn.Parameter(0.02 * torch.randn(1, 1, split_ratio, in_channels))
+        self.scale_emb = nn.Parameter(0.02 * torch.randn(1, 1, 1, in_channels))
+        ps = self.patch_sizes[scale]
+        input_dim = max(in_channels, 3 * ps * ps)
+        self.image_patch_projection = nn.Linear(3 * ps * ps, input_dim)
+        self.high_res_norm1 = layer_norm(input_dim)
+        self.high_res_mlp = Mlp(input_dim, in_channels, in_channels)
+        self.high_res_norm2 = layer_norm(in_channels)
+        self.token_norm = layer_norm(in_channels)
+        self.token_projection = (nn.Linear(in_channels, d_model) if in_channels != d_model
+                                 else None)
+        self.layers = MixResLayer(d_model, cluster_size, nbhd_size, n_layers, n_heads, mlp_ratio,
+                                  drop_path, layer_scale)
+        self.norm_out = layer_norm(d_model)
+
+    def _split_tokens(self, feat, pos, scores, k_split: int):
+        """The top k_split tokens by score to split (ascending order) and the
+        rest to keep; the softmaxed scores ride along as straight-through
+        factors (1 in value, their gradient reaches the scores)."""
+        n = feat.shape[1]
+        order = split_order(scores)
+        top, bottom = order[:, n - k_split:], order[:, :n - k_split]
+        soft = torch.softmax(scores, dim=1)
+        ste = (soft - soft.detach())[..., None]
+        return (take_rows(feat * (1.0 + ste), top), take_rows(pos, top),
+                take_rows(feat * (1.0 - ste), bottom), take_rows(pos, bottom))
+
+    def _split_pos(self, pos_to_split):
+        """(b, k, 3) -> (b, 4k, 3): each token's four children at offsets
+        (0, 0), (r, 0), (0, r), (r, r) with r = 2^(n_scales - scale - 1)."""
+        r = 2 ** (self.n_scales - self.scale - 1)
+        x, y = pos_to_split[:, :, 1], pos_to_split[:, :, 2]
+        children = torch.stack([torch.stack([x, y], -1), torch.stack([x + r, y], -1),
+                                torch.stack([x, y + r], -1), torch.stack([x + r, y + r], -1)],
+                               dim=2)
+        b, k = x.shape
+        sc = children.new_full((b, 4 * k, 1), float(self.scale))
+        return torch.cat([sc, children.reshape(b, 4 * k, 2)], dim=2)
+
+    def _add_high_res_feat(self, tokens, pos_xy, im):
+        """Project the raw image patch under each new token (its ps x ps
+        pixels, ordered (dy, dx, rgb), clamped into the image) into its
+        feature."""
+        b, n, _ = pos_xy.shape
+        ps = self.patch_sizes[self.scale]
+        H, W = im.shape[1:3]
+        dy, dx = np.meshgrid(np.arange(ps), np.arange(ps), indexing="ij")
+        offs = torch.from_numpy(np.stack([dx.reshape(-1), dy.reshape(-1)], 1).astype(np.float32))
+        pp = pos_xy[:, :, None, :] * self.min_patch_size + offs.to(im.device)   # (b, n, ps^2, 2)
+        xg = torch.clamp(pp[..., 0].long(), 0, W - 1)
+        yg = torch.clamp(pp[..., 1].long(), 0, H - 1)
+        vals = take_rows(im.reshape(b, H * W, 3), (yg * W + xg).reshape(b, -1))
+        y = nn.functional.gelu(self.image_patch_projection(vals.reshape(b, n, ps * ps * 3)))
+        return tokens + self.high_res_norm2(self.high_res_mlp(self.high_res_norm1(y)))
+
+    def forward(self, im, features, features_pos, upsampling_mask, tokens_per_scale):
+        b, H, W, _ = im.shape
+        min_patched = (H // self.min_patch_size, W // self.min_patch_size)
+        n_curr = tokens_per_scale[-1]
+        n_old = sum(tokens_per_scale[:-1])
+        # the disagreement covers the whole stream (the MaskFiner decoder's)
+        # or only the newest scale
+        scores = upsampling_mask if upsampling_mask.shape[1] == n_curr \
+            else upsampling_mask[:, n_old:]
+        k_split = min(max(1, int(n_curr * self.upscale_ratio)), n_curr)
+        tok_split, pos_split, tok_keep, pos_keep = self._split_tokens(
+            features[:, n_old:], features_pos[:, n_old:], scores, k_split)
+
+        up_feat = tok_split[:, :, None, :] + self.rel_pos_emb + self.scale_emb
+        up_feat = up_feat.reshape(b, k_split * self.split_ratio, -1)
+        up_pos = self._split_pos(pos_split)
+        up_feat = self._add_high_res_feat(up_feat, up_pos[:, :, 1:], im)
+
+        feat_old, pos_old = features[:, :n_old], features_pos[:, :n_old]
+        if self.keep_old_scale:
+            x = torch.cat([feat_old, tok_keep, tok_split, up_feat], dim=1)
+            pos = torch.cat([pos_old, pos_keep, pos_split, up_pos], dim=1)
+            tps = tuple(tokens_per_scale[:-1]) + (n_curr, k_split * self.split_ratio)
+        else:
+            x = torch.cat([feat_old, tok_keep, up_feat], dim=1)
+            pos = torch.cat([pos_old, pos_keep, up_pos], dim=1)
+            tps = tuple(tokens_per_scale[:-1]) + (n_curr - k_split, k_split * self.split_ratio)
+        x = self.token_norm(x)
+        if self.token_projection is not None:
+            x = self.token_projection(x)
+        x = self.norm_out(self.layers(pos, x, *min_patched))
+
+        outs: Dict = {"min_spatial_shape": min_patched}
+        start = 0
+        for s, cnt in enumerate(tps):
+            out = f"res{self.n_scales - s + 1}"
+            outs[out] = x[:, start:start + cnt]
+            outs[out + "_pos"] = pos[:, start:start + cnt, 1:]
+            outs[out + "_scale"] = pos[:, start:start + cnt, 0]
+            outs[out + "_spatial_shape"] = (H // self.patch_sizes[s], W // self.patch_sizes[s])
+            start += cnt
+        return outs, tps
+
+
+def mixres_stage_from_config(cfg, li: int) -> nn.Module:
+    """Cascade stage li's backbone from MODEL.MR (the JAX package's
+    ``build_backbone_indexed``): MixResViT at stage 0, MixResNeighbour after."""
+    mr = cfg.MODEL.MR
+    n_scales = cfg.MODEL.MASK_FINER.NUM_RESOLUTION_SCALES
+    name = mr.NAME[li]
+    if getattr(mr, "NUM_REGISTER_TOKENS", 0):
+        raise NotImplementedError("MixRes register tokens are not ported (ROADMAP.md section 1)")
+    if any(mr.DROP_RATE) or any(mr.ATTN_DROP_RATE):
+        raise NotImplementedError("MixRes dropout is not ported; the published configs set 0")
+    # a scalar DROP_PATH_RATE is the end of one ramp over the whole depth; a
+    # per-stage list gives stage li its own end on that ramp (the JAX rule)
+    rate = mr.DROP_PATH_RATE
+    max_rate = float(rate[li]) if isinstance(rate, (list, tuple)) else float(rate)
+    dpr = np.linspace(0, max_rate, sum(mr.DEPTHS))
+    lo = sum(mr.DEPTHS[:li])
+    drop_path = tuple(float(d) for d in dpr[lo:lo + mr.DEPTHS[li]])
+    common = dict(scale=li, n_scales=n_scales, min_patch_size=mr.PATCH_SIZES[n_scales - 1],
+                  d_model=mr.EMBED_DIM[li], n_layers=mr.DEPTHS[li], n_heads=mr.NUM_HEADS[li],
+                  mlp_ratio=mr.MLP_RATIO[li])
+    if name == "MixResViT" and li == 0:
+        if any(drop_path) or mr.LAYER_SCALE:
+            raise NotImplementedError("MixResViT is ported without DropPath and layer scale")
+        return MixResViT(patch_size=mr.PATCH_SIZES[li], **common)
+    if name == "MixResNeighbour" and li > 0:
+        return MixResNeighbour(
+            patch_sizes=tuple(mr.PATCH_SIZES[:li + 1]), cluster_size=mr.CLUSTER_SIZE[li],
+            nbhd_size=mr.NBHD_SIZE[li], split_ratio=mr.SPLIT_RATIO[li],
+            upscale_ratio=mr.UPSCALE_RATIO[li], drop_path=drop_path, layer_scale=mr.LAYER_SCALE,
+            in_channels=cfg.MODEL.MR_SEM_SEG_HEAD.CONVS_DIM[li - 1],
+            keep_old_scale=mr.KEEP_OLD_SCALE, **common)
+    raise NotImplementedError(
+        f"cascade stage {li} backbone {name!r} is not ported: MixResViT first, MixResNeighbour "
+        "after (XAttn, ConvNeXtV2 and the other variants wait; ROADMAP.md section 1)")

@@ -28,7 +28,7 @@ from __future__ import annotations
 import functools
 import math
 import os
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,7 +38,7 @@ from ..geometry.gridnn import lex_sort, pos_index_lut
 from ..geometry.knn import knn
 from ..geometry.morton import is_pow2, morton_perm, morton_rank
 from ..geometry.shepard import shepard_decay_weights, upsample_feature_shepard
-from ..ops.clusten import msdetrpc
+from ..ops.clusten import cluster_wf, msdetrpc
 from ..ops.gather import take_rows, take_scalars
 from ..ops.msdetrpc import msdetrpc_bh, msdetrpc_levels, msdetrpc_levels_s, msdetrpc_levels_t
 from ..ops.window_gather import windowed_row_gather
@@ -136,11 +136,15 @@ class PointConv(nn.Module):
         self.norm = layer_norm(inner_ch * in_dim)
         self.linear = nn.Linear(inner_ch * in_dim, out_dim)
 
-    def forward(self, x, pos, spatial_shape):
-        """Full-grid tokens (the FPN level covers its grid): interior cells mix
-        their 3x3 neighbourhood with nine constant weight vectors (nine shifted
-        adds in raster order); border cells take their exact 9-NN, ties by
-        lowest token index."""
+    def forward(self, x, pos, spatial_shape=None):
+        """With ``spatial_shape``, full-grid tokens (the FPN level covers its
+        grid): interior cells mix their 3x3 neighbourhood with nine constant
+        weight vectors (nine shifted adds in raster order); border cells take
+        their exact 9-NN, ties by lowest token index.  Without it, any point
+        cloud: each token's min(9, n) nearest tokens (``knn``), weights from
+        their truncated offsets."""
+        if spatial_shape is None:
+            return self._knn_route(x, pos)
         b, n, c = x.shape
         h_, w_ = int(spatial_shape[0]), int(spatial_shape[1])
         if n != h_ * w_ or h_ < 3 or w_ < 3:
@@ -178,6 +182,14 @@ class PointConv(nn.Module):
 
         cell = pos[..., 1].long() * w_ + pos[..., 0].long()           # raster -> token order
         feat = take_rows(acc.reshape(b, n, -1), cell)
+        return self.linear(self.norm(feat))
+
+    def _knn_route(self, x, pos):
+        b, n, _ = x.shape
+        nn_idx = knn(pos, pos, min(9, n))
+        rel = torch.trunc(pos[:, :, None, :] - take_rows(pos, nn_idx))   # as the reference's .long()
+        weights = self.weight_net(rel_pos_features(rel))                 # (b, n, k, ic)
+        feat = cluster_wf(weights, x, nn_idx).reshape(b, n, -1)
         return self.linear(self.norm(feat))
 
 
@@ -405,9 +417,24 @@ class MSDeformAttnEncoderLayerPc(nn.Module):
         return outs
 
 
+def raster_grid(shape, b: int, dev) -> torch.Tensor:
+    """(x, y) of every cell of an h x w grid in raster order -> (b, h*w, 2)."""
+    ys, xs = np.meshgrid(np.arange(shape[0]), np.arange(shape[1]), indexing="ij")
+    grid = torch.from_numpy(np.stack([xs, ys], 2).reshape(1, -1, 2).astype(np.float32)).to(dev)
+    return grid.expand(b, grid.shape[1], 2)
+
+
 class MSDeformAttnPixelDecoder(nn.Module):
     """The point-cloud pixel decoder.  forward(features) -> (mask_features,
-    mf_pos, transformer_out[0], multi_scale_features, poss[:3])."""
+    mf_pos, transformer_out[0], multi_scale_features, poss[:3]).
+
+    Parameters, under the names the weights bridge gives them: per
+    transformer level (coarse first) a Linear+LN input projection,
+    ``transformer.level_embed`` and the encoder layers, per FPN level (the
+    finest ``num_fpn_levels`` of ``in_features``, coarse first; by default
+    those between the finest transformer level's stride and
+    ``common_stride``) an adapter and a PointConv + LN, and the mask
+    features' Linear."""
 
     def __init__(self, feature_channels: Dict[str, int],
                  in_features: Sequence[str] = ("res2", "res3", "res4", "res5"),
@@ -416,12 +443,19 @@ class MSDeformAttnPixelDecoder(nn.Module):
                  mask_dim: int = 256, transformer_nheads: int = 8,
                  transformer_dim_feedforward: int = 1024, transformer_enc_layers: int = 6,
                  common_stride: int = 4, n_points: int = 4, shepard_power: float = 3.0,
-                 shepard_power_learnable: bool = True, maskformer_num_feature_levels: int = 3):
+                 shepard_power_learnable: bool = True, maskformer_num_feature_levels: int = 3,
+                 num_fpn_levels: Optional[int] = None):
         super().__init__()
+        self.maskformer_num_feature_levels = maskformer_num_feature_levels
+        if num_fpn_levels is None:
+            strides = dict(zip(in_features, feature_strides))
+            num_fpn_levels = int(math.log2(min(strides[f] for f in transformer_in_features))
+                                 - math.log2(common_stride))
         self.in_features = tuple(in_features)
         self.transformer_in_features = tuple(transformer_in_features)
-        self.maskformer_num_feature_levels = maskformer_num_feature_levels
-        num_levels = len(transformer_in_features)
+        self.num_fpn_levels = num_fpn_levels
+        self.conv_dim = conv_dim
+        num_levels = len(self.transformer_in_features)
         self.input_proj = nn.ModuleList(
             nn.Sequential(nn.Linear(feature_channels[f], conv_dim), layer_norm(conv_dim))
             for f in self.transformer_in_features[::-1])
@@ -433,27 +467,18 @@ class MSDeformAttnPixelDecoder(nn.Module):
                                        transformer_nheads, n_points, shepard_power,
                                        shepard_power_learnable)
             for _ in range(transformer_enc_layers))
-        strides = dict(zip(self.in_features, feature_strides))
-        self.num_fpn_levels = int(
-            math.log2(min(strides[f] for f in self.transformer_in_features))
-            - math.log2(common_stride))
-        for idx, f in enumerate(self.in_features[:self.num_fpn_levels][::-1]):
+        for idx, f in enumerate(self.in_features[:num_fpn_levels][::-1]):
             self.add_module(f"adapter_{idx + 1}", nn.Sequential(
                 nn.Linear(feature_channels[f], conv_dim), layer_norm(conv_dim)))
             self.add_module(f"layer_{idx + 1}", nn.Sequential(
                 PointConv(conv_dim, conv_dim), layer_norm(conv_dim)))
         self.mask_features = nn.Linear(conv_dim, mask_dim)
-        self.conv_dim = conv_dim
 
     def forward(self, features: Dict):
         finest = self.in_features[0]
         grid_hw = features[finest + "_spatial_shape"]
-        b = features[finest].shape[0]
         dev = features[finest].device
-        ys, xs = np.meshgrid(np.arange(grid_hw[0]), np.arange(grid_hw[1]), indexing="ij")
-        grid_pos = torch.from_numpy(
-            np.stack([xs, ys], 2).reshape(1, -1, 2).astype(np.float32)).to(dev)
-        grid_pos = grid_pos.expand(b, grid_pos.shape[1], 2)
+        grid_pos = raster_grid(grid_hw, features[finest].shape[0], dev)
 
         srcs, poss, pos_embed, spatial_shapes, nb_tables = [], [], [], [], []
         for idx, f in enumerate(self.transformer_in_features[::-1]):   # res5, res4, res3

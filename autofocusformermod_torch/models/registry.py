@@ -1,0 +1,33 @@
+"""Build the configured meta-architecture.
+
+Counterpart of ``autofocusformermod_tpu/models/registry.py:build_model``
+for the two ported ones: ``MaskFormer`` (AFF + Mask2Former) and
+``MaskFiner`` (the MixRes cascade).
+"""
+
+from __future__ import annotations
+
+from torch import nn
+
+from .maskfiner import maskfiner_from_config
+from .maskformer import maskformer_from_config
+
+META_ARCHITECTURES = {"MaskFormer": maskformer_from_config, "MaskFiner": maskfiner_from_config}
+
+
+def build_model(cfg) -> nn.Module:
+    """The model MODEL.META_ARCHITECTURE names (MaskFormer when unset)."""
+    name = getattr(cfg.MODEL, "META_ARCHITECTURE", "MaskFormer")
+    if name not in META_ARCHITECTURES:
+        raise NotImplementedError(f"meta-architecture {name!r} is not ported; ported: "
+                                  f"{sorted(META_ARCHITECTURES)}")
+    return META_ARCHITECTURES[name](cfg)
+
+
+def size_divisibility(cfg) -> int:
+    """What the predictor pads an image to a multiple of: the MaskFormer's
+    SIZE_DIVISIBILITY; for the cascade also its coarsest patch (the JAX
+    package's demo)."""
+    if getattr(cfg.MODEL, "META_ARCHITECTURE", "MaskFormer") == "MaskFiner":
+        return max(cfg.MODEL.MASK_FINER.SIZE_DIVISIBILITY, max(cfg.MODEL.MR.PATCH_SIZES))
+    return cfg.MODEL.MASK_FORMER.SIZE_DIVISIBILITY

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's semantic-segmentation paths -- AFF-Mini inference,
 the AFF-Mini training step, an AFF-Small training run with checkpoint and
-resume, the pixel decoder's alternate operand layouts and the AFF-Mini-1/5
-preset -- on one NVIDIA GPU.
+resume, the pixel decoder's alternate operand layouts, the AFF-Mini-1/5
+preset and MaskFiner-Mini inference -- on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -85,7 +85,26 @@ preset -- on one NVIDIA GPU.
    against the plain versions from the same weights, images, batch and
    generators, replaying the discrete choices as in phase 3 (also the
    ranked points and the matches), with every kernel's launch counts and
-   device busy per forward.
+   device busy per forward;
+11. the published MaskFiner-Mini cascade (MixRes backbones, per-stage pixel
+   and mask decoders; stages of 256, 768, 1792 and 3840 tokens) at 512x512:
+   holds local_attn, msdetrpc and knn against their plain versions on the
+   operands of a real batch-4 forward (each call; one- to three-level
+   sampling tables, heads of 16 and 32 channels, self-knn with k 9), runs
+   the forward through the kernels (launch counts from the config) and
+   through the plain versions, replaying the kernel run's choices (also the
+   split tokens and the queries' class votes), holds the final and every
+   aux output to FORWARD_RTOL, every stage's disagreement through its parts
+   (the classes' summed mask logits to FORWARD_RTOL; the mean and the mean
+   absolute difference of their sigmoids and the disagreement itself to
+   the bounds the logits' differences set) and the last stage's positions
+   to equality, times both forwards with device busy, and
+   serves 8 random uint8 512x512 images through the predictor at batch 1
+   and 4.
+
+Phases 6, 8, 9 and 10 compare training steps whose second run replays the
+first run's discrete choices (same_choices), held to LOSS_RTOL and
+GROUP_NORM_RTOL.
 
 Exits non-zero on any failure, and at once when no CUDA device is present.
 The last line is {"ok": true, "device": {...}}; the line before it is the
@@ -143,19 +162,24 @@ FORWARD_RTOL = 1e-4
 # orders of summation, a kernel that moves many choices fails.  Seen, worst
 # of phases 3 and 10: kept tokens 1 of 21504 flipped, sampling cells 20 of
 # 1.9e7, attention masks 64 of 7.9e7, ranked points 275 of 7.5e7, matches 2
-# of 8000 (target slots, padded ones included)
+# of 8000 (target slots, padded ones included).  The MaskFiner cascade
+# (phase 11) adds the order of its split tokens (an element of the
+# ascending order counts where it equals) and the class each query votes
+# for in its disagreement
 CHOICE_AGREE_MIN = {"kept tokens": 0.999, "sampling cells": 0.9999, "attention masks": 0.9999,
-                    "ranked points": 0.9999, "matches": 0.99}
-# the two training steps: loss terms (relative), and gradient norms per
-# parameter group (relative; a flipped near-tie in the matcher or in token
-# selection moves them more than fp32 order does)
-LOSS_RTOL = 1e-3
-GROUP_NORM_RTOL = 2e-2
-# at random initialisation many queries predict nearly the same mask, so
-# near-tied matching costs flip a few valid-target matches between the two
-# paths (the flipped assignments are equally good: the loss terms, which
-# depend on them, still agree within LOSS_RTOL)
-MATCH_AGREE_MIN = 0.9
+                    "ranked points": 0.9999, "matches": 0.99, "split tokens": 0.999,
+                    "class votes": 0.999}
+# a training step whose plain run replays the kernel run's choices
+# (phases 6, 8, 9, 10): loss terms and gradient norms per parameter group,
+# relative.  The kernels' sums in another order (and the atomics of the
+# point_sample backward) are all that is left (seen, phase 10 of the
+# AFF-Mini-1/5 preset: loss terms 3.0e-7, gradient norms 7.5e-6)
+LOSS_RTOL = 1e-5
+GROUP_NORM_RTOL = 1e-4
+# the rounding of a MaskFiner disagreement's parts (sums over up to 151^2
+# class pairs), beyond what its inputs' differences allow
+# (check_disagreement)
+GINI_ROUNDING_ATOL = 1e-5
 # a resumed run against the uninterrupted one: the restored state (model,
 # optimizer, schedule, generators) is equal bit for bit, but the point_sample
 # backward kernel and PyTorch's index_add scatter with atomics, whose order
@@ -1688,6 +1712,7 @@ class decoder_layout:
 def layouts_phase(dev, smi, images, default_out, counters):
     """Phase 9's end-to-end part.  Returns {counter name: launches on the
     layouts' forwards and steps}."""
+    import contextlib
     import copy
 
     import torch
@@ -1792,12 +1817,13 @@ def layouts_phase(dev, smi, images, default_out, counters):
            "interleaved": {"msdetrpc_interleaved": 18, "msdetrpc_interleaved_bwd": 18}}
     sampling_bwd = sampling + tuple(n + "_bwd" for n in sampling if n != "window_gather")
 
-    def step(batch):
+    def step(batch, choices=contextlib.nullcontext()):
         model.load_state_dict(initial)
         torch.cuda.synchronize()
         t0 = time.time()
-        (total_loss, losses, _), got = counted(lambda: TrainStep(model, cfg).loss_and_grads(
-            batch, device_draw(torch.Generator(device=dev).manual_seed(SEED))))
+        with choices:
+            (total_loss, losses, _), got = counted(lambda: TrainStep(model, cfg).loss_and_grads(
+                batch, device_draw(torch.Generator(device=dev).manual_seed(SEED))))
         dt = (time.time() - t0) * 1e3
         terms = {"total_loss": total_loss.item(), **{k: v.item() for k, v in losses.items()}}
         return terms, group_norms(model), {k: v for k, v in got.items() if k in sampling_bwd}, dt
@@ -1811,18 +1837,24 @@ def layouts_phase(dev, smi, images, default_out, counters):
                                 (size, size), cfg.TPU.MAX_GT_INSTANCES,
                                 cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
         step(batch)                                  # warm-up, not compared
-        ref_terms, ref_norms, ref_got, ref_dt = step(batch)
+        # each layout's step replays the default layout's discrete choices
+        book = {}
+        ref_terms, ref_norms, ref_got, ref_dt = step(batch, same_choices(book, record=True))
         log(f"  step {size}x{size} batch {batch_size}, default layout: total loss "
             f"{ref_terms['total_loss']:.6f}, {ref_dt:.1f} ms forward + criterion + backward, "
             f"launches {ref_got}")
         for name in names:
+            # the channel-major prep snaps its cells in its own arithmetic, the
+            # head-natural one in another order: they make their own
+            skip = ("sampling cells",) if name in ("fused_prep", "head_natural") else ()
             with decoder_layout("per_level" if name == "interleaved" else name):
-                terms, norms, got, dt = step(batch)
+                terms, norms, got, dt = step(batch, same_choices(book, False, skip))
             rel, norm_rel = worst_rel(terms, ref_terms), worst_rel(norms, ref_norms)
             log(f"  step {size}x{size} batch {batch_size}, layout {name}: total loss "
                 f"{terms['total_loss']:.6f}, {len(terms) - 1} loss terms worst rel diff {rel:.3e}, "
                 f"grad norms per group worst rel diff {norm_rel:.3e}, {dt:.1f} ms, launches {got} "
                 f"({smi})")
+            same_choices.check(f"step {size}x{size} batch {batch_size}, layout {name}", book)
             if got != bwd[name]:
                 raise SystemExit(f"step under layout {name}: launched {got}, expected {bwd[name]}")
             if not all(v == v and abs(v) != float("inf") for v in terms.values()):
@@ -1846,46 +1878,63 @@ class same_choices:
     (record=False) -- the backbone's kept tokens (models/aff.py
     topk_indices), the finest-grid cells the pixel decoder's sampling
     locations snap to (models/pixel_decoder.py grid_cells: rounded), the
-    masked decoder's attention masks (sigmoid < 0.5,
-    MultiScaleMaskedTransformerDecoder._prediction_heads), the point
-    ranking's points (losses/point_sample.py topk_indices) and the
-    criterion's matches (criterion.solve_lsap).  When replaying, each choice
-    is also made, and book["agree"][kind] counts its elements equal to the
-    recorded ones (kept tokens and ranked points as sets per row) against
-    all of them.  At random initialisation near-tied scores flip between two
-    fp32 orders of summation and a flip changes the run downstream; with the
-    choices held, a kernel run and a plain run compute the same function of
-    the same inputs, and the counts say how many choices flipped."""
+    masked decoders' attention masks (sigmoid < 0.5:
+    MultiScaleMaskedTransformerDecoder._prediction_heads, models/maskfiner.py
+    attention_mask), the point ranking's points (losses/point_sample.py
+    topk_indices), the criterion's matches (criterion.solve_lsap), the
+    MaskFiner cascade's split order (models/mixres.py split_order) and the
+    classes its queries vote for in the disagreement (models/maskfiner.py
+    predicted_classes).  When replaying, each choice is also made, and
+    book["agree"][kind] counts its elements equal to the recorded ones
+    (kept tokens and ranked points as sets per row) against all of them.  At
+    random initialisation near-tied scores flip between two fp32 orders of
+    summation and a flip changes the run downstream; with the choices held,
+    a kernel run and a plain run compute the same function of the same
+    inputs, and the counts say how many choices flipped.  One recording can
+    be replayed several times (each replay counts into its own copy of
+    "agree")."""
 
     KINDS = (("kept tokens", "autofocusformermod_torch.models.aff", None, "topk_indices"),
              ("sampling cells", "autofocusformermod_torch.models.pixel_decoder", None,
               "grid_cells"),
              ("attention masks", "autofocusformermod_torch.models.transformer_decoder",
               "MultiScaleMaskedTransformerDecoder", "_prediction_heads"),
+             ("attention masks", "autofocusformermod_torch.models.maskfiner", None,
+              "attention_mask"),
              ("ranked points", "autofocusformermod_torch.losses.point_sample", None,
               "topk_indices"),
-             ("matches", "autofocusformermod_torch.losses.criterion", None, "solve_lsap"))
+             ("matches", "autofocusformermod_torch.losses.criterion", None, "solve_lsap"),
+             ("split tokens", "autofocusformermod_torch.models.mixres", None, "split_order"),
+             ("class votes", "autofocusformermod_torch.models.maskfiner", None,
+              "predicted_classes"))
     SETS = ("kept tokens", "ranked points")
 
-    def __init__(self, book, record):
-        self.book, self.record = book, record
+    def __init__(self, book, record, skip=()):
+        """skip: kinds left to the run (a layout that snaps its sampling
+        cells in another arithmetic or order than the recorded run)."""
+        self.book, self.record, self.skip = book, record, skip
 
     def __enter__(self):
         import importlib
 
+        if not self.record:
+            self.book["agree"] = {}
         self.saved = []
         for kind, module, cls, name in self.KINDS:
+            if kind in self.skip:
+                continue
             owner = importlib.import_module(module)
             owner = getattr(owner, cls) if cls else owner
             real = getattr(owner, name)
             self.saved.append((owner, name, real))
-            setattr(owner, name, self.wrap(kind, real, part=2 if cls else None))
+            setattr(owner, name, self.wrap(kind, (module, cls, name), real,
+                                           part=2 if cls else None))
         return self
 
-    def wrap(self, kind, real, part):
+    def wrap(self, kind, where, real, part):
         """part: the index of the choice in a tuple result (the attention
         mask of the decoder's prediction heads), else the whole result."""
-        calls = self.book.setdefault(kind, [])
+        calls = self.book.setdefault(where, [])
         at = iter(range(len(calls)))
         agree = self.book.setdefault("agree", {}).setdefault(kind, [0, 0])
 
@@ -2098,22 +2147,26 @@ def train_phase(dev, smi, counters):
     def draw():
         return device_draw(torch.Generator(device=dev).manual_seed(SEED))
 
-    def grads_of(path):
+    def grads_of(path, choices):
         """Forward, criterion and backward from the initial weights."""
         model.load_state_dict(initial)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        with path():
-            total, losses, matched = TrainStep(model, cfg).loss_and_grads(batch, draw())
+        with path(), choices:
+            total, losses, _ = TrainStep(model, cfg).loss_and_grads(batch, draw())
         torch.cuda.synchronize()
         dt = time.time() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         grads = {n: p.grad.clone() for n, p in model.named_parameters()}
-        return total, losses, matched, grads, group_norms(model), dt, peak
+        return total, losses, grads, group_norms(model), dt, peak
 
-    k_total, k_losses, k_matched, k_grads, k_norms, k_dt, k_peak = grads_of(contextlib.nullcontext)
-    p_total, p_losses, p_matched, p_grads, p_norms, p_dt, p_peak = grads_of(plain_versions)
+    # the plain run replays the kernel run's discrete choices
+    book = {}
+    k_total, k_losses, k_grads, k_norms, k_dt, k_peak = grads_of(
+        contextlib.nullcontext, same_choices(book, record=True))
+    p_total, p_losses, p_grads, p_norms, p_dt, p_peak = grads_of(
+        plain_versions, same_choices(book, record=False))
     log(f"  forward + criterion + backward: kernels {k_dt:.3f} s (peak {k_peak:.2f} GiB), "
         f"plain versions {p_dt:.3f} s (peak {p_peak:.2f} GiB) [first call of each]")
     bad = [k for k, v in k_losses.items() if not torch.isfinite(v)]
@@ -2123,13 +2176,11 @@ def train_phase(dev, smi, counters):
                 for k in k_losses)
     log(f"  total loss kernels {k_total.item():.6f} plain {p_total.item():.6f}; "
         f"{len(k_losses)} loss terms, worst rel diff {worst:.3e}")
-    valid = batch["valid"]
-    agree = torch.stack([(a == b)[valid].float().mean() for a, b in zip(k_matched, p_matched)])
-    log(f"  valid-target matches equal in {agree.mean().item() * 100:.2f}% "
-        f"(per layer min {agree.min().item() * 100:.2f}%)")
+    same_choices.check("AFF-Mini step", book)
     group_diff = {g: abs(k_norms[g] - p_norms[g]) / max(p_norms[g], 1e-12) for g in p_norms}
     log("  grad norm per group (kernels / plain): " + ", ".join(
-        f"{g} {k_norms[g]:.5g}/{p_norms[g]:.5g}" for g in sorted(p_norms)))
+        f"{g} {k_norms[g]:.5g}/{p_norms[g]:.5g}" for g in sorted(p_norms))
+        + f"; worst rel diff {max(group_diff.values()):.3e}")
     missing = [n for n, g in p_grads.items() if g.abs().max() > 0 and not k_grads[n].abs().max() > 0]
     log(f"  parameters with a gradient: plain {sum(g.abs().max().item() > 0 for g in p_grads.values())}"
         f" of {len(p_grads)}; of those, zero through the kernels: {len(missing)}")
@@ -2139,8 +2190,6 @@ def train_phase(dev, smi, counters):
         raise SystemExit(f"loss terms: kernels and plain versions differ by {worst} (rel)")
     if max(group_diff.values()) > GROUP_NORM_RTOL:
         raise SystemExit(f"gradient norms per group disagree: {group_diff}")
-    if agree.mean().item() < MATCH_AGREE_MIN:
-        raise SystemExit("valid-target matches disagree between kernels and plain versions")
 
     def timed_steps(path, n):
         """n full steps from the initial weights and a fresh optimizer."""
@@ -2352,15 +2401,16 @@ def small_phase(dev, smi, counters):
 
         # one step at a smaller batch through the kernels and through the
         # plain versions (which at the full batch need more memory than the
-        # card has), from the same weights, batch and generators
-        results = []
-        for path in (contextlib.nullcontext, plain_versions):
+        # card has), from the same weights, batch and generators; the plain
+        # run replays the kernel run's discrete choices
+        results, book = [], {}
+        for path, record in ((contextlib.nullcontext, True), (plain_versions, False)):
             cfg_c = small_cfg(os.path.join(tmp, "c"), SMALL_PLAIN_BATCH)
             tr = Trainer(cfg_c, dev)
             batch = next(synthetic_batches(cfg_c, dev))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            with path():
+            with path(), same_choices(book, record):
                 total, losses, _ = tr.step_fn.loss_and_grads(batch, tr.draw)
             torch.cuda.synchronize()
             results.append(({"total_loss": total.item(),
@@ -2379,12 +2429,337 @@ def small_phase(dev, smi, counters):
         log("  grad norm per group (kernels / plain): " + ", ".join(
             f"{g} {k_norms[g]:.5g}/{p_norms[g]:.5g}" for g in sorted(p_norms))
             + f"; worst rel diff {norm_rel:.3e}")
+        same_choices.check(f"AFF-Small step at batch {SMALL_PLAIN_BATCH}", book)
         if rel > LOSS_RTOL:
             raise SystemExit(f"AFF-Small loss terms: kernels and plain versions differ by {rel}")
         if norm_rel > GROUP_NORM_RTOL:
             raise SystemExit("AFF-Small gradient norms per group: kernels and plain versions "
                              f"differ by {norm_rel} (rel)")
     return launches, k11
+
+
+MASKFINER = "maskfiner_mini"
+
+
+def maskfiner_launches(cfg) -> dict:
+    """K1, K3 and K9 launches of one MaskFiner forward, from the config: a
+    local attention per cluster block of stages 1-; an msdetrpc per encoder
+    layer and transformer level; knn for each later stage's clusters, each
+    transformer level's 4-NN table, each FPN level's Shepard upsample and
+    PointConv, and in the decoder the Shepard neighbours of each attended
+    level (none where stage 0's one level is the mask features) and of the
+    finest grid, once per forward."""
+    mr, head = cfg.MODEL.MR, cfg.MODEL.MR_SEM_SEG_HEAD
+    levels = cfg.MODEL.MASK_FINER.DECODER_LEVELS
+    n_stages = len(mr.NAME)
+    n_trans = len(head.DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES)
+    local_attn = msdetrpc = nn_calls = 0
+    for li in range(n_stages):
+        final = li == n_stages - 1
+        trans = n_trans if final else min(li + 1, n_trans)
+        fpn = (li + 1) - trans
+        local_attn += mr.DEPTHS[li] if li else 0
+        msdetrpc += head.TRANSFORMER_ENC_LAYERS[li] * trans
+        masked = not (li == 0 and levels[li] == 1)
+        nn_calls += (li > 0) + trans + 2 * fpn + (levels[li] if masked else 0) + 1
+    return {"local_attn": local_attn, "msdetrpc": msdetrpc, "knn": nn_calls}
+
+
+def path_maskfiner_operands(model, images):
+    """The operands of K1, K3 and K9 in one forward of the cascade, in call
+    order: {"local_attn": [(stage n, args)], "msdetrpc": [(idx, w, val,
+    level sizes, 1)], "knn": [(label, query, database, k)]}.  Captured by
+    wrapping the calls in models/aff.py, models/pixel_decoder.py and the
+    kernel call inside geometry.knn.knn."""
+    import torch
+    from autofocusformermod_torch.geometry import knn as knn_mod
+    from autofocusformermod_torch.models import aff, pixel_decoder
+
+    calls = {"local_attn": [], "msdetrpc": [], "knn": []}
+    real = (aff.sfc_cluster_attention, pixel_decoder.msdetrpc_levels_s, knn_mod._knn_cuda)
+
+    def local_attn(*args, **kwargs):
+        calls["local_attn"].append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return real[0](*args, **kwargs)
+
+    def msdetrpc(idx, w, val, sizes):
+        calls["msdetrpc"].append((idx.clone(), w.clone(), val.clone(), tuple(sizes), 1))
+        return real[1](idx, w, val, sizes)
+
+    def nn(query, database, k):
+        calls["knn"].append((f"{len(calls['knn']):02d} q{query.shape[1]} db{database.shape[1]} "
+                             f"k{k}", query.clone(), database.clone(), k))
+        return real[2](query, database, k)
+
+    aff.sfc_cluster_attention, pixel_decoder.msdetrpc_levels_s, knn_mod._knn_cuda = (
+        local_attn, msdetrpc, nn)
+    try:
+        with torch.no_grad():
+            model(images)
+    finally:
+        aff.sfc_cluster_attention, pixel_decoder.msdetrpc_levels_s, knn_mod._knn_cuda = real
+    return calls
+
+
+def check_local_attn_calls(label, calls):
+    """K1 on captured calls [(q, k, v, pos, nc, w5, b5, blank_k, span)]: every
+    call against the plain version within LOCAL_ATTN_ATOL; ms sums the
+    calls' times, device_ms their time on the card alone (queued_ms),
+    plain_ms the plain version's times, each call timed (median of 3)."""
+    import torch
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.local_attn import sfc_cluster_attention
+
+    err, ms, device_ms, plain_ms, bnd = 0.0, 0.0, 0.0, 0.0, {}
+    for args in calls:
+        q, pos, nc = args[0], args[3], args[4]
+        b, h, n, c_ = q.shape
+        out, blank = sfc_cluster_attention(*args)
+        with plain_versions():
+            rout, rblank = sfc_cluster_attention(*args)
+            plain_ms += cuda_ms(lambda: sfc_cluster_attention(*args), iters=3, warmup=1)
+        err = max(err, (out - rout).abs().max().item(), (blank - rblank).abs().max().item())
+        ms += cuda_ms(lambda: sfc_cluster_attention(*args))
+        device_ms += queued_ms(lambda: sfc_cluster_attention(*args))
+        slots = nc.shape[-1] * args[8]
+        bnd = add_bounds(bnd, bound(nbytes(*args[:8], out, blank, blank),
+                                    b * h * n * slots * (4 * c_ + 10)))
+        del out, blank, rout, rblank
+    shapes = {}
+    for args in calls:
+        shapes[tuple(args[0].shape)] = shapes.get(tuple(args[0].shape), 0) + 1
+    log(f"  local_attn {label}: {len(calls)} calls {shapes}: max_abs_err {err:.3e}; {ms:.3f} ms "
+        f"in calls, {device_ms:.3f} on the card, plain {plain_ms:.3f}, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    if not err <= LOCAL_ATTN_ATOL:
+        raise SystemExit(f"local_attn {label}: max abs err {err} > {LOCAL_ATTN_ATOL}")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "device_ms": device_ms,
+            "calls": len(calls)}
+
+
+def check_cascade(label, out, ref, book, gini):
+    """A MaskFiner forward through the kernels against the plain run, which
+    replayed the kernel run's choices: the final and every aux output
+    within FORWARD_RTOL of its largest |entry| (at least 1), every stage's
+    disagreement through its parts (check_disagreement; gini: the inputs of
+    each stage's gini_disagreement in the two runs), the last stage's token
+    positions equal."""
+    import torch
+
+    pairs = [("pred_logits", out["pred_logits"], ref["pred_logits"]),
+             ("pred_masks", out["pred_masks"], ref["pred_masks"])]
+    for i, (a, r) in enumerate(zip(out["aux_outputs"], ref["aux_outputs"])):
+        pairs += [(f"aux {i} {key}", a[key], r[key]) for key in ("pred_logits", "pred_masks")]
+    if len(out["aux_outputs"]) != len(ref["aux_outputs"]):
+        raise SystemExit(f"{label}: {len(out['aux_outputs'])} aux outputs against "
+                         f"{len(ref['aux_outputs'])}")
+    worst = {}
+    for key, a, r in pairs:
+        if a.shape != r.shape or not torch.isfinite(a).all():
+            raise SystemExit(f"{label} {key}: shape {tuple(a.shape)} against {tuple(r.shape)}, or "
+                             "non-finite")
+        e = (a - r).abs().max().item()
+        rel = e / max(r.abs().max().item(), 1.0)
+        kind = f"aux {key.split()[-1]}" if key.startswith("aux") else key
+        worst[kind] = max(worst.get(kind, 0.0), rel)
+        if rel > FORWARD_RTOL:
+            raise SystemExit(f"{label} {key}: kernels and plain versions disagree by {e} "
+                             f"({rel:.3e} of its largest entry)")
+    log(f"    worst max_abs_err / max |ref| per output: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" ({len(pairs)} outputs, limit {FORWARD_RTOL})")
+    check_disagreement(label, out["disagreement_masks"], ref["disagreement_masks"], *gini)
+    if not torch.equal(out["features_pos"], ref["features_pos"]):
+        raise SystemExit(f"{label}: the last stage's token positions differ")
+    same_choices.check(label, book)
+    return worst
+
+
+def check_disagreement(label, out, ref, k_inputs, r_inputs):
+    """Each stage's disagreement (out, ref) through its parts, computed from
+    the inputs of gini_disagreement in the two runs [(mask logits, class
+    logits)] with the kernel run's class votes (the plain run replayed
+    them).  Each class's summed mask logits z are held to FORWARD_RTOL of
+    their largest |entry| (at least 1).  The rest is ill-conditioned where
+    z cancels (|z| reaches thousands while a token's z may be near 0), so
+    each token is held to what its own max_c |dz| allows to first order:
+    the mean of the present classes' sigmoids to 1/4 of it (a sigmoid's
+    slope is at most 1/4), their mean absolute difference over all pairs to
+    1/2, and the disagreement, 0.5 mad / mean, to 2 (each sigmoid's
+    relative change is at most its logit's change, and the ratio's
+    derivatives in the log-sigmoids sum to at most 2 in magnitude), each
+    plus the rounding of its sums, GINI_ROUNDING_ATOL.  A stage's
+    disagreement must have a nonzero entry unless one class has all its
+    queries' votes in every image (then it is zero by definition)."""
+    import torch
+    from autofocusformermod_torch.models.maskfiner import gini_terms, predicted_classes
+
+    if len(out) != len(ref) or len(k_inputs) != len(out) or len(r_inputs) != len(out):
+        raise SystemExit(f"{label}: {len(out)} / {len(ref)} disagreements, {len(k_inputs)} / "
+                         f"{len(r_inputs)} captured Gini inputs")
+    for i, (d, dr, (km, kc), (rm, _)) in enumerate(zip(out, ref, k_inputs, r_inputs)):
+        votes = predicted_classes(kc)
+        (zk, mean_k, mad_k), (zr, mean_r, mad_r) = (gini_terms(m, votes, kc.shape[-1])
+                                                    for m in (km, rm))
+        z_rel = (zk - zr).abs().max().item() / max(zr.abs().max().item(), 1.0)
+        dz = (zk - zr).abs().amax(dim=1)                                  # (b, n)
+        share = {name: ((a - r).abs() / (slope * dz + GINI_ROUNDING_ATOL)).max().item()
+                 for name, a, r, slope in (("mean", mean_k, mean_r, 0.25),
+                                           ("mad", mad_k, mad_r, 0.5), ("disagreement", d, dr, 2.0))}
+        classes = [int(torch.unique(v).numel()) for v in votes]
+        log(f"    disagreement {i}: {tuple(d.shape)}, classes voted per image {classes}, max "
+            f"{dr.max().item():.4g}, max_abs_err {(d - dr).abs().max().item():.3e}; z: max |z| "
+            f"{zr.abs().max().item():.4g}, rel err {z_rel:.3e} (limit {FORWARD_RTOL}), max |dz| "
+            f"{dz.max().item():.3e}; share of the bound from dz: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in share.items()))
+        if not z_rel <= FORWARD_RTOL:
+            raise SystemExit(f"{label} disagreement {i}: summed mask logits differ by {z_rel} "
+                             "(rel)")
+        if not max(share.values()) <= 1.0:
+            raise SystemExit(f"{label} disagreement {i}: beyond the bound its inputs set: {share}")
+        if max(classes) > 1 and not dr.max().item() > 0:
+            raise SystemExit(f"{label} disagreement {i}: zero with {classes} classes voted")
+
+
+class gini_inputs:
+    """Within the block, the inputs of every gini_disagreement call (models/
+    maskfiner.py) are appended to `store` as (mask logits, class logits)."""
+
+    def __init__(self, store):
+        self.store = store
+
+    def __enter__(self):
+        from autofocusformermod_torch.models import maskfiner
+
+        self.real = real = maskfiner.gini_disagreement
+
+        def wrapped(outputs_mask, outputs_class):
+            self.store.append((outputs_mask.clone(), outputs_class.clone()))
+            return real(outputs_mask, outputs_class)
+
+        maskfiner.gini_disagreement = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from autofocusformermod_torch.models import maskfiner
+
+        maskfiner.gini_disagreement = self.real
+
+
+def maskfiner_phase(dev, smi, gen):
+    """Phase 11: the published MaskFiner-Mini (seeded random weights) at
+    512x512.  K1, K3 and K9 on the operands of a real batch-4 forward, each
+    against its plain version, with times and bounds; the batch-4 forward
+    through the kernels (launch counts) and through the plain versions,
+    replaying the kernel run's choices; ms per forward and device busy of
+    both; the predictor at batch 1 and 4.  Returns ({kernel: record for
+    by_path}, {kernel: launches of the forward})."""
+    import contextlib
+
+    import torch
+    from autofocusformermod_torch.config import PRESETS
+    from autofocusformermod_torch.geometry.knn import knn
+    from autofocusformermod_torch.models.inference import SemanticPredictor
+    from autofocusformermod_torch.models.maskformer import init_random_weights
+    from autofocusformermod_torch.models.registry import build_model, size_divisibility
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.local_attn import sfc_cluster_attention
+    from autofocusformermod_torch.ops.msdetrpc import msdetrpc_levels_s
+    from autofocusformermod_torch.tools.l2_rate import l2_read_rate
+
+    cfg = PRESETS[MASKFINER]()
+    model = build_model(cfg)
+    init_random_weights(model, torch.Generator().manual_seed(SEED))
+    model = model.to(dev).eval()
+    images = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(SEED + 2)).to(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {MASKFINER}: MR {cfg.MODEL.MR.NAME} EMBED_DIM {cfg.MODEL.MR.EMBED_DIM} DEPTHS "
+        f"{cfg.MODEL.MR.DEPTHS}; CONVS_DIM {cfg.MODEL.MR_SEM_SEG_HEAD.CONVS_DIM}, encoder layers "
+        f"{cfg.MODEL.MR_SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS}; DEC_LAYERS "
+        f"{cfg.MODEL.MASK_FINER.DEC_LAYERS}; {n_params / 1e6:.1f} M parameters")
+
+    # the kernels at the cascade's operands
+    ops = path_maskfiner_operands(model, images)
+    paths = {"local_attn": check_local_attn_calls(MASKFINER, ops["local_attn"]),
+             "msdetrpc": check_msdetrpc(MASKFINER, ops["msdetrpc"], l2_read_rate()),
+             "knn": check_knn(MASKFINER, ops["knn"])}
+    levels = sorted({(len(c[3]), c[0].shape[2], c[2].shape[2]) for c in ops["msdetrpc"]})
+    log(f"  msdetrpc (levels, pairs, c_) of the forward: {levels}")
+    del ops
+    torch.cuda.empty_cache()
+
+    # the forward through the kernels, then through the plain versions
+    counters = {"local_attn": sfc_cluster_attention, "msdetrpc": msdetrpc_levels_s, "knn": knn}
+    expected = maskfiner_launches(cfg)
+    book, gini = {}, ([], [])
+    with torch.no_grad():
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with same_choices(book, record=True), gini_inputs(gini[0]):
+            out = model(images)
+        torch.cuda.synchronize()
+        t_first = (time.time() - t0) * 1e3
+        launches = {name: c.launches for name, c in counters.items()}
+        with same_choices(book, record=False), plain_versions(), gini_inputs(gini[1]):
+            ref = model(images)
+        again = model(images)
+    same = all(torch.equal(a, b) for a, b in zip(
+        [out["pred_logits"], out["pred_masks"], *out["disagreement_masks"]],
+        [again["pred_logits"], again["pred_masks"], *again["disagreement_masks"]]))
+    log(f"  a second forward through the kernels equals the first bit for bit: {same}")
+    del again
+    tps = [tuple(d.shape) for d in out["disagreement_masks"]]
+    log(f"  batch-{BATCH} forward: {t_first:.1f} ms (first call); launches {launches} (expected "
+        f"{expected}); disagreement shapes {tps}; pred_masks {tuple(out['pred_masks'].shape)}")
+    if launches != expected:
+        raise SystemExit(f"{MASKFINER} forward launched {launches}, expected {expected}")
+    if tuple(out["pred_logits"].shape) != (BATCH, 100, 151) or \
+            tuple(out["pred_masks"].shape) != (BATCH, 100, SIZE // 4, SIZE // 4):
+        raise SystemExit(f"{MASKFINER}: outputs {tuple(out['pred_logits'].shape)}, "
+                         f"{tuple(out['pred_masks'].shape)}")
+    check_cascade(f"{MASKFINER} forward", out, ref, book, gini)
+    del out, ref, book, gini
+
+    def forward_ms(run_path):
+        def run():
+            with run_path(), torch.no_grad():
+                model(images)
+            torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.time()
+            run()
+            times.append((time.time() - t0) * 1e3)
+        return statistics.median(times[1:]), *device_busy(run, runs=2)
+
+    k_ms, k_busy, k_rows = forward_ms(contextlib.nullcontext)
+    p_ms, p_busy, p_rows = forward_ms(plain_versions)
+    log(f"  ms per batch-{BATCH} forward (median of 4 after one): kernels {k_ms:.2f} (device "
+        f"busy {k_busy:.2f} ms in {k_rows:.0f} rows), plain versions {p_ms:.2f} (busy "
+        f"{p_busy:.2f} ms in {p_rows:.0f} rows) ({smi})")
+
+    predictor = SemanticPredictor(model, size_divisibility(cfg))
+    reqs = torch.randint(0, 256, (8, SIZE, SIZE, 3), generator=gen, dtype=torch.uint8)
+    for bs in (1, 4):
+        predictor(reqs[:bs])                     # warm-up, not timed
+        torch.cuda.synchronize()
+        t0 = time.time()
+        labels = [predictor(reqs[i:i + bs]) for i in range(0, len(reqs), bs)]
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        for lab in labels:
+            if tuple(lab.shape[1:]) != (SIZE, SIZE) or lab.min() < 0 or lab.max() >= 150:
+                raise SystemExit(f"{MASKFINER} predictor: bad label map {tuple(lab.shape)} "
+                                 f"[{lab.min()}, {lab.max()}]")
+        log(f"  predictor batch {bs}: {len(reqs)} images in {dt:.3f} s = {len(reqs) / dt:.2f} "
+            f"images/s ({smi}); label maps {tuple(labels[0].shape)}")
+    del model, images, predictor
+    torch.cuda.empty_cache()
+    return paths, launches
 
 
 def main() -> int:
@@ -2621,6 +2996,16 @@ def main() -> int:
         f"forward and a batch-{TRAIN_BATCH} step in the default layout and with "
         "USE_STACKED_GLUE off, against the plain versions")
     mini15_launches = mini15_phase(dev, smi, {**train_counters, **layout_counters})
+    torch.cuda.empty_cache()
+
+    log(f"phase 11: the published MaskFiner-Mini cascade ({MASKFINER}) at {SIZE}x{SIZE}: K1, K3 "
+        f"and K9 on the operands of a batch-{BATCH} forward, the forward against the plain "
+        "versions, the predictor")
+    maskfiner_paths, maskfiner_fwd_launches = maskfiner_phase(dev, smi, gen)
+    for kr in kernels:
+        if kr["name"] in maskfiner_paths:
+            kr["by_path"][MASKFINER] = maskfiner_paths[kr["name"]]
+            kr["max_abs_err"] = max(kr["max_abs_err"], maskfiner_paths[kr["name"]]["max_abs_err"])
 
     for kr in kernels:
         names = [kr["name"]] + (["point_sample_bwd"] if kr["name"] == "point_sample" else [])
@@ -2633,9 +3018,10 @@ def main() -> int:
         with_bwd = names + [kr["name"] + "_bwd"] if kr["name"] in SAMPLING else names
         kr["layouts_launches"] = sum(layout_launches.get(n, 0) for n in with_bwd)
         kr["mini15_launches"] = sum(mini15_launches.get(n, 0) for n in with_bwd)
+        kr["maskfiner_launches"] = maskfiner_fwd_launches.get(kr["name"], 0)
         kr["launches"] = (kr["inference_launches"] + kr["mini_step_launches"]
                           + kr["small_run_launches"] + kr["layouts_launches"]
-                          + kr["mini15_launches"])
+                          + kr["mini15_launches"] + kr["maskfiner_launches"])
         if kr["launches"] < 1:
             raise SystemExit(f"{kr['name']}: never launched on a main path")
     if len(kernels) != 14:
