@@ -5,8 +5,9 @@ MaskFiner-Mini models.
 over the defaults give the published AFF + Mask2Former ADE20K models and
 their training recipe.  Reading those files needs PyYAML; these presets carry the
 same values for every field the port's ``*_from_config`` functions, its
-optimizer, its training step and its trainer read, so a machine without
-PyYAML can build and train the models.  Those functions also accept the JAX
+optimizer, its training step, its trainer, its data mapper and loader and
+its evaluation read, so a machine without PyYAML can build, train and
+evaluate the models.  Those functions also accept the JAX
 package's ``CfgNode`` (same attribute paths).
 """
 
@@ -14,6 +15,11 @@ from __future__ import annotations
 
 import ast
 from typing import Any, Dict, Sequence
+
+
+# the published ADE20K training scales: [int(x * 0.1 * 512) for x in range(5, 21)]
+ADE20K_MIN_SIZE_TRAIN = [256, 307, 358, 409, 460, 512, 563, 614, 665, 716, 768, 819, 870, 921, 972,
+                         1024]
 
 
 class Cfg(dict):
@@ -61,6 +67,37 @@ class Cfg(dict):
             node[leaf] = value
 
 
+def ade20k_semantic_nodes(aug_min_sizes: Sequence[int], aug_max_size: int) -> Dict[str, Any]:
+    """The DATASETS, INPUT, TEST and DATALOADER nodes of the ADE20K semantic
+    recipe (``configs/ade20k/base_ade20k_semantic.yaml`` and
+    ``semantic-segmentation/Base-ADE20K-SemanticSegmentation.yaml`` over the
+    defaults; they differ only in the multi-scale test sizes)."""
+    return {
+        "DATASETS": {"TRAIN": ["ade20k_sem_seg_train"], "TEST": ["ade20k_sem_seg_val"]},
+        "INPUT": {
+            "MIN_SIZE_TRAIN": list(ADE20K_MIN_SIZE_TRAIN),
+            "MAX_SIZE_TRAIN": 2048,
+            "MIN_SIZE_TEST": 512,
+            "MAX_SIZE_TEST": 2048,
+            "CROP": {"ENABLED": True, "SIZE": [512, 512], "SINGLE_CATEGORY_MAX_AREA": 1.0},
+            "COLOR_AUG_SSD": True,
+            "SIZE_DIVISIBILITY": 512,
+            "DATASET_MAPPER_NAME": "mask_former_semantic",
+        },
+        "TEST": {
+            "EVAL_PERIOD": 5000,
+            "EXPECTED_RESULTS": [],
+            "AUG": {"ENABLED": False, "MIN_SIZES": list(aug_min_sizes), "MAX_SIZE": aug_max_size,
+                    "FLIP": True},
+            "SW_ENABLED": False,
+            "SW_CROP_SIZE": [1024, 1024],
+            "SW_STRIDE": [768, 768],
+            "SAVE_EVAL_ARTIFACTS": False,
+        },
+        "DATALOADER": {"NUM_WORKERS": 8},
+    }
+
+
 def aff_mini_cfg(num_classes: int = 150) -> Cfg:
     """AFF-Mini + Mask2Former, ADE20K semantic segmentation at 512x512
     (``configs/ade20k/maskformer2_aff_mini_bs32_80k.yaml``)."""
@@ -86,6 +123,7 @@ def aff_mini_cfg(num_classes: int = 150) -> Cfg:
             },
             "SEM_SEG_HEAD": {
                 "NUM_CLASSES": num_classes,
+                "IGNORE_VALUE": 255,
                 "IN_FEATURES": ["res2", "res3", "res4", "res5"],
                 "DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES": ["res3", "res4", "res5"],
                 "CONVS_DIM": 256,
@@ -132,7 +170,7 @@ def aff_mini_cfg(num_classes: int = 150) -> Cfg:
             "POLY_LR_CONSTANT_ENDING": 0.0,
             "CLIP_GRADIENTS": {"ENABLED": True, "CLIP_TYPE": "full_model", "CLIP_VALUE": 0.01},
         },
-        "INPUT": {"CROP": {"ENABLED": True, "SIZE": [512, 512]}},
+        **ade20k_semantic_nodes((400, 500, 600, 700, 800, 900, 1000, 1100, 1200), 4000),
         "SEED": 0,
         "OUTPUT_DIR": "./output",
         # target slots per image (the JAX package pads to TPU.MAX_GT_INSTANCES)
@@ -229,6 +267,10 @@ def maskfiner_mini_cfg(num_classes: int = 150) -> Cfg:
                 "SHEPARD_POWER_LEARNABLE": True,
                 "SIZE_DIVISIBILITY": 32,
             },
+            # what evaluation reads of the MaskFormer nodes: the class count,
+            # the ignore label and the padding of a test image
+            "SEM_SEG_HEAD": {"NUM_CLASSES": num_classes, "IGNORE_VALUE": 255},
+            "MASK_FORMER": {"SIZE_DIVISIBILITY": 32},
             "PIXEL_MEAN": [123.675, 116.28, 103.53],
             "PIXEL_STD": [58.395, 57.12, 57.375],
         },
@@ -250,9 +292,10 @@ def maskfiner_mini_cfg(num_classes: int = 150) -> Cfg:
             "CLIP_GRADIENTS": {"ENABLED": True, "CLIP_TYPE": "full_model", "CLIP_VALUE": 1.0},
             "AMP": {"ENABLED": False},
         },
-        "INPUT": {"CROP": {"ENABLED": True, "SIZE": [512, 512]}},
+        **ade20k_semantic_nodes((256, 384, 512, 640, 768, 896), 3584),
         "SEED": 0,
         "OUTPUT_DIR": "./output",
+        "TPU": {"MAX_GT_INSTANCES": 100},
     })
 
 

@@ -1,16 +1,22 @@
-"""Trainer: config -> model, optimizer and training step on one device, and
-the train loop with checkpoints, resume, the NaN watchdog and metric logging.
+"""Trainer: config -> model, optimizer and training step on one device; the
+train loop with checkpoints, resume, the NaN watchdog, metric logging and
+evaluation every TEST.EVAL_PERIOD steps; and the semantic evaluation.
 
-Counterpart of ``autofocusformermod_tpu/engine/train.py``.  The batches come
-from the caller (``data.synthetic.synthetic_batches`` where no dataset is
-installed); reading a dataset and evaluating wait for the ``data/`` and
-``evaluation/`` packages (ROADMAP.md).
+Counterpart of ``autofocusformermod_tpu/engine/train.py``.  ``train()``
+reads DATASETS.TRAIN through the semantic mapper and ``TrainLoader`` unless
+the caller passes batches (``data.synthetic.synthetic_batches`` where no
+dataset is installed); ``test()`` scores DATASETS.TEST with
+``SemSegEvaluator``.  Every meta-architecture of ``models/registry.py``
+evaluates; only MaskFormer trains (training the MaskFiner cascade is
+ROADMAP.md section 1 item 7).
 
 Randomness: the weights are initialised under cfg.SEED, and two generators
 on the device -- the criterion's (cfg.SEED + 1) and DropPath's (cfg.SEED +
 2) -- carry the run's streams.  A checkpoint holds their states with the
 model's (parameters and BatchNorm statistics), the optimizer's and the
 schedule's, so a resumed run continues the stream the interrupted one left.
+The data loader's order is not in the checkpoint: a resumed run reads other
+samples than the uninterrupted one would have.
 """
 
 from __future__ import annotations
@@ -18,54 +24,76 @@ from __future__ import annotations
 import math
 import os
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..data.catalog import DatasetCatalog, MetadataCatalog
+from ..data.datasets import register_all_builtin
+from ..data.loader import TrainLoader, device_batch, eval_loader
+from ..data.mapper_semantic import MaskFormerSemanticDatasetMapper
+from ..data.transforms import resize_nearest
+from ..evaluation.sem_seg_evaluation import (MaskFinerSemSegEvaluator, MetaLossSemSegEvaluator,
+                                             SemSegEvaluator)
 from ..losses.criterion import device_draw
-from ..models.registry import build_model
+from ..models.inference import sem_seg_postprocess, sliding_window_semantic_scores
+from ..models.maskformer import semantic_inference, upsample_masks
+from ..models.registry import build_model, meta_architecture
+from ..models.tta import SemanticSegmentorWithTTA
 from .checkpoint import Checkpointer
 from .convert_checkpoint import load_reference_weights
 from .hooks import MetricLogger, device_memory_stats, nan_check
 from .train_step import TrainStep
 
 
+def require_trainable(cfg) -> None:
+    """Raise where training the configured meta-architecture is not ported."""
+    arch = meta_architecture(cfg)
+    if arch != "MaskFormer":
+        raise NotImplementedError(f"training the {arch} meta-architecture is not ported yet "
+                                  "(ROADMAP.md section 1 item 7); its inference and evaluation "
+                                  "are (--eval-only)")
+
+
 class Trainer:
-    """``Trainer(cfg, device)``; ``resume_or_load()``; ``train(batches)``."""
+    """``Trainer(cfg, device)``; ``resume_or_load()``; ``train()`` or ``test()``."""
 
     def __init__(self, cfg, device: torch.device, wandb_name: Optional[str] = None):
-        arch = getattr(cfg.MODEL, "META_ARCHITECTURE", "MaskFormer")
-        if arch != "MaskFormer":
-            raise NotImplementedError(f"training the {arch} meta-architecture is not ported yet "
-                                      "(ROADMAP.md section 1 item 9); its inference is "
-                                      "(models.registry.build_model)")
         self.cfg = cfg
         self.device = torch.device(device)
+        register_all_builtin()
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.SEED)
             model = build_model(cfg)
         self.model = model.to(self.device)
-        self.step_fn = TrainStep(self.model, cfg)
+        trainable = meta_architecture(cfg) == "MaskFormer"
+        self.step_fn = TrainStep(self.model, cfg) if trainable else None
         self.generators = {
             "criterion": torch.Generator(device=self.device).manual_seed(cfg.SEED + 1),
             "drop_path": torch.Generator(device=self.device).manual_seed(cfg.SEED + 2)}
         self.draw = device_draw(self.generators["criterion"])
-        self.model.backbone.set_drop_path_generator(self.generators["drop_path"])
+        if trainable:
+            self.model.backbone.set_drop_path_generator(self.generators["drop_path"])
         self.checkpointer = Checkpointer(os.path.join(cfg.OUTPUT_DIR, "checkpoints"))
         self.logger = MetricLogger(cfg.OUTPUT_DIR, wandb_name=wandb_name)
         self.start_step = 0
+        self.results: Optional[Dict[str, Dict[str, float]]] = None   # of the latest test()
 
     # -------------------------------------------------------------- resume
     def state(self, step: int) -> Dict:
-        return {"step": step, "model": self.model.state_dict(),
-                "optimizer": self.step_fn.optimizer.state_dict(),
-                "scheduler": self.step_fn.scheduler.state_dict(),
-                "generators": {k: g.get_state() for k, g in self.generators.items()}}
+        state = {"step": step, "model": self.model.state_dict(),
+                 "generators": {k: g.get_state() for k, g in self.generators.items()}}
+        if self.step_fn is not None:
+            state["optimizer"] = self.step_fn.optimizer.state_dict()
+            state["scheduler"] = self.step_fn.scheduler.state_dict()
+        return state
 
     def load_state(self, state: Dict) -> None:
         self.model.load_state_dict(state["model"])
-        self.step_fn.optimizer.load_state_dict(state["optimizer"])
-        self.step_fn.scheduler.load_state_dict(state["scheduler"])
+        if self.step_fn is not None:
+            self.step_fn.optimizer.load_state_dict(state["optimizer"])
+            self.step_fn.scheduler.load_state_dict(state["scheduler"])
         for k, g in self.generators.items():
             g.set_state(state["generators"][k])
         self.start_step = int(state["step"])
@@ -83,37 +111,177 @@ class Trainer:
             load_reference_weights(self.model, weights)
 
     # --------------------------------------------------------------- train
-    def build_train_loader(self):
-        raise NotImplementedError(
-            "reading a dataset waits for the port of data/ (ROADMAP.md, the data/ + "
-            "evaluation/ slice): pass train() an iterator of batches, for one "
-            "data.synthetic.synthetic_batches")
+    def build_train_loader(self) -> TrainLoader:
+        """Threaded, shuffled, endless batches of SOLVER.IMS_PER_BATCH samples
+        of DATASETS.TRAIN through the configured mapper, on the host."""
+        cfg = self.cfg
+        dataset = []
+        for name in cfg.DATASETS.TRAIN:
+            dataset += DatasetCatalog.get(name)
+        if not dataset:
+            raise FileNotFoundError(f"DATASETS.TRAIN {list(cfg.DATASETS.TRAIN)} hold no sample "
+                                    "(are its files under $DETECTRON2_DATASETS?)")
+        return TrainLoader(dataset, self.build_mapper(is_train=True), cfg.SOLVER.IMS_PER_BATCH,
+                           seed=cfg.SEED, num_workers=cfg.DATALOADER.NUM_WORKERS)
 
-    def test(self):
-        raise NotImplementedError(
-            "evaluation waits for the port of data/ and evaluation/ (ROADMAP.md, the data/ + "
-            "evaluation/ slice)")
+    def build_mapper(self, is_train: bool) -> MaskFormerSemanticDatasetMapper:
+        """The mapper INPUT.DATASET_MAPPER_NAME names (semantic only)."""
+        name = self.cfg.INPUT.DATASET_MAPPER_NAME
+        if name != "mask_former_semantic":
+            raise NotImplementedError(f"the dataset mapper {name!r} is not ported yet (ROADMAP.md "
+                                      "section 1 item 5); ported: 'mask_former_semantic'")
+        return MaskFormerSemanticDatasetMapper.from_config(self.cfg, is_train=is_train,
+                                                           seed=self.cfg.SEED)
 
-    def train(self, batches: Iterator[Dict[str, torch.Tensor]],
+    def train(self, batches: Optional[Iterator[Dict[str, torch.Tensor]]] = None,
               max_iter: Optional[int] = None) -> None:
         """Steps start_step + 1 .. SOLVER.MAX_ITER, or up to ``max_iter`` when
         that is lower (the schedule still runs to SOLVER.MAX_ITER), one batch
-        of ``batches`` each.  A checkpoint every SOLVER.CHECKPOINT_PERIOD
-        steps and after the last one."""
-        solver = self.cfg.SOLVER
+        of ``batches`` each (by default of ``build_train_loader()``).  A
+        checkpoint every SOLVER.CHECKPOINT_PERIOD steps and after the last
+        one; ``test()`` every TEST.EVAL_PERIOD steps (0: never)."""
+        require_trainable(self.cfg)
+        solver, eval_period = self.cfg.SOLVER, self.cfg.TEST.EVAL_PERIOD
+        loader = None
+        if batches is None:
+            loader = self.build_train_loader()
+            batches = (device_batch(b, self.device) for b in loader)
         last = solver.MAX_ITER if max_iter is None else min(max_iter, solver.MAX_ITER)
-        for step in range(self.start_step + 1, last + 1):
-            batch = next(batches)
-            t0 = time.perf_counter()
-            metrics = {k: float(v) for k, v in self.step_fn(batch, self.draw).items()}
-            metrics["seconds"] = time.perf_counter() - t0    # float() waited for the device
-            metrics.update(device_memory_stats(self.device))
-            self.logger.log(step, metrics)
-            if not math.isfinite(metrics["total_loss"]):
-                nan_check(self.model, self.step_fn.optimizer)
-                raise FloatingPointError(f"non-finite loss at step {step}")
-            if step % solver.CHECKPOINT_PERIOD == 0 or step == last:
-                self.checkpointer.save(step, self.state(step))
-            self.start_step = step
+        try:
+            for step in range(self.start_step + 1, last + 1):
+                batch = next(batches)
+                t0 = time.perf_counter()
+                metrics = {k: float(v) for k, v in self.step_fn(batch, self.draw).items()}
+                metrics["seconds"] = time.perf_counter() - t0    # float() waited for the device
+                metrics.update(device_memory_stats(self.device))
+                self.logger.log(step, metrics)
+                if not math.isfinite(metrics["total_loss"]):
+                    nan_check(self.model, self.step_fn.optimizer)
+                    raise FloatingPointError(f"non-finite loss at step {step}")
+                if step % solver.CHECKPOINT_PERIOD == 0 or step == last:
+                    self.checkpointer.save(step, self.state(step))
+                self.start_step = step
+                if eval_period and step % eval_period == 0:
+                    self.test()
+        finally:
+            if loader is not None:
+                loader.close()
         self.checkpointer.wait()
         self.logger.close()
+
+    # ---------------------------------------------------------------- eval
+    def test(self) -> Dict[str, Dict[str, float]]:
+        """{dataset: metrics} for each of DATASETS.TEST, by its metadata's
+        evaluator_type; checked against TEST.EXPECTED_RESULTS."""
+        results = {}
+        for name in self.cfg.DATASETS.TEST:
+            etype = MetadataCatalog.get(name).get("evaluator_type", "sem_seg")
+            if "panoptic" in etype or "instance" in etype:
+                raise NotImplementedError(f"{etype} evaluation ({name}) is not ported yet "
+                                          "(ROADMAP.md section 1 item 5)")
+            results[name] = self._eval_sem_seg(name)
+            print(f"[eval {name}] " + ", ".join(f"{k}={v:.2f}" for k, v in results[name].items()
+                                                if not k.startswith("IoU-")), flush=True)
+        self.results = results
+        self.verify_results(results)
+        return results
+
+    def verify_results(self, results: Dict[str, Dict[str, float]]) -> bool:
+        """Assert the metrics against TEST.EXPECTED_RESULTS, entries [task,
+        metric, expected, tolerance] where task is a dataset name (or any
+        name, then the metric is looked up alone)."""
+        expected = self.cfg.TEST.EXPECTED_RESULTS
+        if not expected:
+            return True
+        flat = {}
+        for ds, metrics in results.items():
+            for k, v in metrics.items():
+                flat[f"{ds}/{k}"] = v
+                flat[k] = v
+        ok = True
+        for task, metric, ref_val, tol in expected:
+            key = f"{task}/{metric}" if f"{task}/{metric}" in flat else metric
+            actual = flat.get(key)
+            if actual is None or abs(actual - ref_val) > tol:
+                ok = False
+                print(f"[verify_results] FAIL {task}/{metric}: got {actual}, expected {ref_val} "
+                      f"+/- {tol}")
+            else:
+                print(f"[verify_results] OK {task}/{metric}: {actual:.3f} (expected {ref_val} "
+                      f"+/- {tol})")
+        assert ok, "verify_results failed (see log)"
+        return ok
+
+    def _pad_eval_image(self, img: np.ndarray) -> np.ndarray:
+        """Pad the bottom and right to the next multiple of
+        MODEL.MASK_FORMER.SIZE_DIVISIBILITY with the rounded pixel mean: the
+        reference pads the normalized image with zeros, which is the mean in
+        raw pixels (zeros here would put a black border under the backbone).
+        The serving predictor pads with zeros, as the demo does."""
+        div = self.cfg.MODEL.MASK_FORMER.SIZE_DIVISIBILITY
+        h, w = img.shape[:2]
+        out = np.empty((-(-h // div) * div, -(-w // div) * div, img.shape[2]), img.dtype)
+        out[:] = np.round(np.asarray(self.cfg.MODEL.PIXEL_MEAN)).astype(img.dtype)
+        out[:h, :w] = img
+        return out
+
+    def _scores(self, image: np.ndarray) -> torch.Tensor:
+        """(nc, H, W) class scores of one (H, W, 3) uint8 model input."""
+        out = self.model(torch.from_numpy(np.ascontiguousarray(image)).to(self.device)[None])
+        masks = upsample_masks(out["pred_masks"], image.shape[:2])[0]
+        return semantic_inference(out["pred_logits"][0], masks)
+
+    def _padded_scores(self, image: np.ndarray) -> torch.Tensor:
+        """(nc, h, w) class scores of an (h, w, 3) image: padded, through the
+        model (window by window where TEST.SW_ENABLED), cropped."""
+        cfg = self.cfg
+        h, w = image.shape[:2]
+        padded = self._pad_eval_image(image)
+        if cfg.TEST.SW_ENABLED:
+            sem = sliding_window_semantic_scores(self._scores, padded, cfg.TEST.SW_CROP_SIZE,
+                                                 cfg.TEST.SW_STRIDE)
+        else:
+            sem = self._scores(padded)
+        return sem[:, :h, :w]
+
+    def eval_scores(self, image: np.ndarray, out_hw: Tuple[int, int]) -> torch.Tensor:
+        """(nc, *out_hw) class scores on the device of one mapped test image
+        (h, w, 3) uint8: over TEST.AUG's scales and flips where it is
+        enabled, resized to the original size out_hw."""
+        aug = self.cfg.TEST.AUG
+        if aug.ENABLED:
+            sem = SemanticSegmentorWithTTA(self._padded_scores, aug.MIN_SIZES, aug.MAX_SIZE,
+                                           aug.FLIP)(image)
+        else:
+            sem = self._padded_scores(image)
+        return sem_seg_postprocess(sem, image.shape[:2], out_hw)
+
+    def _eval_sem_seg(self, dataset_name: str) -> Dict[str, float]:
+        cfg = self.cfg
+        meta = MetadataCatalog.get(dataset_name)
+        arch = meta_architecture(cfg)
+        ev_cls = SemSegEvaluator
+        if "MaskFiner" in arch:
+            ev_cls = MaskFinerSemSegEvaluator
+        elif arch == "MaskFormerML":
+            ev_cls = MetaLossSemSegEvaluator
+        evaluator = ev_cls(cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                           ignore_label=meta.get("ignore_label", 255),
+                           class_names=meta.get("stuff_classes"), output_dir=cfg.OUTPUT_DIR,
+                           save_predictions=cfg.TEST.SAVE_EVAL_ARTIFACTS and bool(cfg.OUTPUT_DIR))
+        mapper = self.build_mapper(is_train=False)
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                for sample in eval_loader(DatasetCatalog.get(dataset_name), mapper):
+                    sem = self.eval_scores(sample["image"], (sample["height"], sample["width"]))
+                    pred = sem.argmax(0).cpu().numpy()
+                    gt = sample["sem_seg"]
+                    if gt.shape != pred.shape:
+                        # the ground truth went through the mapper's resize too
+                        gt = resize_nearest(gt.astype(np.int32), pred.shape)
+                    evaluator.process(pred, gt, sample.get("file_name", ""))
+        finally:
+            self.model.train(was_training)
+        return evaluator.evaluate()

@@ -1,0 +1,1 @@
+"""evaluation of the PyTorch port (see the package docstring)."""

@@ -15,9 +15,14 @@ from .maskformer import maskformer_from_config
 META_ARCHITECTURES = {"MaskFormer": maskformer_from_config, "MaskFiner": maskfiner_from_config}
 
 
+def meta_architecture(cfg) -> str:
+    """MODEL.META_ARCHITECTURE, MaskFormer where the config has none."""
+    return getattr(cfg.MODEL, "META_ARCHITECTURE", "MaskFormer")
+
+
 def build_model(cfg) -> nn.Module:
     """The model MODEL.META_ARCHITECTURE names (MaskFormer when unset)."""
-    name = getattr(cfg.MODEL, "META_ARCHITECTURE", "MaskFormer")
+    name = meta_architecture(cfg)
     if name not in META_ARCHITECTURES:
         raise NotImplementedError(f"meta-architecture {name!r} is not ported; ported: "
                                   f"{sorted(META_ARCHITECTURES)}")
@@ -28,6 +33,6 @@ def size_divisibility(cfg) -> int:
     """What the predictor pads an image to a multiple of: the MaskFormer's
     SIZE_DIVISIBILITY; for the cascade also its coarsest patch (the JAX
     package's demo)."""
-    if getattr(cfg.MODEL, "META_ARCHITECTURE", "MaskFormer") == "MaskFiner":
+    if meta_architecture(cfg) == "MaskFiner":
         return max(cfg.MODEL.MASK_FINER.SIZE_DIVISIBILITY, max(cfg.MODEL.MR.PATCH_SIZES))
     return cfg.MODEL.MASK_FORMER.SIZE_DIVISIBILITY

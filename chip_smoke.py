@@ -2,7 +2,8 @@
 """Drive the PyTorch port's semantic-segmentation paths -- AFF-Mini inference,
 the AFF-Mini training step, an AFF-Small training run with checkpoint and
 resume, the pixel decoder's alternate operand layouts, the AFF-Mini-1/5
-preset and MaskFiner-Mini inference -- on one NVIDIA GPU.
+preset, MaskFiner-Mini inference, and training from the dataset loader with
+evaluation -- on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -100,7 +101,22 @@ preset and MaskFiner-Mini inference -- on one NVIDIA GPU.
    the bounds the logits' differences set) and the last stage's positions
    to equality, times both forwards with device busy, and
    serves 8 random uint8 512x512 images through the predictor at batch 1
-   and 4.
+   and 4;
+12. evaluation and the dataset path, through the package's command line in
+   this process, on 12 image and label-map pairs made from a numpy seed at
+   ADE20K's aspect ratios (the mapper's two file readers replaced by
+   lookups, as the card's machine has no PIL): AFF-Mini trained 4 steps at
+   batch 8 from TrainLoader (the mapper's resize, crop, colour jitter, flip
+   and padding) with test() after steps 2 and 4, then --eval-only on the
+   checkpoint, which must equal the in-loop test(); the loader's batches,
+   the pad fringe of the model's input in test() (the rounded pixel mean),
+   K1, K3 and K9 launches per test image, and a confusion matrix that
+   counts every labelled ground-truth pixel at the original size; the
+   test() images once more through the plain versions, replaying the kernel
+   run's choices (class scores to FORWARD_RTOL, predictions equal but at
+   near-tied pixels, metrics within what those pixels can move, and
+   verify_results); ms per image by padded size (up to 512x2048, 65,536
+   first-stage tokens); MaskFiner-Mini --eval-only on two images.
 
 Phases 6, 8, 9 and 10 compare training steps whose second run replays the
 first run's discrete choices (same_choices), held to LOSS_RTOL and
@@ -2465,9 +2481,9 @@ def maskfiner_launches(cfg) -> dict:
     return {"local_attn": local_attn, "msdetrpc": msdetrpc, "knn": nn_calls}
 
 
-def path_maskfiner_operands(model, images):
-    """The operands of K1, K3 and K9 in one forward of the cascade, in call
-    order: {"local_attn": [(stage n, args)], "msdetrpc": [(idx, w, val,
+def path_forward_operands(model, images):
+    """The operands of K1, K3 and K9 in one forward of a model (the cascade,
+    or AFF + Mask2Former), in call order: {"local_attn": [(stage n, args)], "msdetrpc": [(idx, w, val,
     level sizes, 1)], "knn": [(label, query, database, k)]}.  Captured by
     wrapping the calls in models/aff.py, models/pixel_decoder.py and the
     kernel call inside geometry.knn.knn."""
@@ -2681,7 +2697,7 @@ def maskfiner_phase(dev, smi, gen):
         f"{cfg.MODEL.MASK_FINER.DEC_LAYERS}; {n_params / 1e6:.1f} M parameters")
 
     # the kernels at the cascade's operands
-    ops = path_maskfiner_operands(model, images)
+    ops = path_forward_operands(model, images)
     paths = {"local_attn": check_local_attn_calls(MASKFINER, ops["local_attn"]),
              "msdetrpc": check_msdetrpc(MASKFINER, ops["msdetrpc"], l2_read_rate()),
              "knn": check_knn(MASKFINER, ops["knn"])}
@@ -2760,6 +2776,466 @@ def maskfiner_phase(dev, smi, gen):
     del model, images, predictor
     torch.cuda.empty_cache()
     return paths, launches
+
+
+# the evaluation phase (12): ADE20K-shaped images and label maps made from a
+# numpy seed -- (height, width) of each pair -- at the aspect ratios of the
+# published evaluation (short edge 512, long edge at most 2048, padded to 32)
+EVAL_SIZES = ((512, 683), (300, 400), (768, 1024), (480, 1600), (640, 480), (512, 512),
+              (256, 1024), (200, 1000), (375, 500), (427, 640), (683, 512), (600, 800))
+EVAL_PRESET, EVAL_STEPS, EVAL_PERIOD, EVAL_BATCH = "aff_mini", 4, 2, 8
+# the datasets phase 12 registers: training, test, and the test set's first
+# two pairs (MaskFiner-Mini's --eval-only)
+EVAL_NAMES = ("smoke_ade20k_train", "smoke_ade20k_val", "smoke_ade20k_val_2")
+# the test images whose forwards' K1, K3 and K9 operands are held against the
+# plain versions (mapped to 512x2048 and 410x2048: 65,536 and 53,248
+# first-stage tokens; the second's last decoder level no multiple of 128)
+EVAL_KERNEL_SIZES = ((256, 1024), (200, 1000))
+
+
+def eval_dataset(sizes=EVAL_SIZES, seed=SEED):
+    """{file name: (image (h, w, 3) uint8, label map (h, w) int64)}: smooth
+    random images, label maps of 32-pixel blocks over 8-30 of the 150
+    classes with two rectangles of the ignore label (255)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pairs = {}
+    for i, (h, w) in enumerate(sizes):
+        coarse = rng.integers(0, 256, (h // 16 + 2, w // 16 + 2, 3)).astype(np.float64)
+        img = coarse.repeat(16, 0).repeat(16, 1)[:h, :w] + rng.normal(0, 12, (h, w, 3))
+        k = int(rng.integers(8, 31))
+        classes = rng.choice(150, k, replace=False)
+        cells = classes[rng.integers(0, k, (h // 32 + 1, w // 32 + 1))]
+        sem = cells.repeat(32, 0).repeat(32, 1)[:h, :w].astype(np.int64)
+        for _ in range(2):
+            y, x = int(rng.integers(0, h - 40)), int(rng.integers(0, w - 40))
+            sem[y: y + int(rng.integers(8, 40)), x: x + int(rng.integers(8, 40))] = 255
+        pairs[f"smoke/{i:02d}_{h}x{w}.jpg"] = (np.clip(img, 0, 255).astype(np.uint8), sem)
+    return pairs
+
+
+class in_memory_dataset:
+    """Register `pairs` under EVAL_NAMES and let the semantic mapper read
+    them from memory: the card's machine has no PIL, so only the two file
+    readers of data/mapper_semantic.py are replaced (by lookups in `pairs`);
+    everything after reading is the package's own code."""
+
+    def __init__(self, pairs):
+        self.pairs = pairs
+
+    def __enter__(self):
+        from autofocusformermod_torch.data import mapper_semantic
+        from autofocusformermod_torch.data.catalog import DatasetCatalog, MetadataCatalog
+        from autofocusformermod_torch.data.datasets import ADE20K_SEM_SEG_CATEGORIES
+
+        files = [{"file_name": f, "sem_seg_file_name": f[:-4] + ".png"} for f in self.pairs]
+        for name, subset in zip(EVAL_NAMES, (files, files, files[:2])):
+            DatasetCatalog.register(name, lambda subset=subset: [dict(d) for d in subset])
+            MetadataCatalog.get(name).set(stuff_classes=ADE20K_SEM_SEG_CATEGORIES, ignore_label=255,
+                                          evaluator_type="sem_seg")
+        self.readers = (mapper_semantic.read_image, mapper_semantic.read_sem_seg)
+        mapper_semantic.read_image = lambda path: self.pairs[path][0]
+        mapper_semantic.read_sem_seg = lambda path: self.pairs[path[:-4] + ".jpg"][1]
+        return self
+
+    def __exit__(self, *exc):
+        from autofocusformermod_torch.data import mapper_semantic
+        from autofocusformermod_torch.data.catalog import DatasetCatalog
+
+        mapper_semantic.read_image, mapper_semantic.read_sem_seg = self.readers
+        for name in EVAL_NAMES:
+            DatasetCatalog.remove(name)
+
+
+class watch_eval:
+    """Within the block: every test() image's class scores (kept where
+    `keep`), its time on the card and its padded input size; the launches of
+    `counters` per image; the pad fringe of the model's input, read by a
+    forward pre-hook on every Trainer's model; the loader's host batches; and
+    each evaluator's confusion matrix.  A Trainer made within a watch keeps
+    its hook, which reads the watch active at the time."""
+
+    active = None
+
+    def __init__(self, counters, keep=False):
+        self.counters, self.keep = counters, keep
+        self.images, self.batches, self.confs = [], [], []
+        self.fringe = [0, 0]                  # pixels checked, pixels off the mean
+        self.current = None
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+        from autofocusformermod_torch.data.loader import TrainLoader
+        from autofocusformermod_torch.engine.train import Trainer
+        from autofocusformermod_torch.evaluation.sem_seg_evaluation import SemSegEvaluator
+
+        self.saved = [(Trainer, "__init__"), (Trainer, "eval_scores"), (TrainLoader, "__next__"),
+                      (SemSegEvaluator, "evaluate")]
+        self.saved = [(o, n, getattr(o, n)) for o, n in self.saved]
+        (_, _, init), (_, _, scores), (_, _, nxt), (_, _, evaluate) = self.saved
+        watch = watch_eval.active = self
+
+        def hook(model, args):
+            watch = watch_eval.active
+            if watch is None or watch.current is None:
+                return
+            x, (h, w) = args[0], watch.current["hw"]
+            mean = torch.tensor(watch.current["mean"], dtype=x.dtype, device=x.device)
+            watch.current["input"] = tuple(x.shape[1:3])
+            fringe = torch.cat([x[0, h:].reshape(-1, 3), x[0, :, w:].reshape(-1, 3)])
+            watch.fringe[0] += fringe.shape[0]
+            watch.fringe[1] += int((fringe != mean).any(-1).sum())
+
+        def init_(self, *a, **k):
+            init(self, *a, **k)
+            self.model.register_forward_pre_hook(hook)
+
+        def eval_scores(self, image, out_hw):
+            before = {n: fn.launches for n, fn in watch.counters.items()}
+            watch.current = {"hw": image.shape[:2], "out_hw": tuple(out_hw),
+                             "mean": np.round(self.cfg.MODEL.PIXEL_MEAN).tolist()}
+            torch.cuda.synchronize()
+            t0 = time.time()
+            sem = scores(self, image, out_hw)
+            torch.cuda.synchronize()
+            rec, watch.current = watch.current, None
+            rec["ms"] = (time.time() - t0) * 1e3
+            rec["launches"] = {n: fn.launches - before[n] for n, fn in watch.counters.items()}
+            rec["scores"] = sem if watch.keep else None
+            watch.images.append(rec)
+            return sem
+
+        def next_(self):
+            batch = nxt(self)
+            watch.batches.append({k: batch[k].copy() for k in ("image", "sem_seg_map", "labels",
+                                                                 "valid")})
+            return batch
+
+        def evaluate_(self):
+            watch.confs.append((self.num_classes, self._conf.copy()))
+            return evaluate(self)
+
+        for (owner, name, _), fn in zip(self.saved, (init_, eval_scores, next_, evaluate_)):
+            setattr(owner, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        watch_eval.active = None
+        for owner, name, real in self.saved:
+            setattr(owner, name, real)
+
+
+def check_loader_batches(batches, ignore=255):
+    """The loader's host batches: shapes and dtypes, the ignore label under
+    the pad (rows and columns where the image is the pad value 128 in every
+    channel), and the labels of each sample equal to its map's classes."""
+    import numpy as np
+
+    padded = 0
+    for b in batches:
+        img, sem, labels, valid = b["image"], b["sem_seg_map"], b["labels"], b["valid"]
+        shapes = (img.shape, img.dtype, sem.shape, sem.dtype, labels.shape, labels.dtype,
+                  valid.dtype)
+        want = ((EVAL_BATCH, 512, 512, 3), np.uint8, (EVAL_BATCH, 512, 512), np.uint8,
+                (EVAL_BATCH, 100), np.int32, np.bool_)
+        if shapes != want:
+            raise SystemExit(f"loader batch {shapes}, expected {want}")
+        for i in range(EVAL_BATCH):
+            pad = (img[i] == 128).all(-1)
+            rows, cols = pad.all(1), pad.all(0)
+            bottom = int(np.argmin(rows[::-1])) if not rows.all() else 512
+            right = int(np.argmin(cols[::-1])) if not cols.all() else 512
+            if bottom or right:
+                padded += 1
+                if (sem[i, 512 - bottom:] != ignore).any() or (sem[i, :, 512 - right:] != ignore).any():
+                    raise SystemExit("loader batch: the pad region's labels are not the ignore label")
+            present = np.unique(sem[i])
+            present = present[present != ignore][:100]
+            if not (np.array_equal(labels[i][valid[i]], present) and valid[i].sum() == len(present)
+                    and not valid[i][len(present):].any()):
+                raise SystemExit(f"loader batch: labels {labels[i][valid[i]]} of a map with classes "
+                                 f"{present}")
+    if not padded:
+        raise SystemExit("no loader sample was padded: the pad check saw nothing")
+    return padded
+
+
+def check_eval_run(label, watch, pairs, expected, eval_sizes):
+    """One test() run's images: launches per image, the pad fringe, and the
+    confusion matrix against the round-tripped ground truth at the original
+    size.  Returns {padded input size: [ms]}."""
+    import numpy as np
+    from autofocusformermod_torch.data.transforms import resize_nearest, resize_shortest_edge
+
+    if len(watch.images) != len(eval_sizes):
+        raise SystemExit(f"{label}: scored {len(watch.images)} images, expected {len(eval_sizes)}")
+    for rec in watch.images:
+        if rec["launches"] != expected:
+            raise SystemExit(f"{label}: an image of {rec['input']} launched {rec['launches']}, "
+                             f"expected {expected}")
+    if watch.fringe[1] or not watch.fringe[0]:
+        raise SystemExit(f"{label}: {watch.fringe[1]} of {watch.fringe[0]} pad pixels of the "
+                         "model's input are not the rounded pixel mean")
+    counted = 0
+    for f, hw in zip(sorted(pairs), eval_sizes):
+        img, sem = pairs[f]
+        _, mapped = resize_shortest_edge(img, sem, 512, 2048)
+        counted += int((resize_nearest(mapped.astype(np.int32), hw) != 255).sum())
+    nc, conf = watch.confs[-1]
+    if int(conf[:nc].sum()) != counted or int(conf.sum()) != sum(h * w for h, w in eval_sizes):
+        raise SystemExit(f"{label}: the confusion matrix counts {int(conf[:nc].sum())} labelled "
+                         f"pixels, the ground truth has {counted}")
+    return ms_by_size(watch.images)
+
+
+def ms_by_size(images):
+    """{padded input 'HxW': [ms of each image]} of watch_eval records."""
+    by_size = {}
+    for rec in images:
+        by_size.setdefault("x".join(map(str, rec["input"])), []).append(rec["ms"])
+    return by_size
+
+
+def metric_bounds(conf, moved, n_moved):
+    """How far mIoU, fwIoU and pACC may move from the confusion matrix
+    `conf` when n_moved pixels change their prediction, `moved` counting
+    each class those predictions left or took: a class's IoU moves by at
+    most 2 k / (union - k) for k such pixels."""
+    import numpy as np
+
+    n = conf.shape[0] - 1
+    c = conf[:n, :n].astype(np.float64)
+    gt = c.sum(1)
+    union = gt + c.sum(0) - np.diag(c)
+    k = np.zeros(n)
+    for cls, cnt in moved.items():
+        k[cls] += cnt
+    valid = gt > 0
+    d_iou = np.where(valid, np.minimum(1.0, 2 * k / np.maximum(union - k, 1)), 0.0)
+    total = max(gt.sum(), 1)
+    return {"mIoU": float(100 * d_iou[valid].sum() / max(valid.sum(), 1)),
+            "fwIoU": float(100 * (gt / total * d_iou).sum()), "pACC": float(100 * n_moved / total)}
+
+
+def eval_phase(dev, smi, counters, aff_opts=(), maskfiner_opts=(), sizes=EVAL_SIZES):
+    """Phase 12: train_net.main in this process on the in-memory ADE20K-shaped
+    set: EVAL_STEPS steps at batch EVAL_BATCH through TrainLoader with test()
+    after every EVAL_PERIOD steps, then --eval-only on the checkpoint; the
+    test() images through the kernels and through the plain versions,
+    replaying the kernel run's choices; MaskFiner-Mini --eval-only on two
+    images; K1, K3 and K9 on the operands of the EVAL_KERNEL_SIZES images'
+    forwards.  Returns ({counter: launches of the phase's runs through the
+    kernels}, {kernel: {path: record for by_path}})."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from autofocusformermod_torch import train_net
+    from autofocusformermod_torch.config import PRESETS
+    from autofocusformermod_torch.data.transforms import resize_nearest, resize_shortest_edge
+    from autofocusformermod_torch.ops.build import BUILD_DIR
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+
+    cfg = PRESETS[EVAL_PRESET]()
+    cfg.merge_from_list(list(aff_opts))
+    blocks, layers = sum(cfg.MODEL.AFF.DEPTHS), cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS * 3
+    per_image = {"local_attn": blocks, "msdetrpc": layers, "knn": 10}
+    per_image = {n: per_image.get(n, 0) for n in counters}
+    per_step = {"local_attn": blocks, "local_attn_bwd": blocks, "msdetrpc": layers,
+                "msdetrpc_bwd": layers, "point_sample": 2, "point_sample_bwd": 1, "lapjv": 1,
+                "knn": 10, "point_sample_nearest_rows": 1}
+    per_step = {n: per_step.get(n, 0) for n in counters}
+    device_args = [] if dev.type == "cuda" else ["--device", "cpu"]
+    pairs = eval_dataset(sizes)
+    eval_sizes = [h_w for _, h_w in sorted((f, v[0].shape[:2]) for f, v in pairs.items())]
+    name = EVAL_NAMES[1]
+    phase_launches = {n: 0 for n in counters}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def add(launches):
+        for n, v in launches.items():
+            phase_launches[n] += v
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR.parent, prefix="eval_") as tmp, \
+            in_memory_dataset(pairs):
+        opts = ["DATASETS.TRAIN", f"('{EVAL_NAMES[0]}',)", "DATASETS.TEST", f"('{name}',)",
+                "TEST.EVAL_PERIOD", str(EVAL_PERIOD), "SOLVER.IMS_PER_BATCH", str(EVAL_BATCH),
+                "OUTPUT_DIR", os.path.join(tmp, "run")] + list(aff_opts)
+
+        # training through the loader, test() every EVAL_PERIOD steps
+        reset()
+        t0 = time.time()
+        with watch_eval(counters) as w_train:
+            trainer = train_net.main(["--config", EVAL_PRESET, "--max-iter", str(EVAL_STEPS)]
+                                     + device_args + opts)
+        t_train = time.time() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        add(launches)
+        evals = EVAL_STEPS // EVAL_PERIOD
+        want = {n: per_step[n] * EVAL_STEPS + per_image[n] * evals * len(pairs) for n in counters}
+        log(f"  {EVAL_PRESET} through train_net.main: {EVAL_STEPS} steps at batch {EVAL_BATCH} "
+            f"from TrainLoader, test() after steps {list(range(EVAL_PERIOD, EVAL_STEPS + 1, EVAL_PERIOD))}"
+            f" on {len(pairs)} images, {t_train:.1f} s; launches {launches}")
+        if launches != want:
+            raise SystemExit(f"the train-and-evaluate run launched {launches}, expected {want}")
+        with open(os.path.join(tmp, "run", "metrics.jsonl")) as f:
+            steps = [json.loads(line) for line in f]
+        if [m["step"] for m in steps] != list(range(1, EVAL_STEPS + 1)) or not all(
+                np.isfinite(m["total_loss"]) for m in steps):
+            raise SystemExit(f"the run logged {[(m['step'], m['total_loss']) for m in steps]}")
+        log("  loss per step: " + ", ".join(f"{m['total_loss']:.4f}" for m in steps))
+        padded = check_loader_batches(w_train.batches[:EVAL_STEPS])
+        log(f"  loader batches: {len(w_train.batches)} taken, shapes and dtypes as the mapper "
+            f"gives them; {padded} of {EVAL_STEPS * EVAL_BATCH} samples padded (image 128, "
+            "labels 255); labels = the classes of each map")
+        in_loop = trainer.results
+        n_train = len(w_train.images)
+        w_train.images = w_train.images[n_train // 2:]       # the test() after the last step
+        check_eval_run("in-loop test()", w_train, pairs, per_image, eval_sizes)
+        del trainer
+
+        # --eval-only on the last checkpoint, timed
+        reset()
+        by_route = getattr(counters.get("knn"), "launches_by_route", {})
+        routes_before = dict(by_route)
+        t0 = time.time()
+        with watch_eval(counters) as w_only:
+            evaluated = train_net.main(["--config", EVAL_PRESET, "--eval-only", "--resume"]
+                                       + device_args + opts)
+        t_only = time.time() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        add(launches)
+        by_size = check_eval_run("--eval-only", w_only, pairs, per_image, eval_sizes)
+        if evaluated.results != in_loop:
+            raise SystemExit(f"--eval-only gave {evaluated.results[name]}, the test() after step "
+                             f"{EVAL_STEPS} {in_loop[name]}")
+        k_ms = sum(r["ms"] for r in w_only.images)
+        log(f"  --eval-only on the step-{EVAL_STEPS} checkpoint equals the in-loop test(): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in in_loop[name].items() if not k.startswith("IoU")))
+        log(f"  test() through the kernels: {len(pairs)} images, {k_ms:.1f} ms on the model path "
+            f"({len(pairs) / k_ms * 1e3:.2f} images/s), {t_only:.1f} s for the command with its "
+            f"build and mapping; ms per image by padded input: "
+            + ", ".join(f"{k} {statistics.median(v):.1f} (x{len(v)})" for k, v in by_size.items())
+            + f" ({smi})")
+        log("  knn launches by route in --eval-only: "
+            f"{ {r: n - routes_before[r] for r, n in by_route.items()} }")
+        log(f"  pad fringe of the model's input: {w_only.fringe[0]} pixels, all "
+            f"{np.round(cfg.MODEL.PIXEL_MEAN).astype(int).tolist()}")
+
+        # the same images through the plain versions, replaying the kernel run's choices
+        book = {}
+        with watch_eval(counters, keep=True) as w_k, same_choices(book, record=True):
+            k_results = evaluated.test()
+        with watch_eval(counters, keep=True) as w_p, same_choices(book, record=False), \
+                plain_versions():
+            p_results = evaluated.test()
+        same_choices.check("test() plain replay", book)
+        del book
+        moved, tied_total, worst = {}, 0, 0.0
+        for rk, rp in zip(w_k.images, w_p.images):
+            sk, sp = rk["scores"], rp["scores"]
+            scale = sp.abs().max().item()
+            err = (sk - sp).abs().max().item()
+            worst = max(worst, err / scale)
+            if err > FORWARD_RTOL * scale:
+                raise SystemExit(f"test() scores of a {rk['input']} image: kernels and plain "
+                                 f"versions disagree by {err} (max |ref| {scale})")
+            top2 = sp.topk(2, dim=0).values
+            tied = (top2[0] - top2[1]) <= FORWARD_RTOL * scale
+            pk, pp = sk.argmax(0), sp.argmax(0)
+            diff = pk != pp
+            if (diff & ~tied).any():
+                raise SystemExit(f"test() predictions of a {rk['input']} image differ at "
+                                 f"{int((diff & ~tied).sum())} pixels whose top two scores are "
+                                 "apart by more than the tolerance")
+            tied_total += int(tied.sum())
+            for c in torch.cat([pk[diff], pp[diff]]).tolist():
+                moved[c] = moved.get(c, 0) + 1
+            rk["scores"] = rp["scores"] = None
+        n_moved = sum(moved.values()) // 2
+        bounds = metric_bounds(w_k.confs[-1][1], moved, n_moved)
+        deltas = {m: abs(k_results[name][m] - p_results[name][m]) for m in bounds}
+        log(f"  plain replay: class scores within {worst:.3e} of max |ref| (FORWARD_RTOL "
+            f"{FORWARD_RTOL}); {tied_total} pixels near-tied, {n_moved} predictions differ; "
+            f"metric differences {deltas} (bounds {bounds})")
+        if any(deltas[m] > bounds[m] for m in bounds) or (not n_moved and k_results != p_results):
+            raise SystemExit(f"test() metrics: kernels {k_results[name]}, plain {p_results[name]}")
+        evaluated.cfg.TEST.EXPECTED_RESULTS = [[name, m, k_results[name][m], bounds[m]]
+                                               for m in bounds]
+        evaluated.verify_results(p_results)
+        evaluated.cfg.TEST.EXPECTED_RESULTS = []
+        p_ms = sum(r["ms"] for r in w_p.images)
+        by_size_p = ms_by_size(w_p.images)
+        log(f"  test() through the plain versions (replaying): {p_ms:.1f} ms "
+            f"({len(pairs) / p_ms * 1e3:.2f} images/s); ms per image by padded input: "
+            + ", ".join(f"{k} {statistics.median(v):.1f} (x{len(v)})" for k, v in by_size_p.items())
+            + f" ({smi})")
+        for f, hw in zip(sorted(pairs), eval_sizes):
+            if hw in ((300, 400), (768, 1024)):
+                img, sem = pairs[f]
+                _, mapped = resize_shortest_edge(img, sem, 512, 2048)
+                back = resize_nearest(mapped, hw)
+                log(f"  ground-truth round trip {hw} -> {mapped.shape} -> {hw}: "
+                    f"{int((back != sem).sum())} of {sem.size} pixels changed")
+        # K1, K3 and K9 on the operands of the widest test images' forwards
+        paths = {}
+        for f, hw in zip(sorted(pairs), eval_sizes):
+            if hw not in EVAL_KERNEL_SIZES or dev.type != "cuda":
+                continue
+            img = evaluated._pad_eval_image(resize_shortest_edge(pairs[f][0], None, 512, 2048)[0])
+            ops = path_forward_operands(evaluated.model.eval(), torch.from_numpy(img)[None].to(dev))
+            label = "eval_{}x{}".format(*img.shape[:2])
+            levels = sorted({tuple(c[3]) for c in ops["msdetrpc"]})
+            log(f"  {label}: the forward's decoder levels {levels}, first stage "
+                f"{ops['local_attn'][0][0].shape[2]} tokens")
+            for name, check in (("local_attn", check_local_attn_calls), ("msdetrpc", check_msdetrpc),
+                                ("knn", check_knn)):
+                paths.setdefault(name, {})[label] = check(label, ops[name])
+            del ops
+
+            def scores():
+                with torch.no_grad():
+                    evaluated._padded_scores(img)
+                torch.cuda.synchronize()
+            scores()
+            walls = []
+            for _ in range(3):
+                t0 = time.time()
+                scores()
+                walls.append((time.time() - t0) * 1e3)
+            busy, rows = device_busy(scores, runs=2)
+            wall = statistics.median(walls)
+            log(f"  {label}: a test image's forward and scores {wall:.1f} ms, device busy "
+                f"{busy:.1f} ms in {rows:.0f} rows (idle {1 - busy / wall:.0%}) ({smi})")
+        del evaluated, w_k, w_p
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # MaskFiner-Mini --eval-only on two of the images
+        mf_cfg = PRESETS[MASKFINER]()
+        mf_cfg.merge_from_list(list(maskfiner_opts))
+        mf_expected = {n: maskfiner_launches(mf_cfg).get(n, 0) for n in counters}
+        reset()
+        with watch_eval(counters) as w_mf:
+            mf = train_net.main(["--config", MASKFINER, "--eval-only"] + device_args + [
+                "DATASETS.TEST", f"('{EVAL_NAMES[2]}',)", "OUTPUT_DIR", os.path.join(tmp, "mf")]
+                + list(maskfiner_opts))
+        add({n: fn.launches for n, fn in counters.items()})
+        check_eval_run(f"{MASKFINER} --eval-only", w_mf, dict(sorted(pairs.items())[:2]),
+                       mf_expected, eval_sizes[:2])
+        log(f"  {MASKFINER} --eval-only on {len(w_mf.images)} images: launches per image "
+            f"{mf_expected}; ms per image " + ", ".join(
+                f"{r['input']} {r['ms']:.1f}" for r in w_mf.images)
+            + f"; mIoU {mf.results[EVAL_NAMES[2]]['mIoU']:.4f} ({smi})")
+        del mf
+    return phase_launches, paths
 
 
 def main() -> int:
@@ -3007,6 +3483,17 @@ def main() -> int:
             kr["by_path"][MASKFINER] = maskfiner_paths[kr["name"]]
             kr["max_abs_err"] = max(kr["max_abs_err"], maskfiner_paths[kr["name"]]["max_abs_err"])
 
+    log(f"phase 12: evaluation and the dataset path: {EVAL_PRESET} trained {EVAL_STEPS} steps "
+        f"from TrainLoader with test() every {EVAL_PERIOD}, --eval-only, the test() images "
+        f"against the plain versions, {MASKFINER} --eval-only; {len(EVAL_SIZES)} ADE20K-shaped "
+        "pairs")
+    eval_launches, eval_paths = eval_phase(dev, smi, {**train_counters, **layout_counters})
+    torch.cuda.empty_cache()
+    for kr in kernels:
+        for path, rec in eval_paths.get(kr["name"], {}).items():
+            kr["by_path"][path] = rec
+            kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
+
     for kr in kernels:
         names = [kr["name"]] + (["point_sample_bwd"] if kr["name"] == "point_sample" else [])
         kr["inference_launches"] = inference_launches.get(kr["name"], 0)
@@ -3019,9 +3506,12 @@ def main() -> int:
         kr["layouts_launches"] = sum(layout_launches.get(n, 0) for n in with_bwd)
         kr["mini15_launches"] = sum(mini15_launches.get(n, 0) for n in with_bwd)
         kr["maskfiner_launches"] = maskfiner_fwd_launches.get(kr["name"], 0)
+        # phase 12: the steps from the loader, every test() and --eval-only
+        kr["eval_launches"] = sum(eval_launches.get(n, 0) for n in names)
         kr["launches"] = (kr["inference_launches"] + kr["mini_step_launches"]
                           + kr["small_run_launches"] + kr["layouts_launches"]
-                          + kr["mini15_launches"] + kr["maskfiner_launches"])
+                          + kr["mini15_launches"] + kr["maskfiner_launches"]
+                          + kr["eval_launches"])
         if kr["launches"] < 1:
             raise SystemExit(f"{kr['name']}: never launched on a main path")
     if len(kernels) != 14:

@@ -110,6 +110,15 @@ def test_maskfiner_mini_preset_matches_yaml():
     walk(maskfiner_mini_cfg(), cfg, ())
     assert {"MODEL.META_ARCHITECTURE", "MODEL.MR.DEPTHS", "MODEL.MR_SEM_SEG_HEAD.CONVS_DIM",
             "MODEL.MASK_FINER.DEC_LAYERS", "SOLVER.AMP.ENABLED"} <= set(seen)
+    assert {"DATASETS.TRAIN", "DATASETS.TEST", "INPUT.MIN_SIZE_TRAIN", "INPUT.MAX_SIZE_TEST",
+            "INPUT.CROP.SINGLE_CATEGORY_MAX_AREA", "INPUT.COLOR_AUG_SSD", "INPUT.SIZE_DIVISIBILITY",
+            "INPUT.DATASET_MAPPER_NAME", "TEST.EVAL_PERIOD", "TEST.EXPECTED_RESULTS",
+            "TEST.AUG.MIN_SIZES", "TEST.SW_CROP_SIZE", "TEST.SAVE_EVAL_ARTIFACTS",
+            "DATALOADER.NUM_WORKERS", "MODEL.SEM_SEG_HEAD.IGNORE_VALUE"} <= set(seen)
+    # the cascade's base yaml sets its own multi-scale test sizes; the AFF presets keep the defaults
+    aug = maskfiner_mini_cfg().TEST.AUG
+    assert (aug.MIN_SIZES, aug.MAX_SIZE) == ([256, 384, 512, 640, 768, 896], 3584)
+    assert PRESETS["aff_mini"]().TEST.AUG.MAX_SIZE == 4000
 
 
 def test_published_cascade_builds():

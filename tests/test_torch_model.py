@@ -156,8 +156,8 @@ def test_import_is_jax_free():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke, interleaved_ab\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'yaml',"
-        " 'autofocusformermod_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'yaml', 'cv2',"
+        " 'PIL', 'autofocusformermod_tpu')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -175,6 +175,7 @@ def test_aff_mini_preset_matches_yaml():
     cfg = get_cfg()
     add_maskformer2_config(cfg)
     cfg.merge_from_file(str(REPO / "configs/ade20k/maskformer2_aff_mini_bs32_80k.yaml"))
+    seen = []
 
     def walk(preset, node, path):
         for k, v in preset.items():
@@ -183,9 +184,15 @@ def test_aff_mini_preset_matches_yaml():
             else:
                 got = node[k]
                 assert (list(got) if isinstance(got, (list, tuple)) else got) == v, path + (k,)
+                seen.append(".".join(path + (k,)))
 
     walk(aff_mini_cfg(), cfg, ())
     assert cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM == 256
+    assert {"DATASETS.TRAIN", "DATASETS.TEST", "INPUT.MIN_SIZE_TRAIN", "INPUT.MAX_SIZE_TEST",
+            "INPUT.CROP.SINGLE_CATEGORY_MAX_AREA", "INPUT.COLOR_AUG_SSD", "INPUT.SIZE_DIVISIBILITY",
+            "INPUT.DATASET_MAPPER_NAME", "TEST.EVAL_PERIOD", "TEST.EXPECTED_RESULTS",
+            "TEST.AUG.MIN_SIZES", "TEST.SW_CROP_SIZE", "TEST.SAVE_EVAL_ARTIFACTS",
+            "DATALOADER.NUM_WORKERS", "MODEL.SEM_SEG_HEAD.IGNORE_VALUE"} <= set(seen)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -58,6 +58,11 @@ def test_aff_mini_15_preset_matches_yaml():
     walk(preset, cfg, ())
     assert {"MODEL.AFF.DS_RATE", "MODEL.WEIGHTS", "SOLVER.IMS_PER_BATCH", "INPUT.CROP.SIZE",
             "MODEL.SEM_SEG_HEAD.CONVS_DIM"} <= set(seen)
+    assert {"DATASETS.TRAIN", "DATASETS.TEST", "INPUT.MIN_SIZE_TRAIN", "INPUT.MAX_SIZE_TEST",
+            "INPUT.CROP.SINGLE_CATEGORY_MAX_AREA", "INPUT.COLOR_AUG_SSD", "INPUT.SIZE_DIVISIBILITY",
+            "INPUT.DATASET_MAPPER_NAME", "TEST.EVAL_PERIOD", "TEST.EXPECTED_RESULTS",
+            "TEST.AUG.MIN_SIZES", "TEST.SW_CROP_SIZE", "TEST.SAVE_EVAL_ARTIFACTS",
+            "DATALOADER.NUM_WORKERS", "MODEL.SEM_SEG_HEAD.IGNORE_VALUE"} <= set(seen)
     assert (preset.MODEL.AFF.DS_RATE, preset.MODEL.WEIGHTS) == (0.2, "aff_mini_15.pth")
     mini = aff_mini_cfg()
     mini.MODEL.AFF.DS_RATE, mini.MODEL.WEIGHTS = 0.2, "aff_mini_15.pth"
