@@ -266,6 +266,18 @@ def maskfiner_mini_cfg(num_classes: int = 150) -> Cfg:
                 "SHEPARD_POWER": 6.0,
                 "SHEPARD_POWER_LEARNABLE": True,
                 "SIZE_DIVISIBILITY": 32,
+                # the criterion (maskfiner_R50_bs16_160k.yaml) and the
+                # OracleTeacher's upsampling loss (the default weight)
+                "DEEP_SUPERVISION": True,
+                "NO_OBJECT_WEIGHT": 0.1,
+                "CLASS_WEIGHT": 2.0,
+                "MASK_WEIGHT": 5.0,
+                "DICE_WEIGHT": 5.0,
+                "TRAIN_NUM_POINTS": 12544,
+                "OVERSAMPLE_RATIO": 3.0,
+                "IMPORTANCE_SAMPLE_RATIO": 0.75,
+                "UPSAMPLING_WEIGHT": 10,
+                "DROPOUT": 0.0,
             },
             # what evaluation reads of the MaskFormer nodes: the class count,
             # the ignore label and the padding of a test image

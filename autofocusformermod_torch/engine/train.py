@@ -7,8 +7,7 @@ reads DATASETS.TRAIN through the semantic mapper and ``TrainLoader`` unless
 the caller passes batches (``data.synthetic.synthetic_batches`` where no
 dataset is installed); ``test()`` scores DATASETS.TEST with
 ``SemSegEvaluator``.  Every meta-architecture of ``models/registry.py``
-evaluates; only MaskFormer trains (training the MaskFiner cascade is
-ROADMAP.md section 1 item 7).
+(MaskFormer and the MaskFiner cascade) trains and evaluates.
 
 Randomness: the weights are initialised under cfg.SEED, and two generators
 on the device -- the criterion's (cfg.SEED + 1) and DropPath's (cfg.SEED +
@@ -39,7 +38,7 @@ from ..evaluation.sem_seg_evaluation import (MaskFinerSemSegEvaluator, MetaLossS
 from ..losses.criterion import device_draw
 from ..models.inference import sem_seg_postprocess, sliding_window_semantic_scores
 from ..models.maskformer import semantic_inference, upsample_masks
-from ..models.registry import build_model, meta_architecture
+from ..models.registry import META_ARCHITECTURES, build_model, meta_architecture
 from ..models.tta import SemanticSegmentorWithTTA
 from .checkpoint import Checkpointer
 from .convert_checkpoint import load_reference_weights
@@ -48,12 +47,13 @@ from .train_step import TrainStep
 
 
 def require_trainable(cfg) -> None:
-    """Raise where training the configured meta-architecture is not ported."""
+    """Raise, before anything is built, where the configured
+    meta-architecture is not ported (its variants raise as the model is
+    built)."""
     arch = meta_architecture(cfg)
-    if arch != "MaskFormer":
-        raise NotImplementedError(f"training the {arch} meta-architecture is not ported yet "
-                                  "(ROADMAP.md section 1 item 7); its inference and evaluation "
-                                  "are (--eval-only)")
+    if arch not in META_ARCHITECTURES:
+        raise NotImplementedError(f"training the {arch} meta-architecture is not ported (ROADMAP.md "
+                                  f"section 1); ported: {sorted(META_ARCHITECTURES)}")
 
 
 class Trainer:
@@ -67,14 +67,12 @@ class Trainer:
             torch.manual_seed(cfg.SEED)
             model = build_model(cfg)
         self.model = model.to(self.device)
-        trainable = meta_architecture(cfg) == "MaskFormer"
-        self.step_fn = TrainStep(self.model, cfg) if trainable else None
+        self.step_fn = TrainStep(self.model, cfg)
         self.generators = {
             "criterion": torch.Generator(device=self.device).manual_seed(cfg.SEED + 1),
             "drop_path": torch.Generator(device=self.device).manual_seed(cfg.SEED + 2)}
         self.draw = device_draw(self.generators["criterion"])
-        if trainable:
-            self.model.backbone.set_drop_path_generator(self.generators["drop_path"])
+        self.model.set_drop_path_generator(self.generators["drop_path"])
         self.checkpointer = Checkpointer(os.path.join(cfg.OUTPUT_DIR, "checkpoints"))
         self.logger = MetricLogger(cfg.OUTPUT_DIR, wandb_name=wandb_name)
         self.start_step = 0
@@ -82,18 +80,15 @@ class Trainer:
 
     # -------------------------------------------------------------- resume
     def state(self, step: int) -> Dict:
-        state = {"step": step, "model": self.model.state_dict(),
-                 "generators": {k: g.get_state() for k, g in self.generators.items()}}
-        if self.step_fn is not None:
-            state["optimizer"] = self.step_fn.optimizer.state_dict()
-            state["scheduler"] = self.step_fn.scheduler.state_dict()
-        return state
+        return {"step": step, "model": self.model.state_dict(),
+                "generators": {k: g.get_state() for k, g in self.generators.items()},
+                "optimizer": self.step_fn.optimizer.state_dict(),
+                "scheduler": self.step_fn.scheduler.state_dict()}
 
     def load_state(self, state: Dict) -> None:
         self.model.load_state_dict(state["model"])
-        if self.step_fn is not None:
-            self.step_fn.optimizer.load_state_dict(state["optimizer"])
-            self.step_fn.scheduler.load_state_dict(state["scheduler"])
+        self.step_fn.optimizer.load_state_dict(state["optimizer"])
+        self.step_fn.scheduler.load_state_dict(state["scheduler"])
         for k, g in self.generators.items():
             g.set_state(state["generators"][k])
         self.start_step = int(state["step"])

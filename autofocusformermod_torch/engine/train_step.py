@@ -1,11 +1,17 @@
 """The training step: train-mode forward -> Hungarian matching + criterion ->
 backward -> full-model clipping -> AdamW update.
 
-Counterpart of ``autofocusformermod_tpu/parallel/train_step.py``
-(``make_train_step``) on one device, fp32.  ``TrainStep(model, cfg)``
-builds the optimizer; ``step(batch, draw)`` takes one step and returns the metrics the JAX
-step returns: ``total_loss``, every loss term and ``grad_norm`` (before
-clipping).  ``draw`` supplies the criterion's randomness
+Counterpart of ``autofocusformermod_tpu/parallel/train_step.py`` on one
+device, fp32: ``make_train_step`` for a MaskFormer, and
+``make_maskfiner_train_step`` for the MaskFiner cascade, whose criterion
+runs over the last stage's outputs and every stage's rounds (19 outputs
+for MaskFiner-Mini, at one mask size per stage) with the loss weights of
+MODEL.MASK_FINER and the classes of MODEL.MR_SEM_SEG_HEAD, as the JAX
+benchmark and the upstream meta-architecture read them.
+``TrainStep(model, cfg)`` builds the optimizer; ``step(batch, draw)``
+takes one step and returns the metrics the JAX step returns:
+``total_loss``, every loss term and ``grad_norm`` (before clipping).
+``draw`` supplies the criterion's randomness
 (``losses.criterion.device_draw`` of a ``torch.Generator`` by default).
 """
 
@@ -17,6 +23,7 @@ import torch
 from torch import nn
 
 from ..losses.criterion import Draw, set_criterion
+from ..models.registry import meta_architecture
 from .optimizer import build_optimizer, clip_by_global_norm_, global_norm
 
 
@@ -33,8 +40,19 @@ def device_masks(batch: Dict) -> torch.Tensor:
     return (eq & batch["valid"][:, :, None, None]).float()
 
 
+def criterion_config(cfg) -> Tuple:
+    """(the node of the loss weights and point counts, the class count) of
+    the configured meta-architecture: MODEL.MASK_FINER and
+    MODEL.MR_SEM_SEG_HEAD for the cascade, else MODEL.MASK_FORMER and
+    MODEL.SEM_SEG_HEAD."""
+    if meta_architecture(cfg) == "MaskFiner":
+        return cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD.NUM_CLASSES
+    return cfg.MODEL.MASK_FORMER, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+
+
 class TrainStep:
-    """One optimizer step of a MaskFormer on one batch: ``step(batch, draw)``.
+    """One optimizer step of a MaskFormer or a MaskFiner cascade on one
+    batch: ``step(batch, draw)``.
 
     batch: {'image': (b, H, W, 3) uint8 or float RGB, 'sem_seg_map': (b, H,
     W) int, 'labels': (b, t) int, 'valid': (b, t) bool}, all on the model's
@@ -43,8 +61,7 @@ class TrainStep:
     def __init__(self, model: nn.Module, cfg):
         self.model = model
         self.optimizer, self.scheduler = build_optimizer(cfg, model)
-        mf = cfg.MODEL.MASK_FORMER
-        self.num_classes = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+        mf, self.num_classes = criterion_config(cfg)
         self.criterion = dict(
             eos_coef=mf.NO_OBJECT_WEIGHT, class_weight=mf.CLASS_WEIGHT,
             mask_weight=mf.MASK_WEIGHT, dice_weight=mf.DICE_WEIGHT,
@@ -63,6 +80,10 @@ class TrainStep:
         (total, loss terms, matched query per target of each layer)."""
         self.model.train()
         outputs = self.model(batch["image"])
+        if outputs.get("upsampling_preds"):
+            raise NotImplementedError(
+                "the upsampling loss (MODEL.MASK_FINER.UPSAMPLING_WEIGHT x upsampling_mse_loss) "
+                "of the OracleTeacher cascades is not ported (ROADMAP.md section 1 item 7.4)")
         targets = {"labels": batch["labels"], "masks": device_masks(batch),
                    "valid": batch["valid"]}
         total, losses, matched = set_criterion(outputs, targets, self.num_classes, draw,

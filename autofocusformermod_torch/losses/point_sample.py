@@ -9,9 +9,10 @@ runs the ``point_sample`` CUDA kernel on CUDA tensors.
 sampler (a bilinear ranking read and a global top-k);
 ``get_uncertain_point_coords_nn_ranked``, the criterion's default, ranks
 counter-hashed candidates by a one-tap nearest read.  As the JAX package
-stratifies the candidates only on the accelerator, this one stratifies them
-only for CUDA tensors (the row-stratified kernel and a top-k per chunk of
-128) and follows the i.i.d. route with a global top-k on CPU tensors.
+stratifies the candidates only on the accelerator and only at the shapes its
+rule allows, this one stratifies them only for CUDA tensors at those shapes
+(the row-stratified kernel and a top-k per chunk of 128) and follows the
+i.i.d. route with a global top-k elsewhere.
 """
 
 from __future__ import annotations
@@ -183,13 +184,17 @@ def get_uncertain_point_coords_nn_ranked(
     (n, num_points, 2) in [0, 1].
 
     stratified: None takes the y-stratified route on CUDA tensors (where
-    STRATIFY_RANKING is on and the shapes allow the row-stratified read) and
-    the i.i.d. route on CPU tensors; True or False forces one.
+    STRATIFY_RANKING is on) and the i.i.d. route on CPU tensors; True asks
+    for the stratified route, False forces the i.i.d. one.  Either way the
+    stratified route runs only where the JAX package's accelerator takes it
+    (``ops.point_sample.point_sample_nearest_rows_supported``: rows a
+    multiple of 128 wide, at least as many chunks of 128 as rows); elsewhere
+    the i.i.d. candidates are read through ``point_sample_nearest``.
 
     Draws, in order: two seeds, then the remainder (n, num_points -
     num_uncertain, 2)."""
-    from ..ops.point_sample import (ROWS_CHUNK, point_sample_nearest, point_sample_nearest_rows,
-                                    point_sample_nearest_rows_supported)
+    from ..ops.point_sample import (ROWS_CHUNK, ROWS_MAX_W, point_sample_nearest,
+                                    point_sample_nearest_rows, point_sample_nearest_rows_supported)
 
     n, h, w = mask_logits.shape
     num_sampled = int(num_points * oversample_ratio)
@@ -204,6 +209,9 @@ def get_uncertain_point_coords_nn_ranked(
     if stratified is None:
         stratified = STRATIFY_RANKING and mask_logits.is_cuda
     stratified = stratified and point_sample_nearest_rows_supported(h, w, num_sampled)
+    if stratified and w > ROWS_MAX_W:
+        raise ValueError(f"stratified ranking of {w} wide masks: the rows kernel holds at most "
+                         f"{ROWS_MAX_W} columns")
 
     def y_of(u, j):
         """A candidate's y from its uniform and its index within the mask:

@@ -1,7 +1,7 @@
 """MaskFiner: cascaded mixed-resolution mask prediction.
 
 Counterpart of ``autofocusformermod_tpu/models/maskfiner.py`` for the base
-cascade's semantic inference.  Each stage is a ``MaskPredictor`` -- a MixRes
+cascade's semantic inference and training.  Each stage is a ``MaskPredictor`` -- a MixRes
 backbone (``models/mixres.py``), a point-cloud deformable pixel decoder and a
 masked transformer decoder -- and hands the next stage its features, their
 (scale, x, y) positions and the decoder's per-token disagreement, from which
@@ -31,7 +31,7 @@ from ..geometry.knn import knn
 from ..geometry.rasterize import point2img
 from ..geometry.shepard import shepard_neighbours, upsample_feature_shepard
 from ..ops.clusten import weighted_gather
-from .layers import position_embedding_sine
+from .layers import DropPath, position_embedding_sine
 from .mixres import mixres_stage_from_config
 from .pixel_decoder import MSDeformAttnPixelDecoder, pack_neighbor_table, raster_grid, scale_pos
 from .transformer_decoder import MultiScaleMaskedTransformerDecoder
@@ -275,6 +275,14 @@ class MaskFiner(nn.Module):
 
     def normalize(self, images: torch.Tensor) -> torch.Tensor:
         return (images.float() - self.pixel_mean) / self.pixel_std
+
+    def set_drop_path_generator(self, generator) -> None:
+        """Every DropPath of every stage's backbone draws its keep decisions
+        from ``generator`` (on the model's device), in forward order."""
+        for predictor in self.mask_predictors:
+            for m in predictor.backbone.modules():
+                if isinstance(m, DropPath):
+                    m.generator = generator
 
     def forward(self, images: torch.Tensor) -> Dict:
         x = self.normalize(images)

@@ -52,6 +52,10 @@ class MaskFormer(nn.Module):
     def normalize(self, images: torch.Tensor) -> torch.Tensor:
         return (images.float() - self.pixel_mean) / self.pixel_std
 
+    def set_drop_path_generator(self, generator) -> None:
+        """The backbone's DropPath draws from ``generator`` (AFF.set_drop_path_generator)."""
+        self.backbone.set_drop_path_generator(generator)
+
     def forward(self, images: torch.Tensor) -> Dict:
         if self.training and self.dropout > 0:
             raise NotImplementedError(

@@ -190,21 +190,24 @@ ROWS_MAX_W = 768     # two rows of each of a block's 8 warps fit 48 KB of shared
 
 
 def point_sample_nearest_rows_supported(h: int, w: int, p: int) -> bool:
-    """Whether p y-stratified candidates per (h, w) mask can take the
-    row-stratified read: whole chunks of 128, and at least as many chunks as
-    rows, so that a chunk's sliver spans at most two rows.  (The TPU kernel
-    also needs w % 128 == 0, a lane rule; here any w up to 768 goes.)"""
-    return p % ROWS_CHUNK == 0 and h >= 2 and p // ROWS_CHUNK >= h and w <= ROWS_MAX_W
+    """Whether p candidates per (h, w) mask take the y-stratified route: the
+    JAX package's rule for its accelerator (``point_sample_kernel.py``
+    ``point_sample_nearest_rows_supported``): rows a multiple of 128 wide,
+    whole chunks of 128, and at least as many chunks as rows, so that a
+    chunk's sliver spans at most two rows.  The rows kernel itself also
+    holds at most ROWS_MAX_W columns (``point_sample_nearest_rows``)."""
+    return w % ROWS_CHUNK == 0 and h >= 2 and p % ROWS_CHUNK == 0 and p // ROWS_CHUNK >= h
 
 
 @torch.no_grad()
 def point_sample_nearest_rows(masks: torch.Tensor, cx: torch.Tensor,
                               cy: torch.Tensor) -> torch.Tensor:
-    """masks (n, h, w) f32; cx, cy (n, chunks, 128) int32 cells with chunk c's
-    cy in {r0, r0 + 1}, r0 = min(c * h // chunks, h - 2) -> (n, chunks, 128)."""
+    """masks (n, h, w) f32, w <= ROWS_MAX_W; cx, cy (n, chunks, 128) int32
+    cells with chunk c's cy in {r0, r0 + 1}, r0 = min(c * h // chunks, h -
+    2) -> (n, chunks, 128)."""
     n, h, w = masks.shape
     chunks = cx.shape[1]
-    if not point_sample_nearest_rows_supported(h, w, chunks * cx.shape[2]):
+    if not (cx.shape[2] == ROWS_CHUNK and chunks >= h >= 2 and w <= ROWS_MAX_W):
         raise ValueError(f"point_sample_nearest_rows: needs chunks of {ROWS_CHUNK}, chunks >= h "
                          f">= 2 and w <= {ROWS_MAX_W}; got masks {tuple(masks.shape)}, cx "
                          f"{tuple(cx.shape)}")

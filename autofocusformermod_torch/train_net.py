@@ -15,8 +15,9 @@ mapper, and evaluates DATASETS.TEST every TEST.EVAL_PERIOD steps;
 N`` stops (with a checkpoint) after step N; ``--resume`` continues from the
 latest checkpoint under OUTPUT_DIR.  ``--eval-only`` evaluates the model
 (the latest checkpoint with ``--resume``, else MODEL.WEIGHTS) on
-DATASETS.TEST, prints the metrics and trains nothing; it is the only mode
-of the MaskFiner cascade, whose training is not ported.
+DATASETS.TEST, prints the metrics and trains nothing.  Both ported
+meta-architectures train: ``--config maskfiner_mini`` trains the MaskFiner
+cascade.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 """Drive the PyTorch port's semantic-segmentation paths -- AFF-Mini inference,
 the AFF-Mini training step, an AFF-Small training run with checkpoint and
 resume, the pixel decoder's alternate operand layouts, the AFF-Mini-1/5
-preset, MaskFiner-Mini inference, and training from the dataset loader with
-evaluation -- on one NVIDIA GPU.
+preset, MaskFiner-Mini inference, training from the dataset loader with
+evaluation, and MaskFiner-Mini training -- on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -78,7 +78,9 @@ evaluation -- on one NVIDIA GPU.
    decoder's levels are not all multiples of 128, through the interleaved
    kernel; and one batch-8 training step per layout (and a batch-2 step at
    384x384 for the interleaved one) against the default layout's step from
-   the same weights, batch and generators;
+   the same weights, batch and generators, each step's point ranking read
+   on the route its masks give (K12 on 128-wide masks, K11 on the 96-wide
+   ones of 384x384);
 10. the published AFF-Mini-1/5 preset (cluster merging keeps a fifth of the
    tokens: decoder levels of 3276, 655 and 131 tokens, clusters cut by n) at
    512x512: a batch-4 forward and a batch-8 training step, in the default
@@ -116,10 +118,24 @@ evaluation -- on one NVIDIA GPU.
    run's choices (class scores to FORWARD_RTOL, predictions equal but at
    near-tied pixels, metrics within what those pixels can move, and
    verify_results); ms per image by padded size (up to 512x2048, 65,536
-   first-stage tokens); MaskFiner-Mini --eval-only on two images.
+   first-stage tokens); MaskFiner-Mini --eval-only on two images;
+13. the published MaskFiner-Mini cascade's training step at 512x512, batch
+   4 (100 target slots, 12544 points, the loss weights of MODEL.MASK_FINER,
+   19 supervised outputs at masks of 16x16, 32x32, 64x64 and 128x128):
+   holds the local_attn backward, the msdetrpc backward, point_sample
+   forward and backward for each mask shape, the two nearest reads of the
+   ranking (i.i.d. on the 16-, 32- and 64-wide masks, stratified on the
+   128-wide ones) and the lapjv matcher against their plain versions on the
+   operands of a real step; 3 steps through the kernels, each replayed
+   through the plain versions from the same weights and optimizer state
+   (loss terms, gradient norms per group, each stage's disagreement through
+   its parts), with every kernel's launches per step from the config, ms
+   per step, device busy and peak memory; the package's command line for 4
+   steps, and a run stopped after step 2 and resumed to step 4 with test()
+   on two in-memory images at its end.
 
-Phases 6, 8, 9 and 10 compare training steps whose second run replays the
-first run's discrete choices (same_choices), held to LOSS_RTOL and
+Phases 6, 8, 9, 10 and 13 compare training steps whose second run replays
+the first run's discrete choices (same_choices), held to LOSS_RTOL and
 GROUP_NORM_RTOL.
 
 Exits non-zero on any failure, and at once when no CUDA device is present.
@@ -796,69 +812,76 @@ def check_msdetrpc_bwd(dev, gen, path_calls):
     """K4 at a batch-8 step's shapes (bh=64, 3 levels x 16 pairs, c_=32) on
     two index sets: the uniform draw of earlier records, and the path's own
     operands (`path_calls`, from path_msdetrpc_operands: the 18 calls of a
-    batch-8 AFF-Mini forward), whose figures are the record's own.  Each
-    against the plain version's autograd, and twice, bit for bit (the kernels
-    sum in a fixed order).  ms sums the 18 backward calls of a step; device_ms
-    the same on the card alone (queued_ms); library_ms the autograd backward
-    of msdetrpc_levels_s_library (F.embedding_bag) on the same operands."""
+    batch-8 AFF-Mini forward), whose figures are the record's own; each
+    held by msdetrpc_bwd_calls with random gradients."""
     import torch
-    from autofocusformermod_torch.ops.dispatch import plain_versions
-    from autofocusformermod_torch.ops.msdetrpc import (
-        msdetrpc_bag_rows, msdetrpc_levels_s, msdetrpc_levels_s_backward,
-        msdetrpc_levels_s_library)
 
     sets = {"uniform": msdetrpc_uniform_calls(dev, gen, TRAIN_BATCH), "path": path_calls}
     paths = {}
     for label in list(sets):
-        calls = sets.pop(label)          # each set's operands are freed after its turn
-        err, worst, ms, device_ms, plain_ms, lib_ms, bnd = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, {}
-        for idx, w, v, lv_sizes, times in calls:
-            bh, n, lp = idx.shape
-            c_ = v.shape[2]
-            g = torch.randn((bh, n, c_), generator=gen).to(dev)
-            leaves = [w.clone().requires_grad_(), v.clone().requires_grad_()]
-
-            def fwd():
-                return msdetrpc_levels_s(idx, leaves[0], leaves[1], lv_sizes)
-
-            got = torch.autograd.grad(fwd(), leaves, g)
-            with plain_versions():
-                want = torch.autograd.grad(fwd(), leaves, g)
-            e, rel = grad_errs(got, want)
-            err, worst = max(err, e), max(worst, rel)
-            first = msdetrpc_levels_s_backward(idx, w, v, g, lv_sizes)
-            again = msdetrpc_levels_s_backward(idx, w, v, g, lv_sizes)
-            if not all(torch.equal(a, b) for a, b in zip(first, again)):
-                raise SystemExit(f"msdetrpc backward ({label}, n={n}): two calls on the same "
-                                 "inputs differ")
-            t_k = cuda_ms(lambda: msdetrpc_levels_s_backward(idx, w, v, g, lv_sizes))
-            d_k = queued_ms(lambda: msdetrpc_levels_s_backward(idx, w, v, g, lv_sizes))
-            t_p = plain_grad_ms(fwd, leaves, g)
-            rows = msdetrpc_bag_rows(idx, lv_sizes)
-            lib_out = msdetrpc_levels_s_library(idx, leaves[0], leaves[1], lv_sizes, rows=rows)
-            t_l = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True))
-            ms, device_ms, plain_ms = ms + times * t_k, device_ms + times * d_k, plain_ms + times * t_p
-            lib_ms += times * t_l
-            # d_val += w * g and d_w = g . val: 4 operations per (query, pair, channel)
-            bnd = add_bounds(bnd, bound(nbytes(idx, w, v, g, w, v), 4 * bh * n * lp * c_), times)
-            log(f"  msdetrpc bwd {label} n={n} idx={tuple(idx.shape)} val={tuple(v.shape)}: "
-                f"max_abs_err {e:.3e} (rel {rel:.3e}; d_w d_val), bit-identical twice; kernel "
-                f"{t_k:.4f} ms (on the card {d_k:.4f}), plain {t_p:.4f} ms, embedding_bag's "
-                f"backward {t_l:.4f} ms")
-            del g, leaves, got, want, first, again, rows, lib_out
-        if not worst <= GRAD_RTOL:
-            raise SystemExit(f"msdetrpc backward ({label}): max rel err {worst} > {GRAD_RTOL}")
-        log(f"  msdetrpc bwd {label}: per step {ms:.3f} ms in calls, {device_ms:.3f} on the card, "
-            f"embedding_bag's backward {lib_ms:.3f}, bound {bnd['bound_ms']:.3f} ms")
-        paths[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
-                        "device_ms": device_ms, "library_ms": lib_ms}
-        del calls
+        paths[label] = msdetrpc_bwd_calls(label, sets.pop(label), gen)   # freed after its turn
         torch.cuda.empty_cache()
     return {"name": "msdetrpc_bwd", "route": "cuda",
             "source": "autofocusformermod_torch/csrc/msdetrpc.cu",
             "replaces": "autofocusformermod_tpu/ops/pallas/msdetrpc_kernel.py:2078",
             "library_ms": paths["path"]["library_ms"], "deterministic": True,
             **per_path(paths, "path")}
+
+
+def msdetrpc_bwd_calls(label, calls, gen):
+    """K4 on `calls` [(idx_s, w_s, val, level sizes, times[, g])], g the
+    output's gradient (random where the call has none): each against the
+    plain version's autograd, and twice, bit for bit (the kernels sum in a
+    fixed order).  ms sums the calls, each `times` times; device_ms the same
+    on the card alone (queued_ms); library_ms the autograd backward of
+    msdetrpc_levels_s_library (F.embedding_bag) on the same operands."""
+    import torch
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.msdetrpc import (
+        msdetrpc_bag_rows, msdetrpc_levels_s, msdetrpc_levels_s_backward,
+        msdetrpc_levels_s_library)
+
+    err, worst, ms, device_ms, plain_ms, lib_ms, bnd = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, {}
+    for idx, w, v, lv_sizes, times, *given in calls:
+        bh, n, lp = idx.shape
+        c_ = v.shape[2]
+        g = given[0] if given else torch.randn((bh, n, c_), generator=gen).to(v.device)
+        leaves = [w.clone().requires_grad_(), v.clone().requires_grad_()]
+
+        def fwd():
+            return msdetrpc_levels_s(idx, leaves[0], leaves[1], lv_sizes)
+
+        got = torch.autograd.grad(fwd(), leaves, g)
+        with plain_versions():
+            want = torch.autograd.grad(fwd(), leaves, g)
+        e, rel = grad_errs(got, want)
+        err, worst = max(err, e), max(worst, rel)
+        first = msdetrpc_levels_s_backward(idx, w, v, g, lv_sizes)
+        again = msdetrpc_levels_s_backward(idx, w, v, g, lv_sizes)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise SystemExit(f"msdetrpc backward ({label}, n={n}): two calls on the same "
+                             "inputs differ")
+        t_k = cuda_ms(lambda: msdetrpc_levels_s_backward(idx, w, v, g, lv_sizes))
+        d_k = queued_ms(lambda: msdetrpc_levels_s_backward(idx, w, v, g, lv_sizes))
+        t_p = plain_grad_ms(fwd, leaves, g)
+        rows = msdetrpc_bag_rows(idx, lv_sizes)
+        lib_out = msdetrpc_levels_s_library(idx, leaves[0], leaves[1], lv_sizes, rows=rows)
+        t_l = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True))
+        ms, device_ms, plain_ms = ms + times * t_k, device_ms + times * d_k, plain_ms + times * t_p
+        lib_ms += times * t_l
+        # d_val += w * g and d_w = g . val: 4 operations per (query, pair, channel)
+        bnd = add_bounds(bnd, bound(nbytes(idx, w, v, g, w, v), 4 * bh * n * lp * c_), times)
+        log(f"  msdetrpc bwd {label} n={n} idx={tuple(idx.shape)} val={tuple(v.shape)}: "
+            f"max_abs_err {e:.3e} (rel {rel:.3e}; d_w d_val), bit-identical twice; kernel "
+            f"{t_k:.4f} ms (on the card {d_k:.4f}), plain {t_p:.4f} ms, embedding_bag's "
+            f"backward {t_l:.4f} ms")
+        del g, leaves, got, want, first, again, rows, lib_out
+    if not worst <= GRAD_RTOL:
+        raise SystemExit(f"msdetrpc backward ({label}): max rel err {worst} > {GRAD_RTOL}")
+    log(f"  msdetrpc bwd {label}: per step {ms:.3f} ms in calls, {device_ms:.3f} on the card, "
+        f"embedding_bag's backward {lib_ms:.3f}, bound {bnd['bound_ms']:.3f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "device_ms": device_ms,
+            "library_ms": lib_ms}
 
 
 def seeded_step(dev, b, module, name, capture, preset="aff_mini", size=SIZE):
@@ -997,15 +1020,34 @@ def point_sample_uniform_operands(dev, gen):
 
 def check_point_sample(dev, gen, path_ops):
     """K10 at a batch-8 step's calls: the target labels' forward, the matched
-    logits' forward and the logits' backward; ms sums the three on the routes
-    the wrapper picks (the targets' 512x512 masks take the direct route, the
-    logits' 128x128 masks the shared one).  Two operand sets: uniform
-    coordinates, and the path's own (`path_ops`, path_point_sample_operands),
-    whose figures are the record's.  Every route that fits a call (shared and
-    direct, forward and backward) is held against the plain version and timed
-    (`routes`).  The ranking read of the reference sampler (8000 masks x 37632
-    candidates), which the default criterion no longer makes, is held and
-    timed on uniform coordinates but not summed.  The library call is
+    logits' forward and the logits' backward (point_sample_calls).  Two
+    operand sets: uniform coordinates (with the reference sampler's ranking
+    read of 8000 masks x 37632 candidates, which the default criterion no
+    longer makes: held and timed, not summed), and the path's own
+    (`path_ops`, path_point_sample_operands), whose figures are the
+    record's."""
+    import torch
+
+    paths = {"uniform": point_sample_calls("uniform", point_sample_uniform_operands(dev, gen),
+                                           gen, ranking=True)}
+    torch.cuda.empty_cache()
+    paths["path"] = point_sample_calls("path", path_ops, gen)
+    torch.cuda.empty_cache()
+    return {"name": "point_sample", "route": "cuda",
+            "source": "autofocusformermod_torch/csrc/point_sample.cu",
+            "replaces": "autofocusformermod_tpu/ops/pallas/point_sample_kernel.py:200",
+            "library_ms": paths["path"]["library_ms"], **per_path(paths, "path")}
+
+
+def point_sample_calls(label, ops, gen, ranking=False):
+    """K10 on one step's calls, `ops` {"targets": (masks, coords), "logits":
+    (masks, coords, g)}: the target labels' forward, the matched logits'
+    forward and the logits' backward; ms sums the three on the routes the
+    wrapper picks (masks up to 227 KB take the shared route, the targets'
+    512x512 masks the direct one).  Every route that fits a call (shared and
+    direct, forward and backward) is held against the plain version and
+    timed (`routes`).  ranking: also hold and time (not sum) a ranking read
+    of the logits at 3 times their points.  The library call is
     F.grid_sample (and its backward) on the same masks and points."""
     import torch
     import torch.nn.functional as F
@@ -1020,134 +1062,88 @@ def check_point_sample(dev, gen, path_ops):
     def routes_of(m):
         return ("shared", "direct") if point_sample_route(*m.shape[1:]) == "shared" else ("direct",)
 
-    sets = {"uniform": lambda: point_sample_uniform_operands(dev, gen), "path": lambda: path_ops}
-    paths = {}
-    for label, make in sets.items():
-        ops = make()
-        fwd_err, ms, plain_ms, lib_ms, bnd, routes = 0.0, 0.0, 0.0, 0.0, {}, {}
-        lm, lc, lg = ops["logits"]
-        calls = [("targets", *ops["targets"]), ("logits", lm, lc)]
-        if label == "uniform":
-            calls.insert(0, ("ranking", lm, torch.rand((lm.shape[0], 3 * lc.shape[1], 2),
-                                                       generator=gen).to(dev)))
-        for name, m, coords in calls:
-            with plain_versions():
-                ref = point_sample_bilinear(m, coords)
-                t_p = cuda_ms(lambda: point_sample_bilinear(m, coords), iters=3, warmup=1)
-            t_k = cuda_ms(lambda: point_sample_bilinear(m, coords), iters=5, warmup=1)
-            for route in routes_of(m):
-                e = (point_sample_forward(m, coords, route=route) - ref).abs().max().item()
-                fwd_err = max(fwd_err, e)
-                routes[f"{name}_fwd_{route}"] = {
-                    "max_abs_err": e,
-                    "ms": cuda_ms(lambda: point_sample_forward(m, coords, route=route), iters=5,
-                                  warmup=1)}
-            grid = (coords * 2 - 1)[:, None]
-            e_lib = (grid_sample(m, grid)[:, 0, 0] - ref).abs().max().item()
-            t_l = cuda_ms(lambda: grid_sample(m, grid), iters=5, warmup=1)
-            on_path = name != "ranking"
-            if on_path:
-                ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
-                # per point: the pixel coordinate, four weights and the blend, ~20
-                bnd = add_bounds(bnd, bound(nbytes(m, coords, ref), 20 * coords.shape[0]
-                                            * coords.shape[1]))
-            log(f"  point_sample {label} fwd {name:8s} masks={tuple(m.shape)} points="
-                f"{coords.shape[1]}: kernel {t_k:.4f} ms on the {point_sample_route(*m.shape[1:])} "
-                f"route; " + ", ".join(f"{r} err {routes[f'{name}_fwd_{r}']['max_abs_err']:.3e} "
-                                       f"{routes[f'{name}_fwd_{r}']['ms']:.4f} ms"
-                                       for r in routes_of(m))
-                + f"; plain {t_p:.4f} ms, grid_sample {t_l:.4f} ms (its err vs plain {e_lib:.3e})"
-                + ("" if on_path else " [not on the default path]"))
-            del ref, grid
-        # the logits' backward
-        leaf = lm.clone().requires_grad_()
+    fwd_err, ms, plain_ms, lib_ms, bnd, routes = 0.0, 0.0, 0.0, 0.0, {}, {}
+    lm, lc, lg = ops["logits"]
+    calls = [("targets", *ops["targets"]), ("logits", lm, lc)]
+    if ranking:
+        calls.insert(0, ("ranking", lm, torch.rand((lm.shape[0], 3 * lc.shape[1], 2),
+                                                   generator=gen).to(lm.device)))
+    for name, m, coords in calls:
         with plain_versions():
-            want = torch.autograd.grad(point_sample_bilinear(leaf, lc), leaf, lg)[0]
-        bwd_err, bwd_rel = 0.0, 0.0
-        for route in routes_of(lm):
-            got = point_sample_backward(lc, lg, tuple(lm.shape), route=route)
-            e, rel = grad_errs([got], [want])
-            bwd_err, bwd_rel = max(bwd_err, e), max(bwd_rel, rel)
-            routes[f"logits_bwd_{route}"] = {
-                "max_abs_err": e, "rel_err": rel,
-                "ms": cuda_ms(lambda: point_sample_backward(lc, lg, tuple(lm.shape), route=route),
-                              iters=5, warmup=1)}
-            del got
-        t_k = routes[f"logits_bwd_{point_sample_route(*lm.shape[1:])}"]["ms"]
-        t_p = plain_grad_ms(lambda: point_sample_bilinear(leaf, lc), [leaf], lg)
-        lib_out = grid_sample(leaf, (lc * 2 - 1)[:, None])
-        t_l = cuda_ms(lambda: torch.autograd.grad(lib_out, leaf, lg[:, None, None],
-                                                  retain_graph=True), iters=5, warmup=1)
-        ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
-        bnd = add_bounds(bnd, bound(nbytes(lc, lg, lm), 20 * lc.shape[0] * lc.shape[1]))
-        log(f"  point_sample {label} bwd logits: " + ", ".join(
-            f"{r} err {routes[f'logits_bwd_{r}']['max_abs_err']:.3e} (rel "
-            f"{routes[f'logits_bwd_{r}']['rel_err']:.3e}) {routes[f'logits_bwd_{r}']['ms']:.4f} ms"
-            for r in routes_of(lm)) + f"; plain {t_p:.4f} ms, grid_sample's backward {t_l:.4f} ms")
-        log(f"  point_sample {label}: per step {ms:.3f} ms, grid_sample {lib_ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms")
-        if not (fwd_err <= POINT_SAMPLE_ATOL and bwd_rel <= GRAD_RTOL):
-            raise SystemExit(f"point_sample ({label}): forward err {fwd_err} > {POINT_SAMPLE_ATOL} "
-                             f"or backward rel err {bwd_rel} > {GRAD_RTOL}")
-        paths[label] = {"max_abs_err": max(fwd_err, bwd_err), "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": lib_ms, **bnd, "routes": routes}
-        del ops, calls, lm, lc, lg, leaf, want, lib_out
-        torch.cuda.empty_cache()
-    return {"name": "point_sample", "route": "cuda",
-            "source": "autofocusformermod_torch/csrc/point_sample.cu",
-            "replaces": "autofocusformermod_tpu/ops/pallas/point_sample_kernel.py:200",
-            "library_ms": paths["path"]["library_ms"], **per_path(paths, "path")}
+            ref = point_sample_bilinear(m, coords)
+            t_p = cuda_ms(lambda: point_sample_bilinear(m, coords), iters=3, warmup=1)
+        t_k = cuda_ms(lambda: point_sample_bilinear(m, coords), iters=5, warmup=1)
+        for route in routes_of(m):
+            e = (point_sample_forward(m, coords, route=route) - ref).abs().max().item()
+            fwd_err = max(fwd_err, e)
+            routes[f"{name}_fwd_{route}"] = {
+                "max_abs_err": e,
+                "ms": cuda_ms(lambda: point_sample_forward(m, coords, route=route), iters=5,
+                              warmup=1)}
+        grid = (coords * 2 - 1)[:, None]
+        e_lib = (grid_sample(m, grid)[:, 0, 0] - ref).abs().max().item()
+        t_l = cuda_ms(lambda: grid_sample(m, grid), iters=5, warmup=1)
+        on_path = name != "ranking"
+        if on_path:
+            ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
+            # per point: the pixel coordinate, four weights and the blend, ~20
+            bnd = add_bounds(bnd, bound(nbytes(m, coords, ref), 20 * coords.shape[0]
+                                        * coords.shape[1]))
+        log(f"  point_sample {label} fwd {name:8s} masks={tuple(m.shape)} points="
+            f"{coords.shape[1]}: kernel {t_k:.4f} ms on the {point_sample_route(*m.shape[1:])} "
+            f"route; " + ", ".join(f"{r} err {routes[f'{name}_fwd_{r}']['max_abs_err']:.3e} "
+                                   f"{routes[f'{name}_fwd_{r}']['ms']:.4f} ms"
+                                   for r in routes_of(m))
+            + f"; plain {t_p:.4f} ms, grid_sample {t_l:.4f} ms (its err vs plain {e_lib:.3e})"
+            + ("" if on_path else " [not on the default path]"))
+        del ref, grid
+    # the logits' backward
+    leaf = lm.clone().requires_grad_()
+    with plain_versions():
+        want = torch.autograd.grad(point_sample_bilinear(leaf, lc), leaf, lg)[0]
+    bwd_err, bwd_rel = 0.0, 0.0
+    for route in routes_of(lm):
+        got = point_sample_backward(lc, lg, tuple(lm.shape), route=route)
+        e, rel = grad_errs([got], [want])
+        bwd_err, bwd_rel = max(bwd_err, e), max(bwd_rel, rel)
+        routes[f"logits_bwd_{route}"] = {
+            "max_abs_err": e, "rel_err": rel,
+            "ms": cuda_ms(lambda: point_sample_backward(lc, lg, tuple(lm.shape), route=route),
+                          iters=5, warmup=1)}
+        del got
+    t_k = routes[f"logits_bwd_{point_sample_route(*lm.shape[1:])}"]["ms"]
+    t_p = plain_grad_ms(lambda: point_sample_bilinear(leaf, lc), [leaf], lg)
+    lib_out = grid_sample(leaf, (lc * 2 - 1)[:, None])
+    t_l = cuda_ms(lambda: torch.autograd.grad(lib_out, leaf, lg[:, None, None],
+                                              retain_graph=True), iters=5, warmup=1)
+    ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
+    bnd = add_bounds(bnd, bound(nbytes(lc, lg, lm), 20 * lc.shape[0] * lc.shape[1]))
+    log(f"  point_sample {label} bwd logits: " + ", ".join(
+        f"{r} err {routes[f'logits_bwd_{r}']['max_abs_err']:.3e} (rel "
+        f"{routes[f'logits_bwd_{r}']['rel_err']:.3e}) {routes[f'logits_bwd_{r}']['ms']:.4f} ms"
+        for r in routes_of(lm)) + f"; plain {t_p:.4f} ms, grid_sample's backward {t_l:.4f} ms")
+    log(f"  point_sample {label}: per step {ms:.3f} ms, grid_sample {lib_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms")
+    if not (fwd_err <= POINT_SAMPLE_ATOL and bwd_rel <= GRAD_RTOL):
+        raise SystemExit(f"point_sample ({label}): forward err {fwd_err} > {POINT_SAMPLE_ATOL} "
+                         f"or backward rel err {bwd_rel} > {GRAD_RTOL}")
+    return {"max_abs_err": max(fwd_err, bwd_err), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, **bnd, "routes": routes}
 
 
 def check_lapjv(dev, gen, path_cost):
     """K13 on a step's stacked problems: 10 layers x 8 images, 100 queries x
     100 target slots, 8-12 valid targets per image (the rest at the 1e8
     sentinel), on a uniform draw and on the path's own costs (`path_cost`,
-    path_lapjv_operands).  The assignments of both routes must equal the
-    plain version's.  ms and device_ms (the card's time alone, queued_ms)
-    are those of the route lapjv_route picks; the block route's device time
-    stands beside it.  The plain version counts each problem's Dijkstra
-    steps: the longest chain (steps_max) sets the kernel's time, hence
-    ns_per_step; real and padded target rows apart."""
+    path_lapjv_operands), each held by lapjv_costs; then NaN and inf costs."""
     import torch
-    from autofocusformermod_torch.losses.lapjv import ROUTES, hungarian_lsap, lapjv, lapjv_route
 
     b = 10 * TRAIN_BATCH
     cost = torch.rand((b, 100, 100), generator=gen) * 10 - 5
     n_valid = torch.randint(8, 13, (b,), generator=gen)
     cost = torch.where(torch.arange(100)[None, None] < n_valid[:, None, None], cost, 1e8)
-    paths = {}
-    for label, c in (("b8_uniform", cost.to(dev)), ("b8_path", path_cost)):
-        t0 = time.time()
-        ref, steps = hungarian_lsap(c, return_steps=True)
-        torch.cuda.synchronize()
-        t_p = (time.time() - t0) * 1e3
-        for route in ROUTES:
-            if not torch.equal(lapjv(c, route=route), ref):
-                raise SystemExit(f"lapjv {label} ({route} route): kernel and plain version "
-                                 "disagree")
-        route = lapjv_route(*c.shape[1:])
-        real = (c < 1e7).any(1)                           # (b, T): the real target slots
-        per = steps.sum(1).double()
-        rec = {"route": route, "max_abs_err": 0.0,
-               "ms": cuda_ms(lambda: lapjv(c), iters=5, warmup=1),
-               "device_ms": queued_ms(lambda: lapjv(c), iters=10),
-               "block_device_ms": queued_ms(lambda: lapjv(c, route="block"), iters=5),
-               "plain_ms": t_p, "steps_max": int(per.max()), "steps_mean": float(per.mean()),
-               "real_steps_mean": float((steps * real).sum(1).double().mean()),
-               "padded_steps_mean": float((steps * ~real).sum(1).double().mean()),
-               # every cost read and reduced at least once (a comparison and
-               # a subtraction); the solver's sequential steps, which set its
-               # real time, are in neither term
-               **bound(nbytes(c, ref), 2 * c.numel())}
-        rec["ns_per_step"] = rec["device_ms"] * 1e6 / rec["steps_max"]
-        paths[label] = rec
-        log(f"  lapjv {label} cost={tuple(c.shape)}: identical on {ROUTES}; {route} "
-            f"{rec['ms']:.4f} ms, on the card {rec['device_ms']:.4f} ms (block "
-            f"{rec['block_device_ms']:.4f}); steps per problem max {rec['steps_max']} mean "
-            f"{rec['steps_mean']:.1f} (real rows {rec['real_steps_mean']:.1f}, padded "
-            f"{rec['padded_steps_mean']:.1f}), {rec['ns_per_step']:.1f} ns a step; plain "
-            f"{t_p:.1f} ms")
+    paths = {label: lapjv_costs(label, c) for label, c in (("b8_uniform", cost.to(dev)),
+                                                           ("b8_path", path_cost))}
     check_lapjv_bad_costs(dev, gen)
     return {"name": "lapjv", "route": "cuda", "source": "autofocusformermod_torch/csrc/lapjv.cu",
             "replaces": "autofocusformermod_tpu/ops/pallas/lapjv_kernel.py:161",
@@ -1156,55 +1152,107 @@ def check_lapjv(dev, gen, path_cost):
             **per_path(paths, "b8_path")}
 
 
+def lapjv_costs(label, c):
+    """K13 on one stacked cost (problems, Q, T): the assignments of both
+    routes must equal the plain version's.  ms and device_ms (the card's
+    time alone, queued_ms) are those of the route lapjv_route picks; the
+    block route's device time stands beside it.  The plain version counts
+    each problem's Dijkstra steps: the longest chain (steps_max) sets the
+    kernel's time, hence ns_per_step; real and padded target rows apart."""
+    import torch
+    from autofocusformermod_torch.losses.lapjv import ROUTES, hungarian_lsap, lapjv, lapjv_route
+
+    t0 = time.time()
+    ref, steps = hungarian_lsap(c, return_steps=True)
+    torch.cuda.synchronize()
+    t_p = (time.time() - t0) * 1e3
+    for route in ROUTES:
+        if not torch.equal(lapjv(c, route=route), ref):
+            raise SystemExit(f"lapjv {label} ({route} route): kernel and plain version disagree")
+    route = lapjv_route(*c.shape[1:])
+    real = (c < 1e7).any(1)                           # (b, T): the real target slots
+    per = steps.sum(1).double()
+    rec = {"route": route, "max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: lapjv(c), iters=5, warmup=1),
+           "device_ms": queued_ms(lambda: lapjv(c), iters=10),
+           "block_device_ms": queued_ms(lambda: lapjv(c, route="block"), iters=5),
+           "plain_ms": t_p, "steps_max": int(per.max()), "steps_mean": float(per.mean()),
+           "real_steps_mean": float((steps * real).sum(1).double().mean()),
+           "padded_steps_mean": float((steps * ~real).sum(1).double().mean()),
+           # every cost read and reduced at least once (a comparison and a
+           # subtraction); the solver's sequential steps, which set its real
+           # time, are in neither term
+           **bound(nbytes(c, ref), 2 * c.numel())}
+    rec["ns_per_step"] = rec["device_ms"] * 1e6 / rec["steps_max"]
+    log(f"  lapjv {label} cost={tuple(c.shape)}: identical on {ROUTES}; {route} "
+        f"{rec['ms']:.4f} ms, on the card {rec['device_ms']:.4f} ms (block "
+        f"{rec['block_device_ms']:.4f}); steps per problem max {rec['steps_max']} mean "
+        f"{rec['steps_mean']:.1f} (real rows {rec['real_steps_mean']:.1f}, padded "
+        f"{rec['padded_steps_mean']:.1f}), {rec['ns_per_step']:.1f} ns a step; plain "
+        f"{t_p:.1f} ms")
+    return rec
+
+
 def check_nearest(dev, gen):
     """K11 and K12 at a batch-8 step's ranking shapes (8000 masks of 128x128,
-    37632 candidates each = 294 chunks of 128): the kernels copy floats, so
-    they must equal their plain versions exactly.  The library call is one
-    flat torch.gather on a precomputed cell index."""
+    37632 candidates each = 294 chunks of 128), held by hold_nearest."""
     import torch
-    from autofocusformermod_torch.ops.dispatch import plain_versions
     from autofocusformermod_torch.ops.point_sample import (point_sample_nearest,
                                                            point_sample_nearest_rows)
 
     n, h, w, p = 10 * TRAIN_BATCH * 100, 128, 128, 3 * 12544
     chunks = p // 128
     masks = torch.randn((n, h, w), generator=gen).to(dev) * 3
-    flat = masks.reshape(n, h * w)
-    records = []
-
-    def hold(name, line, fn, args, cell_index):
-        out = fn(masks, *args)
-        with plain_versions():
-            ref = fn(masks, *args)
-            t_p = cuda_ms(lambda: fn(masks, *args), iters=3, warmup=1)
-        t_k = cuda_ms(lambda: fn(masks, *args), iters=10, warmup=2)
-        lib = torch.gather(flat, 1, cell_index)
-        t_l = cuda_ms(lambda: torch.gather(flat, 1, cell_index), iters=10, warmup=2)
-        same = torch.equal(out, ref) and torch.equal(lib.reshape(out.shape), ref)
-        bnd = bound(nbytes(masks, *args, out), 6 * out.numel())
-        log(f"  {name} masks={tuple(masks.shape)} candidates={p}: identical={same} kernel "
-            f"{t_k:.4f} ms, plain {t_p:.4f} ms, torch.gather {t_l:.4f} ms, bound "
-            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-        if not same:
-            raise SystemExit(f"{name}: kernel, plain version and torch.gather disagree")
-        records.append({"name": name, "route": "cuda",
-                        "source": "autofocusformermod_torch/csrc/point_sample.cu",
-                        "replaces": f"autofocusformermod_tpu/ops/pallas/point_sample_kernel.py:{line}",
-                        "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p, "library_ms": t_l, **bnd})
-
     coords = torch.rand((n, p, 2), generator=gen).to(dev)
-    cell = ((coords[..., 1] * h).int().clamp(0, h - 1) * w
-            + (coords[..., 0] * w).int().clamp(0, w - 1)).long()
-    hold("point_sample_nearest", 266, point_sample_nearest, (coords,), cell)
-    del coords, cell
+    records = [hold_nearest("", point_sample_nearest, masks, (coords,))]
+    del coords
     u = torch.rand((n, chunks, 128), generator=gen).to(dev)
     ys = (torch.arange(chunks, device=dev)[None, :, None] + u) * (1.0 / chunks)
     cy = (ys * h).int().clamp(0, h - 1)
     cx = (torch.rand((n, chunks, 128), generator=gen).to(dev) * w).int().clamp(0, w - 1)
     del u, ys
-    hold("point_sample_nearest_rows", 344, point_sample_nearest_rows, (cx, cy),
-         (cy * w + cx).long().reshape(n, p))
+    records.append(hold_nearest("", point_sample_nearest_rows, masks, (cx, cy)))
     return records
+
+
+NEAREST_LINES = {"point_sample_nearest": 266, "point_sample_nearest_rows": 344}
+
+
+def hold_nearest(label, fn, masks, args):
+    """K11 (fn point_sample_nearest, args (coords,)) or K12 (fn
+    point_sample_nearest_rows, args (cx, cy)) on one call: the kernels copy
+    floats, so they must equal their plain versions exactly.  The library
+    call is one flat torch.gather on a precomputed cell index.  -> the
+    kernel's record."""
+    import torch
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+
+    n, h, w = masks.shape
+    if len(args) == 1:
+        cell_index = ((args[0][..., 1] * h).int().clamp(0, h - 1) * w
+                      + (args[0][..., 0] * w).int().clamp(0, w - 1)).long()
+    else:
+        cell_index = (args[1] * w + args[0]).long().reshape(n, -1)
+    flat = masks.reshape(n, h * w)
+    name = fn.__name__
+    out = fn(masks, *args)
+    with plain_versions():
+        ref = fn(masks, *args)
+        t_p = cuda_ms(lambda: fn(masks, *args), iters=3, warmup=1)
+    t_k = cuda_ms(lambda: fn(masks, *args), iters=10, warmup=2)
+    lib = torch.gather(flat, 1, cell_index)
+    t_l = cuda_ms(lambda: torch.gather(flat, 1, cell_index), iters=10, warmup=2)
+    same = torch.equal(out, ref) and torch.equal(lib.reshape(out.shape), ref)
+    bnd = bound(nbytes(masks, *args, out), 6 * out.numel())
+    log(f"  {name}{' ' + label if label else ''} masks={tuple(masks.shape)} candidates="
+        f"{cell_index.shape[1]}: identical={same} kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"torch.gather {t_l:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    if not same:
+        raise SystemExit(f"{name} {label}: kernel, plain version and torch.gather disagree")
+    return {"name": name, "route": "cuda", "source": "autofocusformermod_torch/csrc/point_sample.cu",
+            "replaces": f"autofocusformermod_tpu/ops/pallas/point_sample_kernel.py:"
+                        f"{NEAREST_LINES[name]}",
+            "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p, "library_ms": t_l, **bnd}
 
 
 def check_sampler(dev, gen):
@@ -1832,6 +1880,11 @@ def layouts_phase(dev, smi, images, default_out, counters):
            "head_natural": {"msdetrpc_bh": 18, "msdetrpc_bh_bwd": 18},
            "interleaved": {"msdetrpc_interleaved": 18, "msdetrpc_interleaved_bwd": 18}}
     sampling_bwd = sampling + tuple(n + "_bwd" for n in sampling if n != "window_gather")
+    # the point ranking's read: 512x512 crops give 128-wide masks, which take
+    # the stratified route (K12); 384x384 ones give 96-wide masks, no multiple
+    # of 128, which take the i.i.d. route (K11), as on the JAX accelerator
+    ranking = ("point_sample_nearest", "point_sample_nearest_rows")
+    ranking_route = {SIZE: {"point_sample_nearest_rows": 1}, ODD_SIZE: {"point_sample_nearest": 1}}
 
     def step(batch, choices=contextlib.nullcontext()):
         model.load_state_dict(initial)
@@ -1842,6 +1895,10 @@ def layouts_phase(dev, smi, images, default_out, counters):
                 batch, device_draw(torch.Generator(device=dev).manual_seed(SEED))))
         dt = (time.time() - t0) * 1e3
         terms = {"total_loss": total_loss.item(), **{k: v.item() for k, v in losses.items()}}
+        reads = {k: v for k, v in got.items() if k in ranking}
+        if reads != ranking_route[batch["image"].shape[1]]:
+            raise SystemExit(f"step at {batch['image'].shape[1]}: the ranking read through "
+                             f"{reads}, expected {ranking_route[batch['image'].shape[1]]}")
         return terms, group_norms(model), {k: v for k, v in got.items() if k in sampling_bwd}, dt
 
     def worst_rel(a, b):
@@ -1984,13 +2041,18 @@ class same_choices:
         return int((rows.gather(-1, at) == mine).sum())
 
     @staticmethod
-    def check(label, book):
-        """Log each choice's agreement; fail where it is below CHOICE_AGREE_MIN."""
+    def check(label, book, by_scores=()):
+        """Log each choice's agreement; fail where it is below CHOICE_AGREE_MIN.
+        by_scores: kinds whose scores the caller holds to the bound their
+        inputs' differences set (check_disagreement for the split order),
+        which bounds where the order can differ; logged, not held here."""
         shares = {kind: e / n for kind, (e, n) in book.get("agree", {}).items() if n}
         log(f"    {label}: the plain run's own choices equal the kernel run's in "
             + "; ".join(f"{kind} {book['agree'][kind][0]}/{book['agree'][kind][1]} "
-                        f"({shares[kind]:.6f})" for kind in shares))
-        low = {kind: v for kind, v in shares.items() if v < CHOICE_AGREE_MIN[kind]}
+                        f"({shares[kind]:.6f}{', held by its scores' if kind in by_scores else ''})"
+                        for kind in shares))
+        low = {kind: v for kind, v in shares.items()
+               if v < CHOICE_AGREE_MIN[kind] and kind not in by_scores}
         if low:
             raise SystemExit(f"{label}: the plain run's choices part from the kernel run's in "
                              f"{low} of their elements (floors {CHOICE_AGREE_MIN})")
@@ -2640,10 +2702,11 @@ def check_disagreement(label, out, ref, k_inputs, r_inputs):
 
 class gini_inputs:
     """Within the block, the inputs of every gini_disagreement call (models/
-    maskfiner.py) are appended to `store` as (mask logits, class logits)."""
+    maskfiner.py) are appended to `store` as (mask logits, class logits),
+    and its results to `results` where one is given."""
 
-    def __init__(self, store):
-        self.store = store
+    def __init__(self, store, results=None):
+        self.store, self.results = store, results
 
     def __enter__(self):
         from autofocusformermod_torch.models import maskfiner
@@ -2651,8 +2714,11 @@ class gini_inputs:
         self.real = real = maskfiner.gini_disagreement
 
         def wrapped(outputs_mask, outputs_class):
-            self.store.append((outputs_mask.clone(), outputs_class.clone()))
-            return real(outputs_mask, outputs_class)
+            self.store.append((outputs_mask.detach().clone(), outputs_class.detach().clone()))
+            out = real(outputs_mask, outputs_class)
+            if self.results is not None:
+                self.results.append(out.detach().clone())
+            return out
 
         maskfiner.gini_disagreement = wrapped
         return self
@@ -2776,6 +2842,447 @@ def maskfiner_phase(dev, smi, gen):
     del model, images, predictor
     torch.cuda.empty_cache()
     return paths, launches
+
+
+def maskfiner_step_launches(cfg, size=SIZE) -> dict:
+    """Every kernel's launches in one MaskFiner training step, from the
+    config: the forward's K1, K3 and K9 (maskfiner_launches) and a K2 and a
+    K4 backward for each K1 and K3 call; for each of the criterion's mask
+    shapes (stage s's masks are size / PATCH_SIZES[s] a side) a K10 read of
+    the targets, one of the matched logits and the logits' backward, and
+    the ranking read through K12 where the stratified route's rule takes it
+    (point_sample_nearest_rows_supported) and through K11 elsewhere; one K13
+    solve, as every layer's cost has the shape (b, queries, target slots)."""
+    from autofocusformermod_torch.losses import point_sample as sampler
+    from autofocusformermod_torch.ops.point_sample import point_sample_nearest_rows_supported
+
+    fwd = maskfiner_launches(cfg)
+    mf = cfg.MODEL.MASK_FINER
+    sides = sorted({size // p for p in cfg.MODEL.MR.PATCH_SIZES})
+    cand = int(mf.TRAIN_NUM_POINTS * mf.OVERSAMPLE_RATIO)
+    rows = sum(bool(sampler.STRATIFY_RANKING and point_sample_nearest_rows_supported(s, s, cand))
+               for s in sides)
+    return {"local_attn": fwd["local_attn"], "local_attn_bwd": fwd["local_attn"],
+            "msdetrpc": fwd["msdetrpc"], "msdetrpc_bwd": fwd["msdetrpc"], "knn": fwd["knn"],
+            "point_sample": 2 * len(sides), "point_sample_bwd": len(sides),
+            "point_sample_nearest": len(sides) - rows, "point_sample_nearest_rows": rows,
+            "lapjv": 1}
+
+
+def path_maskfiner_step_operands(model, cfg, batch, draw):
+    """The operands of K2, K4, K10, K11, K12 and K13 in one MaskFiner
+    training step's forward, criterion and backward (TrainStep.
+    loss_and_grads), in call order: {"local_attn_bwd": [the arguments of
+    sfc_cluster_attention_backward], "msdetrpc_bwd": [(idx_s, w_s, val,
+    level sizes, 1, g)], "point_sample": {mask side: {"targets": (masks,
+    coords), "logits": (masks, coords, g)}}, "point_sample_nearest":
+    [(masks, coords)], "point_sample_nearest_rows": [(masks, cx, cy)],
+    "lapjv": [cost]}.  Captured by wrapping the backward launchers that the
+    autograd Functions call (ops/local_attn.py, ops/msdetrpc.py), the
+    criterion's point_sample_auto (the logits' gradient by a hook) and
+    solve_lsap, and the two nearest reads the sampler takes from
+    ops/point_sample.py."""
+    import torch
+    from autofocusformermod_torch.engine.train_step import TrainStep
+    from autofocusformermod_torch.losses import criterion
+    from autofocusformermod_torch.ops import local_attn, msdetrpc
+    from autofocusformermod_torch.ops import point_sample as ops_ps
+
+    ops = {"local_attn_bwd": [], "msdetrpc_bwd": [], "point_sample": [],
+           "point_sample_nearest": [], "point_sample_nearest_rows": [], "lapjv": []}
+
+    def clone(a):
+        return a.detach().clone() if torch.is_tensor(a) else a
+
+    def keep(name, real):
+        def wrapped(*args):
+            ops[name].append(tuple(clone(a) for a in args))
+            return real(*args)
+        # a launcher counts through its module's name, which is this wrapper now
+        wrapped.__dict__.update(real.__dict__)
+        return wrapped
+
+    def sample(real):
+        def wrapped(masks, coords):
+            out = real(masks, coords)
+            entry = [clone(masks), clone(coords), None]
+            ops["point_sample"].append(entry)
+            if out.requires_grad:
+                out.register_hook(lambda g: entry.__setitem__(2, g.detach().clone()))
+            return out
+        return wrapped
+
+    sites = [(local_attn, "sfc_cluster_attention_backward", "local_attn_bwd"),
+             (msdetrpc, "msdetrpc_levels_s_backward", "msdetrpc_bwd"),
+             (ops_ps, "point_sample_nearest", "point_sample_nearest"),
+             (ops_ps, "point_sample_nearest_rows", "point_sample_nearest_rows"),
+             (criterion, "solve_lsap", "lapjv"), (criterion, "point_sample_auto", None)]
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in sites]
+    for owner, name, key in sites:
+        real = getattr(owner, name)
+        setattr(owner, name, keep(key, real) if key else sample(real))
+    try:
+        TrainStep(model, cfg).loss_and_grads(batch, draw)
+    finally:
+        for owner, name, real in saved:
+            if hasattr(real, "launches"):
+                real.launches = getattr(owner, name).launches
+            setattr(owner, name, real)
+    model.zero_grad(set_to_none=True)
+    ops["msdetrpc_bwd"] = [(idx, w, val, sizes, 1, g) for idx, w, val, g, sizes in ops["msdetrpc_bwd"]]
+    calls, groups = ops["point_sample"], {}
+    if len(calls) % 2 or any(t[2] is not None or lg[2] is None
+                             for t, lg in zip(calls[0::2], calls[1::2])):
+        raise SystemExit(f"the criterion made {len(calls)} point_sample calls; expected a "
+                         "targets' (no gradient) and a logits' (with one) per mask shape")
+    for (tm, tc, _), (lm, lc, lg) in zip(calls[0::2], calls[1::2]):
+        groups[lm.shape[-1]] = {"targets": (tm, tc), "logits": (lm, lc, lg)}
+    ops["point_sample"] = groups
+    return ops
+
+
+def check_local_attn_bwd_calls(label, calls):
+    """K2 on captured backward calls [(q, k, v, pos, nc, w5, b5, g, lse, delta,
+    cluster size, reverse lists)]: dq, dk, dv and the bias rows of the
+    kernel pair against the plain version, within GRAD_RTOL of each
+    gradient's largest entry (at least 1), and two calls bit for bit; ms
+    sums the calls' times, device_ms their time on the card alone
+    (queued_ms), plain_ms the plain version's, each call timed."""
+    import torch
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.local_attn import sfc_cluster_attention_backward as bwd
+
+    err, worst, ms, device_ms, plain_ms, bnd, shapes = 0.0, 0.0, 0.0, 0.0, 0.0, {}, {}
+    for args in calls:
+        q, nc = args[0], args[4]
+        b, h, n, c_ = q.shape
+        got, again = bwd(*args), bwd(*args)
+        if not all(torch.equal(a, r) for a, r in zip(got, again)):
+            raise SystemExit(f"local_attn backward {label} q={tuple(q.shape)}: two calls on the "
+                             "same inputs differ")
+        with plain_versions():
+            want = bwd(*args)
+            plain_ms += cuda_ms(lambda: bwd(*args), iters=3, warmup=1)
+        e, rel = grad_errs(got, want)
+        err, worst = max(err, e), max(worst, rel)
+        ms += cuda_ms(lambda: bwd(*args))
+        device_ms += queued_ms(lambda: bwd(*args))
+        # per (query, head, neighbour slot): q.k again, g.v, and the three
+        # products into dq, dk, dv (10 c_), and the bias and its gradient (20)
+        slots = nc.shape[-1] * args[10]
+        bnd = add_bounds(bnd, bound(nbytes(*args[:10], *got), b * h * n * slots * (10 * c_ + 20)))
+        shapes[tuple(q.shape)] = shapes.get(tuple(q.shape), 0) + 1
+        del got, again, want
+    log(f"  local_attn bwd {label}: {len(calls)} calls {shapes}: max_abs_err {err:.3e} (rel "
+        f"{worst:.3e}; dq dk dv drow), bit-identical twice; {ms:.3f} ms in calls, "
+        f"{device_ms:.3f} on the card, plain {plain_ms:.3f}, bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']})")
+    if not worst <= GRAD_RTOL:
+        raise SystemExit(f"local_attn backward {label}: max rel err {worst} > {GRAD_RTOL}")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "device_ms": device_ms,
+            "calls": len(calls)}
+
+
+def summed(records: dict) -> dict:
+    """One record of several calls' records {label: record}: the worst
+    error, the times and bounds summed (library_ms where every call has
+    one), each call's own under "by_call"."""
+    bnd = {}
+    for r in records.values():
+        bnd = add_bounds(bnd, r)
+    libs = [r.get("library_ms") for r in records.values()]
+    return {"max_abs_err": max(r["max_abs_err"] for r in records.values()),
+            "ms": sum(r["ms"] for r in records.values()),
+            "plain_ms": sum(r["plain_ms"] for r in records.values()),
+            "library_ms": None if None in libs else sum(libs), **bnd, "by_call": records}
+
+
+MASKFINER_TRAIN, MASKFINER_TRAIN_BATCH, MASKFINER_TRAIN_STEPS = "maskfiner_mini_train", 4, 3
+MASKFINER_CLI_STEPS, MASKFINER_RESUME_AT = 4, 2
+
+
+def maskfiner_train_phase(dev, smi, gen, counters):
+    """Phase 13: the published MaskFiner-Mini's training step at 512x512,
+    batch MASKFINER_TRAIN_BATCH (seeded random weights, synthetic label
+    maps, 100 target slots).  K2, K4, K10 (per mask shape), K11, K12 and K13
+    on the operands of one real step, each against its plain version;
+    MASKFINER_TRAIN_STEPS steps through the kernels, each replayed through
+    the plain versions from the same weights, optimizer state, batch and
+    draws (loss terms to LOSS_RTOL, gradient norms per group to
+    GROUP_NORM_RTOL, each stage's disagreement through its parts as phase 11
+    holds it, which holds the split order that follows from it; the other
+    choices to CHOICE_AGREE_MIN), with every kernel's launches per step
+    against maskfiner_step_launches, K10 by route, ms per step, device busy
+    and peak memory; then train_net in this process: MASKFINER_CLI_STEPS
+    steps with checkpoints and test() on two in-memory images after the
+    last, and a second run that replays the first's choices, stopped at
+    step MASKFINER_RESUME_AT (its state restored bit for bit by a fresh
+    Trainer) and resumed to the end, whose loss terms are held to the first
+    run's as phase 8 holds them.  Returns ({kernel: record for by_path},
+    {counter: launches of the phase's runs through the kernels})."""
+    import copy
+    import json
+    import math
+    import os
+    import tempfile
+
+    import torch
+    from autofocusformermod_torch import train_net
+    from autofocusformermod_torch.config import PRESETS
+    from autofocusformermod_torch.data.synthetic import synthetic_batches
+    from autofocusformermod_torch.engine.train import Trainer
+    from autofocusformermod_torch.engine.train_step import TrainStep
+    from autofocusformermod_torch.losses.criterion import device_draw
+    from autofocusformermod_torch.models.maskformer import init_random_weights
+    from autofocusformermod_torch.models.registry import build_model
+    from autofocusformermod_torch.ops.build import BUILD_DIR
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.point_sample import point_sample_backward, point_sample_bilinear
+
+    b, label = MASKFINER_TRAIN_BATCH, MASKFINER_TRAIN
+    cfg = PRESETS[MASKFINER]()
+    cfg.merge_from_list(["SOLVER.IMS_PER_BATCH", str(b)])
+    mf = cfg.MODEL.MASK_FINER
+    log(f"  {MASKFINER} step: batch {b} x {SIZE}x{SIZE}, {cfg.TPU.MAX_GT_INSTANCES} target slots, "
+        f"{mf.TRAIN_NUM_POINTS} points; loss weights class {mf.CLASS_WEIGHT} mask "
+        f"{mf.MASK_WEIGHT} dice {mf.DICE_WEIGHT} no-object {mf.NO_OBJECT_WEIGHT} "
+        f"(MODEL.MASK_FINER), {cfg.MODEL.MR_SEM_SEG_HEAD.NUM_CLASSES} classes, clip "
+        f"{cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE}")
+    model = build_model(cfg)
+    init_random_weights(model, torch.Generator().manual_seed(SEED))
+    model = model.to(dev).train()
+    batches = synthetic_batches(cfg, dev)
+    expected = maskfiner_step_launches(cfg)
+    expected = {n: expected.get(n, 0) for n in counters}
+    sides = sorted({SIZE // p for p in cfg.MODEL.MR.PATCH_SIZES})
+    total = dict.fromkeys(counters, 0)
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def add():
+        got = {name: c.launches for name, c in counters.items()}
+        for name, n in got.items():
+            total[name] += n
+        return got
+
+    def draw(i):
+        return device_draw(torch.Generator(device=dev).manual_seed(SEED + i))
+
+    # the kernels at the operands of one real step
+    batch = next(batches)
+    ops = path_maskfiner_step_operands(model, cfg, batch, draw(0))
+    paths = {"local_attn_bwd": check_local_attn_bwd_calls(label, ops.pop("local_attn_bwd")),
+             "msdetrpc_bwd": msdetrpc_bwd_calls(label, ops.pop("msdetrpc_bwd"), gen)}
+    torch.cuda.empty_cache()
+    groups = ops.pop("point_sample")
+    if sorted(groups) != sides:
+        raise SystemExit(f"{label}: the criterion sampled masks of sides {sorted(groups)}, "
+                         f"expected {sides}")
+    by_side = {}
+    for side in sides:
+        by_side[f"{side}x{side}"] = point_sample_calls(f"{label} {side}x{side}", groups.pop(side),
+                                                       gen)
+        torch.cuda.empty_cache()
+    paths["point_sample"] = summed(by_side)
+    for name in ("point_sample_nearest", "point_sample_nearest_rows"):
+        calls = ops.pop(name)
+        if len(calls) != expected[name]:
+            raise SystemExit(f"{label}: the ranking read {len(calls)} times through {name}, "
+                             f"expected {expected[name]}")
+        fn = counters[name]
+        paths[name] = summed({f"{c[0].shape[-1]}x{c[0].shape[-1]}": hold_nearest(
+            f"{label} {c[0].shape[-1]}x{c[0].shape[-1]}", fn, c[0], c[1:]) for c in calls})
+        del calls
+        torch.cuda.empty_cache()
+    paths["lapjv"] = lapjv_costs(label, ops.pop("lapjv")[0][0])
+    del ops
+    torch.cuda.empty_cache()
+
+    # steps through the kernels, each replayed through the plain versions
+    step = TrainStep(model, cfg)
+
+    def snapshot():
+        return copy.deepcopy({"model": model.state_dict(), "optimizer": step.optimizer.state_dict(),
+                              "scheduler": step.scheduler.state_dict()})
+
+    def restore(state):
+        model.load_state_dict(state["model"])
+        step.optimizer.load_state_dict(state["optimizer"])
+        step.scheduler.load_state_dict(state["scheduler"])
+
+    def terms_of(total_loss, losses):
+        return {"total_loss": total_loss.item(), **{k: v.item() for k, v in losses.items()}}
+
+    def worst_rel(a, b):
+        return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for k in b)
+
+    routes = (point_sample_bilinear, point_sample_backward)
+    times, peaks, p_times, p_peaks = [], [], [], []
+    for i in range(MASKFINER_TRAIN_STEPS):
+        batch, book, gini = next(batches), {}, (([], []), ([], []))
+        before = snapshot()
+        by_route = [dict(fn.launches_by_route) for fn in routes]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.time()
+        with same_choices(book, record=True), gini_inputs(*gini[0]):
+            terms = terms_of(*step.loss_and_grads(batch, draw(i + 1))[:2])
+        dt = time.time() - t0
+        norms = group_norms(model)
+        t0 = time.time()
+        grad_norm = step.apply_gradients().item()
+        times.append(dt + time.time() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        got = add()
+        by_route = [{r: fn.launches_by_route[r] - n[r] for r in n} for fn, n in zip(routes, by_route)]
+        after = snapshot()
+        restore(before)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with same_choices(book, record=False), plain_versions(), gini_inputs(*gini[1]):
+            p_terms = terms_of(*step.loss_and_grads(batch, draw(i + 1))[:2])
+        torch.cuda.synchronize()
+        p_times.append(time.time() - t0)
+        p_peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        p_norms = group_norms(model)
+        restore(after)
+        del before, after
+        rel, norm_rel = worst_rel(terms, p_terms), worst_rel(norms, p_norms)
+        log(f"  step {i + 1}: total loss {terms['total_loss']:.6f} (plain "
+            f"{p_terms['total_loss']:.6f}), {len(terms) - 1} loss terms worst rel diff {rel:.3e}, "
+            f"grad norms per group worst rel diff {norm_rel:.3e}, grad_norm {grad_norm:.5f}; "
+            f"{times[-1] * 1e3:.1f} ms (peak {peaks[-1]:.2f} GiB), plain forward + criterion + "
+            f"backward {p_times[-1] * 1e3:.1f} ms (peak {p_peaks[-1]:.2f} GiB)")
+        log(f"    launches {got}; point_sample by route: forward {by_route[0]}, backward "
+            f"{by_route[1]}; the ranking through point_sample_nearest "
+            f"{got['point_sample_nearest']}, point_sample_nearest_rows "
+            f"{got['point_sample_nearest_rows']}")
+        # the split order follows each stage's disagreement, whose ties are
+        # exact in one run where its sigmoids saturate and broken by rounding
+        # in the other: the disagreement is held to the bound its inputs'
+        # differences set, and the order, a function of it, through it
+        check_disagreement(f"{label} step {i + 1}", gini[0][1], gini[1][1], gini[0][0],
+                           gini[1][0])
+        same_choices.check(f"{label} step {i + 1}", book, by_scores=("split tokens",))
+        if got != expected:
+            raise SystemExit(f"{label} step {i + 1}: launched {got}, expected {expected}")
+        if by_route != [{"direct": len(sides), "shared": len(sides)},
+                        {"direct": 0, "shared": len(sides)}]:
+            raise SystemExit(f"{label} step {i + 1}: point_sample took the routes {by_route}; the "
+                             "targets belong to the direct route, every logits group and its "
+                             "backward to the shared one")
+        if len(terms) != 1 + 3 * 19 or not all(math.isfinite(v) for v in terms.values()):
+            raise SystemExit(f"{label} step {i + 1}: {len(terms) - 1} loss terms, or non-finite")
+        if rel > LOSS_RTOL or norm_rel > GROUP_NORM_RTOL:
+            raise SystemExit(f"{label} step {i + 1}: loss terms differ by {rel}, gradient norms "
+                             f"by {norm_rel} (rel) from the plain versions'")
+        del batch, book, gini
+        torch.cuda.empty_cache()
+    ms = statistics.median(times[1:]) * 1e3
+
+    def one_step():
+        step(next(batches), draw(0))
+        torch.cuda.synchronize()
+
+    busy, rows = device_busy(one_step, runs=2)
+    log(f"  ms per step (median of steps 2-{MASKFINER_TRAIN_STEPS}): {ms:.1f} = "
+        f"{b / ms * 1e3:.2f} images/s at batch {b}, peak {max(peaks):.2f} GiB; device busy "
+        f"{busy:.2f} ms per step in {rows:.0f} rows ({busy / ms:.0%} of the step); plain "
+        f"versions' forward + criterion + backward {statistics.median(p_times[1:]) * 1e3:.1f} ms, "
+        f"peak {max(p_peaks):.2f} GiB ({smi})")
+    del step, model
+    torch.cuda.empty_cache()
+
+    # train_net: an uninterrupted run, then one stopped and resumed.  The
+    # split's near-tied disagreements turn the last-bit differences of the
+    # atomics in two runs' backwards into other split tokens within a step
+    # (seen: 1.3e-2 in the loss terms at step 2), so the second run replays
+    # the first's choices and is held as phase 8 holds its resumed run
+    test_set = ("DATASETS.TEST", f"('{EVAL_NAMES[2]}',)")
+
+    def opts(out_dir):
+        return ["TEST.EVAL_PERIOD", str(MASKFINER_CLI_STEPS), "SOLVER.IMS_PER_BATCH", str(b),
+                "OUTPUT_DIR", out_dir, *test_set]
+
+    def cli(out_dir, max_iter, resume=False):
+        argv = ["--config", MASKFINER, "--synthetic", "--max-iter", str(max_iter)]
+        return train_net.main(argv + (["--resume"] if resume else []) + opts(out_dir))
+
+    def metrics_of(out_dir):
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            return {m["step"]: m for m in map(json.loads, f)}
+
+    def loss_terms(m):
+        return {k: v for k, v in m.items() if k.startswith("loss_") or k == "total_loss"}
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR.parent, prefix="maskfiner_") as tmp, \
+            in_memory_dataset(eval_dataset(EVAL_SIZES[:2])):
+        dir_a, dir_b, book = os.path.join(tmp, "a"), os.path.join(tmp, "b"), {}
+        reset()
+        with same_choices(book, record=True):
+            whole_run = cli(dir_a, MASKFINER_CLI_STEPS)
+        got = add()
+        per_image = maskfiner_launches(cfg)
+        want = {n: v * MASKFINER_CLI_STEPS + 2 * per_image.get(n, 0) for n, v in expected.items()}
+        whole = metrics_of(dir_a)
+        log(f"  train_net --config {MASKFINER} --synthetic --max-iter {MASKFINER_CLI_STEPS}, test() "
+            f"after the last step: " + ", ".join(
+                f"step {s} {m['seconds'] * 1e3:.1f} ms loss {m['total_loss']:.5f}"
+                for s, m in sorted(whole.items()))
+            + f"; mIoU {whole_run.results[EVAL_NAMES[2]]['mIoU']:.4f}; launches {got} (expected "
+            f"{want}: {MASKFINER_CLI_STEPS} steps and two test images)")
+        if sorted(whole) != list(range(1, MASKFINER_CLI_STEPS + 1)) or got != want:
+            raise SystemExit(f"{MASKFINER} through train_net: steps {sorted(whole)}, launches "
+                             f"{got} (expected {want})")
+        del whole_run
+        reset()
+        with same_choices(book, record=False):
+            first = cli(dir_b, MASKFINER_RESUME_AT)
+            saved = copy.deepcopy(first.state(MASKFINER_RESUME_AT))
+            del first
+            fresh_cfg = PRESETS[MASKFINER]()
+            fresh_cfg.merge_from_list(opts(dir_b))
+            fresh = Trainer(fresh_cfg, dev)
+            fresh.resume_or_load(resume=True)
+            same = {part: same_tree(saved[part], fresh.state(fresh.start_step)[part])
+                    for part in saved}
+            del fresh
+            resumed = cli(dir_b, MASKFINER_CLI_STEPS, resume=True)
+        add()
+        n_moments = sum(1 for st in saved["optimizer"]["state"].values() if st["exp_avg"].abs().max() > 0)
+        log(f"  a run stopped after step {MASKFINER_RESUME_AT}: a fresh Trainer restores its state bit "
+            f"for bit: {same} ({len(saved['model'])} model tensors, {n_moments} nonzero AdamW first "
+            f"moments, schedule at {saved['scheduler']['last_epoch']}); resumed to step "
+            f"{resumed.start_step}, replaying the first run's choices, which its own equal in "
+            + "; ".join(f"{k} {e}/{n}" for k, (e, n) in book["agree"].items()))
+        if not all(same.values()) or saved["scheduler"]["last_epoch"] != MASKFINER_RESUME_AT \
+                or not n_moments or resumed.start_step != MASKFINER_CLI_STEPS:
+            raise SystemExit(f"{MASKFINER}: the resumed state differs from the stopped run's "
+                             f"({same}) or the run ended at step {resumed.start_step}")
+        again, before = metrics_of(dir_b), 0.0
+        for s in range(1, MASKFINER_CLI_STEPS + 1):
+            rel = worst_rel(loss_terms(again[s]), loss_terms(whole[s]))
+            limit = max(RESUME_RTOL, RESUME_GROWTH * before)
+            log(f"  step {s}{' (resumed)' if s > MASKFINER_RESUME_AT else ''}: loss terms against "
+                f"the uninterrupted run: worst rel diff {rel:.3e} (limit {limit:.1e})")
+            if rel > limit:
+                raise SystemExit(f"{MASKFINER} step {s}: the two runs' loss terms differ by {rel} "
+                                 f"(rel), limit {limit}")
+            before = max(before, rel)
+        miou = resumed.results[EVAL_NAMES[2]]["mIoU"]
+        log(f"  the resumed run's test() on {EVAL_NAMES[2]} after step {MASKFINER_CLI_STEPS}: mIoU "
+            f"{miou:.4f}")
+        if not math.isfinite(miou):
+            raise SystemExit(f"{MASKFINER}: the resumed run's test() gave mIoU {miou}")
+        del resumed, saved
+    torch.cuda.empty_cache()
+    return paths, total
 
 
 # the evaluation phase (12): ADE20K-shaped images and label maps made from a
@@ -3459,7 +3966,9 @@ def main() -> int:
         "msdetrpc_interleaved_bwd": clusten.msdetrpc_backward,
         "window_gather": windowed_row_gather}
     by_route = dict(windowed_row_gather.launches_by_route)
-    layout_launches = layouts_phase(dev, smi, images, default_out, layout_counters)
+    layout_launches = layouts_phase(dev, smi, images, default_out, {
+        **layout_counters, "point_sample_nearest": point_sample_nearest,
+        "point_sample_nearest_rows": point_sample_nearest_rows})
     by_route = {r: windowed_row_gather.launches_by_route[r] - n for r, n in by_route.items()}
     log(f"  window_gather launches by route on the layouts' forwards and steps: {by_route}")
     if by_route["direct"] or by_route["shared"] < 18:
@@ -3494,6 +4003,19 @@ def main() -> int:
             kr["by_path"][path] = rec
             kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
 
+    log(f"phase 13: the published MaskFiner-Mini cascade's training step ({MASKFINER}) at "
+        f"{SIZE}x{SIZE}, batch {MASKFINER_TRAIN_BATCH}: K2, K4, K10, K11, K12 and K13 on the "
+        f"operands of a real step, {MASKFINER_TRAIN_STEPS} steps against the plain versions, "
+        "train_net with checkpoints and resume")
+    mft_paths, mft_launches = maskfiner_train_phase(dev, smi, gen, train_counters)
+    for kr in kernels:
+        if kr["name"] in mft_paths:
+            kr.setdefault("by_path", {"b8_uniform": {k: kr[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
+            kr["by_path"][MASKFINER_TRAIN] = mft_paths[kr["name"]]
+            kr["max_abs_err"] = max(kr["max_abs_err"], mft_paths[kr["name"]]["max_abs_err"])
+    torch.cuda.empty_cache()
+
     for kr in kernels:
         names = [kr["name"]] + (["point_sample_bwd"] if kr["name"] == "point_sample" else [])
         kr["inference_launches"] = inference_launches.get(kr["name"], 0)
@@ -3508,10 +4030,12 @@ def main() -> int:
         kr["maskfiner_launches"] = maskfiner_fwd_launches.get(kr["name"], 0)
         # phase 12: the steps from the loader, every test() and --eval-only
         kr["eval_launches"] = sum(eval_launches.get(n, 0) for n in names)
+        # phase 13: the cascade's steps, its train_net runs and their test()
+        kr["maskfiner_step_launches"] = sum(mft_launches.get(n, 0) for n in names)
         kr["launches"] = (kr["inference_launches"] + kr["mini_step_launches"]
                           + kr["small_run_launches"] + kr["layouts_launches"]
                           + kr["mini15_launches"] + kr["maskfiner_launches"]
-                          + kr["eval_launches"])
+                          + kr["eval_launches"] + kr["maskfiner_step_launches"])
         if kr["launches"] < 1:
             raise SystemExit(f"{kr['name']}: never launched on a main path")
     if len(kernels) != 14:

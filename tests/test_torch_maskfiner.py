@@ -110,6 +110,12 @@ def test_maskfiner_mini_preset_matches_yaml():
     walk(maskfiner_mini_cfg(), cfg, ())
     assert {"MODEL.META_ARCHITECTURE", "MODEL.MR.DEPTHS", "MODEL.MR_SEM_SEG_HEAD.CONVS_DIM",
             "MODEL.MASK_FINER.DEC_LAYERS", "SOLVER.AMP.ENABLED"} <= set(seen)
+    # what the cascade's training step reads
+    assert {f"MODEL.MASK_FINER.{k}" for k in (
+        "DEEP_SUPERVISION", "NO_OBJECT_WEIGHT", "CLASS_WEIGHT", "MASK_WEIGHT", "DICE_WEIGHT",
+        "TRAIN_NUM_POINTS", "OVERSAMPLE_RATIO", "IMPORTANCE_SAMPLE_RATIO", "UPSAMPLING_WEIGHT",
+        "DROPOUT")} | {"MODEL.MR_SEM_SEG_HEAD.NUM_CLASSES", "SOLVER.CLIP_GRADIENTS.CLIP_VALUE",
+                       "TPU.MAX_GT_INSTANCES"} <= set(seen)
     assert {"DATASETS.TRAIN", "DATASETS.TEST", "INPUT.MIN_SIZE_TRAIN", "INPUT.MAX_SIZE_TEST",
             "INPUT.CROP.SINGLE_CATEGORY_MAX_AREA", "INPUT.COLOR_AUG_SSD", "INPUT.SIZE_DIVISIBILITY",
             "INPUT.DATASET_MAPPER_NAME", "TEST.EVAL_PERIOD", "TEST.EXPECTED_RESULTS",
@@ -139,15 +145,31 @@ def test_published_cascade_builds():
     assert type(build_model(PRESETS["aff_mini"]())).__name__ == "MaskFormer"
 
 
-def test_train_net_refuses_the_cascade(tmp_path):
-    """Training the cascade is not ported: the training CLI names ROADMAP.md
-    before it builds anything."""
-    from autofocusformermod_torch import train_net
+def test_train_net_trains_the_cascade(tmp_path):
+    """``train_net --config maskfiner_mini`` trains the published cascade on
+    the CPU (one step at 128x128, batch 1: stages of 16, 48, 112 and 240
+    tokens, the clustered ones at least NBHD_SIZE): 3 loss terms for each of
+    its 19 outputs, all finite, and a checkpoint with the model, the AdamW
+    moments of every parameter and the schedule."""
+    import json
 
-    with pytest.raises(NotImplementedError, match="MaskFiner.*ROADMAP.md"):
-        train_net.main(["--config", "maskfiner_mini", "--device", "cpu", "--synthetic",
-                        "--max-iter", "1", "OUTPUT_DIR", str(tmp_path)])
-    assert not any(tmp_path.iterdir())
+    from autofocusformermod_torch import train_net
+    from autofocusformermod_torch.engine.checkpoint import Checkpointer
+
+    trainer = train_net.main(["--config", "maskfiner_mini", "--device", "cpu", "--synthetic",
+                              "--max-iter", "1", "INPUT.CROP.SIZE", "[128, 128]",
+                              "SOLVER.IMS_PER_BATCH", "1", "OUTPUT_DIR", str(tmp_path)])
+    metrics = [json.loads(line) for line in (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert [m["step"] for m in metrics] == [1]
+    terms = {k: v for k, v in metrics[0].items() if k.startswith("loss_")}
+    assert len(terms) == 3 * 19 and "loss_dice_17" in terms and "loss_ce_18" not in terms
+    assert all(np.isfinite(v) for v in terms.values()) and np.isfinite(metrics[0]["grad_norm"])
+    state = Checkpointer(str(tmp_path / "checkpoints")).restore()
+    assert state["step"] == 1 and state["scheduler"]["last_epoch"] == 1
+    n_params = sum(1 for _ in trainer.model.parameters())
+    moments = state["optimizer"]["state"]
+    assert len(moments) == n_params and all(int(m["step"]) == 1 for m in moments.values())
+    assert set(state["model"]) == set(trainer.model.state_dict())
 
 
 @pytest.mark.parametrize("field, value", [

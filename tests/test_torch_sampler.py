@@ -151,8 +151,8 @@ def test_nearest_rows_plain_matches_pallas_interpret(jax_mods, h, chunks):
 def test_nearest_rows_contract():
     """The plain version raises on a cy outside its chunk's two rows and on
     a cx outside the image; the wrapper on fewer chunks than rows, a ragged
-    chunk or one row; the launchers on operands their vector loads cannot
-    take."""
+    chunk, one row or more columns than the kernel holds; the launchers on
+    operands their vector loads cannot take."""
     masks, cx, cy = _rows_case(np.random.default_rng(9))
     bad = cy.copy()
     bad[1, 3, 5] = (bad[1, 3, 5] + 3) % 16
@@ -174,8 +174,15 @@ def test_nearest_rows_contract():
     with pytest.raises(ValueError, match="chunks of 128"):
         ops_ps.point_sample_nearest_rows(_t(masks), _t(cx[..., :64]), _t(cy[..., :64]))
     assert not ops_ps.point_sample_nearest_rows_supported(1, 128, 1280)
-    assert ops_ps.point_sample_nearest_rows_supported(16, 100, 24 * 128)   # no lane rule on w
-    assert not ops_ps.point_sample_nearest_rows_supported(16, 1024, 24 * 128)
+    # the route takes the JAX accelerator's lane rule; the kernel reads any w
+    # up to ROWS_MAX_W
+    assert not ops_ps.point_sample_nearest_rows_supported(16, 100, 24 * 128)
+    assert ops_ps.point_sample_nearest_rows(*(_t(a) for a in _rows_case(
+        np.random.default_rng(10), w=100))).shape == (3, 24, 128)
+    wide = _rows_case(np.random.default_rng(11), w=1024)
+    assert ops_ps.point_sample_nearest_rows_supported(16, 1024, 24 * 128)
+    with pytest.raises(ValueError, match="w <= 768"):
+        ops_ps.point_sample_nearest_rows(*(_t(a) for a in wide))
 
 
 # ------------------------------------------------------------ the whole sampler
@@ -235,6 +242,48 @@ def test_sampler_stratified_route_matches_jax(jax_mods, monkeypatch, stratified_
         chunks = 3 * num_points // 128
         band = np.floor(got.numpy()[:, :192, 1] * chunks).astype(int)
         assert (np.stack([np.bincount(b, minlength=chunks) for b in band]) == 192 // chunks).all()
+
+
+# (h, w, candidates): MaskFiner-Mini's stage masks (16-, 32-, 64- and 128-wide)
+# and the 384x384 and 1024x1024 crops' (96-, 256-wide) at 12544 points, the
+# lane rule at small shapes, fewer chunks than rows, ragged chunks, one row,
+# and masks wider than the rows kernel's shared memory holds
+ROUTE_CASES = [(16, 16, 37632), (32, 32, 37632), (64, 64, 37632), (96, 96, 37632),
+               (128, 128, 37632), (256, 256, 37632), (4, 128, 256), (16, 100, 24 * 128),
+               (16, 384, 24 * 128), (300, 128, 37632), (16, 128, 24 * 128 + 64),
+               (1, 128, 1280), (16, 1024, 24 * 128), (16, 896, 24 * 128)]
+
+
+@pytest.mark.parametrize("h,w,p", ROUTE_CASES)
+def test_stratified_route_rule_matches_the_jax_accelerator(jax_mods, monkeypatch, h, w, p):
+    """Where the stratified route is asked for (as on a card), the port
+    takes it exactly where the JAX package's accelerator does
+    (point_sample_nearest_rows_supported: w % 128 == 0, h >= 2, whole chunks
+    of 128 and at least as many chunks as rows) and reads i.i.d. candidates
+    through point_sample_nearest elsewhere; a stratified call on masks wider
+    than the rows kernel holds (ROWS_MAX_W) raises, naming the width."""
+    want = jax_mods["jk"].point_sample_nearest_rows_supported(1, h, w, p)
+    assert ops_ps.point_sample_nearest_rows_supported(h, w, p) == want
+    called = []
+    for name in ("point_sample_nearest", "point_sample_nearest_rows"):
+        real = getattr(ops_ps, name)
+        monkeypatch.setattr(ops_ps, name,
+                            lambda *a, _real=real, _name=name: called.append(_name) or _real(*a))
+    masks = _t(_tied_masks(np.random.default_rng(h + w), 1, h, w))
+    draw = device_draw(torch.Generator().manual_seed(5))
+    num_points = p // 3
+
+    def run():
+        return tps.get_uncertain_point_coords_nn_ranked(draw, masks, num_points, 3.0, 0.75,
+                                                        stratified=True)
+
+    if want and w > ops_ps.ROWS_MAX_W:
+        with pytest.raises(ValueError, match=f"{w} wide"):
+            run()
+        assert not called
+        return
+    assert run().shape == (1, num_points, 2)
+    assert called == ["point_sample_nearest_rows" if want else "point_sample_nearest"]
 
 
 def test_sampler_route_follows_the_device(monkeypatch):
@@ -329,8 +378,10 @@ def test_nearest_rows_kernel_matches_plain_on_card(cuda, h, w, chunks):
 @pytest.mark.cuda
 @pytest.mark.parametrize("stratify", [True, False])
 def test_sampler_kernel_and_plain_pick_the_same_points_on_card(cuda, monkeypatch, stratify):
+    """128-wide masks: the stratified route's rule holds, so stratification
+    reads through the rows kernel and its absence through the nearest one."""
     monkeypatch.setattr(tps, "STRATIFY_RANKING", stratify)
-    masks = _t(_tied_masks(np.random.default_rng(5), 6, 16, 32)).to(cuda)
+    masks = _t(_tied_masks(np.random.default_rng(5), 6, 16, 128)).to(cuda)
 
     def run():
         draw = device_draw(torch.Generator(device=cuda).manual_seed(1))
