@@ -1,9 +1,13 @@
 """Yaml-free presets of the published AFF-Mini, AFF-Mini-1/5, AFF-Small and
-MaskFiner-Mini models.
+MaskFiner-Mini models (ADE20K semantic), and of AFF-Mini for Cityscapes
+panoptic and COCO instance segmentation.
 
 ``configs/ade20k/maskformer2_aff_{mini,mini_15,small}_bs32_80k.yaml`` merged
 over the defaults give the published AFF + Mask2Former ADE20K models and
-their training recipe.  Reading those files needs PyYAML; these presets carry the
+their training recipe; ``configs/cityscapes/panoptic-segmentation/aff/
+maskformer2_aff_mini_bs32_45k.yaml`` and ``configs/coco/
+instance-segmentation/aff/maskformer2_aff_mini_bs64_50ep.yaml`` the
+Cityscapes-panoptic and COCO-instance ones.  Reading those files needs PyYAML; these presets carry the
 same values for every field the port's ``*_from_config`` functions, its
 optimizer, its training step, its trainer, its data mapper and loader and
 its evaluation read, so a machine without PyYAML can build, train and
@@ -93,6 +97,7 @@ def ade20k_semantic_nodes(aug_min_sizes: Sequence[int], aug_max_size: int) -> Di
             "SW_CROP_SIZE": [1024, 1024],
             "SW_STRIDE": [768, 768],
             "SAVE_EVAL_ARTIFACTS": False,
+            "DETECTIONS_PER_IMAGE": 100,
         },
         "DATALOADER": {"NUM_WORKERS": 8},
     }
@@ -311,5 +316,114 @@ def maskfiner_mini_cfg(num_classes: int = 150) -> Cfg:
     })
 
 
+def _aff_mini_task_cfg(num_classes: int, nodes: Dict[str, Any], weights: str,
+                       mask_former_test: Dict[str, Any]) -> Cfg:
+    """AFF-Mini + Mask2Former with another task's dataset, input and test
+    nodes and MODEL.MASK_FORMER.TEST (the thresholds and the outputs the
+    upstream model makes)."""
+    cfg = aff_mini_cfg(num_classes)
+    cfg.MODEL.WEIGHTS = weights
+    cfg.MODEL.MASK_FORMER.TEST = Cfg(mask_former_test)
+    for k, v in nodes.items():
+        cfg[k] = Cfg(v)
+    return cfg
+
+
+def aff_mini_cityscapes_panoptic_cfg(num_classes: int = 19) -> Cfg:
+    """AFF-Mini + Mask2Former, Cityscapes panoptic segmentation
+    (``configs/cityscapes/panoptic-segmentation/aff/maskformer2_aff_mini_
+    bs32_45k.yaml`` over ``../maskformer2_R50_bs16_90k.yaml``,
+    ``../Base-Cityscapes-PanopticSegmentation.yaml`` and the defaults):
+    19 classes, the neighbourhood's ALPHA 8; training on 512x1024 crops of
+    images resized to short edges 512-2048 (16 sizes), testing at
+    1024x2048 (131,072 first-stage tokens); 45k steps at batch 32."""
+    cfg = _aff_mini_task_cfg(num_classes, {
+        "DATASETS": {"TRAIN": ["cityscapes_fine_panoptic_train"],
+                     "TEST": ["cityscapes_fine_panoptic_val"]},
+        "INPUT": {
+            "MIN_SIZE_TRAIN": [int(x * 0.1 * 1024) for x in range(5, 21)],
+            "MAX_SIZE_TRAIN": 4096,
+            "MIN_SIZE_TEST": 1024,
+            "MAX_SIZE_TEST": 2048,
+            "CROP": {"ENABLED": True, "SIZE": [512, 1024], "SINGLE_CATEGORY_MAX_AREA": 1.0},
+            "COLOR_AUG_SSD": True,
+            "SIZE_DIVISIBILITY": -1,
+            "DATASET_MAPPER_NAME": "mask_former_panoptic",
+        },
+        "TEST": {
+            "EVAL_PERIOD": 5000,
+            "EXPECTED_RESULTS": [],
+            "AUG": {"ENABLED": False, "MIN_SIZES": [512, 768, 1024, 1280, 1536, 1792],
+                    "MAX_SIZE": 4096, "FLIP": True},
+            "SW_ENABLED": False,
+            "SW_CROP_SIZE": [1024, 1024],
+            "SW_STRIDE": [768, 768],
+            "SAVE_EVAL_ARTIFACTS": False,
+            "DETECTIONS_PER_IMAGE": 100,
+        },
+        "DATALOADER": {"NUM_WORKERS": 4},
+    }, "aff_mini.pkl", {"SEMANTIC_ON": True, "INSTANCE_ON": True, "PANOPTIC_ON": True,
+                        "OVERLAP_THRESHOLD": 0.8, "OBJECT_MASK_THRESHOLD": 0.8})
+    cfg.MODEL.AFF.ALPHA = 8.0
+    cfg.SOLVER.MAX_ITER = 45000
+    return cfg
+
+
+def aff_mini_coco_instance_cfg(num_classes: int = 80) -> Cfg:
+    """AFF-Mini + Mask2Former, COCO instance segmentation
+    (``configs/coco/instance-segmentation/aff/maskformer2_aff_mini_bs64_
+    50ep.yaml`` over ``../maskformer2_R50_bs16_50ep.yaml``,
+    ``../Base-COCO-InstanceSegmentation.yaml`` and the defaults): 80
+    classes, a fixed Shepard power of 4; training on the LSJ recipe's
+    1024x1024 canvas (scales 0.1-2.0), testing at short edge 800 (long at
+    most 1333) with 100 detections an image; 92,188 steps at batch 64.  The
+    yaml's multi-step schedule (SOLVER.STEPS) is not read: both packages
+    train on the poly schedule."""
+    cfg = _aff_mini_task_cfg(num_classes, {
+        "DATASETS": {"TRAIN": ["coco_2017_train"], "TEST": ["coco_2017_val"]},
+        "INPUT": {
+            "MIN_SIZE_TRAIN": [800],
+            "MAX_SIZE_TRAIN": 1333,
+            "MIN_SIZE_TEST": 800,
+            "MAX_SIZE_TEST": 1333,
+            "CROP": {"ENABLED": False, "SIZE": [0.9, 0.9], "SINGLE_CATEGORY_MAX_AREA": 1.0},
+            "COLOR_AUG_SSD": False,
+            "SIZE_DIVISIBILITY": -1,
+            "DATASET_MAPPER_NAME": "coco_instance_lsj",
+            "IMAGE_SIZE": 1024,
+            "MIN_SCALE": 0.1,
+            "MAX_SCALE": 2.0,
+            "RANDOM_FLIP": "horizontal",
+        },
+        "TEST": {
+            "EVAL_PERIOD": 2500,
+            "EXPECTED_RESULTS": [],
+            "AUG": {"ENABLED": False, "MIN_SIZES": [400, 500, 600, 700, 800, 900, 1000, 1100, 1200],
+                    "MAX_SIZE": 4000, "FLIP": True},
+            "SW_ENABLED": False,
+            "SW_CROP_SIZE": [1024, 1024],
+            "SW_STRIDE": [768, 768],
+            "SAVE_EVAL_ARTIFACTS": False,
+            "DETECTIONS_PER_IMAGE": 100,
+        },
+        "DATALOADER": {"NUM_WORKERS": 8},
+    }, "aff_mini.pkl", {"SEMANTIC_ON": False, "INSTANCE_ON": True, "PANOPTIC_ON": False,
+                        "OVERLAP_THRESHOLD": 0.8, "OBJECT_MASK_THRESHOLD": 0.8})
+    cfg.MODEL.AFF.update({"SHEPARD_POWER": 4.0, "SHEPARD_POWER_LEARNABLE": False})
+    cfg.SOLVER.update({"IMS_PER_BATCH": 64, "MAX_ITER": 92188, "WARMUP_ITERS": 3})
+    return cfg
+
+
+def train_image_size(cfg) -> tuple:
+    """(H, W) of a training batch: the LSJ mappers' fixed INPUT.IMAGE_SIZE
+    square, else INPUT.CROP.SIZE."""
+    if cfg.INPUT.DATASET_MAPPER_NAME in ("coco_instance_lsj", "coco_panoptic_lsj",
+                                         "coco_semantic2"):
+        return (cfg.INPUT.IMAGE_SIZE, cfg.INPUT.IMAGE_SIZE)
+    return tuple(cfg.INPUT.CROP.SIZE)
+
+
 PRESETS = {"aff_mini": aff_mini_cfg, "aff_mini_15": aff_mini_15_cfg, "aff_small": aff_small_cfg,
-           "maskfiner_mini": maskfiner_mini_cfg}
+           "maskfiner_mini": maskfiner_mini_cfg,
+           "aff_mini_cityscapes_panoptic": aff_mini_cityscapes_panoptic_cfg,
+           "aff_mini_coco_instance": aff_mini_coco_instance_cfg}

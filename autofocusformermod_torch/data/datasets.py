@@ -1,11 +1,11 @@
-"""Registration of the semantic-segmentation datasets under
-$DETECTRON2_DATASETS: ADE20K-150 and Cityscapes semantic, and any folder of
-images paired with a folder of label PNGs.
+"""Registration of the builtin datasets under $DETECTRON2_DATASETS:
+ADE20K-150 and Cityscapes semantic, any folder of images paired with a
+folder of label PNGs, and (``datasets_coco.py``) COCO instance, panoptic
+and stuff, cocofied LVIS and Cityscapes panoptic.
 
-Counterpart of the semantic part of ``autofocusformermod_tpu/data/
-datasets.py``; the COCO and panoptic registrations wait for the panoptic and
-instance slice (ROADMAP.md section 1 item 5).  Registering reads no file: a
-dataset's directories are walked when ``DatasetCatalog.get`` asks for it.
+Counterpart of ``autofocusformermod_tpu/data/datasets.py``.  Registering
+reads no file: a dataset's directories are walked when
+``DatasetCatalog.get`` asks for it.
 """
 
 from __future__ import annotations
@@ -128,3 +128,10 @@ def register_all_builtin(root: str = "") -> None:
     root = root or os.environ.get("DETECTRON2_DATASETS", "datasets")
     register_all_ade20k(root)
     register_all_cityscapes_semantic(root)
+    from .datasets_coco import (register_cityscapes_panoptic, register_coco,
+                                register_coco_stuff_171, register_coco_stuff_semseg)
+
+    register_coco(root)
+    register_coco_stuff_semseg(root)
+    register_coco_stuff_171(root)
+    register_cityscapes_panoptic(root)

@@ -107,9 +107,11 @@ def eval_loader(dataset: List[Dict], mapper: Callable[[Dict], Dict], *, process_
 def device_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
     """A stacked training batch on ``device`` in the training step's layout
     (as ``data/synthetic.py`` yields it): 'image' (b, H, W, 3) uint8,
-    'sem_seg_map' (b, H, W) uint8 (int32 where the ignore label passes 255),
-    'labels' (b, t) int64, 'valid' (b, t) bool."""
-    dtypes = {"image": torch.uint8, "sem_seg_map": None, "labels": torch.long,
-              "valid": torch.bool}
+    'labels' (b, t) int64, 'valid' (b, t) bool, and the targets' pixels:
+    a semantic batch's 'sem_seg_map' (b, H, W) uint8 (int32 where the
+    ignore label passes 255), a panoptic or instance batch's 'masks' (b, t,
+    H, W) uint8."""
+    dtypes = {"image": torch.uint8, "sem_seg_map": None, "masks": torch.uint8,
+              "labels": torch.long, "valid": torch.bool}
     return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device=device, dtype=dt)
-            for k, dt in dtypes.items()}
+            for k, dt in dtypes.items() if k in batch}

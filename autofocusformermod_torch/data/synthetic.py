@@ -9,6 +9,8 @@ from typing import Dict, Iterator, Tuple
 
 import torch
 
+from ..config import train_image_size
+
 
 def synthetic_batch(generator: torch.Generator, device, batch: int, size: Tuple[int, int],
                     slots: int, num_classes: int) -> Dict[str, torch.Tensor]:
@@ -43,12 +45,12 @@ def synthetic_batch(generator: torch.Generator, device, batch: int, size: Tuple[
 
 def synthetic_batches(cfg, device, start_step: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
     """An endless stream of batches for ``cfg`` (SOLVER.IMS_PER_BATCH images
-    of INPUT.CROP.SIZE).  The batch of a step depends on cfg.SEED and the
+    of the training size, ``config.train_image_size``).  The batch of a step depends on cfg.SEED and the
     step alone, so a resumed run, started at its step, sees the batches the
     uninterrupted run saw."""
     step = start_step
     while True:
         gen = torch.Generator().manual_seed(cfg.SEED * 1_000_003 + step)
-        yield synthetic_batch(gen, device, cfg.SOLVER.IMS_PER_BATCH, tuple(cfg.INPUT.CROP.SIZE),
+        yield synthetic_batch(gen, device, cfg.SOLVER.IMS_PER_BATCH, train_image_size(cfg),
                               cfg.TPU.MAX_GT_INSTANCES, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
         step += 1

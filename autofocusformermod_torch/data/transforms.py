@@ -1,9 +1,10 @@
-"""The semantic mapper's augmentations on uint8 numpy arrays: multi-scale
-shortest-edge resize, the category-constrained random crop, the SSD colour
-jitter, the horizontal flip and the padding.
+"""The mappers' augmentations on numpy arrays: multi-scale shortest-edge
+resize, the category-constrained random crop, the SSD colour jitter, the
+horizontal flip, the padding and the large-scale jitter of the COCO LSJ
+recipe.
 
-Counterpart of ``autofocusformermod_tpu/data/transforms.py`` (its semantic
-part), without OpenCV: the three OpenCV operations the JAX module calls are
+Counterpart of ``autofocusformermod_tpu/data/transforms.py``, without
+OpenCV: the three OpenCV operations the JAX module calls are
 written out here with OpenCV's own arithmetic, so that a sample maps to the
 same bytes in both packages.
 
@@ -238,3 +239,21 @@ def pad_to_divisibility(img, sem_seg, divisibility: int, img_value=128, seg_valu
     th = -(-h // divisibility) * divisibility
     tw = -(-w // divisibility) * divisibility
     return pad_to_size(img, sem_seg, (th, tw), img_value, seg_value)
+
+
+def large_scale_jitter(rng: np.random.Generator, img: np.ndarray, sem_seg: Optional[np.ndarray],
+                       image_size: int, min_scale: float = 0.1, max_scale: float = 2.0,
+                       seg_value: int = 255):
+    """The COCO LSJ augmentation: scale the long edge to image_size times a
+    random factor in [min_scale, max_scale), then a random image_size crop,
+    padded to image_size x image_size (image 128, label map seg_value)."""
+    scale = rng.uniform(min_scale, max_scale)
+    h, w = img.shape[:2]
+    ratio = image_size / max(h, w) * scale
+    nh, nw = max(1, int(h * ratio)), max(1, int(w * ratio))
+    img = resize_image(img, (nh, nw))
+    if sem_seg is not None:
+        sem_seg = resize_nearest(sem_seg, (nh, nw))
+    img, sem_seg = random_crop_with_category_constraint(rng, img, sem_seg,
+                                                        (image_size, image_size))
+    return pad_to_size(img, sem_seg, (image_size, image_size), 128, seg_value)

@@ -1,13 +1,18 @@
 """Trainer: config -> model, optimizer and training step on one device; the
 train loop with checkpoints, resume, the NaN watchdog, metric logging and
-evaluation every TEST.EVAL_PERIOD steps; and the semantic evaluation.
+evaluation every TEST.EVAL_PERIOD steps; and the semantic, panoptic and
+instance evaluation.
 
 Counterpart of ``autofocusformermod_tpu/engine/train.py``.  ``train()``
-reads DATASETS.TRAIN through the semantic mapper and ``TrainLoader`` unless
-the caller passes batches (``data.synthetic.synthetic_batches`` where no
-dataset is installed); ``test()`` scores DATASETS.TEST with
-``SemSegEvaluator``.  Every meta-architecture of ``models/registry.py``
-(MaskFormer and the MaskFiner cascade) trains and evaluates.
+reads DATASETS.TRAIN through the mapper INPUT.DATASET_MAPPER_NAME names
+(semantic, panoptic, instance, or one of the COCO LSJ mappers) and
+``TrainLoader`` unless the caller passes batches
+(``data.synthetic.synthetic_batches`` where no dataset is installed);
+``test()`` scores each of DATASETS.TEST by its metadata's evaluator_type:
+semantic (mIoU), panoptic (PQ) or instance (COCO, Cityscapes or LVIS mask
+AP), one evaluator per dataset.  Every meta-architecture of
+``models/registry.py`` (MaskFormer and the MaskFiner cascade) trains and
+evaluates.
 
 Randomness: the weights are initialised under cfg.SEED, and two generators
 on the device -- the criterion's (cfg.SEED + 1) and DropPath's (cfg.SEED +
@@ -20,10 +25,11 @@ samples than the uninterrupted one would have.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,12 +37,19 @@ import torch
 from ..data.catalog import DatasetCatalog, MetadataCatalog
 from ..data.datasets import register_all_builtin
 from ..data.loader import TrainLoader, device_batch, eval_loader
-from ..data.mapper_semantic import MaskFormerSemanticDatasetMapper
+from ..data.mapper_panoptic_instance import (COCOInstanceLSJDatasetMapper,
+                                             MaskFormerInstanceDatasetMapper,
+                                             MaskFormerPanopticDatasetMapper, polygons_to_mask,
+                                             rle_decode)
+from ..data.mapper_semantic import COCOSemanticLSJDatasetMapper, MaskFormerSemanticDatasetMapper
 from ..data.transforms import resize_nearest
+from ..evaluation import (CityscapesInstanceEvaluator, InstanceSegEvaluator,
+                          LVISInstanceSegEvaluator, PanopticEvaluator)
 from ..evaluation.sem_seg_evaluation import (MaskFinerSemSegEvaluator, MetaLossSemSegEvaluator,
                                              SemSegEvaluator)
 from ..losses.criterion import device_draw
-from ..models.inference import sem_seg_postprocess, sliding_window_semantic_scores
+from ..models.inference import (instance_inference, panoptic_inference, sem_seg_postprocess,
+                                sliding_window_semantic_scores, thing_lookup)
 from ..models.maskformer import semantic_inference, upsample_masks
 from ..models.registry import META_ARCHITECTURES, build_model, meta_architecture
 from ..models.tta import SemanticSegmentorWithTTA
@@ -119,14 +132,25 @@ class Trainer:
         return TrainLoader(dataset, self.build_mapper(is_train=True), cfg.SOLVER.IMS_PER_BATCH,
                            seed=cfg.SEED, num_workers=cfg.DATALOADER.NUM_WORKERS)
 
-    def build_mapper(self, is_train: bool) -> MaskFormerSemanticDatasetMapper:
-        """The mapper INPUT.DATASET_MAPPER_NAME names (semantic only)."""
-        name = self.cfg.INPUT.DATASET_MAPPER_NAME
-        if name != "mask_former_semantic":
-            raise NotImplementedError(f"the dataset mapper {name!r} is not ported yet (ROADMAP.md "
-                                      "section 1 item 5); ported: 'mask_former_semantic'")
-        return MaskFormerSemanticDatasetMapper.from_config(self.cfg, is_train=is_train,
-                                                           seed=self.cfg.SEED)
+    def build_mapper(self, is_train: bool) -> Callable[[Dict], Dict]:
+        """The mapper INPUT.DATASET_MAPPER_NAME names: coco_semantic2 (LSJ,
+        training; its test mapper is the semantic one), mask_former_semantic
+        and coco_semantic* (semantic), mask_former_panoptic,
+        mask_former_instance, coco_instance_lsj and coco_panoptic_lsj (the
+        LSJ instance mapper)."""
+        cfg, seed = self.cfg, self.cfg.SEED
+        name = cfg.INPUT.DATASET_MAPPER_NAME
+        if name == "coco_semantic2" and is_train:
+            return COCOSemanticLSJDatasetMapper.from_config(cfg, is_train=True, seed=seed)
+        if name == "mask_former_semantic" or name.startswith("coco_semantic"):
+            return MaskFormerSemanticDatasetMapper.from_config(cfg, is_train=is_train, seed=seed)
+        if name == "mask_former_panoptic":
+            return MaskFormerPanopticDatasetMapper.from_config(cfg, is_train=is_train, seed=seed)
+        if name == "mask_former_instance":
+            return MaskFormerInstanceDatasetMapper.from_config(cfg, is_train=is_train, seed=seed)
+        if name in ("coco_instance_lsj", "coco_panoptic_lsj"):
+            return COCOInstanceLSJDatasetMapper.from_config(cfg, is_train=is_train, seed=seed)
+        raise ValueError(f"unknown mapper: {name}")
 
     def train(self, batches: Optional[Iterator[Dict[str, torch.Tensor]]] = None,
               max_iter: Optional[int] = None) -> None:
@@ -167,14 +191,18 @@ class Trainer:
     # ---------------------------------------------------------------- eval
     def test(self) -> Dict[str, Dict[str, float]]:
         """{dataset: metrics} for each of DATASETS.TEST, by its metadata's
-        evaluator_type; checked against TEST.EXPECTED_RESULTS."""
+        evaluator_type (one evaluator per dataset: panoptic datasets get PQ
+        alone, whatever TEST.*_ON say); checked against
+        TEST.EXPECTED_RESULTS."""
         results = {}
         for name in self.cfg.DATASETS.TEST:
             etype = MetadataCatalog.get(name).get("evaluator_type", "sem_seg")
-            if "panoptic" in etype or "instance" in etype:
-                raise NotImplementedError(f"{etype} evaluation ({name}) is not ported yet "
-                                          "(ROADMAP.md section 1 item 5)")
-            results[name] = self._eval_sem_seg(name)
+            if "panoptic" in etype:
+                results[name] = self._eval_panoptic(name)
+            elif "instance" in etype:
+                results[name] = self._eval_instance(name)
+            else:
+                results[name] = self._eval_sem_seg(name)
             print(f"[eval {name}] " + ", ".join(f"{k}={v:.2f}" for k, v in results[name].items()
                                                 if not k.startswith("IoU-")), flush=True)
         self.results = results
@@ -264,19 +292,108 @@ class Trainer:
                            ignore_label=meta.get("ignore_label", 255),
                            class_names=meta.get("stuff_classes"), output_dir=cfg.OUTPUT_DIR,
                            save_predictions=cfg.TEST.SAVE_EVAL_ARTIFACTS and bool(cfg.OUTPUT_DIR))
-        mapper = self.build_mapper(is_train=False)
+        mapper = MaskFormerSemanticDatasetMapper.from_config(cfg, is_train=False)
+        with self._eval_mode():
+            for sample in eval_loader(DatasetCatalog.get(dataset_name), mapper):
+                sem = self.eval_scores(sample["image"], (sample["height"], sample["width"]))
+                pred = sem.argmax(0).cpu().numpy()
+                gt = sample["sem_seg"]
+                if gt.shape != pred.shape:
+                    # the ground truth went through the mapper's resize too
+                    gt = resize_nearest(gt.astype(np.int32), pred.shape)
+                evaluator.process(pred, gt, sample.get("file_name", ""))
+        return evaluator.evaluate()
+
+    @contextlib.contextmanager
+    def _eval_mode(self):
+        """The model in eval mode without autograd; its mode restored after."""
         was_training = self.model.training
         self.model.eval()
         try:
             with torch.no_grad():
-                for sample in eval_loader(DatasetCatalog.get(dataset_name), mapper):
-                    sem = self.eval_scores(sample["image"], (sample["height"], sample["width"]))
-                    pred = sem.argmax(0).cpu().numpy()
-                    gt = sample["sem_seg"]
-                    if gt.shape != pred.shape:
-                        # the ground truth went through the mapper's resize too
-                        gt = resize_nearest(gt.astype(np.int32), pred.shape)
-                    evaluator.process(pred, gt, sample.get("file_name", ""))
+                yield
         finally:
             self.model.train(was_training)
+
+    def _predict_image(self, image: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits (q, nc+1), mask logits (q, h, w)) on the device of one
+        mapped (h, w, 3) uint8 test image: padded with the pixel mean, through
+        the model, the masks upsampled to the padded size and cropped."""
+        h, w = image.shape[:2]
+        padded = self._pad_eval_image(image)
+        out = self.model(torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)[None])
+        masks = upsample_masks(out["pred_masks"], padded.shape[:2])[0]
+        return out["pred_logits"][0], masks[:, :h, :w]
+
+    def _eval_panoptic(self, dataset_name: str) -> Dict[str, float]:
+        """PQ, SQ and RQ (all, things, stuff) of the panoptic inference at
+        the mapped test size against the mapped ground truth."""
+        cfg = self.cfg
+        meta = MetadataCatalog.get(dataset_name)
+        nc = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+        thing_ids = set(meta.get("thing_dataset_id_to_contiguous_id", {}).values())
+        evaluator = PanopticEvaluator(thing_ids, nc)
+        mapper = MaskFormerPanopticDatasetMapper.from_config(cfg, is_train=False)
+        test = cfg.MODEL.MASK_FORMER.TEST
+        with self._eval_mode():
+            for sample in eval_loader(DatasetCatalog.get(dataset_name), mapper):
+                logits, masks = self._predict_image(sample["image"])
+                pan, info = panoptic_inference(logits, masks, thing_ids, nc,
+                                               test.OBJECT_MASK_THRESHOLD, test.OVERLAP_THRESHOLD)
+                evaluator.process(pan.cpu().numpy(), info, sample["pan_seg"],
+                                  sample["segments_info"])
+        return evaluator.evaluate()
+
+    def _eval_instance(self, dataset_name: str) -> Dict[str, float]:
+        """Mask AP: the mask logits resized to the original size, then the
+        instance inference, against the annotations' masks (polygons or
+        RLE) at the original size; an image with no annotation that is not
+        crowd is skipped.  The protocol by evaluator_type or name:
+        Cityscapes, LVIS (federated), else COCO; coco_instances_results.json
+        goes to OUTPUT_DIR."""
+        cfg = self.cfg
+        meta = MetadataCatalog.get(dataset_name)
+        nc = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+        thing_ids = meta.get("thing_dataset_id_to_contiguous_id", {})
+        is_thing = thing_lookup(thing_ids.values(), nc)
+        etype = meta.get("evaluator_type", "")
+        if "cityscapes" in etype or "cityscapes" in dataset_name:
+            ev_cls = CityscapesInstanceEvaluator
+        elif "lvis" in etype or "lvis" in dataset_name:
+            ev_cls = LVISInstanceSegEvaluator
+        else:
+            ev_cls = InstanceSegEvaluator
+        evaluator = ev_cls(nc, output_dir=cfg.OUTPUT_DIR or None,
+                           contiguous_id_to_dataset_id={v: k for k, v in thing_ids.items()})
+        mapper = MaskFormerInstanceDatasetMapper(is_train=False,
+                                                 min_size_test=cfg.INPUT.MIN_SIZE_TEST,
+                                                 max_size_test=cfg.INPUT.MAX_SIZE_TEST)
+        dataset = DatasetCatalog.get(dataset_name)
+        with self._eval_mode():
+            for d, sample in zip(dataset, eval_loader(dataset, mapper)):
+                logits, masks = self._predict_image(sample["image"])
+                oh, ow = d.get("height"), d.get("width")
+                # the mask logits resized to the original size, then thresholded
+                masks = sem_seg_postprocess(masks, masks.shape[-2:], (oh, ow))
+                inst = instance_inference(logits, masks, is_thing, nc,
+                                          topk=cfg.TEST.DETECTIONS_PER_IMAGE,
+                                          panoptic_on=cfg.MODEL.MASK_FORMER.TEST.PANOPTIC_ON)
+                gl, gm = [], []
+                for a in d.get("annotations", []):
+                    if a.get("iscrowd", 0):
+                        continue
+                    seg = a.get("segmentation")
+                    if isinstance(seg, list):
+                        gm.append(polygons_to_mask(seg, oh, ow).astype(bool))
+                    elif isinstance(seg, dict):
+                        gm.append(rle_decode(seg).astype(bool))
+                    else:
+                        continue
+                    gl.append(a["category_id"])
+                if not gl:
+                    continue
+                evaluator.process(d.get("image_id", d["file_name"]), inst["masks"].cpu().numpy(),
+                                  inst["labels"].cpu().numpy(), inst["scores"].cpu().numpy(),
+                                  np.stack(gm), np.asarray(gl))
+        evaluator.save_coco_results()
         return evaluator.evaluate()

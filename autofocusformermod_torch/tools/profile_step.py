@@ -40,7 +40,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ..config import PRESETS
+    from ..config import PRESETS, train_image_size
     from ..data.synthetic import synthetic_batches
     from ..engine import train_step
     from ..engine.train import Trainer
@@ -111,7 +111,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     result = {
         "card": smi, "config": args.config, "opts": args.opts,
         "use_stacked_glue": pixel_decoder.USE_STACKED_GLUE,
-        "batch": args.batch, "image_size": list(cfg.INPUT.CROP.SIZE),
+        "batch": args.batch, "image_size": list(train_image_size(cfg)),
         "ms_per_step": statistics.median(wall), "ms_per_step_all": wall,
         "images_per_s": args.batch / statistics.median(wall) * 1e3, "peak_gib": peak,
         "criterion_stream_ms": on["criterion"], "sampler_stream_ms": on["sampler"],

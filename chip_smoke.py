@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's semantic-segmentation paths -- AFF-Mini inference,
-the AFF-Mini training step, an AFF-Small training run with checkpoint and
+"""Drive the PyTorch port's segmentation paths -- AFF-Mini inference, the
+AFF-Mini training step, an AFF-Small training run with checkpoint and
 resume, the pixel decoder's alternate operand layouts, the AFF-Mini-1/5
 preset, MaskFiner-Mini inference, training from the dataset loader with
-evaluation, and MaskFiner-Mini training -- on one NVIDIA GPU.
+evaluation, MaskFiner-Mini training, and Cityscapes-panoptic and
+COCO-instance training and evaluation -- on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -134,7 +135,29 @@ evaluation, and MaskFiner-Mini training -- on one NVIDIA GPU.
    steps, and a run stopped after step 2 and resumed to step 4 with test()
    on two in-memory images at its end.
 
-Phases 6, 8, 9, 10 and 13 compare training steps whose second run replays
+14. panoptic and instance segmentation through the package's command line
+   in this process, on seeded in-memory data (the mappers' file readers
+   replaced by lookups): the published AFF-Mini Cityscapes-panoptic preset
+   trained 3 steps at batch 4 on 512x1024 crops from the panoptic mapper
+   (Cityscapes-shaped image / panoptic-id pairs: stuff, thing instances, a
+   crowd segment, a void band), then test() with PQ over the test set at
+   1024x2048, --eval-only on the checkpoint, and test() at the seeded
+   initial weights against ground truth made from their own predictions
+   (a random model keeps no query at 0.8); the AFF-Mini COCO-instance preset trained 2 LSJ steps at
+   1024x1024, batch 2, on COCO-sized images with polygon, RLE, compressed
+   RLE and crowd annotations, then test() with COCO mask AP at 800x1333;
+   launches per step and per test image, PQ / SQ / RQ and AP, images/s, ms
+   per image by size, device busy and peak memory; a 1024x2048 and a
+   COCO-sized test image through the kernels and through the plain
+   versions (replaying the choices): outputs to FORWARD_RTOL, the panoptic
+   maps and segments and the instance pairs, scores and masks equal but
+   where near-tied; K1, K3 and K9 on the operands of the 1024x2048 forward
+   (131,072 first-stage tokens); K2, K4, K10 (the shared route on 128x256
+   masks, the direct one on 256x256), K12 at width 256 and K13 on the
+   targets of a real step of each preset, and that step replayed through
+   the plain versions.
+
+Phases 6, 8, 9, 10, 13 and 14 compare training steps whose second run replays
 the first run's discrete choices (same_choices), held to LOSS_RTOL and
 GROUP_NORM_RTOL.
 
@@ -149,6 +172,7 @@ several paths has each path's figures under "by_path".
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2197,6 +2221,84 @@ def group_norms(model):
             for label, named in param_groups(model).items()}
 
 
+def replay_step(label, model, cfg, batch, draw):
+    """One training step's forward, criterion and backward from the model's
+    weights through the kernels, then through the plain versions from the
+    same weights, batch and draws (`draw()` makes the criterion's generator
+    afresh), replaying the kernel run's discrete choices.  Holds the loss
+    terms to LOSS_RTOL, the gradient norm of each optimizer group to
+    GROUP_NORM_RTOL, and that every parameter the plain step gives a
+    gradient gets one through the kernels.  Where the plain run does not
+    fit the card, both runs are made again on the first half of the batch,
+    and the log says so.  The weights are restored and the gradients
+    cleared after.  -> (batch used, kernels' ms, plain ms, kernels' peak
+    GiB, plain peak GiB), each the first call of its path."""
+    import contextlib
+    import copy
+
+    import torch
+    from autofocusformermod_torch.engine.train_step import TrainStep
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+
+    initial = copy.deepcopy(model.state_dict())
+
+    def run(part, plain, book):
+        model.load_state_dict(initial)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with plain_versions() if plain else contextlib.nullcontext(), \
+                same_choices(book, record=not plain):
+            total, losses, _ = TrainStep(model, cfg).loss_and_grads(part, draw())
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        terms = {"total_loss": total.item(), **{k: v.item() for k, v in losses.items()}}
+        graded = {n for n, p in model.named_parameters() if p.grad.abs().max() > 0}
+        return terms, group_norms(model), graded, ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    n = batch["image"].shape[0]
+    while True:
+        part = {k: v[:n] for k, v in batch.items()}
+        book = {}
+        k_terms, k_norms, k_graded, k_ms, k_peak = run(part, False, book)
+        try:
+            p_terms, p_norms, p_graded, p_ms, p_peak = run(part, True, book)
+            break
+        except torch.cuda.OutOfMemoryError:
+            model.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+            if n == 1:
+                raise
+            log(f"  {label}: the plain versions' step does not fit the card at batch {n}; "
+                f"replayed at batch {n // 2}")
+            n //= 2
+    model.load_state_dict(initial)
+    model.zero_grad(set_to_none=True)
+    worst = max(abs(k_terms[k] - p_terms[k]) / max(abs(p_terms[k]), 1e-6) for k in p_terms)
+    group = {g: abs(k_norms[g] - p_norms[g]) / max(p_norms[g], 1e-12) for g in p_norms}
+    missing = sorted(p_graded - k_graded)
+    log(f"  {label} step at batch {n}, forward + criterion + backward: kernels {k_ms:.1f} ms "
+        f"(peak {k_peak:.2f} GiB), plain versions {p_ms:.1f} ms (peak {p_peak:.2f} GiB) [first "
+        f"call of each]; total loss kernels {k_terms['total_loss']:.6f} plain "
+        f"{p_terms['total_loss']:.6f}; {len(k_terms)} loss terms, worst rel diff {worst:.3e}")
+    log("  grad norm per group (kernels / plain): " + ", ".join(
+        f"{g} {k_norms[g]:.5g}/{p_norms[g]:.5g}" for g in sorted(p_norms))
+        + f"; worst rel diff {max(group.values()):.3e}")
+    log(f"  parameters with a gradient: plain {len(p_graded)} of "
+        f"{sum(1 for _ in model.parameters())}; of those, zero through the kernels: {len(missing)}")
+    same_choices.check(f"{label} step", book)
+    if not all(math.isfinite(v) for v in k_terms.values()):
+        raise SystemExit(f"{label} step: non-finite loss terms {k_terms}")
+    if missing:
+        raise SystemExit(f"{label} step: the kernel step gives no gradient to {missing[:10]}")
+    if worst > LOSS_RTOL:
+        raise SystemExit(f"{label} step: loss terms of kernels and plain versions differ by "
+                         f"{worst} (rel)")
+    if max(group.values()) > GROUP_NORM_RTOL:
+        raise SystemExit(f"{label} step: gradient norms per group disagree: {group}")
+    return n, k_ms, p_ms, k_peak, p_peak
+
+
 def train_phase(dev, smi, counters):
     """Phase 6.  Returns {counter name: launches over the TRAIN_STEPS steps}."""
     import contextlib
@@ -2225,49 +2327,7 @@ def train_phase(dev, smi, counters):
     def draw():
         return device_draw(torch.Generator(device=dev).manual_seed(SEED))
 
-    def grads_of(path, choices):
-        """Forward, criterion and backward from the initial weights."""
-        model.load_state_dict(initial)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        with path(), choices:
-            total, losses, _ = TrainStep(model, cfg).loss_and_grads(batch, draw())
-        torch.cuda.synchronize()
-        dt = time.time() - t0
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
-        return total, losses, grads, group_norms(model), dt, peak
-
-    # the plain run replays the kernel run's discrete choices
-    book = {}
-    k_total, k_losses, k_grads, k_norms, k_dt, k_peak = grads_of(
-        contextlib.nullcontext, same_choices(book, record=True))
-    p_total, p_losses, p_grads, p_norms, p_dt, p_peak = grads_of(
-        plain_versions, same_choices(book, record=False))
-    log(f"  forward + criterion + backward: kernels {k_dt:.3f} s (peak {k_peak:.2f} GiB), "
-        f"plain versions {p_dt:.3f} s (peak {p_peak:.2f} GiB) [first call of each]")
-    bad = [k for k, v in k_losses.items() if not torch.isfinite(v)]
-    if bad or not torch.isfinite(k_total):
-        raise SystemExit(f"non-finite losses: {bad}")
-    worst = max(abs(k_losses[k].item() - p_losses[k].item()) / max(abs(p_losses[k].item()), 1e-6)
-                for k in k_losses)
-    log(f"  total loss kernels {k_total.item():.6f} plain {p_total.item():.6f}; "
-        f"{len(k_losses)} loss terms, worst rel diff {worst:.3e}")
-    same_choices.check("AFF-Mini step", book)
-    group_diff = {g: abs(k_norms[g] - p_norms[g]) / max(p_norms[g], 1e-12) for g in p_norms}
-    log("  grad norm per group (kernels / plain): " + ", ".join(
-        f"{g} {k_norms[g]:.5g}/{p_norms[g]:.5g}" for g in sorted(p_norms))
-        + f"; worst rel diff {max(group_diff.values()):.3e}")
-    missing = [n for n, g in p_grads.items() if g.abs().max() > 0 and not k_grads[n].abs().max() > 0]
-    log(f"  parameters with a gradient: plain {sum(g.abs().max().item() > 0 for g in p_grads.values())}"
-        f" of {len(p_grads)}; of those, zero through the kernels: {len(missing)}")
-    if missing:
-        raise SystemExit(f"the kernel step gives no gradient to {missing[:10]}")
-    if worst > LOSS_RTOL:
-        raise SystemExit(f"loss terms: kernels and plain versions differ by {worst} (rel)")
-    if max(group_diff.values()) > GROUP_NORM_RTOL:
-        raise SystemExit(f"gradient norms per group disagree: {group_diff}")
+    replay_step("AFF-Mini", model, cfg, batch, draw)
 
     def timed_steps(path, n):
         """n full steps from the initial weights and a fresh optimizer."""
@@ -3222,7 +3282,7 @@ def maskfiner_train_phase(dev, smi, gen, counters):
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR.parent, prefix="maskfiner_") as tmp, \
-            in_memory_dataset(eval_dataset(EVAL_SIZES[:2])):
+            semantic_files(eval_dataset(EVAL_SIZES[:2])):
         dir_a, dir_b, book = os.path.join(tmp, "a"), os.path.join(tmp, "b"), {}
         reset()
         with same_choices(book, record=True):
@@ -3322,37 +3382,66 @@ def eval_dataset(sizes=EVAL_SIZES, seed=SEED):
     return pairs
 
 
-class in_memory_dataset:
-    """Register `pairs` under EVAL_NAMES and let the semantic mapper read
-    them from memory: the card's machine has no PIL, so only the two file
-    readers of data/mapper_semantic.py are replaced (by lookups in `pairs`);
-    everything after reading is the package's own code."""
+class in_memory_files:
+    """Register `datasets` {name: (dataset dicts, metadata)} and replace
+    file readers of the data package by lookups in memory: `readers`
+    {(module, function name): {path: array}}.  The card's machine has no
+    PIL, so only the readers are replaced; everything after reading is the
+    package's own code."""
 
-    def __init__(self, pairs):
-        self.pairs = pairs
+    def __init__(self, datasets, readers):
+        self.datasets, self.readers = datasets, readers
 
     def __enter__(self):
-        from autofocusformermod_torch.data import mapper_semantic
-        from autofocusformermod_torch.data.catalog import DatasetCatalog, MetadataCatalog
-        from autofocusformermod_torch.data.datasets import ADE20K_SEM_SEG_CATEGORIES
+        import importlib
 
-        files = [{"file_name": f, "sem_seg_file_name": f[:-4] + ".png"} for f in self.pairs]
-        for name, subset in zip(EVAL_NAMES, (files, files, files[:2])):
-            DatasetCatalog.register(name, lambda subset=subset: [dict(d) for d in subset])
-            MetadataCatalog.get(name).set(stuff_classes=ADE20K_SEM_SEG_CATEGORIES, ignore_label=255,
-                                          evaluator_type="sem_seg")
-        self.readers = (mapper_semantic.read_image, mapper_semantic.read_sem_seg)
-        mapper_semantic.read_image = lambda path: self.pairs[path][0]
-        mapper_semantic.read_sem_seg = lambda path: self.pairs[path[:-4] + ".jpg"][1]
+        from autofocusformermod_torch.data.catalog import DatasetCatalog, MetadataCatalog
+
+        for name, (dicts, meta) in self.datasets.items():
+            DatasetCatalog.register(name, lambda dicts=dicts: [dict(d) for d in dicts])
+            MetadataCatalog.get(name).set(**meta)
+        self.saved = []
+        for (module, name), files in self.readers.items():
+            owner = importlib.import_module(module)
+            self.saved.append((owner, name, getattr(owner, name)))
+            setattr(owner, name, files.__getitem__)
         return self
 
     def __exit__(self, *exc):
-        from autofocusformermod_torch.data import mapper_semantic
         from autofocusformermod_torch.data.catalog import DatasetCatalog
 
-        mapper_semantic.read_image, mapper_semantic.read_sem_seg = self.readers
-        for name in EVAL_NAMES:
+        for owner, name, real in self.saved:
+            setattr(owner, name, real)
+        for name in self.datasets:
             DatasetCatalog.remove(name)
+
+
+def semantic_files(pairs):
+    """`pairs` {image file: (image, label map)} registered under EVAL_NAMES
+    (the third with the first two images) for the semantic mapper."""
+    from autofocusformermod_torch.data.datasets import ADE20K_SEM_SEG_CATEGORIES
+
+    files = [{"file_name": f, "sem_seg_file_name": f[:-4] + ".png"} for f in pairs]
+    meta = {"stuff_classes": ADE20K_SEM_SEG_CATEGORIES, "ignore_label": 255,
+            "evaluator_type": "sem_seg"}
+    module = "autofocusformermod_torch.data.mapper_semantic"
+    return in_memory_files(
+        {name: (subset, meta) for name, subset in zip(EVAL_NAMES, (files, files, files[:2]))},
+        {(module, "read_image"): {f: img for f, (img, _) in pairs.items()},
+         (module, "read_sem_seg"): {f[:-4] + ".png": sem for f, (_, sem) in pairs.items()}})
+
+
+def counted_call(counters, fn):
+    """(fn(), its ms between synchronisations of the card, {counter:
+    launches within it})."""
+    import torch
+
+    before = {n: f.launches for n, f in counters.items()}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.time() - t0) * 1e3, {n: f.launches - before[n] for n, f in counters.items()}
 
 
 class watch_eval:
@@ -3400,16 +3489,11 @@ class watch_eval:
             self.model.register_forward_pre_hook(hook)
 
         def eval_scores(self, image, out_hw):
-            before = {n: fn.launches for n, fn in watch.counters.items()}
             watch.current = {"hw": image.shape[:2], "out_hw": tuple(out_hw),
                              "mean": np.round(self.cfg.MODEL.PIXEL_MEAN).tolist()}
-            torch.cuda.synchronize()
-            t0 = time.time()
-            sem = scores(self, image, out_hw)
-            torch.cuda.synchronize()
+            sem, ms, launches = counted_call(watch.counters, lambda: scores(self, image, out_hw))
             rec, watch.current = watch.current, None
-            rec["ms"] = (time.time() - t0) * 1e3
-            rec["launches"] = {n: fn.launches - before[n] for n, fn in watch.counters.items()}
+            rec["ms"], rec["launches"] = ms, launches
             rec["scores"] = sem if watch.keep else None
             watch.images.append(rec)
             return sem
@@ -3571,7 +3655,7 @@ def eval_phase(dev, smi, counters, aff_opts=(), maskfiner_opts=(), sizes=EVAL_SI
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR.parent, prefix="eval_") as tmp, \
-            in_memory_dataset(pairs):
+            semantic_files(pairs):
         opts = ["DATASETS.TRAIN", f"('{EVAL_NAMES[0]}',)", "DATASETS.TEST", f"('{name}',)",
                 "TEST.EVAL_PERIOD", str(EVAL_PERIOD), "SOLVER.IMS_PER_BATCH", str(EVAL_BATCH),
                 "OUTPUT_DIR", os.path.join(tmp, "run")] + list(aff_opts)
@@ -3742,6 +3826,857 @@ def eval_phase(dev, smi, counters, aff_opts=(), maskfiner_opts=(), sizes=EVAL_SI
                 f"{r['input']} {r['ms']:.1f}" for r in w_mf.images)
             + f"; mIoU {mf.results[EVAL_NAMES[2]]['mIoU']:.4f} ({smi})")
         del mf
+    return phase_launches, paths
+
+
+# the panoptic and instance phase (14): Cityscapes-shaped image / panoptic
+# pairs -- (height, width) of each, the first three at the published test
+# size -- and COCO-shaped images with instance annotations, made from a
+# numpy seed
+PAN_PRESET, INST_PRESET = "aff_mini_cityscapes_panoptic", "aff_mini_coco_instance"
+PAN_SIZES = ((1024, 2048), (1024, 2048), (1024, 2048), (512, 1024), (768, 1536))
+PAN_STEPS, PAN_BATCH = 3, 4
+INST_SIZES = ((480, 640), (427, 640), (640, 480), (480, 640), (612, 612), (360, 640))
+INST_STEPS, INST_BATCH = 2, 2
+PAN_NAMES = ("smoke_cityscapes_panoptic_train", "smoke_cityscapes_panoptic_val")
+INST_NAMES = ("smoke_coco_instance_train", "smoke_coco_instance_val")
+CITYSCAPES_THINGS = tuple(range(11, 19))
+# a second panoptic evaluation beside the preset's 0.8 / 0.8: (object mask,
+# overlap) thresholds under which the model at its seeded initial weights
+# keeps queries (their class scores are ~0.1)
+LOW_THRESHOLDS = (0.0, 0.5)
+PAN_OWN = "smoke_cityscapes_panoptic_own"
+INST_OWN = "smoke_coco_instance_own"
+# the post-processing held on the card against the CPU on structured
+# outputs: (label, classes, thing classes, (h, w)); queries as the presets
+POSTPROCESS_CASES = (("cityscapes", 19, CITYSCAPES_THINGS, (1024, 2048)),
+                     ("coco", 80, tuple(range(80)), (480, 640)))
+
+
+def smooth_image(rng, h, w):
+    """(h, w, 3) uint8: 16-pixel blocks of random colour plus noise."""
+    import numpy as np
+
+    coarse = rng.integers(0, 256, (h // 16 + 2, w // 16 + 2, 3)).astype(np.float64)
+    img = coarse.repeat(16, 0).repeat(16, 1)[:h, :w] + rng.normal(0, 12, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def cityscapes_panoptic_dataset(sizes=PAN_SIZES, seed=SEED):
+    """[(dataset dict, image, panoptic ids)]: stuff in 64-pixel blocks of
+    train ids 0-10 (segment id = class + 1), 6-16 thing instances (ellipses
+    of classes 11-18, ids class * 1000 + k, past 255), the first of them
+    crowd, and a void band (id 0) along the bottom, as Cityscapes' ego
+    vehicle."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, (h, w) in enumerate(sizes):
+        img = smooth_image(rng, h, w)
+        stuff = rng.integers(0, 11, (h // 64 + 1, w // 64 + 1)).repeat(64, 0).repeat(64, 1)[:h, :w]
+        pan = stuff.astype(np.int64) + 1
+        segs = [{"id": int(c) + 1, "category_id": int(c), "iscrowd": 0} for c in np.unique(stuff)]
+        yy, xx = np.ogrid[:h, :w]
+        for k in range(int(rng.integers(6, 17))):
+            c = int(rng.choice(CITYSCAPES_THINGS))
+            cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+            ry, rx = rng.uniform(h / 40, h / 6), rng.uniform(w / 60, w / 8)
+            pan[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1] = c * 1000 + k
+            segs.append({"id": c * 1000 + k, "category_id": c, "iscrowd": int(k == 0)})
+        pan[h - h // 12:] = 0
+        present = set(np.unique(pan).tolist())
+        segs = [s for s in segs if s["id"] in present]
+        name = f"smoke_cs/{i:02d}_{h}x{w}"
+        out.append(({"file_name": name + ".png", "pan_seg_file_name": name + "_pan.png",
+                     "image_id": name, "height": h, "width": w, "segments_info": segs}, img, pan))
+    return out
+
+
+def compressed_rle(counts):
+    """pycocotools' compressed RLE string of run lengths."""
+    out = []
+    for i, x in enumerate(counts):
+        x = int(x) - (int(counts[i - 2]) if i > 2 else 0)
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = x != -1 if c & 0x10 else x != 0
+            out.append(chr((c | (0x20 if more else 0)) + 48))
+    return "".join(out)
+
+
+def coco_instance_dataset(sizes=INST_SIZES, seed=SEED):
+    """[(dataset dict, image)]: 5-20 instances an image of COCO's 80
+    classes as polygons (star-shaped, one or two parts), uncompressed RLE
+    and compressed RLE, and one crowd instance (RLE)."""
+    import numpy as np
+    from autofocusformermod_torch.evaluation.instance_evaluation import rle_encode
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, (h, w) in enumerate(sizes):
+        img = smooth_image(rng, h, w)
+        yy, xx = np.ogrid[:h, :w]
+        annos = []
+        for k in range(int(rng.integers(5, 21))):
+            cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+            r = rng.uniform(8, min(h, w) / 3)
+            kind = k % 4
+            if kind < 2:
+                parts = []
+                for _ in range(1 + kind):
+                    n = int(rng.integers(5, 40))
+                    ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+                    rad = r * rng.uniform(0.4, 1.0, n)
+                    parts.append([float(v) for v in np.stack(
+                        [cx + rad * np.cos(ang), cy + rad * np.sin(ang)], 1).reshape(-1)])
+                    cx += r
+                seg = parts
+            else:
+                m = ((yy - cy) / r) ** 2 + ((xx - cx) / (0.6 * r)) ** 2 <= 1
+                counts = [int(c) for c in rle_encode(m)["counts"]]
+                seg = {"size": [h, w], "counts": counts if kind == 2 else compressed_rle(counts)}
+            annos.append({"category_id": int(rng.integers(0, 80)), "iscrowd": int(k == 4),
+                          "segmentation": seg})
+        name = f"smoke_coco/{i:02d}_{h}x{w}.jpg"
+        out.append(({"file_name": name, "image_id": 1000 + i, "height": h, "width": w,
+                     "annotations": annos}, img))
+    return out
+
+
+class watch_predict:
+    """Within the block: every test() image's model pass (Trainer.
+    _predict_image) with its padded input size, its time on the card and
+    the launches of `counters` in it, and the post-processing's time
+    (panoptic or instance inference, as the trainer calls it)."""
+
+    def __init__(self, counters):
+        self.counters, self.images, self.post_ms = counters, [], []
+
+    def __enter__(self):
+        from autofocusformermod_torch.engine import train
+
+        self.saved = [(train.Trainer, "_predict_image", train.Trainer._predict_image),
+                      (train, "panoptic_inference", train.panoptic_inference),
+                      (train, "instance_inference", train.instance_inference)]
+        (_, _, predict), (_, _, pan), (_, _, inst) = self.saved
+        watch = self
+
+        def predict_(self, image):
+            out, ms, launches = counted_call(watch.counters, lambda: predict(self, image))
+            pad = -(-image.shape[0] // 32) * 32, -(-image.shape[1] // 32) * 32
+            watch.images.append({"input": pad, "ms": ms, "launches": launches})
+            return out
+
+        def post(fn):
+            def wrapped(*a, **k):
+                out, ms, _ = counted_call({}, lambda: fn(*a, **k))
+                watch.post_ms.append(ms)
+                return out
+            return wrapped
+
+        train.Trainer._predict_image = predict_
+        train.panoptic_inference, train.instance_inference = post(pan), post(inst)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in self.saved:
+            setattr(owner, name, real)
+
+
+def hold_panoptic(label, trainer, image, thing_ids, thresholds):
+    """One test image's forward through the kernels and through the plain
+    versions (replaying the kernel run's choices), held to FORWARD_RTOL, and
+    the panoptic inference of both at each (object mask, overlap) threshold
+    pair: the maps equal but at pixels whose two best prob masks lie within
+    twice the prob masks' difference, or whose winning mask logit within
+    twice the logits' (near-tied), and the segments equal where no pixel
+    differs."""
+    import torch
+    from autofocusformermod_torch.models.inference import panoptic_inference
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+
+    nc = trainer.cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+    book = {}
+    with trainer._eval_mode():
+        with same_choices(book, record=True):
+            lk, mk = trainer._predict_image(image)
+        with same_choices(book, record=False), plain_versions():
+            lp, mp = trainer._predict_image(image)
+    errs = {}
+    for key, a, r in (("logits", lk, lp), ("masks", mk, mp)):
+        scale = max(r.abs().max().item(), 1.0)
+        errs[key] = (a - r).abs().max().item()
+        if not torch.isfinite(a).all() or errs[key] > FORWARD_RTOL * scale:
+            raise SystemExit(f"{label} {key}: kernels and plain versions disagree by {errs[key]} "
+                             f"(max |ref| {scale})")
+    same_choices.check(label, book)
+    log(f"  {label}: logits within {errs['logits']:.3e}, masks within {errs['masks']:.3e}")
+    for object_mask, overlap in thresholds:
+        pan_k, info_k = panoptic_inference(lk, mk, thing_ids, nc, object_mask, overlap)
+        pan_p, info_p = panoptic_inference(lp, mp, thing_ids, nc, object_mask, overlap)
+
+        def prob_masks(logits, masks):
+            probs = torch.softmax(logits, -1)
+            keep = (probs.argmax(1) != nc) & (probs.max(1).values > object_mask)
+            return torch.where(keep[:, None, None],
+                               probs.max(1).values[:, None, None] * torch.sigmoid(masks), -1.0)
+
+        pm_p = prob_masks(lp, mp)
+        pm_err = (prob_masks(lk, mk) - pm_p).abs().max().item()
+        top2 = pm_p.topk(2, dim=0)
+        win_logit = mp.gather(0, top2.indices[:1])[0]
+        tied = (((top2.values[0] - top2.values[1]) <= 2 * pm_err)
+                | (win_logit.abs() <= 2 * errs["masks"])) & (top2.values[0] >= 0)
+        del pm_p, top2, win_logit
+        differ = pan_k != pan_p
+        off = int((differ & ~tied).sum())
+        n_tied, n_differ = int(tied.sum()), int(differ.sum())
+        log(f"    thresholds {object_mask} / {overlap}: {len(info_k)} segments (plain "
+            f"{len(info_p)}), {n_differ} of {differ.numel()} pixels differ, {n_tied} near-tied")
+        if off or (not n_differ and info_k != info_p):
+            raise SystemExit(f"{label}: the panoptic maps differ at {off} pixels that are not "
+                             f"near-tied, or the segments differ ({info_k} / {info_p})")
+
+
+def hold_instance(label, trainer, image, out_hw, is_thing):
+    """One COCO-sized test image's forward through the kernels and through
+    the plain versions (replaying the kernel run's choices), held to
+    FORWARD_RTOL, and the instance inference of both at the original size:
+    the (query, class) pairs equal but where a class probability lies
+    within twice the two runs' difference of the cut, the scores of the
+    common pairs within FORWARD_RTOL, their masks equal but at pixels whose
+    |logit| lies within FORWARD_RTOL of the largest."""
+    import torch
+    from autofocusformermod_torch.models.inference import instance_inference, sem_seg_postprocess
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.gather import topk_indices
+
+    cfg = trainer.cfg
+    nc, topk = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES, cfg.TEST.DETECTIONS_PER_IMAGE
+    book = {}
+    with trainer._eval_mode():
+        with same_choices(book, record=True):
+            lk, mk = trainer._predict_image(image)
+        with same_choices(book, record=False), plain_versions():
+            lp, mp = trainer._predict_image(image)
+        mk = sem_seg_postprocess(mk, mk.shape[-2:], out_hw)
+        mp = sem_seg_postprocess(mp, mp.shape[-2:], out_hw)
+    for key, a, r in (("logits", lk, lp), ("masks", mk, mp)):
+        scale = max(r.abs().max().item(), 1.0)
+        e = (a - r).abs().max().item()
+        if not torch.isfinite(a).all() or e > FORWARD_RTOL * scale:
+            raise SystemExit(f"{label} {key}: kernels and plain versions disagree by {e}")
+    same_choices.check(label, book)
+    panoptic_on = cfg.MODEL.MASK_FORMER.TEST.PANOPTIC_ON
+    ik = instance_inference(lk, mk, is_thing, nc, topk=topk, panoptic_on=panoptic_on)
+    ip = instance_inference(lp, mp, is_thing, nc, topk=topk, panoptic_on=panoptic_on)
+    fk = torch.softmax(lk, -1)[:, :-1].reshape(-1)
+    fp = torch.softmax(lp, -1)[:, :-1].reshape(-1)
+    sel_k, sel_p = topk_indices(fk[None], topk)[0].tolist(), topk_indices(fp[None], topk)[0].tolist()
+    cut, tol = fp.sort(descending=True).values[topk - 1].item(), 2 * (fk - fp).abs().max().item()
+    moved = set(sel_k) ^ set(sel_p)
+    if any(abs(fp[i].item() - cut) > tol for i in moved):
+        raise SystemExit(f"{label}: the top-{topk} pairs differ away from the cut: {moved}")
+    tol_logit = FORWARD_RTOL * mp.abs().max().item()
+    worst, mask_off = 0.0, 0
+    for pos_k, i in enumerate(sel_k):
+        if i not in sel_p:
+            continue
+        pos_p = sel_p.index(i)
+        worst = max(worst, abs(ik["scores"][pos_k].item() - ip["scores"][pos_p].item()))
+        q = i // nc
+        mask_off += int(((ik["masks"][pos_k] != ip["masks"][pos_p])
+                         & (mp[q].abs() > tol_logit)).sum())
+    log(f"  {label}: top-{topk} pairs {len(set(sel_k) & set(sel_p))} shared, {len(moved)} moved "
+        f"at the cut; scores within {worst:.3e}; mask pixels differing away from |logit| "
+        f"<= {tol_logit:.3e}: {mask_off}")
+    if worst > FORWARD_RTOL or mask_off:
+        raise SystemExit(f"{label}: instance scores differ by {worst} or masks at {mask_off} "
+                         "pixels")
+    return {"pairs_moved": len(moved), "score_err": worst}
+
+
+def structured_outputs(seed, q, nc, things, hw):
+    """(class logits (q, nc+1), mask logits (q, h, w)), float32 numpy, of one
+    image with the post-processing's cases built in, on a grid of 16 x 32
+    blocks.  Queries 0-59 own blocks (mask logit 6 +- 0.5 there, -6
+    elsewhere) with confident classes (score >= 0.98): the odd ones thing
+    classes, the even ones four stuff classes, so stuff queries share
+    classes and merge; 60-69 own blocks at scores 0.65-0.75 (kept only
+    under a low object threshold); 70-79 own blocks but vote no-object;
+    80-84 are confident with a mask of logit 1.5 +- 0.5 over 12 blocks, of
+    which they win the 2 (80, 81) or 5 (82-84) no one else holds: overlap
+    1/6 or 5/12, filtered at 0.8, the second kept at 0.3; 85-94 copy
+    queries 0-9 exactly (ties: the lower index wins); 95's mask is empty;
+    96-99 are confident and own nothing, 96 with the best score, so it
+    wins the 24 blocks no one holds (void: its mask is empty there).  The
+    top two block rows have mask logit 40 (sigmoid 1.0) in queries 0-9 and
+    85-94: exact ties of the best of their scores, whose query wins the
+    band; the other nine of 0-9 win under a tenth of their masks.  Scores of distinct
+    queries lie >= 5e-3 apart in logit, so two prob masks are equal or far
+    apart."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    things = list(things)
+    stuff = [c for c in range(nc) if c not in set(things)][:4]
+    off = 0.005 * rng.permutation(q)
+    off[96] = 0.6
+    labels = [int(rng.choice(stuff if j % 2 == 0 and stuff else things)) for j in range(q)]
+    logits = np.zeros((q, nc + 1), np.float64)
+    sure, unsure = np.log(49 * nc), np.log(1.86 * nc)
+    for j in range(q):
+        if 70 <= j < 80:
+            logits[j, nc] = 12 + off[j]
+        else:
+            logits[j, labels[j]] = (unsure if 60 <= j < 70 else sure) + off[j]
+    row = np.minimum(np.arange(h) * 16 // h, 15)
+    col = np.minimum(np.arange(w) * 32 // w, 31)
+    rows = [np.flatnonzero(row == r) for r in range(16)]
+    cols = [np.flatnonzero(col == c) for c in range(32)]
+    masks = np.full((q, h, w), -6.0, np.float32)
+
+    def put(j, b, value):
+        ys, xs = rows[b // 32], cols[b % 32]
+        masks[j, ys[0]:ys[-1] + 1, xs[0]:xs[-1] + 1] = value + 0.5 * rng.uniform(
+            -1, 1, (len(ys), len(xs)))
+
+    blocks = 64 + rng.permutation(16 * 32 - 64)       # below the band's two block rows
+    free, taken = blocks[:43], blocks[43:]           # 19 for 80-84, 24 void
+    owner = {int(b): i % 80 for i, b in enumerate(taken)}
+    for b, j in owner.items():
+        put(j, b, 6.0)
+    confident = [b for b, j in owner.items() if j < 60]
+    won = iter(free)
+    for j, n_won in ((80, 2), (81, 2), (82, 5), (83, 5), (84, 5)):
+        for b in list(rng.choice(confident, 12 - n_won, replace=False)) + [
+                next(won) for _ in range(n_won)]:
+            put(j, int(b), 1.5)
+    masks[:10, row < 2] = 40.0
+    masks[85:95], logits[85:95] = masks[:10], logits[:10]
+    masks[95] = -6.0
+    return logits.astype(np.float32), masks
+
+
+def own_panoptic_gt(pan, info, nc):
+    """Panoptic ground truth (ids (h, w) int64, segments_info) made from a
+    prediction: each segment kept (id x 1000 + 7), the right quarter of the
+    first segment and of the first thing segment (by column) made a
+    segment of the next class, the bottom 40 rows void; so PQ counts
+    matches of things and stuff but cannot be 100."""
+    import numpy as np
+
+    gt = np.where(pan > 0, pan.astype(np.int64) * 1000 + 7, 0)
+    segs = [{"id": g["id"] * 1000 + 7, "category_id": g["category_id"], "iscrowd": 0}
+            for g in info]
+    split = {0} | {next((k for k, g in enumerate(info) if g["isthing"]), 0)}
+    for k in sorted(split) if segs else ():
+        part = gt == segs[k]["id"]
+        cols = np.nonzero(part)[1]
+        part &= np.arange(gt.shape[1])[None, :] > np.percentile(cols, 75)
+        gt[part] = 999_000 + k
+        segs.append({"id": 999_000 + k, "iscrowd": 0,
+                     "category_id": (segs[k]["category_id"] + 1) % nc})
+    gt[-40:] = 0
+    present = set(np.unique(gt).tolist())
+    return gt, [g for g in segs if g["id"] in present]
+
+
+def hold_postprocess(label, dev, nc, things, hw, thresholds, topk):
+    """panoptic_inference and instance_inference on the card against the
+    CPU on the same structured outputs (structured_outputs at q 100):
+    panoptic maps and segments_info equal at each (object mask, overlap)
+    threshold pair, with thing segments, merged stuff queries, queries
+    filtered by overlap and pixels of exactly tied prob masks required;
+    PQ of the card's map against ground truth made from it neither 0 nor
+    100 for things and stuff; the instance pairs, labels, masks and
+    `valid` equal and scores within FORWARD_RTOL, with panoptic_on off and
+    on; the card's time of each call."""
+    import numpy as np
+    import torch
+    from autofocusformermod_torch.evaluation.panoptic_evaluation import PanopticEvaluator
+    from autofocusformermod_torch.models.inference import (instance_inference,
+                                                           panoptic_inference,
+                                                           panoptic_inference_arrays,
+                                                           thing_lookup)
+
+    logits, masks = structured_outputs(SEED, 100, nc, things, hw)
+    lc, mc = torch.from_numpy(logits), torch.from_numpy(masks)
+    ld, md = lc.to(dev), mc.to(dev)
+    is_thing = thing_lookup(things, nc)
+    ms = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[key] = (time.time() - t0) * 1e3
+        return out
+
+    for object_mask, overlap in thresholds:
+        key = f"panoptic {object_mask}/{overlap}"
+        pan_d, info_d = timed(key, lambda: panoptic_inference(ld, md, things, nc, object_mask,
+                                                              overlap))
+        pan_c, info_c = panoptic_inference(lc, mc, things, nc, object_mask, overlap)
+        _, is_new, seg_id, _, isthing = panoptic_inference_arrays(lc, mc, is_thing, nc,
+                                                                  object_mask, overlap)
+        probs = torch.softmax(ld, -1)
+        keep = (probs.argmax(1) != nc) & (probs.max(1).values > object_mask)
+        prob_masks = torch.where(keep[:, None, None],
+                                 probs.max(1).values[:, None, None] * torch.sigmoid(md), -1.0)
+        top2 = prob_masks.topk(2, dim=0).values
+        tied = int(((top2[0] == top2[1]) & (top2[0] >= 0)).sum())
+        keep = keep.cpu()
+        del prob_masks, top2
+        valid = seg_id > 0
+        counts = {"segments": len(info_c), "thing": sum(s["isthing"] for s in info_c),
+                  "stuff merged": int((valid & ~is_new & ~isthing).sum()),
+                  "kept without a segment": int((keep & ~valid).sum()),
+                  "tied pixels": tied}
+        differ = int((pan_d.cpu() != pan_c).sum())
+        log(f"  {label} post-processing {hw}, thresholds {object_mask} / {overlap}: "
+            + ", ".join(f"{k} {v}" for k, v in counts.items())
+            + f"; card against CPU: {differ} pixels differ, segments_info "
+            + ("equal" if info_d == info_c else "differs") + f"; {ms[key]:.1f} ms on the card")
+        if differ or info_d != info_c or min(counts.values()) < 1 or counts["thing"] < 10:
+            raise SystemExit(f"{label}: the card's panoptic inference differs from the CPU's "
+                             f"({differ} pixels; {info_d} / {info_c}) or the case lacks a part "
+                             f"({counts})")
+        gt, segs = own_panoptic_gt(pan_c.numpy(), info_c, nc)
+        ev = PanopticEvaluator(set(things), nc)
+        ev.process(pan_d.cpu().numpy(), info_d, gt, segs)
+        pq = ev.evaluate()
+        log(f"    PQ of the card's map against ground truth made from it: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in pq.items()))
+        if not all(0 < pq[k] < 100 for k in ("PQ", "PQ_th", "PQ_st")):
+            raise SystemExit(f"{label}: PQ {pq}")
+    for panoptic_on in (False, True):
+        key = f"instance panoptic_on={panoptic_on}"
+        got = timed(key, lambda: instance_inference(ld, md, is_thing, nc, topk=topk,
+                                                    panoptic_on=panoptic_on))
+        want = instance_inference(lc, mc, is_thing, nc, topk=topk, panoptic_on=panoptic_on)
+        equal = {k: bool(torch.equal(got[k].cpu(), want[k])) for k in ("labels", "masks", "valid")}
+        err = (got["scores"].cpu() - want["scores"]).abs().max().item()
+        flat = torch.softmax(lc, -1)[:, :-1].reshape(-1)
+        cut = flat.sort(descending=True).values[topk - 1]
+        at_cut = int((flat == cut).sum())
+        log(f"  {label} instance inference {hw}, top-{topk} of {flat.numel()}, panoptic_on "
+            f"{panoptic_on}: {at_cut} pairs tied at the cut, {int(want['valid'].sum())} valid; "
+            f"card against CPU: {equal}, scores within {err:.3e}; {ms[key]:.1f} ms on the card")
+        if not all(equal.values()) or err > FORWARD_RTOL or at_cut < 2:
+            raise SystemExit(f"{label}: the card's instance inference differs from the CPU's")
+
+
+def hold_step_operands(label, model, cfg, batch, gen, paths):
+    """K2, K4, K10 (each route the masks give), K12 and K13 on the operands
+    of one real step of `model` on `batch`, each against its plain version;
+    records into paths[kernel][label]."""
+    import torch
+    from autofocusformermod_torch.losses.criterion import device_draw
+    from autofocusformermod_torch.ops.point_sample import point_sample_nearest_rows
+
+    ops = path_maskfiner_step_operands(model, cfg, batch,
+                                       device_draw(torch.Generator(device=batch["image"].device)
+                                                   .manual_seed(SEED)))
+    paths.setdefault("local_attn_bwd", {})[label] = check_local_attn_bwd_calls(
+        label, ops.pop("local_attn_bwd"))
+    paths.setdefault("msdetrpc_bwd", {})[label] = msdetrpc_bwd_calls(label, ops.pop("msdetrpc_bwd"),
+                                                                    gen)
+    torch.cuda.empty_cache()
+    groups = ops.pop("point_sample")
+    paths.setdefault("point_sample", {})[label] = summed({
+        "x".join(map(str, g["logits"][0].shape[-2:])): point_sample_calls(
+            f"{label} {tuple(g['logits'][0].shape[-2:])}", g, gen) for g in groups.values()})
+    del groups
+    torch.cuda.empty_cache()
+    rows = ops.pop("point_sample_nearest_rows")
+    if len(rows) != 1 or ops.pop("point_sample_nearest"):
+        raise SystemExit(f"{label}: the ranking read {len(rows)} times through the stratified "
+                         "route and otherwise through the i.i.d. one; expected once, stratified")
+    paths.setdefault("point_sample_nearest_rows", {})[label] = hold_nearest(
+        f"{label} w{rows[0][0].shape[-1]}", point_sample_nearest_rows, rows[0][0], rows[0][1:])
+    del rows
+    cost = ops.pop("lapjv")[0][0]
+    targets = batch["valid"].sum(1).tolist()
+    log(f"  {label}: the matcher's costs {tuple(cost.shape)}, real targets per image {targets}")
+    paths.setdefault("lapjv", {})[label] = lapjv_costs(label, cost)
+    del ops, cost
+    torch.cuda.empty_cache()
+
+
+def hold_forward_operands(label, model, image, paths):
+    """K1, K3 and K9 on every call of one forward of `image` (1, H, W, 3),
+    each against its plain version; records into paths[kernel][label]."""
+    import torch
+
+    ops = path_forward_operands(model.eval(), image)
+    levels = sorted({tuple(c[3]) for c in ops["msdetrpc"]})
+    log(f"  {label}: first stage {ops['local_attn'][0][0].shape[2]} tokens, decoder levels "
+        f"{levels}")
+    for name, check in (("local_attn", check_local_attn_calls), ("msdetrpc", check_msdetrpc),
+                        ("knn", check_knn)):
+        paths.setdefault(name, {})[label] = check(label, ops[name])
+    del ops
+    torch.cuda.empty_cache()
+
+
+def panoptic_instance_phase(dev, smi, gen, counters, pan_opts=(), inst_opts=(),
+                            pan_sizes=PAN_SIZES, inst_sizes=INST_SIZES):
+    """Phase 14: the Cityscapes-panoptic and COCO-instance AFF-Mini presets
+    through train_net.main in this process, on in-memory seeded data:
+    PAN_STEPS steps at batch PAN_BATCH on 512x1024 crops from the panoptic
+    mapper, then test() (PQ) over the test set at 1024x2048, --eval-only
+    on the checkpoint (equal to it), and test() at the seeded initial
+    weights and LOW_THRESHOLDS against ground truth made from their own
+    predictions, which PQ must neither miss nor match fully; INST_STEPS
+    LSJ steps at 1024x1024, batch INST_BATCH, then test() (COCO mask AP)
+    at 800x1333, and test() against ground truth made from the trained
+    model's own detections, whose AP must lie strictly between 0 and 100.
+    Every test image's launches against the forward's; the steps' and
+    test()'s time, images/s and peak memory.  The panoptic and instance
+    post-processing on the card against the CPU on structured outputs
+    (hold_postprocess); a 1024x2048 and a COCO-sized test image through
+    the kernels and the plain versions (hold_panoptic, hold_instance); K1,
+    K3 and K9 on the operands of the 1024x2048 forward (131,072
+    first-stage tokens), K2, K4, K10, K12 and K13 on those of a real step
+    of each preset, and that step replayed through the plain versions
+    (replay_step).  Returns ({counter: launches of the train_net runs},
+    {kernel: {path: record for by_path}})."""
+    import copy
+    import os
+    import tempfile
+
+    import torch
+    from autofocusformermod_torch import train_net
+    from autofocusformermod_torch.data.catalog import DatasetCatalog, MetadataCatalog
+    from autofocusformermod_torch.engine.train import Trainer
+    from autofocusformermod_torch.data.loader import device_batch, eval_loader
+    from autofocusformermod_torch.data.mapper_panoptic_instance import (
+        MaskFormerInstanceDatasetMapper)
+    from autofocusformermod_torch.data.transforms import resize_shortest_edge
+    from autofocusformermod_torch.evaluation.instance_evaluation import rle_encode
+    from autofocusformermod_torch.losses.criterion import device_draw
+    from autofocusformermod_torch.models.inference import (instance_inference, panoptic_inference,
+                                                           sem_seg_postprocess, thing_lookup)
+    from autofocusformermod_torch.ops.build import BUILD_DIR
+    from autofocusformermod_torch.ops.point_sample import point_sample_backward, point_sample_bilinear
+
+    cuda = dev.type == "cuda"
+    device_args = [] if cuda else ["--device", "cpu"]
+    phase_launches, paths = {n: 0 for n in counters}, {}
+    routed = [fn for fn in (point_sample_bilinear, point_sample_backward, counters.get("lapjv"),
+                            counters.get("knn")) if hasattr(fn, "launches_by_route")]
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+        return [dict(fn.launches_by_route) for fn in routed]
+
+    def take(before):
+        got = {n: fn.launches for n, fn in counters.items()}
+        for n, v in got.items():
+            phase_launches[n] += v
+        return got, {fn.__name__: {r: fn.launches_by_route[r] - b[r] for r in b}
+                     for fn, b in zip(routed, before)}
+
+    def per_image(cfg):
+        blocks, layers = sum(cfg.MODEL.AFF.DEPTHS), cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS * 3
+        return {n: {"local_attn": blocks, "msdetrpc": layers, "knn": 10}.get(n, 0) for n in counters}
+
+    def per_step(cfg):
+        blocks, layers = sum(cfg.MODEL.AFF.DEPTHS), cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS * 3
+        return {n: {"local_attn": blocks, "local_attn_bwd": blocks, "msdetrpc": layers,
+                    "msdetrpc_bwd": layers, "point_sample": 2, "point_sample_bwd": 1, "lapjv": 1,
+                    "knn": 10, "point_sample_nearest_rows": 1}.get(n, 0) for n in counters}
+
+    def report(label, trainer, watch, steps, name, n_images, t_run):
+        with open(os.path.join(trainer.cfg.OUTPUT_DIR, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        if [m["step"] for m in logged] != list(range(1, steps + 1)) or not all(
+                math.isfinite(m["total_loss"]) for m in logged):
+            raise SystemExit(f"{label}: the run logged {[(m['step'], m['total_loss']) for m in logged]}")
+        want = per_image(trainer.cfg)
+        for rec in watch.images:
+            if cuda and rec["launches"] != want:
+                raise SystemExit(f"{label}: a test image of {rec['input']} launched "
+                                 f"{rec['launches']}, expected {want}")
+        if len(watch.images) != n_images:
+            raise SystemExit(f"{label}: test() scored {len(watch.images)} images, expected "
+                             f"{n_images}")
+        metrics = trainer.results[name]
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise SystemExit(f"{label}: test() gave {metrics}")
+        ms = sum(r["ms"] for r in watch.images) + sum(watch.post_ms)
+        step_ms = [m["seconds"] * 1e3 for m in logged]
+        peak = max(m.get("peak_bytes_in_use", 0) for m in logged) / 2 ** 30
+        by_size = ms_by_size(watch.images)
+        log(f"  {label}: {steps} steps ({', '.join(f'{t:.0f}' for t in step_ms)} ms; loss "
+            + ", ".join(f"{m['total_loss']:.4f}" for m in logged) + f"; peak {peak:.2f} GiB), "
+            f"{t_run:.1f} s for the command with its mapping")
+        log(f"  {label} test(): " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+            + f"; {n_images} images in {ms:.1f} ms on the model and post-processing "
+            f"({n_images / ms * 1e3:.2f} images/s); forward ms by padded input: "
+            + ", ".join(f"{k} {statistics.median(v):.1f} (x{len(v)})" for k, v in by_size.items())
+            + f"; post-processing {statistics.median(watch.post_ms):.1f} ms an image ({smi})")
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pan_data = cityscapes_panoptic_dataset(pan_sizes)
+    inst_data = coco_instance_dataset(inst_sizes)
+    images = {d["file_name"]: img for d, img, _ in pan_data}
+    images.update({d["file_name"]: img for d, img in inst_data})
+    pans = {d["pan_seg_file_name"]: pan for d, _, pan in pan_data}
+    pan_dicts, inst_dicts = [d for d, _, _ in pan_data], [d for d, _ in inst_data]
+    pan_meta = {"evaluator_type": "cityscapes_panoptic_seg", "ignore_label": 255,
+                "thing_dataset_id_to_contiguous_id": {i: i for i in CITYSCAPES_THINGS}}
+    inst_meta = {"evaluator_type": "coco_instance",
+                 "thing_dataset_id_to_contiguous_id": {i: i for i in range(80)}}
+    segs = [len(d["segments_info"]) for d in pan_dicts]
+    annos = [len(d["annotations"]) for d in inst_dicts]
+    log(f"  data: {len(pan_dicts)} Cityscapes-shaped pairs {[tuple(s) for s in pan_sizes]}, "
+        f"{min(segs)}-{max(segs)} segments each; {len(inst_dicts)} COCO-shaped images "
+        f"{[tuple(s) for s in inst_sizes]}, {min(annos)}-{max(annos)} annotations each "
+        "(polygons, RLE, compressed RLE, crowd)")
+    module = "autofocusformermod_torch.data.mapper_panoptic_instance"
+
+    def draw():
+        return device_draw(torch.Generator(device=dev).manual_seed(SEED))
+
+    for label, nc, things, hw in POSTPROCESS_CASES:
+        hold_postprocess(label, dev, nc, things, hw,
+                         ((0.8, 0.8), (0.5, 0.3)) if label == "cityscapes" else (), 100)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR.parent, prefix="paninst_") as tmp, \
+            in_memory_files({PAN_NAMES[0]: (pan_dicts, pan_meta), PAN_NAMES[1]: (pan_dicts, pan_meta),
+                             INST_NAMES[0]: (inst_dicts, inst_meta),
+                             INST_NAMES[1]: (inst_dicts, inst_meta)},
+                            {(module, "read_image"): images, (module, "read_pan_seg"): pans}):
+        # ---- Cityscapes panoptic: steps from the panoptic mapper, test() (PQ) at the end
+        opts = ["DATASETS.TRAIN", f"('{PAN_NAMES[0]}',)", "DATASETS.TEST", f"('{PAN_NAMES[1]}',)",
+                "TEST.EVAL_PERIOD", str(PAN_STEPS), "SOLVER.IMS_PER_BATCH", str(PAN_BATCH),
+                "OUTPUT_DIR", os.path.join(tmp, "pan")] + list(pan_opts)
+        before = reset()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with watch_predict(counters) as w:
+            trainer = train_net.main(["--config", PAN_PRESET, "--max-iter", str(PAN_STEPS)]
+                                     + device_args + opts)
+        t_run = time.time() - t0
+        launches, by_route = take(before)
+        cfg = trainer.cfg
+        want = {n: per_step(cfg)[n] * PAN_STEPS + per_image(cfg)[n] * len(pan_dicts)
+                for n in counters}
+        log(f"  {PAN_PRESET}: launches {launches} (expected {want}); by route {by_route}")
+        if cuda and launches != want:
+            raise SystemExit(f"{PAN_PRESET}: launched {launches}, expected {want}")
+        report(PAN_PRESET, trainer, w, PAN_STEPS, PAN_NAMES[1], len(pan_dicts), t_run)
+        if not 0.0 <= trainer.results[PAN_NAMES[1]]["PQ"] <= 100.0:
+            raise SystemExit(f"PQ {trainer.results[PAN_NAMES[1]]['PQ']}")
+        if cuda and (by_route["point_sample_bilinear"]["shared"] < PAN_STEPS
+                     or by_route["point_sample_bilinear"]["direct"] < PAN_STEPS):
+            raise SystemExit(f"{PAN_PRESET}: point_sample took {by_route}; the 512x1024 targets "
+                             "belong to the direct route, the 128x256 logits to the shared one")
+        thing_ids = set(CITYSCAPES_THINGS)
+        # --eval-only on the checkpoint equals the in-loop test()
+        before = reset()
+        with watch_predict(counters) as w:
+            evaluated = train_net.main(["--config", PAN_PRESET, "--eval-only", "--resume"]
+                                       + device_args + opts)
+        take(before)
+        if evaluated.results != trainer.results:
+            raise SystemExit(f"--eval-only gave {evaluated.results}, the in-loop test() "
+                             f"{trainer.results}")
+        del evaluated
+        # after 3 steps every query votes no-object, so at any threshold the
+        # panoptic inference keeps none and PQ is 0.  The preset's model at
+        # its seeded initial weights (no query votes no-object there) under
+        # the low thresholds, against ground truth made from its own
+        # predictions on the test images at the test size (its first
+        # segment's right quarter made a segment of another class, a void
+        # band at the bottom): a test() whose PQ counts matches
+        low_cfg = copy.deepcopy(cfg)
+        low_cfg.MODEL.MASK_FORMER.TEST.OBJECT_MASK_THRESHOLD = LOW_THRESHOLDS[0]
+        low_cfg.MODEL.MASK_FORMER.TEST.OVERLAP_THRESHOLD = LOW_THRESHOLDS[1]
+        low_cfg.OUTPUT_DIR = os.path.join(tmp, "pan_low")
+        low = Trainer(low_cfg, dev)
+        own = []
+        with low._eval_mode():
+            for d in pan_dicts:
+                if (d["height"], d["width"]) != (cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST):
+                    continue
+                pan, info = panoptic_inference(*low._predict_image(images[d["file_name"]]),
+                                               thing_ids, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                                               *LOW_THRESHOLDS)
+                gt, segs = own_panoptic_gt(pan.cpu().numpy(), info,
+                                           cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
+                name = d["pan_seg_file_name"][:-4] + "_own.png"
+                pans[name] = gt
+                own.append({**d, "pan_seg_file_name": name, "segments_info": segs})
+        DatasetCatalog.register(PAN_OWN, lambda: [dict(d) for d in own])
+        MetadataCatalog.get(PAN_OWN).set(**pan_meta)
+        low.cfg.DATASETS.TEST = [PAN_OWN]
+        before = reset()
+        try:
+            with watch_predict(counters) as w:
+                pq = low.test()[PAN_OWN]
+        finally:
+            DatasetCatalog.remove(PAN_OWN)
+        take(before)
+        if cuda and any(r["launches"] != per_image(cfg) for r in w.images):
+            raise SystemExit(f"test(): images launched {[r['launches'] for r in w.images]}")
+        log(f"  {PAN_PRESET} --eval-only --resume equals the in-loop test(); at the seeded "
+            f"initial weights and thresholds {LOW_THRESHOLDS}, against ground truth made from its "
+            f"own predictions ({[len(d['segments_info']) for d in own]} segments): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in pq.items())
+            + f"; post-processing {statistics.median(w.post_ms):.1f} ms an image")
+        if not all(math.isfinite(v) for v in pq.values()) or not 0 < pq["PQ"] < 100:
+            raise SystemExit(f"test() against its own predictions gave {pq}")
+        first = resize_shortest_edge(images[pan_dicts[0]["file_name"]], None,
+                                     cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)[0]
+        test = cfg.MODEL.MASK_FORMER.TEST
+        hold_panoptic(f"{PAN_PRESET} test image {first.shape[:2]}", trainer, first, thing_ids,
+                      [(test.OBJECT_MASK_THRESHOLD, test.OVERLAP_THRESHOLD)])
+        hold_panoptic(f"{PAN_PRESET} test image {first.shape[:2]}, initial weights", low,
+                      first, thing_ids, [LOW_THRESHOLDS])
+        padded = torch.from_numpy(trainer._pad_eval_image(first))[None].to(dev)
+        if cuda:
+            hold_forward_operands("cityscapes_1024x2048", trainer.model, padded, paths)
+
+            def image_pass():
+                with trainer._eval_mode():
+                    test = cfg.MODEL.MASK_FORMER.TEST
+                    panoptic_inference(*trainer._predict_image(first), thing_ids,
+                                       cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                                       test.OBJECT_MASK_THRESHOLD, test.OVERLAP_THRESHOLD)
+                torch.cuda.synchronize()
+            image_pass()
+            walls = []
+            for _ in range(3):
+                t0 = time.time()
+                image_pass()
+                walls.append((time.time() - t0) * 1e3)
+            busy, rows = device_busy(image_pass, runs=2)
+            wall = statistics.median(walls)
+            log(f"  a 1024x2048 test image (forward and panoptic inference): {wall:.1f} ms, "
+                f"device busy {busy:.1f} ms in {rows:.0f} rows (idle {1 - busy / wall:.0%}) "
+                f"({smi})")
+        loader = trainer.build_train_loader()
+        try:
+            batch = device_batch(next(loader), dev)
+        finally:
+            loader.close()
+        log(f"  a batch of {PAN_PRESET} from the loader: image {tuple(batch['image'].shape)}, "
+            f"masks {tuple(batch['masks'].shape)}, targets per image "
+            f"{batch['valid'].sum(1).tolist()}")
+        if cuda:
+            hold_step_operands(f"cityscapes_b{PAN_BATCH}_step", trainer.model, cfg, batch,
+                               gen, paths)
+            replay_step(PAN_PRESET, trainer.model, cfg, batch, draw)
+        del batch
+        del trainer, low
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # ---- COCO instance: LSJ steps, test() (COCO mask AP) at the end
+        opts = ["DATASETS.TRAIN", f"('{INST_NAMES[0]}',)", "DATASETS.TEST", f"('{INST_NAMES[1]}',)",
+                "TEST.EVAL_PERIOD", str(INST_STEPS), "SOLVER.IMS_PER_BATCH", str(INST_BATCH),
+                "OUTPUT_DIR", os.path.join(tmp, "inst")] + list(inst_opts)
+        before = reset()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with watch_predict(counters) as w:
+            trainer = train_net.main(["--config", INST_PRESET, "--max-iter", str(INST_STEPS)]
+                                     + device_args + opts)
+        t_run = time.time() - t0
+        launches, by_route = take(before)
+        cfg = trainer.cfg
+        want = {n: per_step(cfg)[n] * INST_STEPS + per_image(cfg)[n] * len(inst_dicts)
+                for n in counters}
+        log(f"  {INST_PRESET}: launches {launches} (expected {want}); by route {by_route}")
+        if cuda and launches != want:
+            raise SystemExit(f"{INST_PRESET}: launched {launches}, expected {want}")
+        report(INST_PRESET, trainer, w, INST_STEPS, INST_NAMES[1], len(inst_dicts), t_run)
+        if cuda and (by_route["point_sample_bilinear"]["direct"] < 2 * INST_STEPS
+                     or by_route["point_sample_backward"]["direct"] < INST_STEPS):
+            raise SystemExit(f"{INST_PRESET}: point_sample took {by_route}; the 1024x1024 targets "
+                             "and the 256x256 logits (forward and backward) belong to the direct "
+                             "route")
+        saved = os.path.join(cfg.OUTPUT_DIR, "coco_instances_results.json")
+        with open(saved) as f:
+            dets = json.load(f)
+        log(f"  {INST_PRESET}: coco_instances_results.json holds {len(dets)} detections")
+        # the trained model's own detections on the test images as ground
+        # truth (its best three of nonempty mask on each), plus a triangle of
+        # the best one's class that no detection covers and a crowd region:
+        # a test() whose AP counts matches but cannot be 100
+        nc = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+        is_thing = thing_lookup(range(80), nc)
+        mapper = MaskFormerInstanceDatasetMapper(is_train=False,
+                                                 min_size_test=cfg.INPUT.MIN_SIZE_TEST,
+                                                 max_size_test=cfg.INPUT.MAX_SIZE_TEST)
+        own = []
+        with trainer._eval_mode():
+            for d, sample in zip(inst_dicts, eval_loader(inst_dicts, mapper)):
+                h, w = d["height"], d["width"]
+                logits, masks = trainer._predict_image(sample["image"])
+                inst = instance_inference(logits, sem_seg_postprocess(masks, masks.shape[-2:], (h, w)),
+                                          is_thing, nc, topk=cfg.TEST.DETECTIONS_PER_IMAGE)
+                labels, annos = inst["labels"].tolist(), []
+                for k, m in enumerate(inst["masks"].cpu().numpy()):
+                    if len(annos) < 3 and m.any():
+                        annos.append({"category_id": labels[k], "iscrowd": 0, "segmentation": {
+                            "size": [h, w], "counts": [int(c) for c in rle_encode(m)["counts"]]}})
+                annos.append({"category_id": labels[0], "iscrowd": 0,
+                              "segmentation": [[4.0, 4.0, 40.0, 6.0, 10.0, 36.0]]})
+                annos.append({"category_id": labels[1], "iscrowd": 1,
+                              "segmentation": [[w / 2, h / 2, w - 8.0, h / 2, w - 8.0, h - 8.0]]})
+                own.append({**d, "annotations": annos})
+        DatasetCatalog.register(INST_OWN, lambda: [dict(d) for d in own])
+        MetadataCatalog.get(INST_OWN).set(**inst_meta)
+        trainer.cfg.DATASETS.TEST = [INST_OWN]
+        before = reset()
+        try:
+            with watch_predict(counters) as w:
+                ap = trainer.test()[INST_OWN]
+        finally:
+            DatasetCatalog.remove(INST_OWN)
+            trainer.cfg.DATASETS.TEST = [INST_NAMES[1]]
+        take(before)
+        if cuda and any(r["launches"] != per_image(cfg) for r in w.images):
+            raise SystemExit(f"test(): images launched {[r['launches'] for r in w.images]}")
+        log(f"  {INST_PRESET} test() against ground truth made from its own detections "
+            f"({[sum(not a['iscrowd'] for a in d['annotations']) for d in own]} instances, one "
+            "missed, and a crowd region each): " + ", ".join(f"{k} {v:.4f}" for k, v in ap.items())
+            + f"; post-processing {statistics.median(w.post_ms):.1f} ms an image")
+        if not all(math.isfinite(v) for v in ap.values()) or not 0 < ap["AP"] < 100:
+            raise SystemExit(f"test() against its own detections gave {ap}")
+        d0 = inst_dicts[0]
+        first = resize_shortest_edge(images[d0["file_name"]], None, cfg.INPUT.MIN_SIZE_TEST,
+                                     cfg.INPUT.MAX_SIZE_TEST)[0]
+        hold_instance(f"{INST_PRESET} test image {first.shape[:2]}", trainer, first,
+                      (d0["height"], d0["width"]),
+                      thing_lookup(range(80), cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES))
+        loader = trainer.build_train_loader()
+        try:
+            batch = device_batch(next(loader), dev)
+        finally:
+            loader.close()
+        log(f"  a batch of {INST_PRESET} from the loader: image {tuple(batch['image'].shape)}, "
+            f"masks {tuple(batch['masks'].shape)}, targets per image "
+            f"{batch['valid'].sum(1).tolist()}")
+        if cuda:
+            hold_step_operands(f"coco_lsj_b{INST_BATCH}_step", trainer.model, cfg, batch, gen,
+                               paths)
+            replay_step(INST_PRESET, trainer.model, cfg, batch, draw)
+        del batch
+        del trainer
+        if cuda:
+            torch.cuda.empty_cache()
     return phase_launches, paths
 
 
@@ -4016,6 +4951,21 @@ def main() -> int:
             kr["max_abs_err"] = max(kr["max_abs_err"], mft_paths[kr["name"]]["max_abs_err"])
     torch.cuda.empty_cache()
 
+    log(f"phase 14: panoptic and instance segmentation: {PAN_PRESET} trained {PAN_STEPS} steps "
+        f"at batch {PAN_BATCH} from the panoptic mapper with test() (PQ) at 1024x2048, "
+        f"{INST_PRESET} {INST_STEPS} LSJ steps at 1024x1024, batch {INST_BATCH}, with test() "
+        "(COCO mask AP) at 800x1333; a test image of each against the plain versions; K1, K3 "
+        "and K9 at 131,072 tokens, K2, K4, K10, K12 and K13 on a real step of each")
+    pi_launches, pi_paths = panoptic_instance_phase(dev, smi, gen,
+                                                    {**train_counters, **layout_counters})
+    for kr in kernels:
+        for path, rec in pi_paths.get(kr["name"], {}).items():
+            kr.setdefault("by_path", {"b8_uniform": {k: kr[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
+            kr["by_path"][path] = rec
+            kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
+    torch.cuda.empty_cache()
+
     for kr in kernels:
         names = [kr["name"]] + (["point_sample_bwd"] if kr["name"] == "point_sample" else [])
         kr["inference_launches"] = inference_launches.get(kr["name"], 0)
@@ -4032,10 +4982,13 @@ def main() -> int:
         kr["eval_launches"] = sum(eval_launches.get(n, 0) for n in names)
         # phase 13: the cascade's steps, its train_net runs and their test()
         kr["maskfiner_step_launches"] = sum(mft_launches.get(n, 0) for n in names)
+        # phase 14: the panoptic and instance runs' steps and test()
+        kr["panoptic_instance_launches"] = sum(pi_launches.get(n, 0) for n in names)
         kr["launches"] = (kr["inference_launches"] + kr["mini_step_launches"]
                           + kr["small_run_launches"] + kr["layouts_launches"]
                           + kr["mini15_launches"] + kr["maskfiner_launches"]
-                          + kr["eval_launches"] + kr["maskfiner_step_launches"])
+                          + kr["eval_launches"] + kr["maskfiner_step_launches"]
+                          + kr["panoptic_instance_launches"])
         if kr["launches"] < 1:
             raise SystemExit(f"{kr['name']}: never launched on a main path")
     if len(kernels) != 14:

@@ -98,9 +98,13 @@ def test_builtin_registration_is_lazy_and_rooted_at_the_env(monkeypatch, tmp_pat
     monkeypatch.setenv("DETECTRON2_DATASETS", str(tmp_path))
     tds.register_all_builtin()
     tds.register_all_builtin()                       # once per process
-    assert set(DatasetCatalog.list()) == {"ade20k_sem_seg_train", "ade20k_sem_seg_val",
-                                          "cityscapes_fine_sem_seg_train",
-                                          "cityscapes_fine_sem_seg_val"}
+    splits = ("train", "val")
+    assert set(DatasetCatalog.list()) == {
+        "ade20k_sem_seg_train", "ade20k_sem_seg_val", "cityscapes_fine_sem_seg_train",
+        "cityscapes_fine_sem_seg_val", "lvis_v1_train_cocofied", "lvis_v1_val_cocofied",
+        *(f"coco_2017_{s}{kind}" for s in splits
+          for kind in ("", "_panoptic", "_panoptic_semseg", "_stuff_sem_seg")),
+        *(f"cityscapes_fine_panoptic_{s}" for s in splits)}
     assert DatasetCatalog.get("ade20k_sem_seg_train") == []     # no files: walked on get
     assert [os.path.basename(d["file_name"]) for d in DatasetCatalog.get("ade20k_sem_seg_val")] \
         == ["s0.jpg"]
