@@ -1,13 +1,17 @@
 """Yaml-free presets of the published AFF-Mini, AFF-Mini-1/5, AFF-Small and
-MaskFiner-Mini models (ADE20K semantic), and of AFF-Mini for Cityscapes
-panoptic and COCO instance segmentation.
+MaskFiner-Mini models (ADE20K semantic), of AFF-Mini for Cityscapes
+panoptic and COCO instance segmentation, and of the grid baselines
+Mask2Former-R50, Swin-T and Swin-B-384 at 640 (ADE20K semantic).
 
 ``configs/ade20k/maskformer2_aff_{mini,mini_15,small}_bs32_80k.yaml`` merged
 over the defaults give the published AFF + Mask2Former ADE20K models and
 their training recipe; ``configs/cityscapes/panoptic-segmentation/aff/
 maskformer2_aff_mini_bs32_45k.yaml`` and ``configs/coco/
 instance-segmentation/aff/maskformer2_aff_mini_bs64_50ep.yaml`` the
-Cityscapes-panoptic and COCO-instance ones.  Reading those files needs PyYAML; these presets carry the
+Cityscapes-panoptic and COCO-instance ones; ``configs/ade20k/
+semantic-segmentation/maskformer2_R50_bs16_160k.yaml`` and ``swin/
+maskformer2_swin_{tiny_bs16_160k,base_384_bs16_160k_res640}.yaml`` the grid
+baselines.  Reading those files needs PyYAML; these presets carry the
 same values for every field the port's ``*_from_config`` functions, its
 optimizer, its training step, its trainer, its data mapper and loader and
 its evaluation read, so a machine without PyYAML can build, train and
@@ -19,11 +23,6 @@ from __future__ import annotations
 
 import ast
 from typing import Any, Dict, Sequence
-
-
-# the published ADE20K training scales: [int(x * 0.1 * 512) for x in range(5, 21)]
-ADE20K_MIN_SIZE_TRAIN = [256, 307, 358, 409, 460, 512, 563, 614, 665, 716, 768, 819, 870, 921, 972,
-                         1024]
 
 
 class Cfg(dict):
@@ -71,21 +70,25 @@ class Cfg(dict):
             node[leaf] = value
 
 
-def ade20k_semantic_nodes(aug_min_sizes: Sequence[int], aug_max_size: int) -> Dict[str, Any]:
+def ade20k_semantic_nodes(aug_min_sizes: Sequence[int], aug_max_size: int,
+                          size: int = 512) -> Dict[str, Any]:
     """The DATASETS, INPUT, TEST and DATALOADER nodes of the ADE20K semantic
     recipe (``configs/ade20k/base_ade20k_semantic.yaml`` and
     ``semantic-segmentation/Base-ADE20K-SemanticSegmentation.yaml`` over the
-    defaults; they differ only in the multi-scale test sizes)."""
+    defaults; they differ only in the multi-scale test sizes) at crop
+    ``size``: training short edges [int(x * 0.1 * size) for x in range(5,
+    21)], long edges up to 4 * size, testing at short edge ``size``, images
+    padded to a multiple of ``size`` (the Swin-B res640 yaml sets 640)."""
     return {
         "DATASETS": {"TRAIN": ["ade20k_sem_seg_train"], "TEST": ["ade20k_sem_seg_val"]},
         "INPUT": {
-            "MIN_SIZE_TRAIN": list(ADE20K_MIN_SIZE_TRAIN),
-            "MAX_SIZE_TRAIN": 2048,
-            "MIN_SIZE_TEST": 512,
-            "MAX_SIZE_TEST": 2048,
-            "CROP": {"ENABLED": True, "SIZE": [512, 512], "SINGLE_CATEGORY_MAX_AREA": 1.0},
+            "MIN_SIZE_TRAIN": [int(x * 0.1 * size) for x in range(5, 21)],
+            "MAX_SIZE_TRAIN": 4 * size,
+            "MIN_SIZE_TEST": size,
+            "MAX_SIZE_TEST": 4 * size,
+            "CROP": {"ENABLED": True, "SIZE": [size, size], "SINGLE_CATEGORY_MAX_AREA": 1.0},
             "COLOR_AUG_SSD": True,
-            "SIZE_DIVISIBILITY": 512,
+            "SIZE_DIVISIBILITY": size,
             "DATASET_MAPPER_NAME": "mask_former_semantic",
         },
         "TEST": {
@@ -414,6 +417,74 @@ def aff_mini_coco_instance_cfg(num_classes: int = 80) -> Cfg:
     return cfg
 
 
+def r50_cfg(num_classes: int = 150) -> Cfg:
+    """Mask2Former-R50, ADE20K semantic segmentation at 512x512
+    (``configs/ade20k/semantic-segmentation/maskformer2_R50_bs16_160k.yaml``
+    over ``Base-ADE20K-SemanticSegmentation.yaml`` and the defaults): the
+    ResNet-50 with FrozenBN under the point-cloud pixel decoder (which reads
+    the AFF node's Shepard power, at its default) and the masked decoder;
+    160k steps at batch 16, clipped at 1.0."""
+    cfg = aff_mini_cfg(num_classes)
+    del cfg.MODEL["AFF"]
+    cfg.MODEL.update(Cfg({
+        "META_ARCHITECTURE": "MaskFormer",
+        "BACKBONE": {"NAME": "build_resnet_backbone"},
+        "WEIGHTS": "detectron2://ImageNetPretrained/torchvision/R-50.pkl",
+        "RESNETS": {"DEPTH": 50, "STEM_OUT_CHANNELS": 64, "RES2_OUT_CHANNELS": 256,
+                    "STRIDE_IN_1X1": False, "OUT_FEATURES": ["res2", "res3", "res4", "res5"]},
+        "AFF": {"SHEPARD_POWER": 6.0, "SHEPARD_POWER_LEARNABLE": True},
+    }))
+    cfg.SOLVER.update({"IMS_PER_BATCH": 16, "BASE_LR": 0.0001, "MAX_ITER": 160000,
+                       "AMP": Cfg({"ENABLED": False})})
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 1.0
+    cfg.TEST.AUG.update({"MIN_SIZES": [256, 384, 512, 640, 768, 896], "MAX_SIZE": 3584})
+    return cfg
+
+
+def _swin_cfg(num_classes: int, swin: Dict[str, Any], weights: str, size: int,
+              aug_min_sizes: Sequence[int], aug_max_size: int) -> Cfg:
+    """MaskFormerSwin over ``semantic-segmentation/maskformer2_swin_bs16_
+    160k.yaml``: Swin, the grid pixel decoder and the decoder with the grid
+    attention mask, trained as the R50 baseline."""
+    cfg = r50_cfg(num_classes)
+    for node in ("RESNETS", "AFF"):
+        del cfg.MODEL[node]
+    cfg.MODEL.update(Cfg({
+        "META_ARCHITECTURE": "MaskFormerSwin",
+        "BACKBONE": {"NAME": "D2SwinTransformer"},
+        "WEIGHTS": weights,
+        "SWIN": {"PATCH_SIZE": 4, "MLP_RATIO": 4.0, "APE": False, "PATCH_NORM": True,
+                 "DROP_PATH_RATE": 0.3, **swin},
+    }))
+    cfg.MODEL.MASK_FORMER.TRANSFORMER_DECODER_NAME = "MultiScaleMaskedTransformerDecoderSwin"
+    for k, v in ade20k_semantic_nodes(aug_min_sizes, aug_max_size, size).items():
+        cfg[k] = Cfg(v)
+    return cfg
+
+
+def swin_tiny_cfg(num_classes: int = 150) -> Cfg:
+    """MaskFormerSwin with Swin-T, ADE20K semantic segmentation at 512x512
+    (``configs/ade20k/semantic-segmentation/swin/maskformer2_swin_tiny_
+    bs16_160k.yaml``): window 7, so a 128-wide first stage pads to 133."""
+    return _swin_cfg(num_classes, {"EMBED_DIM": 96, "DEPTHS": [2, 2, 6, 2],
+                                   "NUM_HEADS": [3, 6, 12, 24], "WINDOW_SIZE": 7,
+                                   "PRETRAIN_IMG_SIZE": 224},
+                     "swin_tiny_patch4_window7_224.pkl", 512, (256, 384, 512, 640, 768, 896), 3584)
+
+
+def swin_base_384_res640_cfg(num_classes: int = 150) -> Cfg:
+    """MaskFormerSwin with Swin-B (384 pretraining), ADE20K semantic
+    segmentation at 640x640 (``configs/ade20k/semantic-segmentation/swin/
+    maskformer2_swin_base_384_bs16_160k_res640.yaml``): window 12, which
+    divides none of the stages' 160, 80, 40 and 20, so every stage pads;
+    crops, short test edges and the padding multiple are 640."""
+    return _swin_cfg(num_classes, {"EMBED_DIM": 128, "DEPTHS": [2, 2, 18, 2],
+                                   "NUM_HEADS": [4, 8, 16, 32], "WINDOW_SIZE": 12,
+                                   "PRETRAIN_IMG_SIZE": 384},
+                     "swin_base_patch4_window12_384.pkl", 640,
+                     (320, 480, 640, 800, 960, 1120), 4480)
+
+
 def train_image_size(cfg) -> tuple:
     """(H, W) of a training batch: the LSJ mappers' fixed INPUT.IMAGE_SIZE
     square, else INPUT.CROP.SIZE."""
@@ -426,4 +497,5 @@ def train_image_size(cfg) -> tuple:
 PRESETS = {"aff_mini": aff_mini_cfg, "aff_mini_15": aff_mini_15_cfg, "aff_small": aff_small_cfg,
            "maskfiner_mini": maskfiner_mini_cfg,
            "aff_mini_cityscapes_panoptic": aff_mini_cityscapes_panoptic_cfg,
-           "aff_mini_coco_instance": aff_mini_coco_instance_cfg}
+           "aff_mini_coco_instance": aff_mini_coco_instance_cfg, "r50": r50_cfg,
+           "swin_tiny": swin_tiny_cfg, "swin_base_384_res640": swin_base_384_res640_cfg}

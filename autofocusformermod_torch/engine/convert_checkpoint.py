@@ -27,15 +27,26 @@ import torch
 # flax module path (dotted) -> reference name, applied in order
 _RULES = (
     (r"^mask_predictors_(\d+)", r"mask_predictors.\1"),
+    # the R50 (detectron2 names)
+    (r"^backbone\.stem_conv1", r"backbone.stem.conv1"),
+    (r"^backbone\.res(\d)_(\d+)", r"backbone.res\1.\2"),
+    (r"\.(conv\d|shortcut)_norm$", r".\1.norm"),
+    # Swin
+    (r"^backbone\.patch_embed_(proj|norm)$", r"backbone.patch_embed.\1"),
+    (r"^backbone\.layers_(\d+)_blocks_(\d+)", r"backbone.layers.\1.blocks.\2"),
+    (r"^backbone\.layers_(\d+)_downsample", r"backbone.layers.\1.downsample"),
     (r"^backbone\.layers_(\d+)", r"backbone.layers.\1"),
     (r"\.blocks_(\d+)", r".blocks.\1"),
     (r"\.conv_(\d+)\.", r".conv.\1."),
     (r"\.weight_net\.linear", r".weight_net.0"),
     (r"\.weight_net\.norm", r".weight_net.1"),
     (r"^head\.pixel_decoder", r"sem_seg_head.pixel_decoder"),
-    (r"\.input_proj_(\d+)_dense", r".input_proj.\1.0"),
+    (r"\.input_proj_(\d+)_(dense|conv)", r".input_proj.\1.0"),
     (r"\.input_proj_(\d+)_norm", r".input_proj.\1.1"),
+    (r"\.encoder_layer_(\d+)_", r".transformer.encoder.layers.\1."),
     (r"\.encoder_layer_(\d+)", r".transformer.encoder.layers.\1"),
+    # the grid pixel decoder's FPN convolutions (their norms: _GRID_RULES)
+    (r"\.(adapter|layer)_(\d+)_conv$", r".\1_\2"),
     (r"\.adapter_(\d+)_dense", r".adapter_\1.0"),
     (r"\.adapter_(\d+)_norm", r".adapter_\1.1"),
     (r"\.layer_(\d+)_pointconv", r".layer_\1.0"),
@@ -47,6 +58,11 @@ _RULES = (
     (r"\.ffn_(\d+)", r".transformer_ffn_layers.\1"),
     (r"\.mask_embed\.layers_(\d+)", r".mask_embed.layers.\1"),
 )
+# the grid pixel decoder's FPN norms are detectron2 Conv2d norms; the
+# point-cloud decoder's are the second entry of a Sequential (_RULES)
+_GRID_RULES = ((r"\.(adapter|layer)_(\d+)_norm$", r".\1_\2.norm"),)
+# the R50's FrozenBN: constant statistics, no batch counter
+_FROZEN_BN = re.compile(r"(stem_)?(conv\d|shortcut)_norm")
 _LEAF = {"bias": "bias", "scale": "weight", "embedding": "weight",
          "mean": "running_mean", "var": "running_var"}
 _MHA = ("q_proj", "k_proj", "v_proj")
@@ -62,51 +78,61 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
     return out
 
 
-def _module_name(path: Tuple[str, ...]) -> str:
+def _module_name(path: Tuple[str, ...], grid: bool = False) -> str:
     name = ".".join(path)
-    for pat, rep in _RULES:
+    for pat, rep in (_GRID_RULES + _RULES) if grid else _RULES:
         name = re.sub(pat, rep, name)
     return name
 
 
-def torch_name(path: Tuple[str, ...]) -> str:
+def is_grid_tree(paths) -> bool:
+    """Whether the flax paths hold the grid pixel decoder (its FPN
+    convolutions), whose FPN norms take ``_GRID_RULES``."""
+    return any(re.fullmatch(r"(adapter|layer)_\d+_conv", part) for path in paths for part in path)
+
+
+def torch_name(path: Tuple[str, ...], grid: bool = False) -> str:
     """The port's name of the tensor that the JAX parameter leaf at ``path``
     lands on (the three projections of an attention layer land on its one
-    ``in_proj_weight`` / ``in_proj_bias``)."""
+    ``in_proj_weight`` / ``in_proj_bias``); ``grid`` for a tree with the grid
+    pixel decoder (``is_grid_tree``)."""
     *mod, leaf = path
     if leaf == "level_embed" and mod[-1] == "pixel_decoder":
-        return _module_name(tuple(mod)) + ".transformer.level_embed"
+        return _module_name(tuple(mod), grid) + ".transformer.level_embed"
     if leaf in ("kernel", "bias") and mod[-1] in _MHA:
-        return _module_name(tuple(mod[:-1])) + (".in_proj_weight" if leaf == "kernel"
-                                                else ".in_proj_bias")
+        return _module_name(tuple(mod[:-1]), grid) + (".in_proj_weight" if leaf == "kernel"
+                                                      else ".in_proj_bias")
     if leaf == "kernel":
-        return _module_name(tuple(mod)) + ".weight"
+        return _module_name(tuple(mod), grid) + ".weight"
     # a bare parameter (blank_k, blank_v, shepard_power, gamma1/2, rel_pos_emb,
-    # scale_emb) keeps its name
-    return _module_name(tuple(mod)) + "." + _LEAF.get(leaf, leaf)
+    # scale_emb, relative_position_bias_table) keeps its name
+    return _module_name(tuple(mod), grid) + "." + _LEAF.get(leaf, leaf)
 
 
 def flax_to_torch_state_dict(params: Mapping, batch_stats: Mapping = None) -> Dict[str, torch.Tensor]:
-    """params / batch_stats: the JAX MaskFormer's or MaskFiner's variable
-    trees (arrays or numpy) -> {reference name: tensor} for the port model's
-    ``load_state_dict``."""
+    """params / batch_stats: the JAX MaskFormer's, MaskFormerSwin's or
+    MaskFiner's variable trees (arrays or numpy) -> {reference name: tensor}
+    for the port model's ``load_state_dict``."""
     sd: Dict[str, np.ndarray] = {}
     mha: Dict[str, Dict[str, np.ndarray]] = {}
-    for path, value in _flatten(params).items():
+    flat = _flatten(params)
+    grid = is_grid_tree(flat)
+    for path, value in flat.items():
         *mod, leaf = path
         if leaf in ("kernel", "bias") and mod[-1] in _MHA:
-            mha.setdefault(_module_name(tuple(mod[:-1])), {})[f"{mod[-1]}.{leaf}"] = value
+            mha.setdefault(_module_name(tuple(mod[:-1]), grid), {})[f"{mod[-1]}.{leaf}"] = value
         elif leaf == "kernel":
-            sd[torch_name(path)] = np.transpose(value, (3, 2, 0, 1)) if value.ndim == 4 else value.T
+            sd[torch_name(path, grid)] = (np.transpose(value, (3, 2, 0, 1)) if value.ndim == 4
+                                          else value.T)
         else:
-            sd[torch_name(path)] = value
+            sd[torch_name(path, grid)] = value
     for name, parts in mha.items():
         sd[name + ".in_proj_weight"] = np.concatenate([parts[f"{p}.kernel"].T for p in _MHA])
         sd[name + ".in_proj_bias"] = np.concatenate([parts[f"{p}.bias"] for p in _MHA])
     for path, value in _flatten(batch_stats or {}).items():
         *mod, leaf = path
         sd[_module_name(tuple(mod)) + "." + _LEAF[leaf]] = value
-        if leaf == "mean":
+        if leaf == "mean" and not _FROZEN_BN.fullmatch(mod[-1]):
             sd[_module_name(tuple(mod)) + ".num_batches_tracked"] = np.zeros((), np.int64)
     return {k: torch.from_numpy(np.array(v)).contiguous() for k, v in sd.items()}
 

@@ -15,7 +15,9 @@ from typing import Dict, Iterable, List, Tuple
 import torch
 from torch import nn
 
-_NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)
+from ..models.resnet import FrozenBN
+
+_NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d, FrozenBN)
 # parameters that make_label_fn puts in the norm group by their own name
 _NORM_TABLES = ("relative_position_bias_table", "absolute_pos_embed")
 
@@ -24,9 +26,10 @@ def param_label(mod_name: str, leaf: str, mod: nn.Module) -> str:
     """A parameter's group, as the JAX package's ``make_label_fn`` labels
     its flax leaf: ``embed`` for embedding tables, ``norm`` for the
     parameters of a norm (every flax module the JAX rule names as a norm is
-    one of ``_NORMS`` here) and for the relative-position and absolute
-    position tables, else ``default``; prefixed ``backbone_`` where a
-    component of the name contains "backbone"."""
+    one of ``_NORMS`` here, the R50's FrozenBN too) and for the
+    relative-position and absolute position tables, else ``default``;
+    prefixed ``backbone_`` where a component of the name contains
+    "backbone"."""
     name = f"{mod_name}.{leaf}" if mod_name else leaf
     if isinstance(mod, nn.Embedding):
         kind = "embed"

@@ -2,24 +2,39 @@
 embedding, PointConv weight net, flax-convention BatchNorm.  Counterpart of
 ``autofocusformermod_tpu/models/layers.py``.
 
-Flax's LayerNorm epsilon is 1e-6 (torch's default is 1e-5), so every
-LayerNorm here passes ``eps=LN_EPS``.
+Flax's LayerNorm and GroupNorm epsilon is 1e-6 (torch's default is 1e-5),
+so every LayerNorm here passes ``eps=LN_EPS`` and every GroupNorm
+``eps=GN_EPS``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 REL_POS_WIDTH = 2048 // 4 - 1  # 511: relative offsets are clipped to +-511
 LN_EPS = 1e-6
+GN_EPS = 1e-6
 
 
 def layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=LN_EPS)
+
+
+@functools.lru_cache(maxsize=64)
+def grid_positions(h: int, w: int, stride: int, device: str) -> torch.Tensor:
+    """(1, h*w, 2) float: (x, y) * stride of every cell of an h x w grid in
+    raster order, on ``device``.  Made once per grid and device and shared
+    read-only: a copy from the host to the card waits for the card's
+    stream, so a forward makes none."""
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    pos = np.stack([xs, ys], 2).reshape(1, -1, 2).astype(np.float32) * stride
+    return torch.from_numpy(pos).to(device)
 
 
 def rel_pos_features(rel_pos: torch.Tensor) -> torch.Tensor:

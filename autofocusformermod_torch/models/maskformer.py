@@ -1,5 +1,6 @@
-"""MaskFormer meta-architecture: AFF backbone -> pixel decoder -> masked
-transformer decoder, plus semantic-inference helpers.
+"""MaskFormer meta-architecture: backbone (AFF, or the R50 or Swin of the
+baselines) -> pixel decoder -> masked transformer decoder, plus
+semantic-inference helpers.
 
 Counterpart of ``autofocusformermod_tpu/models/maskformer.py`` (fp32 only).
 """
@@ -11,7 +12,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 from torch import nn
 
-from .aff import AFF, aff_from_config
+from .aff import aff_from_config
 from .pixel_decoder import MSDeformAttnPixelDecoder, pixel_decoder_from_config
 from .transformer_decoder import MultiScaleMaskedTransformerDecoder, transformer_decoder_from_config
 
@@ -38,7 +39,7 @@ class MaskFormer(nn.Module):
     Dropout in the decoders is not ported: a model with dropout > 0 runs in
     eval mode and refuses train mode."""
 
-    def __init__(self, backbone: AFF, sem_seg_head: MaskFormerHead,
+    def __init__(self, backbone: nn.Module, sem_seg_head: nn.Module,
                  pixel_mean: Sequence[float] = (123.675, 116.28, 103.53),
                  pixel_std: Sequence[float] = (58.395, 57.12, 57.375),
                  dropout: float = 0.0):
@@ -64,15 +65,48 @@ class MaskFormer(nn.Module):
         return self.sem_seg_head(self.backbone(self.normalize(images)))
 
 
+def feature_channels(cfg) -> Dict[str, int]:
+    """The backbone's channels per feature for MODEL.BACKBONE.NAME: AFF's
+    EMBED_DIM, the R50's and Swin's c * 2**i (the JAX package's
+    ``maskformer_from_config``)."""
+    name = cfg.MODEL.BACKBONE.NAME
+    if name == "AutoFocusFormer":
+        return {f"res{i + 2}": int(c) for i, c in enumerate(cfg.MODEL.AFF.EMBED_DIM)}
+    if name == "build_resnet_backbone":
+        c = cfg.MODEL.RESNETS.RES2_OUT_CHANNELS
+    elif name == "D2SwinTransformer":
+        c = cfg.MODEL.SWIN.EMBED_DIM
+    else:
+        raise NotImplementedError(f"backbone {name} is not ported")
+    return {f"res{i + 2}": c * 2 ** i for i in range(4)}
+
+
+def backbone_from_config(cfg) -> nn.Module:
+    """The backbone MODEL.BACKBONE.NAME names: AutoFocusFormer,
+    build_resnet_backbone or D2SwinTransformer."""
+    name = cfg.MODEL.BACKBONE.NAME
+    if name == "AutoFocusFormer":
+        return aff_from_config(cfg)
+    if name == "build_resnet_backbone":
+        from .resnet import resnet_from_config
+
+        return resnet_from_config(cfg)
+    if name == "D2SwinTransformer":
+        from .swin import swin_from_config
+
+        return swin_from_config(cfg)
+    raise NotImplementedError(f"backbone {name} is not ported")
+
+
 def maskformer_from_config(cfg) -> MaskFormer:
-    """MaskFormer with the AFF backbone, from the JAX package's CfgNode or
-    the yaml-free preset (``autofocusformermod_torch.config``)."""
-    if cfg.MODEL.BACKBONE.NAME != "AutoFocusFormer":
-        raise NotImplementedError(f"backbone {cfg.MODEL.BACKBONE.NAME} is not ported")
-    channels = {f"res{i + 2}": int(c) for i, c in enumerate(cfg.MODEL.AFF.EMBED_DIM)}
-    head = MaskFormerHead(pixel_decoder_from_config(cfg, channels),
+    """MaskFormer with the point-cloud pixel decoder over the backbone
+    MODEL.BACKBONE.NAME, from the JAX package's CfgNode or the yaml-free
+    preset (``autofocusformermod_torch.config``).  The head is built before
+    the backbone, so a seeded default initialisation does not depend on
+    the backbone."""
+    head = MaskFormerHead(pixel_decoder_from_config(cfg, feature_channels(cfg)),
                           transformer_decoder_from_config(cfg, cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM))
-    return MaskFormer(aff_from_config(cfg), head, tuple(cfg.MODEL.PIXEL_MEAN),
+    return MaskFormer(backbone_from_config(cfg), head, tuple(cfg.MODEL.PIXEL_MEAN),
                       tuple(cfg.MODEL.PIXEL_STD), cfg.MODEL.MASK_FORMER.DROPOUT)
 
 

@@ -32,10 +32,7 @@ from torch import nn
 
 from ..ops.gather import take_rows
 from .aff import ClusterTransformerBlock, attention_context
-from .layers import Mlp, layer_norm, position_embedding_sine
-
-# flax's GroupNorm epsilon (torch's default is 1e-5)
-GN_EPS = 1e-6
+from .layers import GN_EPS, Mlp, layer_norm, position_embedding_sine
 
 
 def get_2dpos_of_curr_ps_in_min_ps(height: int, width: int, patch_size: int,

@@ -1,8 +1,9 @@
 """Build the configured meta-architecture.
 
 Counterpart of ``autofocusformermod_tpu/models/registry.py:build_model``
-for the two ported ones: ``MaskFormer`` (AFF + Mask2Former) and
-``MaskFiner`` (the MixRes cascade).
+for the three ported ones: ``MaskFormer`` (AFF, R50 or Swin + Mask2Former),
+``MaskFormerSwin`` (Swin + the grid pixel decoder) and ``MaskFiner`` (the
+MixRes cascade).
 """
 
 from __future__ import annotations
@@ -11,8 +12,11 @@ from torch import nn
 
 from .maskfiner import maskfiner_from_config
 from .maskformer import maskformer_from_config
+from .meta_arch_variants import maskformer_swin_from_config
 
-META_ARCHITECTURES = {"MaskFormer": maskformer_from_config, "MaskFiner": maskfiner_from_config}
+META_ARCHITECTURES = {"MaskFormer": maskformer_from_config,
+                      "MaskFormerSwin": maskformer_swin_from_config,
+                      "MaskFiner": maskfiner_from_config}
 
 
 def meta_architecture(cfg) -> str:

@@ -5,13 +5,15 @@ learnable queries, rounds of masked cross-attention -> self-attention -> FFN
 cycling over 3 feature levels, prediction heads between rounds.  The
 attention mask is the current mask logits Shepard-upsampled to the next
 level's positions, thresholded at sigmoid < 0.5; fully masked rows are
-unmasked.  Attention is a plain matmul + masked softmax.
+unmasked.  Attention is a plain matmul + masked softmax.  The Swin variant
+resizes the mask logits to each level's grid instead; the layers can be
+pre-norm.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -51,54 +53,85 @@ class MultiheadAttention(nn.Module):
 
 
 class SelfAttentionLayer(nn.Module):
-    """Post-norm self-attention over the queries."""
+    """Self-attention over the queries, post-norm (or pre-norm)."""
 
-    def __init__(self, d_model: int, nhead: int):
+    def __init__(self, d_model: int, nhead: int, pre_norm: bool = False):
         super().__init__()
         self.self_attn = MultiheadAttention(d_model, nhead)
         self.norm = layer_norm(d_model)
+        self.pre_norm = pre_norm
 
     def forward(self, tgt, query_pos):
+        if self.pre_norm:
+            t = self.norm(tgt)
+            qk = t + query_pos
+            return tgt + self.self_attn(qk, qk, t)
         qk = tgt + query_pos
         return self.norm(tgt + self.self_attn(qk, qk, tgt))
 
 
 class CrossAttentionLayer(nn.Module):
-    """Post-norm masked cross-attention from the queries to one feature level."""
+    """Masked cross-attention from the queries to one feature level,
+    post-norm (or pre-norm)."""
 
-    def __init__(self, d_model: int, nhead: int):
+    def __init__(self, d_model: int, nhead: int, pre_norm: bool = False):
         super().__init__()
         self.multihead_attn = MultiheadAttention(d_model, nhead)
         self.norm = layer_norm(d_model)
+        self.pre_norm = pre_norm
 
     def forward(self, tgt, memory, memory_mask, pos, query_pos):
+        if self.pre_norm:
+            return tgt + self.multihead_attn(self.norm(tgt) + query_pos, memory + pos, memory,
+                                             memory_mask)
         return self.norm(tgt + self.multihead_attn(tgt + query_pos, memory + pos, memory,
                                                    memory_mask))
 
 
 class FFNLayer(nn.Module):
-    """Post-norm ReLU feed-forward."""
+    """ReLU feed-forward, post-norm (or pre-norm)."""
 
-    def __init__(self, d_model: int, dim_feedforward: int):
+    def __init__(self, d_model: int, dim_feedforward: int, pre_norm: bool = False):
         super().__init__()
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm = layer_norm(d_model)
+        self.pre_norm = pre_norm
 
     def forward(self, tgt):
+        if self.pre_norm:
+            return tgt + self.linear2(torch.relu(self.linear1(self.norm(tgt))))
         return self.norm(tgt + self.linear2(torch.relu(self.linear1(tgt))))
 
 
+def grid_attn_mask(mask_logits: torch.Tensor, target_hw) -> torch.Tensor:
+    """(b, q, h, w) mask logits bilinearly resized to a level's (h_l, w_l)
+    grid -> (b, q, h_l * w_l): jax.image.resize's bilinear, which filters
+    with a triangle as wide as the scale when it shrinks (antialiased), where
+    upstream Mask2Former's F.interpolate does not."""
+    b, q = mask_logits.shape[:2]
+    out = nn.functional.interpolate(mask_logits, size=tuple(int(s) for s in target_hw),
+                                    mode="bilinear", align_corners=False, antialias=True)
+    return out.reshape(b, q, -1)
+
+
 class MultiScaleMaskedTransformerDecoder(nn.Module):
-    """forward(x, pos, mask_features, mf_pos, mask_size) -> {'pred_logits'
-    (b, q, nc+1), 'pred_masks' (b, q, h, w), 'aux_outputs'}."""
+    """forward(x, pos, mask_features, mf_pos, mask_size, level_shapes=None) ->
+    {'pred_logits' (b, q, nc+1), 'pred_masks' (b, q, h, w), 'aux_outputs'}.
+
+    ``grid_attn_mask`` (MultiScaleMaskedTransformerDecoderSwin): the
+    attention mask of a level is the mask logits resized to the level's grid
+    (``grid_attn_mask``; the levels' (h, w) come as ``level_shapes``), not
+    Shepard-upsampled to its positions."""
 
     def __init__(self, in_channels: int, num_classes: int, hidden_dim: int = 256,
                  num_queries: int = 100, nheads: int = 8, dim_feedforward: int = 2048,
-                 dec_layers: int = 9, mask_dim: int = 256,
-                 enforce_input_project: bool = False, num_feature_levels: int = 3):
+                 dec_layers: int = 9, pre_norm: bool = False, mask_dim: int = 256,
+                 enforce_input_project: bool = False, num_feature_levels: int = 3,
+                 grid_attn_mask: bool = False):
         super().__init__()
         self.num_queries, self.nheads = num_queries, nheads
+        self.grid_attn_mask = grid_attn_mask
         self.num_feature_levels = num_feature_levels
         self.query_feat = nn.Embedding(num_queries, hidden_dim)
         self.query_embed = nn.Embedding(num_queries, hidden_dim)
@@ -108,30 +141,42 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
             self.input_proj = nn.ModuleList(nn.Linear(in_channels, hidden_dim)
                                             for _ in range(num_feature_levels))
         self.transformer_cross_attention_layers = nn.ModuleList(
-            CrossAttentionLayer(hidden_dim, nheads) for _ in range(dec_layers))
+            CrossAttentionLayer(hidden_dim, nheads, pre_norm) for _ in range(dec_layers))
         self.transformer_self_attention_layers = nn.ModuleList(
-            SelfAttentionLayer(hidden_dim, nheads) for _ in range(dec_layers))
+            SelfAttentionLayer(hidden_dim, nheads, pre_norm) for _ in range(dec_layers))
         self.transformer_ffn_layers = nn.ModuleList(
-            FFNLayer(hidden_dim, dim_feedforward) for _ in range(dec_layers))
+            FFNLayer(hidden_dim, dim_feedforward, pre_norm) for _ in range(dec_layers))
         self.decoder_norm = layer_norm(hidden_dim)
         self.class_embed = nn.Linear(hidden_dim, num_classes + 1)
         self.mask_embed = MLP(hidden_dim, hidden_dim, mask_dim, 3)
 
-    def _prediction_heads(self, output, mask_features, target_pos, mask_size):
+    def _prediction_heads(self, output, mask_features, target_pos, mask_size, target_hw):
         """Mask features are raster-ordered (token == cell): the attention mask
-        comes from the window KNN with an identity LUT."""
+        comes from the window KNN with an identity LUT, or from the resize to
+        the level's grid ``target_hw``."""
         dec = self.decoder_norm(output)
         outputs_class = self.class_embed(dec)
         outputs_mask = torch.einsum("bqc,bnc->bqn", self.mask_embed(dec), mask_features)
-        am = grid_shepard_upsample(target_pos, outputs_mask.transpose(1, 2),
-                                   mask_size[0], mask_size[1])
-        am = torch.sigmoid(am.transpose(1, 2)) < 0.5                   # True = blocked
+        if self.grid_attn_mask:
+            am = grid_attn_mask(outputs_mask.reshape(*outputs_mask.shape[:2], *mask_size),
+                                target_hw)
+        else:
+            am = grid_shepard_upsample(target_pos, outputs_mask.transpose(1, 2),
+                                       mask_size[0], mask_size[1]).transpose(1, 2)
+        am = torch.sigmoid(am) < 0.5                                   # True = blocked
         attn_mask = am[:, None].expand(am.shape[0], self.nheads, *am.shape[1:])
         return outputs_class, outputs_mask, attn_mask
 
     def forward(self, x: List, pos: List, mask_features, mf_pos,
-                mask_size: Tuple[int, int]) -> Dict:
+                mask_size: Tuple[int, int], level_shapes: Optional[List] = None) -> Dict:
+        if self.grid_attn_mask and level_shapes is None:
+            raise ValueError("the grid attention mask needs the levels' (h, w): level_shapes")
         b = x[0].shape[0]
+        n_levels = self.num_feature_levels
+
+        def level_hw(i):
+            return level_shapes[i] if self.grid_attn_mask else None
+
         src, pos_emb = [], []
         for i in range(self.num_feature_levels):
             pos_emb.append(position_embedding_sine(pos[i], self.query_feat.weight.shape[1] // 2))
@@ -153,19 +198,20 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
 
         preds_class, preds_mask = [], []
         outputs_class, outputs_mask, attn_mask = self._prediction_heads(
-            output, mask_features, pos[0], mask_size)
+            output, mask_features, pos[0], mask_size, level_hw(0))
         preds_class.append(outputs_class)
         preds_mask.append(rasterize(outputs_mask))
         for i, (cross, self_attn, ffn) in enumerate(zip(
                 self.transformer_cross_attention_layers,
                 self.transformer_self_attention_layers, self.transformer_ffn_layers)):
-            level = i % self.num_feature_levels
+            level = i % n_levels
             attn_mask = attn_mask & ~attn_mask.all(dim=-1, keepdim=True)
             output = cross(output, src[level], attn_mask, pos_emb[level], query_embed)
             output = self_attn(output, query_embed)
             output = ffn(output)
+            nxt = (i + 1) % n_levels
             outputs_class, outputs_mask, attn_mask = self._prediction_heads(
-                output, mask_features, pos[(i + 1) % self.num_feature_levels], mask_size)
+                output, mask_features, pos[nxt], mask_size, level_hw(nxt))
             preds_class.append(outputs_class)
             preds_mask.append(rasterize(outputs_mask))
         return {
@@ -176,12 +222,19 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
         }
 
 
+DECODER_NAMES = ("MultiScaleMaskedTransformerDecoder", "MultiScaleMaskedTransformerDecoderSwin")
+
+
 def transformer_decoder_from_config(cfg, in_channels: int) -> MultiScaleMaskedTransformerDecoder:
+    """MODEL.MASK_FORMER's decoder; the name ending in "Swin" selects the grid
+    attention mask."""
     mf = cfg.MODEL.MASK_FORMER
-    if mf.TRANSFORMER_DECODER_NAME != "MultiScaleMaskedTransformerDecoder" or mf.PRE_NORM:
-        raise NotImplementedError("only the post-norm MultiScaleMaskedTransformerDecoder is ported")
+    if mf.TRANSFORMER_DECODER_NAME not in DECODER_NAMES:
+        raise NotImplementedError(f"transformer decoder {mf.TRANSFORMER_DECODER_NAME} is not "
+                                  f"ported; ported: {DECODER_NAMES}")
     return MultiScaleMaskedTransformerDecoder(
         in_channels=in_channels, num_classes=cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
         hidden_dim=mf.HIDDEN_DIM, num_queries=mf.NUM_OBJECT_QUERIES, nheads=mf.NHEADS,
-        dim_feedforward=mf.DIM_FEEDFORWARD, dec_layers=mf.DEC_LAYERS - 1, mask_dim=cfg.MODEL.SEM_SEG_HEAD.MASK_DIM,
-        enforce_input_project=mf.ENFORCE_INPUT_PROJ)
+        dim_feedforward=mf.DIM_FEEDFORWARD, dec_layers=mf.DEC_LAYERS - 1, pre_norm=mf.PRE_NORM,
+        mask_dim=cfg.MODEL.SEM_SEG_HEAD.MASK_DIM, enforce_input_project=mf.ENFORCE_INPUT_PROJ,
+        grid_attn_mask=mf.TRANSFORMER_DECODER_NAME.endswith("Swin"))

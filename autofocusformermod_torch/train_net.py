@@ -15,9 +15,10 @@ mapper, and evaluates DATASETS.TEST every TEST.EVAL_PERIOD steps;
 N`` stops (with a checkpoint) after step N; ``--resume`` continues from the
 latest checkpoint under OUTPUT_DIR.  ``--eval-only`` evaluates the model
 (the latest checkpoint with ``--resume``, else MODEL.WEIGHTS) on
-DATASETS.TEST, prints the metrics and trains nothing.  Both ported
-meta-architectures train: ``--config maskfiner_mini`` trains the MaskFiner
-cascade.
+DATASETS.TEST, prints the metrics and trains nothing.  Every ported
+meta-architecture trains: ``--config maskfiner_mini`` trains the MaskFiner
+cascade, ``--config r50`` and ``--config swin_base_384_res640`` (or
+``swin_tiny``) the grid baselines.
 """
 
 from __future__ import annotations

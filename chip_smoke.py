@@ -3,8 +3,9 @@
 AFF-Mini training step, an AFF-Small training run with checkpoint and
 resume, the pixel decoder's alternate operand layouts, the AFF-Mini-1/5
 preset, MaskFiner-Mini inference, training from the dataset loader with
-evaluation, MaskFiner-Mini training, and Cityscapes-panoptic and
-COCO-instance training and evaluation -- on one NVIDIA GPU.
+evaluation, MaskFiner-Mini training, Cityscapes-panoptic and
+COCO-instance training and evaluation, and the Swin-B and R50 grid
+baselines -- on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -157,7 +158,22 @@ COCO-instance training and evaluation -- on one NVIDIA GPU.
    targets of a real step of each preset, and that step replayed through
    the plain versions.
 
-Phases 6, 8, 9, 10, 13 and 14 compare training steps whose second run replays
+15. the grid baselines at their published widths and depths (seeded
+   random weights): Swin-B-384 (MaskFormerSwin: the Swin backbone, the grid
+   deformable pixel decoder, the grid attention mask) at 640x640 and
+   Mask2Former-R50 (the ResNet under the point-cloud pixel decoder) at
+   512x512: a forward of each (Swin-B at batch 2; the R50 at batch 4
+   against the plain versions, replaying the choices), the kernels on the
+   operands of a real step of each (the R50's K3, K4 and K9 on full-grid
+   levels of 4096, 1024 and 256 tokens; K10 on Swin-B's 160x160 logits and
+   640x640 targets, K11 ranking its 160-wide masks; K12, K13), 3 Swin-B
+   steps at its published batch of 2 and 2 R50 steps at batch 8, each
+   replayed through the plain versions, and test() over ADE20K-shaped
+   images at short edge 640 (one wider than 2048) and 512, with launches
+   per forward, step and test image, ms, peak memory, device busy and
+   images/s.
+
+Phases 6, 8, 9, 10, 13, 14 and 15 compare training steps whose second run replays
 the first run's discrete choices (same_choices), held to LOSS_RTOL and
 GROUP_NORM_RTOL.
 
@@ -2082,12 +2098,13 @@ class same_choices:
                              f"{low} of their elements (floors {CHOICE_AGREE_MIN})")
 
 
-def check_forward(label, out, ref, book):
-    """A batch-4 forward's outputs through the kernels against the plain
+def check_forward(label, out, ref, book, b=BATCH, size=SIZE):
+    """A batch-`b` forward's outputs through the kernels against the plain
     run's, which replayed the kernel run's choices (`book`)."""
     import torch
 
-    for key, shape in (("pred_logits", (BATCH, 100, 151)), ("pred_masks", (BATCH, 100, 128, 128))):
+    for key, shape in (("pred_logits", (b, 100, 151)),
+                       ("pred_masks", (b, 100, size // 4, size // 4))):
         a, r = out[key], ref[key]
         if tuple(a.shape) != shape or not torch.isfinite(a).all():
             raise SystemExit(f"{label} {key}: shape {tuple(a.shape)} (expected {shape}) or "
@@ -2230,20 +2247,31 @@ def replay_step(label, model, cfg, batch, draw):
     GROUP_NORM_RTOL, and that every parameter the plain step gives a
     gradient gets one through the kernels.  Where the plain run does not
     fit the card, both runs are made again on the first half of the batch,
-    and the log says so.  The weights are restored and the gradients
-    cleared after.  -> (batch used, kernels' ms, plain ms, kernels' peak
-    GiB, plain peak GiB), each the first call of its path."""
+    and the log says so.  DropPath's generators start each run from the
+    same state, so both drop the same branches.  The weights and those
+    generators are restored and the gradients cleared after.  -> (batch
+    used, kernels' ms, plain ms, kernels' peak GiB, plain peak GiB), each
+    the first call of its path."""
     import contextlib
     import copy
 
     import torch
     from autofocusformermod_torch.engine.train_step import TrainStep
+    from autofocusformermod_torch.models.layers import DropPath
     from autofocusformermod_torch.ops.dispatch import plain_versions
 
     initial = copy.deepcopy(model.state_dict())
+    gens = {id(m.generator): m.generator for m in model.modules()
+            if isinstance(m, DropPath) and m.generator is not None}
+    gen_states = {k: g.get_state() for k, g in gens.items()}
+
+    def restore():
+        model.load_state_dict(initial)
+        for k, g in gens.items():
+            g.set_state(gen_states[k])
 
     def run(part, plain, book):
-        model.load_state_dict(initial)
+        restore()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
@@ -2272,7 +2300,7 @@ def replay_step(label, model, cfg, batch, draw):
             log(f"  {label}: the plain versions' step does not fit the card at batch {n}; "
                 f"replayed at batch {n // 2}")
             n //= 2
-    model.load_state_dict(initial)
+    restore()
     model.zero_grad(set_to_none=True)
     worst = max(abs(k_terms[k] - p_terms[k]) / max(abs(p_terms[k]), 1e-6) for k in p_terms)
     group = {g: abs(k_norms[g] - p_norms[g]) / max(p_norms[g], 1e-12) for g in p_norms}
@@ -4680,6 +4708,259 @@ def panoptic_instance_phase(dev, smi, gen, counters, pan_opts=(), inst_opts=(),
     return phase_launches, paths
 
 
+# the grid baselines' phase (15): Swin-B-384 at its published 640x640 crops
+# and batch per GPU (SOLVER.IMS_PER_BATCH 16 over 8 GPUs), Mask2Former-R50
+# at 512x512; ADE20K-shaped test() pairs, the second wider than 2048 once
+# its short edge is 640
+GRID_SWIN, GRID_SWIN_BATCH, GRID_SWIN_STEPS = "swin_base_384_res640", 2, 3
+GRID_R50, GRID_R50_STEPS = "r50", 2
+GRID_EVAL_SIZES = ((512, 683), (480, 1600), (640, 480))
+
+
+def grid_launches(cfg, step: bool, size: int) -> dict:
+    """Every kernel's launches in one forward (step False) or one training
+    step of a grid baseline, from the config.  The R50's point-cloud pixel
+    decoder: an msdetrpc per encoder layer and transformer level, knn for
+    each level's 4-NN table and the FPN's Shepard upsample (its PointConv
+    takes the dense-grid route: no knn); the Swin's grid pixel decoder and
+    its grid attention mask launch nothing.  A step adds the backwards of
+    those msdetrpc calls and the criterion's: K10 on the targets and the
+    matched logits and the logits' backward, the ranking read through K12
+    where the stratified route's rule takes the size / 4 wide masks and
+    through K11 elsewhere, one K13 solve."""
+    from autofocusformermod_torch.losses import point_sample as sampler
+    from autofocusformermod_torch.ops.point_sample import point_sample_nearest_rows_supported
+
+    head = cfg.MODEL.SEM_SEG_HEAD
+    msdetrpc = knn_calls = 0
+    if cfg.MODEL.META_ARCHITECTURE == "MaskFormer":
+        levels = len(head.DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES)
+        msdetrpc, knn_calls = head.TRANSFORMER_ENC_LAYERS * levels, levels + 1
+    fwd = {"msdetrpc": msdetrpc, "knn": knn_calls}
+    if not step:
+        return fwd
+    mf, side = cfg.MODEL.MASK_FORMER, size // 4
+    rows = int(sampler.STRATIFY_RANKING and point_sample_nearest_rows_supported(
+        side, side, int(mf.TRAIN_NUM_POINTS * mf.OVERSAMPLE_RATIO)))
+    return {**fwd, "msdetrpc_bwd": msdetrpc, "point_sample": 2, "point_sample_bwd": 1,
+            "point_sample_nearest": 1 - rows, "point_sample_nearest_rows": rows, "lapjv": 1}
+
+
+def hold_grid_step_operands(label, model, cfg, batch, gen, paths):
+    """K4 (R50), K10 (each route the masks give), the ranking's read (K11 or
+    K12) and K13 on the operands of one real step, each against its plain
+    version; records into paths[kernel][label]."""
+    import torch
+    from autofocusformermod_torch.losses.criterion import device_draw
+    from autofocusformermod_torch.ops import point_sample as ops_ps
+
+    ops = path_maskfiner_step_operands(model, cfg, batch,
+                                       device_draw(torch.Generator(device=batch["image"].device)
+                                                   .manual_seed(SEED)))
+    if ops.pop("local_attn_bwd"):
+        raise SystemExit(f"{label}: a grid baseline's step called the local_attn backward")
+    md = ops.pop("msdetrpc_bwd")
+    if md:
+        paths.setdefault("msdetrpc_bwd", {})[label] = msdetrpc_bwd_calls(label, md, gen)
+    del md
+    torch.cuda.empty_cache()
+    groups = ops.pop("point_sample")
+    paths.setdefault("point_sample", {})[label] = summed({
+        "x".join(map(str, g["logits"][0].shape[-2:])): point_sample_calls(
+            f"{label} {tuple(g['logits'][0].shape[-2:])}", g, gen) for g in groups.values()})
+    del groups
+    torch.cuda.empty_cache()
+    for name in ("point_sample_nearest", "point_sample_nearest_rows"):
+        for masks, *args in ops.pop(name):
+            paths.setdefault(name, {})[label] = hold_nearest(
+                f"{label} w{masks.shape[-1]}", getattr(ops_ps, name), masks, args)
+    paths.setdefault("lapjv", {})[label] = lapjv_costs(label, ops.pop("lapjv")[0][0])
+    del ops
+    torch.cuda.empty_cache()
+
+
+def grid_baselines_phase(dev, smi, gen, counters, swin_opts=(), r50_opts=(),
+                         eval_sizes=GRID_EVAL_SIZES):
+    """Phase 15: the grid baselines at their published widths and depths,
+    seeded random weights.  For Swin-B-384 (GRID_SWIN, 640x640) and the R50
+    (GRID_R50, 512x512) each: a forward (Swin-B at batch GRID_SWIN_BATCH,
+    the R50 at BATCH and held against the plain run with its choices
+    replayed: check_forward), the kernels of one real step on its own
+    operands (hold_grid_step_operands; the R50's forward's K3 and K9 too),
+    training steps (Swin-B GRID_SWIN_STEPS at batch GRID_SWIN_BATCH, the
+    R50 GRID_R50_STEPS at TRAIN_BATCH) each replayed through the plain
+    versions (replay_step) and then taken through the kernels by the
+    Trainer's step, and Trainer.test() over ADE20K-shaped images (short edge
+    640 and 512 after the mapper) with launches and ms per image; launches
+    against grid_launches, ms per step, peak GiB, device busy share,
+    images/s.  Returns ({kernel: {path: record}}, {counter: launches of the
+    phase's runs through the kernels})."""
+    import tempfile
+
+    import torch
+    from autofocusformermod_torch.config import PRESETS, train_image_size
+    from autofocusformermod_torch.data.synthetic import synthetic_batches
+    from autofocusformermod_torch.engine.train import Trainer
+    from autofocusformermod_torch.losses.criterion import device_draw
+    from autofocusformermod_torch.models.maskformer import init_random_weights
+    from autofocusformermod_torch.ops.build import BUILD_DIR
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.point_sample import point_sample_backward, point_sample_bilinear
+
+    paths, total = {}, dict.fromkeys(counters, 0)
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def draw(i):
+        return device_draw(torch.Generator(device=dev).manual_seed(SEED + i))
+
+    def expect(label, got, want):
+        want = {n: want.get(n, 0) for n in counters}
+        if got != want:
+            raise SystemExit(f"{label}: launched {got}, expected {want}")
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pairs = eval_dataset(eval_sizes)
+    for preset, opts, b_fwd, b_step, n_steps in (
+            (GRID_SWIN, swin_opts, GRID_SWIN_BATCH, GRID_SWIN_BATCH, GRID_SWIN_STEPS),
+            (GRID_R50, r50_opts, BATCH, TRAIN_BATCH, GRID_R50_STEPS)):
+        # a Trainer made within watch_eval keeps its pad-fringe hook for test()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR.parent, prefix="grid_") as tmp, \
+                semantic_files(pairs), watch_eval(counters) as watch:
+            cfg = PRESETS[preset]()
+            cfg.merge_from_list([*opts, "SOLVER.IMS_PER_BATCH", str(b_step), "OUTPUT_DIR", tmp,
+                                 "DATASETS.TEST", f"('{EVAL_NAMES[1]}',)"])
+            size = train_image_size(cfg)[0]
+            trainer = Trainer(cfg, dev)
+            model = trainer.model
+            init_random_weights(model, torch.Generator().manual_seed(SEED))
+            n_params = sum(p.numel() for p in model.parameters())
+            fwd_want, step_want = grid_launches(cfg, False, size), grid_launches(cfg, True, size)
+            log(f"  {preset}: {cfg.MODEL.META_ARCHITECTURE}, {cfg.MODEL.BACKBONE.NAME}, "
+                f"{n_params / 1e6:.2f}M parameters, {size}x{size}; launches expected per forward "
+                f"{fwd_want}, per step {step_want}")
+
+            # the forward
+            images = torch.randint(0, 256, (b_fwd, size, size, 3), generator=gen,
+                                   dtype=torch.uint8).to(dev)
+            model.eval()
+            with torch.no_grad():
+                reset()
+                book = {}
+                with same_choices(book, record=True):
+                    out, first_ms, got = counted_call(counters, lambda: model(images))
+                expect(f"{preset} forward", got, fwd_want)
+                for name, n in got.items():
+                    total[name] += n
+                _, fwd_ms, _ = counted_call(counters, lambda: model(images))
+                if preset == GRID_R50:
+                    with same_choices(book, record=False), plain_versions():
+                        ref = model(images)
+                    check_forward(f"{preset} forward", out, ref, book, b_fwd, size)
+                    del ref
+                else:
+                    shape = (b_fwd, 100, size // 4, size // 4)
+                    if tuple(out["pred_masks"].shape) != shape or not all(
+                            torch.isfinite(out[k]).all() for k in ("pred_logits", "pred_masks")):
+                        raise SystemExit(f"{preset} forward: masks {tuple(out['pred_masks'].shape)}"
+                                         f" (expected {shape}) or non-finite outputs")
+                busy, rows = device_busy(lambda: model(images), runs=2)
+                if preset == GRID_R50:
+                    fwd_ops = path_forward_operands(model, images[:1])
+                    for name, check in (("msdetrpc", check_msdetrpc), ("knn", check_knn)):
+                        paths.setdefault(name, {})[f"{preset}_forward"] = check(
+                            f"{preset} forward", fwd_ops[name])
+                    del fwd_ops
+            log(f"  {preset} forward, batch {b_fwd}: {fwd_ms:.1f} ms (first {first_ms:.1f}), "
+                f"{b_fwd / fwd_ms * 1e3:.2f} images/s; device busy {busy:.2f} ms in {rows:.0f} "
+                f"rows ({busy / fwd_ms:.0%}); launches {got} ({smi})")
+            del images, out, book
+            torch.cuda.empty_cache()
+
+            # the kernels on one real step's operands, then the steps
+            model.train()
+            batches = synthetic_batches(cfg, dev)
+            hold_grid_step_operands(f"{preset}_step", model, cfg, next(batches), gen, paths)
+            times, peaks = [], []
+            for i in range(n_steps):
+                batch = next(batches)
+                used, _, p_ms, _, p_peak = replay_step(f"{preset} step {i + 1}", model, cfg, batch,
+                                                       lambda: draw(i + 1))
+                by_route = [dict(fn.launches_by_route)
+                            for fn in (point_sample_bilinear, point_sample_backward)]
+                reset()
+                torch.cuda.reset_peak_memory_stats()
+                metrics, ms, got = counted_call(counters, lambda: trainer.step_fn(batch, draw(i + 1)))
+                times.append(ms)
+                peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+                by_route = [{r: fn.launches_by_route[r] - n[r] for r in n} for fn, n in
+                            zip((point_sample_bilinear, point_sample_backward), by_route)]
+                for name, n in got.items():
+                    total[name] += n
+                log(f"  {preset} step {i + 1} through the kernels at batch {b_step}: {ms:.1f} ms, "
+                    f"peak {peaks[-1]:.2f} GiB, total loss {metrics['total_loss'].item():.6f}, "
+                    f"grad_norm {metrics['grad_norm'].item():.5f}; point_sample by route: forward "
+                    f"{by_route[0]}, backward {by_route[1]}; the plain step (batch {used}) "
+                    f"{p_ms:.1f} ms, peak {p_peak:.2f} GiB")
+                expect(f"{preset} step {i + 1}", got, step_want)
+                if by_route[1]["direct"] or not by_route[0]["direct"]:
+                    raise SystemExit(f"{preset} step {i + 1}: point_sample took {by_route}; the "
+                                     f"{size}x{size} targets belong to the direct route, the "
+                                     "logits' backward to the shared one")
+                if len(metrics) != 2 + 3 * cfg.MODEL.MASK_FORMER.DEC_LAYERS or not all(
+                        torch.isfinite(v).all() for v in metrics.values()):
+                    raise SystemExit(f"{preset} step {i + 1}: {len(metrics)} metrics, or non-finite")
+                del batch
+            ms = statistics.median(times[1:]) if len(times) > 1 else times[0]
+
+            def one_step():
+                trainer.step_fn(next(batches), draw(0))
+                torch.cuda.synchronize()
+
+            reset()
+            busy, rows = device_busy(one_step, runs=1)
+            for name, c in counters.items():
+                total[name] += c.launches
+            log(f"  {preset} ms per step at batch {b_step} (median of steps 2-{n_steps}): "
+                f"{ms:.1f} = {b_step / ms * 1e3:.2f} images/s, peak {max(peaks):.2f} GiB; device "
+                f"busy {busy:.2f} ms per step in {rows:.0f} rows ({busy / ms:.0%} of the step) "
+                f"({smi})")
+            del batches
+            torch.cuda.empty_cache()
+
+            # test() over the ADE20K-shaped images
+            reset()
+            t0 = time.time()
+            results = trainer.test()
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            for name, c in counters.items():
+                total[name] += c.launches
+            miou = results[EVAL_NAMES[1]]["mIoU"]
+            inputs = [rec["input"] for rec in watch.images]
+            log(f"  {preset} test() on {len(watch.images)} images: {dt:.2f} s = "
+                f"{len(watch.images) / dt:.2f} images/s, mIoU {miou:.4f}; ms per image by padded "
+                f"input {ms_by_size(watch.images)}; launches per image "
+                f"{[rec['launches'] for rec in watch.images]} ({smi})")
+            if len(watch.images) != len(eval_sizes) or not math.isfinite(miou):
+                raise SystemExit(f"{preset} test(): {len(watch.images)} images, mIoU {miou}")
+            if watch.fringe[1] or not watch.fringe[0]:
+                raise SystemExit(f"{preset} test(): {watch.fringe[1]} of {watch.fringe[0]} pad "
+                                 "pixels of the model's input are not the rounded pixel mean")
+            for rec in watch.images:
+                expect(f"{preset} test() image {rec['input']}", rec["launches"], fwd_want)
+            short = cfg.INPUT.MIN_SIZE_TEST
+            if min(min(hw) for hw in inputs) < short or (
+                    preset == GRID_SWIN and max(hw[1] for hw in inputs) <= 2048):
+                raise SystemExit(f"{preset} test(): padded inputs {inputs}; short edges of "
+                                 f"{short}, one wider than 2048 expected")
+            del trainer, model, watch
+            torch.cuda.empty_cache()
+    return paths, total
+
+
 def main() -> int:
     import torch
 
@@ -4966,6 +5247,21 @@ def main() -> int:
             kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
     torch.cuda.empty_cache()
 
+    log(f"phase 15: the grid baselines: {GRID_SWIN} at 640x640 (a batch-{GRID_SWIN_BATCH} "
+        f"forward, {GRID_SWIN_STEPS} steps at batch {GRID_SWIN_BATCH}) and {GRID_R50} at "
+        f"{SIZE}x{SIZE} (a batch-{BATCH} forward against the plain versions, {GRID_R50_STEPS} "
+        f"steps at batch {TRAIN_BATCH}), each step replayed through the plain versions, the "
+        f"kernels on their own operands, test() on {len(GRID_EVAL_SIZES)} ADE20K-shaped images")
+    grid_paths, grid_launches_ = grid_baselines_phase(dev, smi, gen,
+                                                      {**train_counters, **layout_counters})
+    for kr in kernels:
+        for path, rec in grid_paths.get(kr["name"], {}).items():
+            kr.setdefault("by_path", {"b8_uniform": {k: kr[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
+            kr["by_path"][path] = rec
+            kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
+    torch.cuda.empty_cache()
+
     for kr in kernels:
         names = [kr["name"]] + (["point_sample_bwd"] if kr["name"] == "point_sample" else [])
         kr["inference_launches"] = inference_launches.get(kr["name"], 0)
@@ -4984,11 +5280,13 @@ def main() -> int:
         kr["maskfiner_step_launches"] = sum(mft_launches.get(n, 0) for n in names)
         # phase 14: the panoptic and instance runs' steps and test()
         kr["panoptic_instance_launches"] = sum(pi_launches.get(n, 0) for n in names)
+        # phase 15: the grid baselines' forwards, steps and test()
+        kr["grid_launches"] = sum(grid_launches_.get(n, 0) for n in names)
         kr["launches"] = (kr["inference_launches"] + kr["mini_step_launches"]
                           + kr["small_run_launches"] + kr["layouts_launches"]
                           + kr["mini15_launches"] + kr["maskfiner_launches"]
                           + kr["eval_launches"] + kr["maskfiner_step_launches"]
-                          + kr["panoptic_instance_launches"])
+                          + kr["panoptic_instance_launches"] + kr["grid_launches"])
         if kr["launches"] < 1:
             raise SystemExit(f"{kr['name']}: never launched on a main path")
     if len(kernels) != 14:
