@@ -1,5 +1,6 @@
-"""Yaml-free presets of the published AFF-Mini, AFF-Mini-1/5, AFF-Small and
-MaskFiner-Mini models (ADE20K semantic), of AFF-Mini for Cityscapes
+"""Yaml-free presets of the published AFF-Mini, AFF-Mini-1/5, AFF-Small,
+MaskFiner-Mini, MaskFiner-UpDown-Mini and MaskFiner-OracleTeacher-BB
+models (ADE20K semantic), of AFF-Mini for Cityscapes
 panoptic and COCO instance segmentation, and of the grid baselines
 Mask2Former-R50, Swin-T and Swin-B-384 at 640 (ADE20K semantic).
 
@@ -319,6 +320,83 @@ def maskfiner_mini_cfg(num_classes: int = 150) -> Cfg:
     })
 
 
+def maskfiner_updown_mini_cfg(num_classes: int = 150) -> Cfg:
+    """MaskFiner-UpDown-Mini (MaskFinerOracleTeacherBB), ADE20K semantic
+    segmentation at 512x512 (``configs/ade20k/semantic-segmentation/
+    maskfiner/maskfiner_updown_mini_bs32_80k.yaml`` over the bases of
+    ``maskfiner_mini_cfg``): an UpDownBackbone of 7 MixRes stages (patches
+    32, 16, 8, 4 down and 8, 16, 32 up; 85, 70 and 60 % of the newest
+    scale's tokens split), the final stage's pixel decoder over res2-res5
+    and the dense OracleTeacher decoder; the upsampling loss at weight 10,
+    no oracle teaching (ORACLE_TEACHER_RATIO 0); fp32."""
+    cfg = maskfiner_mini_cfg(num_classes)
+    cfg.MODEL.META_ARCHITECTURE = "MaskFinerOracleTeacherBB"
+    cfg.MODEL.BACKBONE.NAME = "UpDownBackbone"
+    cfg.MODEL.SEM_SEG_HEAD.NAME = "MaskFinerOTHead"
+    cfg.MODEL.MR.update({
+        "NAME": ["MixResViT"] + ["MixResNeighbour"] * 5 + ["MixResViT"],
+        "EMBED_DIM": [256, 192, 128, 64, 128, 192, 256],
+        "DEPTHS": [1, 1, 1, 4, 2, 8, 2],
+        "NUM_HEADS": [8, 6, 4, 2, 4, 6, 8],
+        "PATCH_SIZES": [32, 16, 8, 4, 8, 16, 32],
+        "DROP_RATE": [0.0] * 7,
+        "DROP_PATH_RATE": 0.0,
+        "ATTN_DROP_RATE": [0.0] * 7,
+        "UPSCALE_RATIO": [0.0, 0.85, 0.7, 0.6, 0.0, 0.0, 0.0],
+        "SPLIT_RATIO": [4] * 7,
+        "MLP_RATIO": [2.0] * 7,
+        "CLUSTER_SIZE": [8] * 7,
+        "NBHD_SIZE": [48] * 7,
+    })
+    cfg.MODEL.MR_SEM_SEG_HEAD.update({
+        "NAME": "MaskPredictorOracleTeacher",
+        "IGNORE_VALUE": 255,
+        "PIXEL_DECODER_NAME": ["ProjMaskFinerOracleTeacher"] * 3
+                              + ["MSDeformAttnPixelDecoderMaskFiner"],
+        "CONVS_DIM": [256, 256, 256, 256],
+        "TRANSFORMER_ENC_LAYERS": [2, 2, 4, 6],
+        "NHEADS": [8, 8, 8, 8],
+    })
+    cfg.MODEL.MASK_FINER.update({
+        "TRANSFORMER_DECODER_NAME": "MultiScaleMaskFinerTransformerDecoderOracleTeacher",
+        "DECODER_LEVELS": [1, 2, 3, 3],
+        "DEC_LAYERS": [3, 3, 4, 10],
+        "DIM_FEEDFORWARD": [1024, 1024, 1024, 2048],
+        "HIDDEN_DIM": [256, 256, 256, 256],
+        "MASK_DIM": [256, 256, 256, 256],
+        "NHEADS": [8, 8, 8, 8],
+        "ORACLE_TEACHER_RATIO": 0.0,
+        "UPSAMPLING_WEIGHT": 10,
+    })
+    return cfg
+
+
+def maskfiner_oracle_teacher_bb_cfg(num_classes: int = 150) -> Cfg:
+    """MaskFinerOracleTeacherBB with the down-only OracleTeacherBackbone
+    (``configs/ade20k/semantic-segmentation/maskfiner/
+    maskfiner_oracle_teacher_bb_bs32_80k.yaml``): 4 MixRes stages of depths
+    5, 17, 5 and 4 under a DropPath ramp to 0.3, every resolution read from
+    the last stage; the head of ``maskfiner_updown_mini_cfg``."""
+    cfg = maskfiner_updown_mini_cfg(num_classes)
+    cfg.MODEL.BACKBONE.NAME = "OracleTeacherBackbone"
+    cfg.MODEL.MR.update({
+        "NAME": ["MixResViT"] + ["MixResNeighbour"] * 3,
+        "EMBED_DIM": [512, 256, 128, 64],
+        "DEPTHS": [5, 17, 5, 4],
+        "NUM_HEADS": [16, 8, 4, 2],
+        "PATCH_SIZES": [32, 16, 8, 4],
+        "DROP_RATE": [0.0] * 4,
+        "DROP_PATH_RATE": 0.3,
+        "ATTN_DROP_RATE": [0.0] * 4,
+        "UPSCALE_RATIO": [0.0, 0.85, 0.7, 0.6],
+        "SPLIT_RATIO": [4] * 4,
+        "MLP_RATIO": [3.0] * 4,
+        "CLUSTER_SIZE": [8] * 4,
+        "NBHD_SIZE": [48] * 4,
+    })
+    return cfg
+
+
 def _aff_mini_task_cfg(num_classes: int, nodes: Dict[str, Any], weights: str,
                        mask_former_test: Dict[str, Any]) -> Cfg:
     """AFF-Mini + Mask2Former with another task's dataset, input and test
@@ -496,6 +574,8 @@ def train_image_size(cfg) -> tuple:
 
 PRESETS = {"aff_mini": aff_mini_cfg, "aff_mini_15": aff_mini_15_cfg, "aff_small": aff_small_cfg,
            "maskfiner_mini": maskfiner_mini_cfg,
+           "maskfiner_updown_mini": maskfiner_updown_mini_cfg,
+           "maskfiner_oracle_teacher_bb": maskfiner_oracle_teacher_bb_cfg,
            "aff_mini_cityscapes_panoptic": aff_mini_cityscapes_panoptic_cfg,
            "aff_mini_coco_instance": aff_mini_coco_instance_cfg, "r50": r50_cfg,
            "swin_tiny": swin_tiny_cfg, "swin_base_384_res640": swin_base_384_res640_cfg}

@@ -27,6 +27,10 @@ import torch
 # flax module path (dotted) -> reference name, applied in order
 _RULES = (
     (r"^mask_predictors_(\d+)", r"mask_predictors.\1"),
+    # the UpDownBackbone's stages, upsampling heads and up-pass projections
+    (r"^backbone\.(backbones|upsamplers|up_token_norm|up_token_projection)_(\d+)",
+     r"backbone.\1.\2"),
+    (r"\.upsamplers\.(\d+)\.layers_(\d+)_(linear|norm)$", r".upsamplers.\1.layers.\2.\3"),
     # the R50 (detectron2 names)
     (r"^backbone\.stem_conv1", r"backbone.stem.conv1"),
     (r"^backbone\.res(\d)_(\d+)", r"backbone.res\1.\2"),

@@ -11,12 +11,13 @@ reads DATASETS.TRAIN through the mapper INPUT.DATASET_MAPPER_NAME names
 ``test()`` scores each of DATASETS.TEST by its metadata's evaluator_type:
 semantic (mIoU), panoptic (PQ) or instance (COCO, Cityscapes or LVIS mask
 AP), one evaluator per dataset.  Every meta-architecture of
-``models/registry.py`` (MaskFormer and the MaskFiner cascade) trains and
-evaluates.
+``models/registry.py`` (MaskFormer, MaskFormerSwin, the MaskFiner cascade
+and the OracleTeacher-BB cascades) trains and evaluates.
 
-Randomness: the weights are initialised under cfg.SEED, and two generators
-on the device -- the criterion's (cfg.SEED + 1) and DropPath's (cfg.SEED +
-2) -- carry the run's streams.  A checkpoint holds their states with the
+Randomness: the weights are initialised under cfg.SEED, and generators on
+the device -- the criterion's (cfg.SEED + 1), DropPath's (cfg.SEED + 2)
+and, for the OracleTeacher cascades, the teacher's (cfg.SEED + 3) -- carry
+the run's streams.  A checkpoint holds their states with the
 model's (parameters and BatchNorm statistics), the optimizer's and the
 schedule's, so a resumed run continues the stream the interrupted one left.
 The data loader's order is not in the checkpoint: a resumed run reads other
@@ -86,6 +87,11 @@ class Trainer:
             "drop_path": torch.Generator(device=self.device).manual_seed(cfg.SEED + 2)}
         self.draw = device_draw(self.generators["criterion"])
         self.model.set_drop_path_generator(self.generators["drop_path"])
+        if hasattr(self.model, "set_oracle_generator"):
+            # the OracleTeacher cascades' teacher draws
+            self.generators["oracle"] = torch.Generator(device=self.device).manual_seed(
+                cfg.SEED + 3)
+            self.model.set_oracle_generator(self.generators["oracle"])
         self.checkpointer = Checkpointer(os.path.join(cfg.OUTPUT_DIR, "checkpoints"))
         self.logger = MetricLogger(cfg.OUTPUT_DIR, wandb_name=wandb_name)
         self.start_step = 0
@@ -256,11 +262,12 @@ class Trainer:
 
     def _padded_scores(self, image: np.ndarray) -> torch.Tensor:
         """(nc, h, w) class scores of an (h, w, 3) image: padded, through the
-        model (window by window where TEST.SW_ENABLED), cropped."""
+        model (window by window where TEST.SW_ENABLED, and always for
+        MaskFinerOracleTeacherSW), cropped."""
         cfg = self.cfg
         h, w = image.shape[:2]
         padded = self._pad_eval_image(image)
-        if cfg.TEST.SW_ENABLED:
+        if cfg.TEST.SW_ENABLED or meta_architecture(cfg) == "MaskFinerOracleTeacherSW":
             sem = sliding_window_semantic_scores(self._scores, padded, cfg.TEST.SW_CROP_SIZE,
                                                  cfg.TEST.SW_STRIDE)
         else:

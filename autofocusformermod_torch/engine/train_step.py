@@ -7,7 +7,11 @@ device, fp32: ``make_train_step`` for a MaskFormer, and
 runs over the last stage's outputs and every stage's rounds (19 outputs
 for MaskFiner-Mini, at one mask size per stage) with the loss weights of
 MODEL.MASK_FINER and the classes of MODEL.MR_SEM_SEG_HEAD, as the JAX
-benchmark and the upstream meta-architecture read them.
+benchmark and the upstream meta-architecture read them.  The
+OracleTeacher-BB cascades also take the label map as ``sem_seg_gt`` and add
+MODEL.MASK_FINER.UPSAMPLING_WEIGHT times ``loss_upsampling``, the mean
+squared error of the backbone's upsampling scores against the GT-edge
+oracle (``make_maskfiner_train_step(needs_sem_seg_gt=True)``).
 ``TrainStep(model, cfg)`` builds the optimizer; ``step(batch, draw)``
 takes one step and returns the metrics the JAX step returns:
 ``total_loss``, every loss term and ``grad_norm`` (before clipping).
@@ -23,6 +27,7 @@ import torch
 from torch import nn
 
 from ..losses.criterion import Draw, set_criterion
+from ..models.oracle import upsampling_mse_loss
 from ..models.registry import meta_architecture
 from .optimizer import build_optimizer, clip_by_global_norm_, global_norm
 
@@ -40,12 +45,19 @@ def device_masks(batch: Dict) -> torch.Tensor:
     return (eq & batch["valid"][:, :, None, None]).float()
 
 
+def needs_sem_seg_gt(cfg) -> bool:
+    """Whether the model takes the label map in training: the
+    OracleTeacher-BB cascades, whose backbone is supervised by the GT-edge
+    oracle."""
+    return meta_architecture(cfg).startswith("MaskFinerOracleTeacher")
+
+
 def criterion_config(cfg) -> Tuple:
     """(the node of the loss weights and point counts, the class count) of
     the configured meta-architecture: MODEL.MASK_FINER and
-    MODEL.MR_SEM_SEG_HEAD for the cascade, else MODEL.MASK_FORMER and
-    MODEL.SEM_SEG_HEAD."""
-    if meta_architecture(cfg) == "MaskFiner":
+    MODEL.MR_SEM_SEG_HEAD for every MaskFiner cascade, else
+    MODEL.MASK_FORMER and MODEL.SEM_SEG_HEAD."""
+    if meta_architecture(cfg).startswith("MaskFiner"):
         return cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD.NUM_CLASSES
     return cfg.MODEL.MASK_FORMER, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
 
@@ -55,8 +67,9 @@ class TrainStep:
     batch: ``step(batch, draw)``.
 
     batch: {'image': (b, H, W, 3) uint8 or float RGB, 'sem_seg_map': (b, H,
-    W) int, 'labels': (b, t) int, 'valid': (b, t) bool}, all on the model's
-    device; a batch that ships 'masks' (b, t, H, W) is trained on those."""
+    W) int (255: void), 'labels': (b, t) int, 'valid': (b, t) bool}, all on
+    the model's device; a batch that ships 'masks' (b, t, H, W) is trained
+    on those."""
 
     def __init__(self, model: nn.Module, cfg):
         self.model = model
@@ -67,6 +80,8 @@ class TrainStep:
             mask_weight=mf.MASK_WEIGHT, dice_weight=mf.DICE_WEIGHT,
             num_points=mf.TRAIN_NUM_POINTS, oversample_ratio=mf.OVERSAMPLE_RATIO,
             importance_sample_ratio=mf.IMPORTANCE_SAMPLE_RATIO)
+        self.with_sem_seg_gt = needs_sem_seg_gt(cfg)
+        self.upsampling_weight = float(mf.UPSAMPLING_WEIGHT) if self.with_sem_seg_gt else 0.0
         clip = cfg.SOLVER.CLIP_GRADIENTS
         full = clip.ENABLED and clip.CLIP_TYPE == "full_model" and clip.CLIP_VALUE > 0
         self.clip_value = clip.CLIP_VALUE if full else None
@@ -79,15 +94,18 @@ class TrainStep:
         set (zeros where no loss reaches it, as jax.grad gives).  Returns
         (total, loss terms, matched query per target of each layer)."""
         self.model.train()
-        outputs = self.model(batch["image"])
-        if outputs.get("upsampling_preds"):
-            raise NotImplementedError(
-                "the upsampling loss (MODEL.MASK_FINER.UPSAMPLING_WEIGHT x upsampling_mse_loss) "
-                "of the OracleTeacher cascades is not ported (ROADMAP.md section 1 item 7.4)")
+        if self.with_sem_seg_gt:
+            outputs = self.model(batch["image"], batch["sem_seg_map"])
+        else:
+            outputs = self.model(batch["image"])
         targets = {"labels": batch["labels"], "masks": device_masks(batch),
                    "valid": batch["valid"]}
         total, losses, matched = set_criterion(outputs, targets, self.num_classes, draw,
                                                **self.criterion)
+        if outputs.get("upsampling_preds"):
+            losses["loss_upsampling"] = upsampling_mse_loss(outputs["upsampling_preds"],
+                                                            outputs["upsampling_oracles"])
+            total = total + self.upsampling_weight * losses["loss_upsampling"]
         self.model.zero_grad(set_to_none=True)
         total.backward()
         for p in self.parameters():

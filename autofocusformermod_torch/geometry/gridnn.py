@@ -65,13 +65,21 @@ def _window_knn(query: torch.Tensor, h: int, w: int, half: int, k: int,
     return torch.gather(tok, -1, order), torch.gather(d2, -1, order)
 
 
+def grid_shepard_neighbours(query: torch.Tensor, h: int, w: int, power=3.0):
+    """The 4 nearest cells of the raster-ordered h x w grid (token == cell)
+    to each query (b, n, 2) and their Shepard weights -> (nn_idx (b, n, 4),
+    weights (b, n, 4)), for ``weighted_gather``; several features
+    interpolated at the same queries share them."""
+    nn_idx, d2 = _window_knn(query, h, w, 1, 4, identity_lut=True)
+    return nn_idx, shepard_decay_weights(d2, power=power)
+
+
 def grid_shepard_upsample(query: torch.Tensor, feature: torch.Tensor, h: int, w: int,
                           power=3.0) -> torch.Tensor:
     """Shepard interpolation (k=4) of ``feature`` given on the raster-ordered
     h x w grid (token == cell) at ``query``; the same result as
     upsample_feature_shepard against the grid positions."""
-    nn_idx, d2 = _window_knn(query, h, w, 1, 4, identity_lut=True)
-    return weighted_gather(nn_idx, shepard_decay_weights(d2, power=power), feature)
+    return weighted_gather(*grid_shepard_neighbours(query, h, w, power), feature)
 
 
 def grid_neighbors9(pos: torch.Tensor, h: int, w: int) -> torch.Tensor:

@@ -14,10 +14,15 @@ attention masks and rasterized masks Shepard-upsample the mask logits from
 the mask features' positions; the neighbours and weights of each pair of
 point sets are found once per forward (``shepard_neighbours``) where the
 JAX module calls ``upsample_feature_shepard`` in every round and leaves the
-repeats to XLA.  Ported: the ``relu`` pixel decoder without HierUp, and the
-decoder without dense mask features and without concatenated levels; the
-OracleTeacher, HierUp, Cat and Proj variants, ConvNeXtV2 stages and the
-eval-time dynamic split ratios raise (ROADMAP.md section 1).
+repeats to XLA.  The dense (OracleTeacher) decoder paints the mask features
+onto the finest grid (``hierarchical_upsample_dense``) and gives no
+disagreement; the OracleTeacher-BB cascades
+(``models/meta_arch_variants.py``) build their one head with
+``build_stage_pixel_decoder`` and ``build_stage_mask_decoder``.  Ported: the
+``relu`` pixel decoder without HierUp, and the decoder with or without
+dense mask features, without concatenated levels; the OracleTeacher
+predictor, the lrelu, HierUp, Cat and Proj variants, ConvNeXtV2 stages and
+the eval-time dynamic split ratios raise (ROADMAP.md section 1).
 """
 
 from __future__ import annotations
@@ -27,10 +32,12 @@ from typing import Dict, List, Sequence
 import torch
 from torch import nn
 
+from ..geometry.gridnn import grid_shepard_neighbours
 from ..geometry.knn import knn
 from ..geometry.rasterize import point2img
 from ..geometry.shepard import shepard_neighbours, upsample_feature_shepard
 from ..ops.clusten import weighted_gather
+from ..ops.gather import take_rows
 from .layers import DropPath, position_embedding_sine
 from .mixres import mixres_stage_from_config
 from .pixel_decoder import MSDeformAttnPixelDecoder, pack_neighbor_table, raster_grid, scale_pos
@@ -48,6 +55,37 @@ def fix_pos_no_bias(pos: torch.Tensor, current_ss, finest_ss) -> torch.Tensor:
 def attention_mask(logits: torch.Tensor) -> torch.Tensor:
     """Where a query may not attend: sigmoid(logit) < 0.5 (True = blocked)."""
     return torch.sigmoid(logits) < 0.5
+
+
+def hierarchical_upsample_dense(feats: Sequence[torch.Tensor], poss: Sequence[torch.Tensor],
+                                finest_shape) -> torch.Tensor:
+    """Paint each level's tokens (coarsest first) onto the whole finest
+    grid: a level-i token of L covers the r x r block, r = 2^(L-1-i), whose
+    top-left corner is its truncated position (cells counted in raster
+    order, so a block that passes the right edge continues on the next row;
+    cells past the last one are dropped), and a finer level's token takes
+    the cells it covers from a coarser one.  Cells no token covers are 0.
+    feats: [(b, n_i, c)], poss: [(b, n_i, 2)] -> (b, H*W, c) in raster
+    order.  A gather by each cell's last writer, so the gradient reaches only
+    the token that holds a cell."""
+    H, W = int(finest_shape[0]), int(finest_shape[1])
+    L, b = len(feats), feats[0].shape[0]
+    dev = feats[0].device
+    src = torch.cat([feats[0].new_zeros(b, 1, feats[0].shape[2]), *feats], dim=1)
+    # each cell's writer as a row of src (0: the zero row); a last column
+    # takes the dropped cells
+    owner = torch.zeros((b, H * W + 1), dtype=torch.long, device=dev)
+    first = 1
+    for i, p in enumerate(poss):
+        r, n = 2 ** (L - 1 - i), p.shape[1]
+        d = torch.arange(r, device=dev)
+        off = (d[:, None] * W + d[None, :]).reshape(-1)                  # (dy, dx) raster
+        cell = ((p[..., 1].long() * W + p[..., 0].long())[:, :, None] + off).reshape(b, -1)
+        cell = torch.where((cell >= 0) & (cell < H * W), cell, torch.full_like(cell, H * W))
+        rows = torch.arange(first, first + n, device=dev).repeat_interleave(r * r)
+        owner.scatter_(1, cell, rows.expand(b, -1))
+        first += n
+    return take_rows(src, owner[:, :H * W])
 
 
 def predicted_classes(outputs_class: torch.Tensor) -> torch.Tensor:
@@ -159,9 +197,11 @@ class MaskFinerTransformerDecoder(MultiScaleMaskedTransformerDecoder):
     ``MultiScaleMaskedTransformerDecoder``'s; ``final_layer``: the last
     stage, whose last round is the cascade's prediction."""
 
-    def __init__(self, *args, final_layer: bool = False, **kwargs):
+    def __init__(self, *args, final_layer: bool = False, dense_mask_features: bool = False,
+                 **kwargs):
         super().__init__(*args, **kwargs)
         self.final_layer = final_layer
+        self.dense_mask_features = dense_mask_features
 
     def _prediction_heads(self, output, mask_features, to_level):
         """-> (class logits (b, q, nc+1), mask logits (b, q, n_mf), attention
@@ -180,6 +220,10 @@ class MaskFinerTransformerDecoder(MultiScaleMaskedTransformerDecoder):
                 input_shapes):
         finest_feat_shape = input_shapes[-1]
         nl = self.num_feature_levels
+        if self.dense_mask_features:
+            # every level's mask features painted onto the finest grid
+            mask_features = hierarchical_upsample_dense(
+                mask_features.split([xi.shape[1] for xi in x], dim=1), pos, finest_input_shape)
         x, pos, shapes = x[:nl], pos[:nl], input_shapes[:nl]
         b = x[0].shape[0]
         masked = not (len(pos) == 1 and pos[0].shape == mf_pos.shape)
@@ -187,15 +231,30 @@ class MaskFinerTransformerDecoder(MultiScaleMaskedTransformerDecoder):
         poss_scaled = [scale_pos(fix_pos_no_bias(p, s, finest_input_shape), finest_input_shape,
                                  finest_feat_shape) for p, s in zip(pos, shapes)]
         finest_pos = raster_grid(finest_feat_shape, b, mf_pos.device)
-        # the Shepard neighbours of every level's tokens and of the finest
-        # grid among the mask features, once for all rounds
-        to_levels = ([shepard_neighbours(p, mf_pos_scaled) for p in poss_scaled] if masked
-                     else [None] * nl)
-        to_grid = shepard_neighbours(finest_pos, mf_pos_scaled)
+        if self.dense_mask_features:
+            if tuple(finest_input_shape) != tuple(finest_feat_shape):
+                raise ValueError(f"dense mask features need the finest level on the min-patch "
+                                 f"canvas: {finest_feat_shape} != {finest_input_shape}")
+            h, w = finest_feat_shape
+            mask_features = mask_features + position_embedding_sine(
+                finest_pos, self.mask_embed.layers[-1].out_features // 2)
+            # the masks live on the grid: their neighbours are cells, found
+            # in a window; rasterizing is a reshape
+            to_levels = ([grid_shepard_neighbours(p, h, w) for p in poss_scaled] if masked
+                         else [None] * nl)
 
-        def rasterize(pred_mask):
-            up = weighted_gather(*to_grid, pred_mask.transpose(1, 2)).transpose(1, 2)
-            return point2img(up, finest_pos, finest_feat_shape)
+            def rasterize(pred_mask):
+                return pred_mask.reshape(b, -1, h, w)
+        else:
+            # the Shepard neighbours of every level's tokens and of the finest
+            # grid among the mask features, once for all rounds
+            to_levels = ([shepard_neighbours(p, mf_pos_scaled) for p in poss_scaled] if masked
+                         else [None] * nl)
+            to_grid = shepard_neighbours(finest_pos, mf_pos_scaled)
+
+            def rasterize(pred_mask):
+                up = weighted_gather(*to_grid, pred_mask.transpose(1, 2)).transpose(1, 2)
+                return point2img(up, finest_pos, finest_feat_shape)
 
         hidden = self.query_feat.weight.shape[1]
         src, pos_emb = [], []
@@ -224,7 +283,10 @@ class MaskFinerTransformerDecoder(MultiScaleMaskedTransformerDecoder):
             preds_class.append(outputs_class)
             preds_mask.append(rasterize(pred_mask))
 
-        disagreement = gini_disagreement(pred_mask, outputs_class)
+        # the dense (OracleTeacher) decoder gives no disagreement: its
+        # backbone scores the tokens to split itself
+        disagreement = (None if self.dense_mask_features
+                        else gini_disagreement(pred_mask, outputs_class))
         aux = tuple({"pred_logits": a, "pred_masks": m} for a, m in zip(preds_class, preds_mask))
         if self.final_layer:
             return {"pred_logits": preds_class[-1], "pred_masks": preds_mask[-1],
@@ -298,24 +360,72 @@ class MaskFiner(nn.Module):
                 "features_pos": features_pos}
 
 
-def _refuse(cfg) -> None:
+# the decoder names that build the plain decoder (5S: the 5-scale yamls'),
+# and the dense one's
+PLAIN_DECODERS = ("MultiScaleMaskFinerTransformerDecoder",
+                  "MultiScaleMaskFinerTransformerDecoder5S")
+DENSE_DECODER = "MultiScaleMaskFinerTransformerDecoderOracleTeacher"
+WHERE = "(ROADMAP.md section 1)"
+
+
+def refuse_unported_heads(cfg, pixel_decoders: Sequence[str], decoders: Sequence[str]) -> None:
+    """Raise where a stage's pixel decoder (of ``pixel_decoders``) or the
+    configured decoder is a variant that is not ported (only the relu
+    ``MSDeformAttnPixelDecoderMaskFiner`` and the post-norm decoders named
+    in ``decoders`` are), or the pixel decoder has dropout."""
     mfr, head = cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD
-    where = "(ROADMAP.md section 1)"
-    if head.NAME != "MaskPredictor":
-        raise NotImplementedError(f"cascade stage {head.NAME!r} is not ported {where}")
-    names = head.PIXEL_DECODER_NAME
-    for name in ([names] if isinstance(names, str) else names):
+    for name in pixel_decoders:
         if name != "MSDeformAttnPixelDecoderMaskFiner":
-            raise NotImplementedError(f"pixel decoder {name!r} is not ported {where}")
-    if mfr.TRANSFORMER_DECODER_NAME != "MultiScaleMaskFinerTransformerDecoder":
-        raise NotImplementedError(f"decoder {mfr.TRANSFORMER_DECODER_NAME!r} is not ported {where}")
+            raise NotImplementedError(f"pixel decoder {name!r} is not ported {WHERE}")
+    if mfr.TRANSFORMER_DECODER_NAME not in decoders:
+        raise NotImplementedError(f"decoder {mfr.TRANSFORMER_DECODER_NAME!r} is not ported {WHERE}")
     if mfr.PRE_NORM:
-        raise NotImplementedError(f"the pre-norm MaskFiner decoder is not ported {where}")
-    if mfr.MASK_DECODER_ALL_LEVELS:
-        raise NotImplementedError(f"MASK_DECODER_ALL_LEVELS is not ported {where}")
+        raise NotImplementedError(f"the pre-norm MaskFiner decoder is not ported {WHERE}")
     if head.DROPOUT:
         raise NotImplementedError("the pixel decoder's dropout is not ported; the published "
                                   "configs set MR_SEM_SEG_HEAD.DROPOUT 0")
+
+
+def _refuse(cfg) -> None:
+    mfr, head = cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD
+    if head.NAME != "MaskPredictor":
+        raise NotImplementedError(f"cascade stage {head.NAME!r} is not ported {WHERE}")
+    names = head.PIXEL_DECODER_NAME
+    refuse_unported_heads(cfg, [names] if isinstance(names, str) else names, PLAIN_DECODERS[:1])
+    if mfr.MASK_DECODER_ALL_LEVELS:
+        raise NotImplementedError(f"MASK_DECODER_ALL_LEVELS is not ported {WHERE}")
+
+
+def build_stage_pixel_decoder(cfg, li: int, final: bool,
+                              feature_channels: Dict[str, int]) -> MaskFinerPixelDecoder:
+    """Stage li's pixel decoder: over the last li + 1 feature levels of
+    MR_SEM_SEG_HEAD.IN_FEATURES (all of them on the final stage, whose
+    finest ones beyond the transformer levels are FPN levels), with the
+    stage's entries of the per-stage lists; feature_channels: the width of
+    each level."""
+    mfr, head = cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD
+    all_in, all_trans = list(head.IN_FEATURES), list(head.DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES)
+    return MaskFinerPixelDecoder(
+        feature_channels, all_in[-(li + 1):],
+        all_trans if final else all_trans[len(all_trans) - li - 1:],
+        conv_dim=head.CONVS_DIM[li], mask_dim=mfr.MASK_DIM[li], transformer_nheads=head.NHEADS[li],
+        transformer_dim_feedforward=int(head.CONVS_DIM[li] * head.MLP_RATIO[li]),
+        transformer_enc_layers=head.TRANSFORMER_ENC_LAYERS[li],
+        # distances are squared, so halve the configured power
+        shepard_power=mfr.SHEPARD_POWER / 2.0, shepard_power_learnable=mfr.SHEPARD_POWER_LEARNABLE)
+
+
+def build_stage_mask_decoder(cfg, li: int, final: bool) -> MaskFinerTransformerDecoder:
+    """Stage li's masked transformer decoder; the OracleTeacher decoder name
+    gives the dense one (mask features painted on the finest grid)."""
+    mfr, head = cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD
+    return MaskFinerTransformerDecoder(
+        in_channels=head.CONVS_DIM[li], num_classes=head.NUM_CLASSES,
+        hidden_dim=mfr.HIDDEN_DIM[li], num_queries=mfr.NUM_OBJECT_QUERIES,
+        nheads=mfr.NHEADS[li], dim_feedforward=mfr.DIM_FEEDFORWARD[li],
+        dec_layers=mfr.DEC_LAYERS[li] - 1, mask_dim=mfr.MASK_DIM[li],
+        enforce_input_project=mfr.ENFORCE_INPUT_PROJ, num_feature_levels=mfr.DECODER_LEVELS[li],
+        final_layer=final, dense_mask_features=mfr.TRANSFORMER_DECODER_NAME == DENSE_DECODER)
 
 
 def maskfiner_from_config(cfg) -> MaskFiner:
@@ -324,32 +434,16 @@ def maskfiner_from_config(cfg) -> MaskFiner:
     pixel decoder over the last li + 1 feature levels (all of them on the
     last stage, whose finest ones are FPN levels) and the decoder."""
     _refuse(cfg)
-    mr, mfr, head = cfg.MODEL.MR, cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD
+    mr, mfr = cfg.MODEL.MR, cfg.MODEL.MASK_FINER
     n_stages, n_scales = len(mr.NAME), mfr.NUM_RESOLUTION_SCALES
-    all_in, all_trans = list(head.IN_FEATURES), list(head.DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES)
     predictors = []
     for li in range(n_stages):
         final = li == n_stages - 1
-        in_features = all_in[-(li + 1):]
-        trans = all_trans if final else all_trans[len(all_trans) - li - 1:]
         # stage li's backbone emits one scale s <= li each, as res{n_scales - s + 1},
         # all of width EMBED_DIM[li]
         channels = {f"res{n_scales - s + 1}": mr.EMBED_DIM[li] for s in range(li + 1)}
-        pixel_decoder = MaskFinerPixelDecoder(
-            channels, in_features, trans, conv_dim=head.CONVS_DIM[li], mask_dim=mfr.MASK_DIM[li],
-            transformer_nheads=head.NHEADS[li],
-            transformer_dim_feedforward=int(head.CONVS_DIM[li] * head.MLP_RATIO[li]),
-            transformer_enc_layers=head.TRANSFORMER_ENC_LAYERS[li],
-            # distances are squared, so halve the configured power
-            shepard_power=mfr.SHEPARD_POWER / 2.0,
-            shepard_power_learnable=mfr.SHEPARD_POWER_LEARNABLE)
-        mask_decoder = MaskFinerTransformerDecoder(
-            in_channels=head.CONVS_DIM[li], num_classes=head.NUM_CLASSES,
-            hidden_dim=mfr.HIDDEN_DIM[li], num_queries=mfr.NUM_OBJECT_QUERIES,
-            nheads=mfr.NHEADS[li], dim_feedforward=mfr.DIM_FEEDFORWARD[li],
-            dec_layers=mfr.DEC_LAYERS[li] - 1, mask_dim=mfr.MASK_DIM[li],
-            enforce_input_project=mfr.ENFORCE_INPUT_PROJ, num_feature_levels=mfr.DECODER_LEVELS[li],
-            final_layer=final)
+        pixel_decoder = build_stage_pixel_decoder(cfg, li, final, channels)
+        mask_decoder = build_stage_mask_decoder(cfg, li, final)
         predictors.append(MaskPredictor(mixres_stage_from_config(cfg, li), pixel_decoder,
                                         mask_decoder))
     return MaskFiner(predictors, tuple(cfg.MODEL.PIXEL_MEAN), tuple(cfg.MODEL.PIXEL_STD))

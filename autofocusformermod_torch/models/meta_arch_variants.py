@@ -1,21 +1,34 @@
-"""MaskFormerSwin: the MaskFormer meta-architecture with the Swin backbone,
-the grid deformable pixel decoder and the shared masked transformer decoder
-(here with the grid attention mask of MultiScaleMaskedTransformerDecoderSwin).
+"""Meta-architecture variants:
 
-Counterpart of ``GridHead`` and ``maskformer_swin_from_config`` in
-``autofocusformermod_tpu/models/meta_arch_variants.py``.
+- MaskFormerSwin: the MaskFormer meta-architecture with the Swin backbone,
+  the grid deformable pixel decoder and the shared masked transformer
+  decoder (here with the grid attention mask of
+  MultiScaleMaskedTransformerDecoderSwin);
+- MaskFinerOracleTeacherBB (and ...SW, the same model evaluated in sliding
+  windows): one composite backbone (UpDownBackbone, or its down-only form
+  OracleTeacherBackbone) and a single final-stage head, the MaskFiner
+  pixel decoder and the dense OracleTeacher decoder.
+
+Counterpart of ``GridHead``, ``maskformer_swin_from_config``,
+``MaskFinerOracleTeacherBB`` and ``maskfiner_oracle_teacher_bb_from_config``
+in ``autofocusformermod_tpu/models/meta_arch_variants.py``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
+import torch
 from torch import nn
 
+from .layers import DropPath
+from .maskfiner import (DENSE_DECODER, PLAIN_DECODERS, build_stage_mask_decoder,
+                        build_stage_pixel_decoder, refuse_unported_heads)
 from .maskformer import MaskFormer
 from .pixel_decoder_grid import MSDeformAttnPixelDecoderGrid, grid_pixel_decoder_from_config
 from .swin import swin_from_config
 from .transformer_decoder import MultiScaleMaskedTransformerDecoder, transformer_decoder_from_config
+from .updown import UpDownBackbone, updown_from_config
 
 
 class GridHead(nn.Module):
@@ -44,3 +57,81 @@ def maskformer_swin_from_config(cfg) -> MaskFormer:
                     transformer_decoder_from_config(cfg, cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM))
     return MaskFormer(swin_from_config(cfg), head, tuple(cfg.MODEL.PIXEL_MEAN),
                       tuple(cfg.MODEL.PIXEL_STD), cfg.MODEL.MASK_FORMER.DROPOUT)
+
+
+class MaskFinerOracleTeacherBB(nn.Module):
+    """forward(raw NHWC RGB images, uint8 or float; sem_seg_gt (b, H, W)
+    int, optional) -> {'pred_logits' (b, q, nc+1), 'pred_masks' (b, q, H/p,
+    W/p) with p the finest patch, 'aux_outputs' (the decoder's earlier
+    rounds), 'upsampling_preds' (each down stage's predicted upsampling
+    scores), 'upsampling_oracles' (their GT-edge oracles; empty without
+    ``sem_seg_gt``)}.  In training with ground truth, the backbone may
+    split by the oracle instead of the prediction (ORACLE_TEACHER_RATIO)."""
+
+    def __init__(self, backbone: UpDownBackbone, pixel_decoder: nn.Module,
+                 mask_decoder: nn.Module, n_scales: int,
+                 pixel_mean: Sequence[float] = (123.675, 116.28, 103.53),
+                 pixel_std: Sequence[float] = (58.395, 57.12, 57.375)):
+        super().__init__()
+        self.backbone = backbone
+        self.pixel_decoder = pixel_decoder
+        self.mask_decoder = mask_decoder
+        self.n_scales = n_scales
+        self.register_buffer("pixel_mean", torch.tensor(pixel_mean, dtype=torch.float32), False)
+        self.register_buffer("pixel_std", torch.tensor(pixel_std, dtype=torch.float32), False)
+
+    def normalize(self, images: torch.Tensor) -> torch.Tensor:
+        return (images.float() - self.pixel_mean) / self.pixel_std
+
+    def set_drop_path_generator(self, generator) -> None:
+        """Every DropPath of the backbone draws its keep decisions from
+        ``generator`` (on the model's device), in forward order."""
+        for m in self.backbone.modules():
+            if isinstance(m, DropPath):
+                m.generator = generator
+
+    def set_oracle_generator(self, generator: Optional[torch.Generator]) -> None:
+        """The teacher draws (one per image and down stage, in training with
+        ground truth and ORACLE_TEACHER_RATIO above 0) come from
+        ``generator`` (on the model's device)."""
+        self.backbone.oracle_generator = generator
+
+    def forward(self, images: torch.Tensor, sem_seg_gt: Optional[torch.Tensor] = None) -> Dict:
+        feats = self.backbone(self.normalize(images), sem_seg_gt)
+        (mask_features, mf_pos, ms_feats, ms_poss, _, finest_input_shape,
+         input_shapes) = self.pixel_decoder(feats)
+        predictions, _ = self.mask_decoder(ms_feats, ms_poss, mask_features, mf_pos,
+                                           finest_input_shape, input_shapes)
+        n_up = self.n_scales - 1
+        return {"pred_logits": predictions["pred_logits"], "pred_masks": predictions["pred_masks"],
+                "aux_outputs": tuple(predictions["aux_outputs"]),
+                "upsampling_preds": tuple(feats[f"upsampling_mask_pred_{i}"] for i in range(n_up)),
+                "upsampling_oracles": (tuple(feats[f"upsampling_mask_oracle_{i}"]
+                                             for i in range(n_up))
+                                       if sem_seg_gt is not None else ())}
+
+
+# MODEL.BACKBONE.NAME -> the composite backbone
+COMPOSITE_BACKBONES = {"UpDownBackbone": updown_from_config,
+                       "OracleTeacherBackbone": lambda cfg: updown_from_config(cfg, down_only=True)}
+
+
+def maskfiner_oracle_teacher_bb_from_config(cfg) -> MaskFinerOracleTeacherBB:
+    """MaskFinerOracleTeacherBB / ...SW: the composite backbone MODEL.BACKBONE.NAME
+    names, then the final stage's (index NUM_RESOLUTION_SCALES - 1 of the
+    per-stage lists) pixel decoder over every level of
+    MR_SEM_SEG_HEAD.IN_FEATURES and decoder."""
+    name = cfg.MODEL.BACKBONE.NAME
+    if name not in COMPOSITE_BACKBONES:
+        raise NotImplementedError(f"backbone {name!r} of {cfg.MODEL.META_ARCHITECTURE} is not "
+                                  f"ported; ported: {sorted(COMPOSITE_BACKBONES)}")
+    n_scales = cfg.MODEL.MASK_FINER.NUM_RESOLUTION_SCALES
+    final = n_scales - 1
+    names = cfg.MODEL.MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME
+    refuse_unported_heads(cfg, [names if isinstance(names, str) else names[final]],
+                          PLAIN_DECODERS + (DENSE_DECODER,))
+    backbone = COMPOSITE_BACKBONES[name](cfg)
+    return MaskFinerOracleTeacherBB(
+        backbone, build_stage_pixel_decoder(cfg, final, True, backbone.out_channels),
+        build_stage_mask_decoder(cfg, final, True), n_scales, tuple(cfg.MODEL.PIXEL_MEAN),
+        tuple(cfg.MODEL.PIXEL_STD))

@@ -32,7 +32,7 @@ from torch import nn
 
 from ..ops.gather import take_rows
 from .aff import ClusterTransformerBlock, attention_context
-from .layers import GN_EPS, Mlp, layer_norm, position_embedding_sine
+from .layers import GN_EPS, DropPath, Mlp, layer_norm, position_embedding_sine
 
 
 def get_2dpos_of_curr_ps_in_min_ps(height: int, width: int, patch_size: int,
@@ -100,9 +100,13 @@ class DWConvFFN(nn.Module):
 
 
 class ViTBlock(nn.Module):
-    """Pre-LN global attention + DWConv feed-forward."""
+    """Pre-LN global attention + DWConv feed-forward.  With ``layer_scale`` >
+    0 each residual branch is scaled per channel by a learned ``gamma1`` /
+    ``gamma2`` that starts at that value; each branch goes through
+    DropPath."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_dim: int):
+    def __init__(self, dim: int, num_heads: int, mlp_dim: int, drop_path: float = 0.0,
+                 layer_scale: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.norm1 = layer_norm(dim)
@@ -110,6 +114,10 @@ class ViTBlock(nn.Module):
         self.attn_proj = nn.Linear(dim, dim)
         self.norm2 = layer_norm(dim)
         self.mlp = DWConvFFN(dim, mlp_dim, dim)
+        self.drop_path = DropPath(drop_path)
+        scaled = layer_scale > 0
+        self.gamma1 = nn.Parameter(layer_scale * torch.ones(dim)) if scaled else None
+        self.gamma2 = nn.Parameter(layer_scale * torch.ones(dim)) if scaled else None
 
     def forward(self, x, h: int, w: int):
         b, n, c = x.shape
@@ -117,9 +125,14 @@ class ViTBlock(nn.Module):
         c_ = c // hh
         qkv = self.attn_qkv(self.norm1(x)).reshape(b, n, 3, hh, c_).permute(2, 0, 3, 1, 4)
         attn = torch.softmax(torch.matmul(qkv[0] * c_ ** -0.5, qkv[1].transpose(-1, -2)), dim=-1)
-        y = torch.matmul(attn, qkv[2]).transpose(1, 2).reshape(b, n, c)
-        x = x + self.attn_proj(y)
-        return x + self.mlp(self.norm2(x), h, w)
+        branch = self.attn_proj(torch.matmul(attn, qkv[2]).transpose(1, 2).reshape(b, n, c))
+        if self.gamma1 is not None:
+            branch = self.gamma1 * branch
+        x = x + self.drop_path(branch)
+        branch = self.mlp(self.norm2(x), h, w)
+        if self.gamma2 is not None:
+            branch = self.gamma2 * branch
+        return x + self.drop_path(branch)
 
 
 class MixResViT(nn.Module):
@@ -128,13 +141,16 @@ class MixResViT(nn.Module):
     min_spatial_shape}."""
 
     def __init__(self, scale: int, n_scales: int, patch_size: int, min_patch_size: int,
-                 d_model: int, n_layers: int, n_heads: int, mlp_ratio: float = 4.0):
+                 d_model: int, n_layers: int, n_heads: int, mlp_ratio: float = 4.0,
+                 drop_path: Sequence[float] = (), layer_scale: float = 0.0):
         super().__init__()
         self.scale, self.n_scales = scale, n_scales
         self.patch_size, self.min_patch_size, self.d_model = patch_size, min_patch_size, d_model
         self.patch_embed = OverlapPatchEmbedding(patch_size, d_model)
-        self.blocks = nn.ModuleList(ViTBlock(d_model, n_heads, int(d_model * mlp_ratio))
-                                    for _ in range(n_layers))
+        drop_path = tuple(drop_path) or (0.0,) * n_layers
+        self.blocks = nn.ModuleList(
+            ViTBlock(d_model, n_heads, int(d_model * mlp_ratio), drop_path[i], layer_scale)
+            for i in range(n_layers))
         self.norm_out = layer_norm(d_model)
 
     def forward(self, im, features=None, features_pos=None, upsampling_mask=None,
@@ -303,16 +319,22 @@ class MixResNeighbour(nn.Module):
         return outs, tps
 
 
+def refuse_unported_mixres(mr) -> None:
+    """Raise where MODEL.MR asks for register tokens or dropout, which are
+    not ported."""
+    if getattr(mr, "NUM_REGISTER_TOKENS", 0):
+        raise NotImplementedError("MixRes register tokens are not ported (ROADMAP.md section 1)")
+    if any(mr.DROP_RATE) or any(mr.ATTN_DROP_RATE):
+        raise NotImplementedError("MixRes dropout is not ported; the published configs set 0")
+
+
 def mixres_stage_from_config(cfg, li: int) -> nn.Module:
     """Cascade stage li's backbone from MODEL.MR (the JAX package's
     ``build_backbone_indexed``): MixResViT at stage 0, MixResNeighbour after."""
     mr = cfg.MODEL.MR
     n_scales = cfg.MODEL.MASK_FINER.NUM_RESOLUTION_SCALES
     name = mr.NAME[li]
-    if getattr(mr, "NUM_REGISTER_TOKENS", 0):
-        raise NotImplementedError("MixRes register tokens are not ported (ROADMAP.md section 1)")
-    if any(mr.DROP_RATE) or any(mr.ATTN_DROP_RATE):
-        raise NotImplementedError("MixRes dropout is not ported; the published configs set 0")
+    refuse_unported_mixres(mr)
     # a scalar DROP_PATH_RATE is the end of one ramp over the whole depth; a
     # per-stage list gives stage li its own end on that ramp (the JAX rule)
     rate = mr.DROP_PATH_RATE
@@ -324,9 +346,8 @@ def mixres_stage_from_config(cfg, li: int) -> nn.Module:
                   d_model=mr.EMBED_DIM[li], n_layers=mr.DEPTHS[li], n_heads=mr.NUM_HEADS[li],
                   mlp_ratio=mr.MLP_RATIO[li])
     if name == "MixResViT" and li == 0:
-        if any(drop_path) or mr.LAYER_SCALE:
-            raise NotImplementedError("MixResViT is ported without DropPath and layer scale")
-        return MixResViT(patch_size=mr.PATCH_SIZES[li], **common)
+        return MixResViT(patch_size=mr.PATCH_SIZES[li], drop_path=drop_path,
+                         layer_scale=mr.LAYER_SCALE, **common)
     if name == "MixResNeighbour" and li > 0:
         return MixResNeighbour(
             patch_sizes=tuple(mr.PATCH_SIZES[:li + 1]), cluster_size=mr.CLUSTER_SIZE[li],

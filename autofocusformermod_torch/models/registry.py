@@ -1,9 +1,11 @@
 """Build the configured meta-architecture.
 
 Counterpart of ``autofocusformermod_tpu/models/registry.py:build_model``
-for the three ported ones: ``MaskFormer`` (AFF, R50 or Swin + Mask2Former),
-``MaskFormerSwin`` (Swin + the grid pixel decoder) and ``MaskFiner`` (the
-MixRes cascade).
+for the ported ones: ``MaskFormer`` (AFF, R50 or Swin + Mask2Former),
+``MaskFormerSwin`` (Swin + the grid pixel decoder), ``MaskFiner`` (the
+MixRes cascade) and ``MaskFinerOracleTeacherBB`` / ``...SW`` (the
+UpDownBackbone or OracleTeacherBackbone and one final-stage head; SW is
+evaluated in sliding windows).
 """
 
 from __future__ import annotations
@@ -12,11 +14,13 @@ from torch import nn
 
 from .maskfiner import maskfiner_from_config
 from .maskformer import maskformer_from_config
-from .meta_arch_variants import maskformer_swin_from_config
+from .meta_arch_variants import maskfiner_oracle_teacher_bb_from_config, maskformer_swin_from_config
 
 META_ARCHITECTURES = {"MaskFormer": maskformer_from_config,
                       "MaskFormerSwin": maskformer_swin_from_config,
-                      "MaskFiner": maskfiner_from_config}
+                      "MaskFiner": maskfiner_from_config,
+                      "MaskFinerOracleTeacherBB": maskfiner_oracle_teacher_bb_from_config,
+                      "MaskFinerOracleTeacherSW": maskfiner_oracle_teacher_bb_from_config}
 
 
 def meta_architecture(cfg) -> str:
@@ -35,8 +39,8 @@ def build_model(cfg) -> nn.Module:
 
 def size_divisibility(cfg) -> int:
     """What the predictor pads an image to a multiple of: the MaskFormer's
-    SIZE_DIVISIBILITY; for the cascade also its coarsest patch (the JAX
-    package's demo)."""
-    if meta_architecture(cfg) == "MaskFiner":
+    SIZE_DIVISIBILITY; for every MaskFiner architecture also its coarsest
+    patch (the JAX package's demo)."""
+    if meta_architecture(cfg).startswith("MaskFiner"):
         return max(cfg.MODEL.MASK_FINER.SIZE_DIVISIBILITY, max(cfg.MODEL.MR.PATCH_SIZES))
     return cfg.MODEL.MASK_FORMER.SIZE_DIVISIBILITY

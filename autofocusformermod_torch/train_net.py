@@ -17,8 +17,9 @@ latest checkpoint under OUTPUT_DIR.  ``--eval-only`` evaluates the model
 (the latest checkpoint with ``--resume``, else MODEL.WEIGHTS) on
 DATASETS.TEST, prints the metrics and trains nothing.  Every ported
 meta-architecture trains: ``--config maskfiner_mini`` trains the MaskFiner
-cascade, ``--config r50`` and ``--config swin_base_384_res640`` (or
-``swin_tiny``) the grid baselines.
+cascade, ``--config maskfiner_updown_mini`` (or ``maskfiner_oracle_teacher_bb``)
+the OracleTeacher-BB cascade with its upsampling loss, ``--config r50`` and
+``--config swin_base_384_res640`` (or ``swin_tiny``) the grid baselines.
 """
 
 from __future__ import annotations

@@ -4,8 +4,9 @@ AFF-Mini training step, an AFF-Small training run with checkpoint and
 resume, the pixel decoder's alternate operand layouts, the AFF-Mini-1/5
 preset, MaskFiner-Mini inference, training from the dataset loader with
 evaluation, MaskFiner-Mini training, Cityscapes-panoptic and
-COCO-instance training and evaluation, and the Swin-B and R50 grid
-baselines -- on one NVIDIA GPU.
+COCO-instance training and evaluation, the Swin-B and R50 grid
+baselines, and the MaskFiner-UpDown-Mini (OracleTeacher-BB) cascade -- on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -173,7 +174,18 @@ baselines -- on one NVIDIA GPU.
    per forward, step and test image, ms, peak memory, device busy and
    images/s.
 
-Phases 6, 8, 9, 10, 13, 14 and 15 compare training steps whose second run replays
+16. the published MaskFiner-UpDown-Mini (MaskFinerOracleTeacherBB: an
+   UpDownBackbone of 7 MixRes stages, down-stage segments of 256, 868, 2428
+   and 5824 tokens at 512x512, the final stage's pixel decoder and the
+   dense OracleTeacher decoder on a 128x128 grid) at 512x512: K1, K3 and K9
+   on the operands of a real batch-4 forward, the forward against the
+   plain versions (replaying the choices), K2, K4, K10, K12 and K13 on a
+   real step's operands, 2 steps at batch 4 with the upsampling loss, each
+   replayed through the plain versions, and test() on two ADE20K-shaped
+   images, then under MaskFinerOracleTeacherSW (sliding windows); times to
+   chiprun_out/updown_phase16.json.
+
+Phases 6, 8, 9, 10, 13, 14, 15 and 16 compare training steps whose second run replays
 the first run's discrete choices (same_choices), held to LOSS_RTOL and
 GROUP_NORM_RTOL.
 
@@ -4746,10 +4758,12 @@ def grid_launches(cfg, step: bool, size: int) -> dict:
             "point_sample_nearest": 1 - rows, "point_sample_nearest_rows": rows, "lapjv": 1}
 
 
-def hold_grid_step_operands(label, model, cfg, batch, gen, paths):
+def hold_grid_step_operands(label, model, cfg, batch, gen, paths, local_attn=False):
     """K4 (R50), K10 (each route the masks give), the ranking's read (K11 or
     K12) and K13 on the operands of one real step, each against its plain
-    version; records into paths[kernel][label]."""
+    version; with `local_attn` also K2 (a point-cloud backbone's step; a
+    grid baseline's step must call none); records into
+    paths[kernel][label]."""
     import torch
     from autofocusformermod_torch.losses.criterion import device_draw
     from autofocusformermod_torch.ops import point_sample as ops_ps
@@ -4757,8 +4771,12 @@ def hold_grid_step_operands(label, model, cfg, batch, gen, paths):
     ops = path_maskfiner_step_operands(model, cfg, batch,
                                        device_draw(torch.Generator(device=batch["image"].device)
                                                    .manual_seed(SEED)))
-    if ops.pop("local_attn_bwd"):
+    la = ops.pop("local_attn_bwd")
+    if la and not local_attn:
         raise SystemExit(f"{label}: a grid baseline's step called the local_attn backward")
+    if la:
+        paths.setdefault("local_attn_bwd", {})[label] = check_local_attn_bwd_calls(label, la)
+    del la
     md = ops.pop("msdetrpc_bwd")
     if md:
         paths.setdefault("msdetrpc_bwd", {})[label] = msdetrpc_bwd_calls(label, md, gen)
@@ -4958,6 +4976,313 @@ def grid_baselines_phase(dev, smi, gen, counters, swin_opts=(), r50_opts=(),
                                  f"{short}, one wider than 2048 expected")
             del trainer, model, watch
             torch.cuda.empty_cache()
+    return paths, total
+
+
+UPDOWN, UPDOWN_STEPS = "maskfiner_updown_mini", 2
+# the Trainer.test() images of phase 16, and its sliding window under
+# MaskFinerOracleTeacherSW (two windows across each 512x704 padded input)
+UPDOWN_EVAL_SIZES = EVAL_SIZES[:2]
+UPDOWN_SW = (["TEST.SW_CROP_SIZE", "[512, 512]", "TEST.SW_STRIDE", "[384, 384]"], 2)
+
+
+def updown_launches(cfg, step: bool, size=SIZE) -> dict:
+    """Every kernel's launches in one forward (step False) or one training
+    step of an OracleTeacher-BB cascade, from the config: a local attention
+    per block of the clustered stages (the down stages after the first and
+    the up stages named MixResNeighbour; the MixResViT stages attend
+    globally), a knn for each clustered stage's neighbour clusters; the
+    final pixel decoder's msdetrpc per encoder layer and transformer level,
+    a knn per transformer level's 4-NN table and two per FPN level (its
+    Shepard upsample and PointConv); the dense decoder's neighbours come
+    from a window on its grid (no knn).  A step adds a K2 and a K4 per K1 and
+    K3 call, and the criterion's: every output's masks are size / the
+    finest patch a side, so one group: K10 on the targets and the matched
+    logits and the logits' backward, the ranking through K12 where the
+    stratified route's rule takes the masks and through K11 elsewhere, one
+    K13 solve."""
+    from autofocusformermod_torch.losses import point_sample as sampler
+    from autofocusformermod_torch.ops.point_sample import point_sample_nearest_rows_supported
+
+    mr, head, mf = cfg.MODEL.MR, cfg.MODEL.MR_SEM_SEG_HEAD, cfg.MODEL.MASK_FINER
+    n = mf.NUM_RESOLUTION_SCALES
+    clustered = [t for t in range(1, 2 * n - 1) if t < n or mr.NAME[t] == "MixResNeighbour"]
+    n_trans = len(head.DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES)
+    fwd = {"local_attn": sum(mr.DEPTHS[t] for t in clustered),
+           "msdetrpc": head.TRANSFORMER_ENC_LAYERS[n - 1] * n_trans,
+           "knn": len(clustered) + n_trans + 2 * (len(head.IN_FEATURES) - n_trans)}
+    if not step:
+        return fwd
+    side = size // mr.PATCH_SIZES[n - 1]
+    rows = int(sampler.STRATIFY_RANKING and point_sample_nearest_rows_supported(
+        side, side, int(mf.TRAIN_NUM_POINTS * mf.OVERSAMPLE_RATIO)))
+    return {**fwd, "local_attn_bwd": fwd["local_attn"], "msdetrpc_bwd": fwd["msdetrpc"],
+            "point_sample": 2, "point_sample_bwd": 1, "point_sample_nearest": 1 - rows,
+            "point_sample_nearest_rows": rows, "lapjv": 1}
+
+
+def check_updown(label, out, ref, book):
+    """An OracleTeacher-BB forward through the kernels against the plain run,
+    which replayed the kernel run's choices: the final and every aux output
+    and each down stage's upsampling scores within FORWARD_RTOL of their
+    largest |entry| (at least 1); the choices to CHOICE_AGREE_MIN.  The
+    upsampling heads end in a LayerNorm over one channel, so their scores
+    are their norm's bias: each stage's split order is the tokens' own
+    order (a stable sort of equal keys) in both runs."""
+    import torch
+
+    pairs = [(key, out[key], ref[key]) for key in ("pred_logits", "pred_masks")]
+    pairs += [(f"aux {i} {key}", a[key], r[key])
+              for i, (a, r) in enumerate(zip(out["aux_outputs"], ref["aux_outputs"]))
+              for key in ("pred_logits", "pred_masks")]
+    pairs += [(f"upsampling score {i}", a, r)
+              for i, (a, r) in enumerate(zip(out["upsampling_preds"], ref["upsampling_preds"]))]
+    if len(out["aux_outputs"]) != len(ref["aux_outputs"]):
+        raise SystemExit(f"{label}: {len(out['aux_outputs'])} aux outputs against "
+                         f"{len(ref['aux_outputs'])}")
+    worst = {}
+    for key, a, r in pairs:
+        if a.shape != r.shape or not torch.isfinite(a).all():
+            raise SystemExit(f"{label} {key}: shape {tuple(a.shape)} against {tuple(r.shape)}, or "
+                             "non-finite")
+        e = (a - r).abs().max().item()
+        rel = e / max(r.abs().max().item(), 1.0)
+        kind = " ".join(key.split()[::2]) if key.startswith("aux") else key.rstrip("0123456789 ")
+        worst[kind] = max(worst.get(kind, 0.0), rel)
+        if rel > FORWARD_RTOL:
+            raise SystemExit(f"{label} {key}: kernels and plain versions disagree by {e} "
+                             f"({rel:.3e} of its largest entry)")
+    log(f"    worst max_abs_err / max |ref| per output: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" ({len(pairs)} outputs, limit {FORWARD_RTOL})")
+    same_choices.check(label, book)
+    return worst
+
+
+def updown_phase(dev, smi, gen, counters, opts=(), size=SIZE, eval_sizes=UPDOWN_EVAL_SIZES,
+                 sw=UPDOWN_SW, out_dir="chiprun_out"):
+    """Phase 16: the published MaskFiner-UpDown-Mini (MaskFinerOracleTeacherBB:
+    the UpDownBackbone's 7 MixRes stages, the final stage's pixel decoder,
+    the dense OracleTeacher decoder; seeded random weights) at size x size
+    from a Trainer: each down stage's scale segments and the up stages'
+    token counts; K1, K3 and K9 on the operands of a real batch-BATCH
+    forward, each against its plain version; the forward through the
+    kernels (launches against updown_launches) and through the plain
+    versions replaying its choices (check_updown), ms and device busy of
+    both; K2, K4, K10, the ranking's read and K13 on a real step's operands;
+    UPDOWN_STEPS steps at batch BATCH (synthetic label maps, 100 target
+    slots), each replayed through the plain versions (replay_step: loss
+    terms with loss_upsampling to LOSS_RTOL, gradient norms per group to
+    GROUP_NORM_RTOL) and then taken by the Trainer's step (launches,
+    loss_upsampling finite and above 0, ms, peak GiB, device busy); test()
+    on `eval_sizes` ADE20K-shaped images, and again with the same weights
+    under MaskFinerOracleTeacherSW (`sw`: the window overrides and the
+    windows per image).  Writes the times to out_dir/updown_phase16.json.
+    Returns ({kernel: {path: record}}, {counter: launches of the phase's
+    runs through the kernels})."""
+    import contextlib
+    import os
+    import tempfile
+
+    import torch
+    from autofocusformermod_torch.config import PRESETS
+    from autofocusformermod_torch.data.synthetic import synthetic_batches
+    from autofocusformermod_torch.engine.train import Trainer
+    from autofocusformermod_torch.losses.criterion import device_draw
+    from autofocusformermod_torch.models.maskformer import init_random_weights
+    from autofocusformermod_torch.ops.build import BUILD_DIR
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.tools.l2_rate import l2_read_rate
+
+    paths, total, record = {}, dict.fromkeys(counters, 0), {"card": smi, "size": size}
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def draw(i):
+        return device_draw(torch.Generator(device=dev).manual_seed(SEED + i))
+
+    def expect(label, got, want):
+        want = {n: want.get(n, 0) for n in counters}
+        if got != want:
+            raise SystemExit(f"{label}: launched {got}, expected {want}")
+
+    def add(got):
+        for name, k in got.items():
+            total[name] += k
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pairs = eval_dataset(eval_sizes)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR.parent, prefix="updown_") as tmp, \
+            semantic_files(pairs), watch_eval(counters) as watch:
+        cfg = PRESETS[UPDOWN]()
+        cfg.merge_from_list([*opts, "SOLVER.IMS_PER_BATCH", str(BATCH), "OUTPUT_DIR", tmp,
+                             "INPUT.CROP.SIZE", f"[{size}, {size}]",
+                             "DATASETS.TEST", f"('{EVAL_NAMES[1]}',)"])
+        trainer = Trainer(cfg, dev)
+        model = trainer.model
+        init_random_weights(model, torch.Generator().manual_seed(SEED))
+        mr, n = cfg.MODEL.MR, cfg.MODEL.MASK_FINER.NUM_RESOLUTION_SCALES
+        n_params = sum(p.numel() for p in model.parameters())
+        fwd_want, step_want = updown_launches(cfg, False, size), updown_launches(cfg, True, size)
+        log(f"  {UPDOWN}: {cfg.MODEL.META_ARCHITECTURE}, {cfg.MODEL.BACKBONE.NAME} {mr.NAME} "
+            f"EMBED_DIM {mr.EMBED_DIM} DEPTHS {mr.DEPTHS} UPSCALE_RATIO {mr.UPSCALE_RATIO}; "
+            f"{n_params / 1e6:.2f}M parameters; launches expected per forward {fwd_want}, per "
+            f"step {step_want}")
+        record["parameters"] = n_params
+
+        # the token stream: each down stage's segments, each up stage's prefix
+        images = torch.randint(0, 256, (BATCH, size, size, 3), dtype=torch.uint8,
+                               generator=torch.Generator().manual_seed(SEED + 3)).to(dev)
+        model.eval()
+        with torch.no_grad():
+            feats = model.backbone(model.normalize(images))
+        segs = [feats[f"upsampling_mask_pred_{s}"].shape[1] for s in range(n - 1)]
+        segs.append(feats["res2"].shape[1])
+        down = [tuple(segs[:s + 1]) for s in range(n)]
+        up = [sum(segs[:n - 1 - j]) for j in range(n - 1)]
+        log(f"  token stream at {size}x{size}: down stages' segments " + ", ".join(
+            f"{s}: {d} = {sum(d)}" for s, d in enumerate(down)) + "; up stages' tokens "
+            + ", ".join(f"{n + j}: {k} ({'global' if mr.NAME[n + j] == 'MixResViT' else 'clusters'})"
+                        for j, k in enumerate(up)) + f"; dense decoder grid {size // 4}x{size // 4}")
+        record.update(down_segments=down, up_tokens=up)
+        del feats
+
+        # the kernels on the forward's operands
+        ops = path_forward_operands(model, images)
+        paths["local_attn"] = {UPDOWN: check_local_attn_calls(UPDOWN, ops["local_attn"])}
+        paths["msdetrpc"] = {UPDOWN: check_msdetrpc(UPDOWN, ops["msdetrpc"], l2_read_rate())}
+        paths["knn"] = {UPDOWN: check_knn(UPDOWN, ops["knn"])}
+        shapes = {}
+        for args in ops["local_attn"]:
+            shapes[tuple(args[0].shape)] = shapes.get(tuple(args[0].shape), 0) + 1
+        log(f"  local_attn (b, heads, n, c_) of the forward: {shapes}; msdetrpc (levels, "
+            f"pairs, c_): {sorted({(len(c[3]), c[0].shape[2], c[2].shape[2]) for c in ops['msdetrpc']})}")
+        del ops
+        torch.cuda.empty_cache()
+
+        # the forward through the kernels, then the plain versions replaying its choices
+        book = {}
+        with torch.no_grad():
+            reset()
+            with same_choices(book, record=True):
+                out, first_ms, got = counted_call(counters, lambda: model(images))
+            expect(f"{UPDOWN} forward", {k: got[k] for k in counters}, fwd_want)
+            add(got)
+            with same_choices(book, record=False), plain_versions():
+                ref = model(images)
+            if tuple(out["pred_masks"].shape) != (BATCH, 100, size // 4, size // 4):
+                raise SystemExit(f"{UPDOWN}: pred_masks {tuple(out['pred_masks'].shape)}")
+            record["forward_worst_rel"] = check_updown(f"{UPDOWN} forward", out, ref, book)
+            del out, ref, book
+
+            def forward_ms(path):
+                times = []
+                for _ in range(4):
+                    with path():
+                        _, ms, _ = counted_call(counters, lambda: model(images))
+                    times.append(ms)
+                with path():
+                    busy, rows = device_busy(lambda: model(images), runs=2)
+                return statistics.median(times[1:]), busy, rows
+
+            reset()
+            k_ms, k_busy, k_rows = forward_ms(contextlib.nullcontext)
+            p_ms, p_busy, p_rows = forward_ms(plain_versions)
+            add({name: c.launches for name, c in counters.items()})
+        log(f"  ms per batch-{BATCH} forward (median of 3 after one; first {first_ms:.1f}): "
+            f"kernels {k_ms:.2f} (device busy {k_busy:.2f} ms in {k_rows:.0f} rows, "
+            f"{k_busy / k_ms:.0%}), plain versions {p_ms:.2f} (busy {p_busy:.2f} ms in "
+            f"{p_rows:.0f} rows) = {BATCH / k_ms * 1e3:.2f} images/s ({smi})")
+        record["forward"] = {"batch": BATCH, "first_ms": first_ms, "ms": k_ms, "busy_ms": k_busy,
+                             "plain_ms": p_ms, "plain_busy_ms": p_busy, "launches": got}
+        del images
+        torch.cuda.empty_cache()
+
+        # the kernels on a real step's operands, then the steps
+        model.train()
+        batches = synthetic_batches(cfg, dev)
+        hold_grid_step_operands(f"{UPDOWN}_step", model, cfg, next(batches), gen, paths,
+                                local_attn=True)
+        steps = []
+        for i in range(UPDOWN_STEPS):
+            batch = next(batches)
+            used, r_ms, p_ms, r_peak, p_peak = replay_step(f"{UPDOWN} step {i + 1}", model, cfg,
+                                                           batch, lambda: draw(i + 1))
+            reset()
+            torch.cuda.reset_peak_memory_stats()
+            metrics, ms, got = counted_call(counters, lambda: trainer.step_fn(batch, draw(i + 1)))
+            add(got)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            up = metrics["loss_upsampling"].item()
+            log(f"  {UPDOWN} step {i + 1} through the kernels at batch {BATCH}: {ms:.1f} ms, peak "
+                f"{peak:.2f} GiB, total loss {metrics['total_loss'].item():.6f}, loss_upsampling "
+                f"{up:.6g}, grad_norm {metrics['grad_norm'].item():.5f}; the plain step (batch "
+                f"{used}) {p_ms:.1f} ms, peak {p_peak:.2f} GiB")
+            expect(f"{UPDOWN} step {i + 1}", got, step_want)
+            n_out = cfg.MODEL.MASK_FINER.DEC_LAYERS[n - 1]      # the final output and the aux
+            if len(metrics) != 2 + 3 * n_out + 1 or not all(
+                    torch.isfinite(v).all() for v in metrics.values()) or not up > 0:
+                raise SystemExit(f"{UPDOWN} step {i + 1}: {len(metrics)} metrics (expected "
+                                 f"{3 + 3 * n_out}), non-finite, or loss_upsampling {up}")
+            steps.append({"ms": ms, "peak_gib": peak, "plain_ms": p_ms, "plain_peak_gib": p_peak,
+                          "loss_upsampling": up, "launches": got})
+            del batch
+
+        def one_step():
+            trainer.step_fn(next(batches), draw(0))
+            torch.cuda.synchronize()
+
+        reset()
+        busy, rows = device_busy(one_step, runs=1)
+        add({name: c.launches for name, c in counters.items()})
+        ms = steps[-1]["ms"]
+        log(f"  {UPDOWN} ms per step at batch {BATCH} (step {UPDOWN_STEPS}): {ms:.1f} = "
+            f"{BATCH / ms * 1e3:.2f} images/s, peak {max(s['peak_gib'] for s in steps):.2f} GiB; "
+            f"device busy {busy:.2f} ms per step in {rows:.0f} rows ({busy / ms:.0%}) ({smi})")
+        record["steps"] = steps
+        record["step_busy_ms"] = busy
+        del batches
+        torch.cuda.empty_cache()
+
+        # test() on ADE20K-shaped images, then under MaskFinerOracleTeacherSW
+        weights = {k: v.clone() for k, v in model.state_dict().items()}
+        for arch, extra, windows in (("MaskFinerOracleTeacherBB", [], 1),
+                                     ("MaskFinerOracleTeacherSW", sw[0], sw[1])):
+            if arch != cfg.MODEL.META_ARCHITECTURE:
+                cfg.merge_from_list(["MODEL.META_ARCHITECTURE", arch, *extra])
+                del trainer, model
+                trainer = Trainer(cfg, dev)
+                trainer.model.load_state_dict(weights)
+            start = len(watch.images)
+            reset()
+            t0 = time.time()
+            results = trainer.test()
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            add({name: c.launches for name, c in counters.items()})
+            recs = watch.images[start:]
+            miou = results[EVAL_NAMES[1]]["mIoU"]
+            log(f"  {arch} test() on {len(recs)} images: {dt:.2f} s, mIoU {miou:.4f}; ms per image "
+                f"by padded input {ms_by_size(recs)}; launches per image "
+                f"{[rec['launches'] for rec in recs]} ({smi})")
+            if len(recs) != len(eval_sizes) or not math.isfinite(miou):
+                raise SystemExit(f"{arch} test(): {len(recs)} images, mIoU {miou}")
+            for rec in recs:
+                want = {k: v * windows for k, v in fwd_want.items()}
+                expect(f"{arch} test() image {rec['input']}", rec["launches"], want)
+            record[f"test_{arch}"] = {"seconds": dt, "mIoU": miou,
+                                      "ms_by_input": ms_by_size(recs)}
+        if watch.fringe[1] or not watch.fringe[0]:
+            raise SystemExit(f"{UPDOWN} test(): {watch.fringe[1]} of {watch.fringe[0]} pad "
+                             "pixels of the model's input are not the rounded pixel mean")
+        del trainer, weights
+        torch.cuda.empty_cache()
+    record["kernels"] = paths
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "updown_phase16.json"), "w") as f:
+        json.dump(record, f, indent=1, default=str)
     return paths, total
 
 
@@ -5262,6 +5587,24 @@ def main() -> int:
             kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
     torch.cuda.empty_cache()
 
+    log(f"phase 16: the published MaskFiner-UpDown-Mini ({UPDOWN}, MaskFinerOracleTeacherBB) at "
+        f"{SIZE}x{SIZE}: the token stream, K1, K3 and K9 on a batch-{BATCH} forward's operands, "
+        "the forward against the plain versions, K2, K4, K10, K12 and K13 on a real step's "
+        f"operands, {UPDOWN_STEPS} steps at batch {BATCH} each replayed through the plain "
+        f"versions, test() on {len(UPDOWN_EVAL_SIZES)} ADE20K-shaped images and under "
+        "MaskFinerOracleTeacherSW")
+    t16 = time.time()
+    updown_paths, updown_launches_ = updown_phase(dev, smi, gen,
+                                                  {**train_counters, **layout_counters})
+    log(f"  phase 16 took {time.time() - t16:.1f} s")
+    for kr in kernels:
+        for path, rec in updown_paths.get(kr["name"], {}).items():
+            kr.setdefault("by_path", {"b8_uniform": {k: kr[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
+            kr["by_path"][path] = rec
+            kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
+    torch.cuda.empty_cache()
+
     for kr in kernels:
         names = [kr["name"]] + (["point_sample_bwd"] if kr["name"] == "point_sample" else [])
         kr["inference_launches"] = inference_launches.get(kr["name"], 0)
@@ -5282,11 +5625,14 @@ def main() -> int:
         kr["panoptic_instance_launches"] = sum(pi_launches.get(n, 0) for n in names)
         # phase 15: the grid baselines' forwards, steps and test()
         kr["grid_launches"] = sum(grid_launches_.get(n, 0) for n in names)
+        # phase 16: the OracleTeacher-BB cascade's forwards, steps and test()
+        kr["updown_launches"] = sum(updown_launches_.get(n, 0) for n in names)
         kr["launches"] = (kr["inference_launches"] + kr["mini_step_launches"]
                           + kr["small_run_launches"] + kr["layouts_launches"]
                           + kr["mini15_launches"] + kr["maskfiner_launches"]
                           + kr["eval_launches"] + kr["maskfiner_step_launches"]
-                          + kr["panoptic_instance_launches"] + kr["grid_launches"])
+                          + kr["panoptic_instance_launches"] + kr["grid_launches"]
+                          + kr["updown_launches"])
         if kr["launches"] < 1:
             raise SystemExit(f"{kr['name']}: never launched on a main path")
     if len(kernels) != 14:
