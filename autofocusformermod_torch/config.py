@@ -1,6 +1,7 @@
 """Yaml-free presets of the published AFF-Mini, AFF-Mini-1/5, AFF-Small,
-MaskFiner-Mini, MaskFiner-UpDown-Mini and MaskFiner-OracleTeacher-BB
-models (ADE20K semantic), of AFF-Mini for Cityscapes
+MaskFiner-Mini, MaskFiner-UpDown-Mini, MaskFiner-OracleTeacher-BB,
+MaskFiner-OracleTeacher, MRML-Mini, MRML-NB-Mini and MRMean-Mini models
+(ADE20K semantic), of AFF-Mini for Cityscapes
 panoptic and COCO instance segmentation, and of the grid baselines
 Mask2Former-R50, Swin-T and Swin-B-384 at 640 (ADE20K semantic).
 
@@ -397,6 +398,45 @@ def maskfiner_oracle_teacher_bb_cfg(num_classes: int = 150) -> Cfg:
     return cfg
 
 
+def maskfiner_oracle_teacher_cfg(num_classes: int = 150) -> Cfg:
+    """MaskFiner-OracleTeacher (MaskFinerOracleTeacher), ADE20K semantic
+    segmentation at 512x512 (``configs/ade20k/semantic-segmentation/
+    maskfiner/maskfiner_oracle_teacher_bs32_80k.yaml`` over the bases of
+    ``maskfiner_mini_cfg``): four MixRes stages 256 wide (depths 4, 4, 6,
+    8; 16 heads; 60 % of the newest scale's tokens split, the old scale
+    kept), the projection-only pixel decoder and a score MLP on stages 0-2,
+    the leaky OracleTeacher pixel decoder and the dense decoder on the
+    last; in training each image's scores are the GT-edge oracle's with
+    probability 0.8, the upsampling loss at weight 10; fp32."""
+    cfg = maskfiner_mini_cfg(num_classes)
+    cfg.MODEL.META_ARCHITECTURE = "MaskFinerOracleTeacher"
+    cfg.MODEL.MR.update({
+        "EMBED_DIM": [256, 256, 256, 256],
+        "DEPTHS": [4, 4, 6, 8],
+        "NUM_HEADS": [16, 16, 16, 16],
+        "UPSCALE_RATIO": [0.0, 0.6, 0.6, 0.6],
+        "MLP_RATIO": [3.0, 3.0, 3.0, 3.0],
+    })
+    cfg.MODEL.MR_SEM_SEG_HEAD.update({
+        "NAME": "MaskPredictorOracleTeacher",
+        "IGNORE_VALUE": 255,
+        "PIXEL_DECODER_NAME": ["ProjMaskFinerOracleTeacher"] * 3
+                              + ["MSDeformAttnPixelDecoderMaskFinerOracleTeacher"],
+        "CONVS_DIM": [256, 256, 256, 256],
+        "TRANSFORMER_ENC_LAYERS": [2, 2, 4, 6],
+        "NHEADS": [8, 8, 8, 8],
+    })
+    cfg.MODEL.MASK_FINER.update({
+        "TRANSFORMER_DECODER_NAME": "MultiScaleMaskFinerTransformerDecoderOracleTeacher",
+        "DECODER_LEVELS": [1, 2, 3, 3],
+        "DEC_LAYERS": [3, 3, 4, 10],
+        "DIM_FEEDFORWARD": [1024, 1024, 1024, 2048],
+        "ORACLE_TEACHER_RATIO": 0.8,
+        "UPSAMPLING_WEIGHT": 10,
+    })
+    return cfg
+
+
 def _aff_mini_task_cfg(num_classes: int, nodes: Dict[str, Any], weights: str,
                        mask_former_test: Dict[str, Any]) -> Cfg:
     """AFF-Mini + Mask2Former with another task's dataset, input and test
@@ -563,6 +603,69 @@ def swin_base_384_res640_cfg(num_classes: int = 150) -> Cfg:
                      (320, 480, 640, 800, 960, 1120), 4480)
 
 
+def _mrml_cfg(num_classes: int, arch: str, backbone: str, mrml: Dict[str, Any],
+              base_lr: float) -> Cfg:
+    """An MRML model over ``semantic-segmentation/maskformer2_{ml,act}_R50_
+    bs16_160k.yaml`` (the R50 baseline's recipe, the Up pixel decoder's
+    name, METALOSS_WEIGHT 0.5) at the published EMBED_DIM [256, 128, 128,
+    64], 80k steps at batch 32.  ``arch``: MaskFormerML (the meta loss) or
+    MaskFormer (which builds the plain pixel decoder whatever
+    PIXEL_DECODER_NAME says, as the JAX package does); ``backbone``: the
+    MRML backbone's name; ``mrml``: the MODEL.MRML fields of the yaml.  The
+    JAX package does not read DROP_PATH_RATE, CLUSTER_SIZE or NBHD_SIZE."""
+    cfg = r50_cfg(num_classes)
+    del cfg.MODEL["RESNETS"]
+    cfg.MODEL.update(Cfg({
+        "META_ARCHITECTURE": arch,
+        "BACKBONE": {"NAME": backbone},
+        "WEIGHTS": "mrml_mini.pkl",
+        "MRML": {"EMBED_DIM": [256, 128, 128, 64], "PATCH_SIZES": [32, 16, 8, 4],
+                 "SPLIT_RATIO": 4, "MLP_RATIO": 4.0, "NUM_SCALES": 4, **mrml},
+    }))
+    cfg.MODEL.SEM_SEG_HEAD.PIXEL_DECODER_NAME = "MSDeformAttnPixelDecoderUp"
+    cfg.MODEL.MASK_FORMER.METALOSS_WEIGHT = 0.5
+    cfg.SOLVER.update({"IMS_PER_BATCH": 32, "BASE_LR": base_lr, "MAX_ITER": 80000})
+    return cfg
+
+
+def mrml_mini_cfg(num_classes: int = 150) -> Cfg:
+    """MRML-Mini (MaskFormerML over MixResMetaLoss), ADE20K semantic
+    segmentation at 512x512 (``configs/ade20k/semantic-segmentation/
+    mixres-metaloss/maskformer2_mrml_mini_bs32_80k.yaml``): global attention
+    in blocks of depths 12, 4, 4, 12; a quarter of the newest scale's
+    tokens split per scale (256, 448, 640 and 832 tokens at 512x512); the
+    Up pixel decoder; the meta loss at weight 0.5."""
+    return _mrml_cfg(num_classes, "MaskFormerML", "MixResMetaLoss", {
+        "DEPTHS": [12, 4, 4, 12], "NUM_HEADS": [16, 8, 8, 4], "UPSCALE_RATIO": 0.25,
+        "DROP_PATH_RATE": 0.0}, 0.0002)
+
+
+def mrmlnb_mini_cfg(num_classes: int = 150) -> Cfg:
+    """MRML-NB-Mini (MaskFormerML over MixResMetaLossNeighbour), ADE20K
+    semantic segmentation at 512x512 (``configs/ade20k/semantic-segmentation/
+    mixres-metaloss-nb/maskformer2_mrmlnb_mini_bs32_80k.yaml``): cluster
+    attention (clusters of 8, 48-token neighbourhoods) in blocks of depths
+    12, 4, 4, 12; three quarters of the newest scale's tokens split per
+    scale (256, 832, 2560 and 7744 tokens at 512x512); the Up pixel decoder;
+    the meta loss at weight 0.5."""
+    return _mrml_cfg(num_classes, "MaskFormerML", "MixResMetaLossNeighbour", {
+        "DEPTHS": [12, 4, 4, 12], "NUM_HEADS": [16, 8, 8, 4], "UPSCALE_RATIO": 0.75,
+        "DROP_PATH_RATE": 0.3, "CLUSTER_SIZE": 8, "NBHD_SIZE": [48, 48, 48, 48]}, 0.00005)
+
+
+def mrmean_mini_cfg(num_classes: int = 150) -> Cfg:
+    """MRMean-Mini (MaskFormer over MixResMeanAct), ADE20K semantic
+    segmentation at 512x512 (``configs/ade20k/semantic-segmentation/
+    mixres-activation/maskformer2_mrmean_mini_bs32_80k.yaml`` over
+    ``../maskformer2_act_R50_bs16_160k.yaml``): MRML-Mini's backbone
+    splitting by the mean absolute activation, the plain pixel decoder (its
+    finest level, 256 of 128x128 cells at 512x512, scattered onto the mask
+    canvas), no meta loss."""
+    return _mrml_cfg(num_classes, "MaskFormer", "MixResMeanAct", {
+        "DEPTHS": [12, 4, 4, 12], "NUM_HEADS": [16, 8, 8, 4], "UPSCALE_RATIO": 0.25,
+        "DROP_PATH_RATE": 0.0}, 0.0002)
+
+
 def train_image_size(cfg) -> tuple:
     """(H, W) of a training batch: the LSJ mappers' fixed INPUT.IMAGE_SIZE
     square, else INPUT.CROP.SIZE."""
@@ -576,6 +679,9 @@ PRESETS = {"aff_mini": aff_mini_cfg, "aff_mini_15": aff_mini_15_cfg, "aff_small"
            "maskfiner_mini": maskfiner_mini_cfg,
            "maskfiner_updown_mini": maskfiner_updown_mini_cfg,
            "maskfiner_oracle_teacher_bb": maskfiner_oracle_teacher_bb_cfg,
+           "maskfiner_oracle_teacher": maskfiner_oracle_teacher_cfg,
+           "mrml_mini": mrml_mini_cfg, "mrmlnb_mini": mrmlnb_mini_cfg,
+           "mrmean_mini": mrmean_mini_cfg,
            "aff_mini_cityscapes_panoptic": aff_mini_cityscapes_panoptic_cfg,
            "aff_mini_coco_instance": aff_mini_coco_instance_cfg, "r50": r50_cfg,
            "swin_tiny": swin_tiny_cfg, "swin_base_384_res640": swin_base_384_res640_cfg}

@@ -31,6 +31,11 @@ _RULES = (
     (r"^backbone\.(backbones|upsamplers|up_token_norm|up_token_projection)_(\d+)",
      r"backbone.\1.\2"),
     (r"\.upsamplers\.(\d+)\.layers_(\d+)_(linear|norm)$", r".upsamplers.\1.layers.\2.\3"),
+    # the MRML backbone's per-scale heads, splits, image patchers and projections
+    (r"^backbone\.(metalosses|splits|high_res_patchers|downsamplers_norm|downsamplers)_(\d+)",
+     r"backbone.\1.\2"),
+    # the OracleTeacher stages' score MLP
+    (r"\.upsample_out\.layers_(\d+)", r".upsample_out.layers.\1"),
     # the R50 (detectron2 names)
     (r"^backbone\.stem_conv1", r"backbone.stem.conv1"),
     (r"^backbone\.res(\d)_(\d+)", r"backbone.res\1.\2"),

@@ -8,10 +8,14 @@ runs over the last stage's outputs and every stage's rounds (19 outputs
 for MaskFiner-Mini, at one mask size per stage) with the loss weights of
 MODEL.MASK_FINER and the classes of MODEL.MR_SEM_SEG_HEAD, as the JAX
 benchmark and the upstream meta-architecture read them.  The
-OracleTeacher-BB cascades also take the label map as ``sem_seg_gt`` and add
+OracleTeacher cascades (MaskFinerOracleTeacher, MaskFinerOracle and the BB
+and SW forms) also take the label map as ``sem_seg_gt`` and add
 MODEL.MASK_FINER.UPSAMPLING_WEIGHT times ``loss_upsampling``, the mean
-squared error of the backbone's upsampling scores against the GT-edge
-oracle (``make_maskfiner_train_step(needs_sem_seg_gt=True)``).
+squared error of the upsampling scores against the GT-edge oracle
+(``make_maskfiner_train_step(needs_sem_seg_gt=True)``).  A MaskFormerML
+adds MODEL.MASK_FORMER.METALOSS_WEIGHT times ``meta_loss``
+(``models/mrml.py:compute_meta_loss`` at the smallest MRML patch), as
+``make_train_step(metaloss_weight=...)``.
 ``TrainStep(model, cfg)`` builds the optimizer; ``step(batch, draw)``
 takes one step and returns the metrics the JAX step returns:
 ``total_loss``, every loss term and ``grad_norm`` (before clipping).
@@ -27,6 +31,7 @@ import torch
 from torch import nn
 
 from ..losses.criterion import Draw, set_criterion
+from ..models.mrml import compute_meta_loss
 from ..models.oracle import upsampling_mse_loss
 from ..models.registry import meta_architecture
 from .optimizer import build_optimizer, clip_by_global_norm_, global_norm
@@ -46,10 +51,10 @@ def device_masks(batch: Dict) -> torch.Tensor:
 
 
 def needs_sem_seg_gt(cfg) -> bool:
-    """Whether the model takes the label map in training: the
-    OracleTeacher-BB cascades, whose backbone is supervised by the GT-edge
-    oracle."""
-    return meta_architecture(cfg).startswith("MaskFinerOracleTeacher")
+    """Whether the model takes the label map in training: the OracleTeacher
+    cascades (MaskFinerOracle, MaskFinerOracleTeacher and its BB and SW
+    forms), whose upsampling scores are supervised by the GT-edge oracle."""
+    return meta_architecture(cfg).startswith("MaskFinerOracle")
 
 
 def criterion_config(cfg) -> Tuple:
@@ -82,6 +87,9 @@ class TrainStep:
             importance_sample_ratio=mf.IMPORTANCE_SAMPLE_RATIO)
         self.with_sem_seg_gt = needs_sem_seg_gt(cfg)
         self.upsampling_weight = float(mf.UPSAMPLING_WEIGHT) if self.with_sem_seg_gt else 0.0
+        ml = meta_architecture(cfg) == "MaskFormerML"
+        self.metaloss_weight = float(mf.METALOSS_WEIGHT) if ml else 0.0
+        self.ml_min_patch_size = min(cfg.MODEL.MRML.PATCH_SIZES) if ml else 0
         clip = cfg.SOLVER.CLIP_GRADIENTS
         full = clip.ENABLED and clip.CLIP_TYPE == "full_model" and clip.CLIP_VALUE > 0
         self.clip_value = clip.CLIP_VALUE if full else None
@@ -106,6 +114,10 @@ class TrainStep:
             losses["loss_upsampling"] = upsampling_mse_loss(outputs["upsampling_preds"],
                                                             outputs["upsampling_oracles"])
             total = total + self.upsampling_weight * losses["loss_upsampling"]
+        if self.metaloss_weight > 0 and "metaloss_preds" in outputs:
+            losses["meta_loss"] = compute_meta_loss(outputs, targets["labels"], targets["masks"],
+                                                    targets["valid"], self.ml_min_patch_size)
+            total = total + self.metaloss_weight * losses["meta_loss"]
         self.model.zero_grad(set_to_none=True)
         total.backward()
         for p in self.parameters():

@@ -18,11 +18,20 @@ repeats to XLA.  The dense (OracleTeacher) decoder paints the mask features
 onto the finest grid (``hierarchical_upsample_dense``) and gives no
 disagreement; the OracleTeacher-BB cascades
 (``models/meta_arch_variants.py``) build their one head with
-``build_stage_pixel_decoder`` and ``build_stage_mask_decoder``.  Ported: the
-``relu`` pixel decoder without HierUp, and the decoder with or without
-dense mask features, without concatenated levels; the OracleTeacher
-predictor, the lrelu, HierUp, Cat and Proj variants, ConvNeXtV2 stages and
-the eval-time dynamic split ratios raise (ROADMAP.md section 1).
+``build_stage_pixel_decoder`` and ``build_stage_mask_decoder``.
+
+The OracleTeacher cascade (``MaskFinerOracleTeacher`` in
+``models/meta_arch_variants.py``) is built of ``MaskPredictorOracleTeacher``
+stages: before the last, a backbone and the projection-only pixel decoder
+(``ProjPixelDecoderMaskFiner``) whose levels an MLP scores for the next
+split, with no mask decoder; its pixel decoders' OracleTeacher form has a
+leaky-ReLU and a mask-features head only where a decoder reads it.
+
+Ported: the relu and lrelu pixel decoders without HierUp, the projection
+decoder, and the decoder with or without dense mask features, without
+concatenated levels; the HierUp and Cat variants, the pre-norm decoder,
+MASK_DECODER_ALL_LEVELS, ConvNeXtV2 stages and the eval-time dynamic split
+ratios raise (ROADMAP.md section 1).
 """
 
 from __future__ import annotations
@@ -38,9 +47,10 @@ from ..geometry.rasterize import point2img
 from ..geometry.shepard import shepard_neighbours, upsample_feature_shepard
 from ..ops.clusten import weighted_gather
 from ..ops.gather import take_rows
-from .layers import DropPath, position_embedding_sine
+from .layers import MLP, DropPath, layer_norm, position_embedding_sine
 from .mixres import mixres_stage_from_config
-from .pixel_decoder import MSDeformAttnPixelDecoder, pack_neighbor_table, raster_grid, scale_pos
+from .pixel_decoder import (MSDeformAttnPixelDecoder, pack_neighbor_table, raster_grid,
+                            scale_pos)
 from .transformer_decoder import MultiScaleMaskedTransformerDecoder
 
 
@@ -127,14 +137,17 @@ class MaskFinerPixelDecoder(MSDeformAttnPixelDecoder):
     mf_pos, levels, level positions (uncentred), level scales, min canvas,
     level canvases), levels coarse to fine.  Parameters as
     ``pixel_decoder.MSDeformAttnPixelDecoder``'s, with an FPN level for each
-    of ``in_features`` that is not a transformer level."""
+    of ``in_features`` that is not a transformer level.  The OracleTeacher
+    form: ``activation`` "lrelu" (the encoder layers' FFN and the FPN), and
+    without ``mask_features`` no mask-features head (mask features None)."""
 
     def __init__(self, feature_channels: Dict[str, int], in_features: Sequence[str],
                  transformer_in_features: Sequence[str], conv_dim: int = 256,
                  mask_dim: int = 256, transformer_nheads: int = 8,
                  transformer_dim_feedforward: int = 1024, transformer_enc_layers: int = 6,
                  n_points: int = 4, shepard_power: float = 3.0,
-                 shepard_power_learnable: bool = True):
+                 shepard_power_learnable: bool = True, activation: str = "relu",
+                 mask_features: bool = True):
         super().__init__(feature_channels, in_features, transformer_in_features,
                          conv_dim=conv_dim, mask_dim=mask_dim,
                          transformer_nheads=transformer_nheads,
@@ -142,7 +155,10 @@ class MaskFinerPixelDecoder(MSDeformAttnPixelDecoder):
                          transformer_enc_layers=transformer_enc_layers, n_points=n_points,
                          shepard_power=shepard_power,
                          shepard_power_learnable=shepard_power_learnable,
-                         num_fpn_levels=len(in_features) - len(transformer_in_features))
+                         num_fpn_levels=len(in_features) - len(transformer_in_features),
+                         activation=activation)
+        if not mask_features:
+            self.mask_features = None
 
     def forward(self, features: Dict):
         min_ss = features["min_spatial_shape"]
@@ -176,13 +192,47 @@ class MaskFinerPixelDecoder(MSDeformAttnPixelDecoder):
             y = getattr(self, f"adapter_{idx + 1}")(features[f])
             y = y + upsample_feature_shepard(fixed, fixed_poss[-1], out[-1])
             conv, norm = getattr(self, f"layer_{idx + 1}")
-            out.append(torch.relu(norm(conv(y, fixed))))
+            out.append(self.act(norm(conv(y, fixed))))
             fixed_poss.append(fixed)
 
-        mask_features = self.mask_features(torch.cat(out, dim=1))
+        mask_features = (None if self.mask_features is None
+                         else self.mask_features(torch.cat(out, dim=1)))
         input_shapes = [features[f + "_spatial_shape"] for f in self.in_features[::-1]]
         return (mask_features, torch.cat(fixed_poss, dim=1), out, poss, scales, min_ss,
                 input_shapes)
+
+
+class ProjPixelDecoderMaskFiner(nn.Module):
+    """The projection-only stage pixel decoder (``ProjMaskFinerOracleTeacher``):
+    per level (coarse first) a Linear+LN to ``conv_dim`` where the level is
+    narrower or wider, else the level itself; positions centred on the
+    min-patch canvas; the mask features (the concatenated levels' Linear)
+    only with ``mask_features``; no transformer.  forward(features) -> the
+    7-tuple of ``MaskFinerPixelDecoder``."""
+
+    def __init__(self, feature_channels: Dict[str, int], in_features: Sequence[str],
+                 conv_dim: int = 256, mask_dim: int = 256, mask_features: bool = False):
+        super().__init__()
+        self.in_features = tuple(in_features)
+        self.input_proj = nn.ModuleList(
+            nn.Sequential(nn.Linear(feature_channels[f], conv_dim), layer_norm(conv_dim))
+            if feature_channels[f] != conv_dim else nn.Identity()
+            for f in self.in_features[::-1])
+        self.mask_features = nn.Linear(conv_dim, mask_dim) if mask_features else None
+
+    def forward(self, features: Dict):
+        min_ss = features["min_spatial_shape"]
+        srcs, poss, scales, fixed_poss = [], [], [], []
+        for proj, f in zip(self.input_proj, self.in_features[::-1]):
+            pos = features[f + "_pos"].float()
+            srcs.append(proj(features[f].float()))
+            poss.append(pos)
+            scales.append(features[f + "_scale"].float())
+            fixed_poss.append(fix_pos_no_bias(pos, features[f + "_spatial_shape"], min_ss))
+        mask_features = (None if self.mask_features is None
+                         else self.mask_features(torch.cat(srcs, dim=1)))
+        input_shapes = [features[f + "_spatial_shape"] for f in self.in_features[::-1]]
+        return mask_features, torch.cat(fixed_poss, dim=1), srcs, poss, scales, min_ss, input_shapes
 
 
 class MaskFinerTransformerDecoder(MultiScaleMaskedTransformerDecoder):
@@ -320,6 +370,35 @@ class MaskPredictor(nn.Module):
                 tuple(f.shape[1] for f in ms_feats))
 
 
+class MaskPredictorOracleTeacher(MaskPredictor):
+    """One OracleTeacher cascade stage: backbone -> pixel decoder, then the
+    mask decoder on the final stage (and only there); before the final
+    stage an MLP (``upsample_out``: 2 * hidden, 3 layers) scores every
+    token of the pixel decoder's concatenated levels for the next split.
+    forward(...) -> (predictions ({'aux_outputs': ()} without a decoder),
+    the levels concatenated, their (scale, x, y), the scores (None on the
+    final stage), the levels' sizes)."""
+
+    def __init__(self, backbone: nn.Module, pixel_decoder: nn.Module, mask_decoder,
+                 hidden_dim: int, final_layer: bool):
+        super().__init__(backbone, pixel_decoder, mask_decoder)
+        self.upsample_out = None if final_layer else MLP(hidden_dim, 2 * hidden_dim, 1, 3)
+
+    def forward(self, im, features, features_pos, upsampling_mask, tokens_per_scale):
+        feats, _ = self.backbone(im, features, features_pos, upsampling_mask, tokens_per_scale)
+        (mask_features, mf_pos, ms_feats, ms_poss, ms_scales, finest_input_shape,
+         input_shapes) = self.pixel_decoder(feats)
+        predictions = {"aux_outputs": ()}
+        if self.mask_decoder is not None:
+            predictions, _ = self.mask_decoder(ms_feats, ms_poss, mask_features, mf_pos,
+                                               finest_input_shape, input_shapes)
+        pos_scale = torch.cat([torch.cat(ms_scales, dim=1)[..., None], torch.cat(ms_poss, dim=1)],
+                              dim=2)
+        all_feat = torch.cat(ms_feats, dim=1)
+        scores = None if self.upsample_out is None else self.upsample_out(all_feat)[..., 0]
+        return predictions, all_feat, pos_scale, scores, tuple(f.shape[1] for f in ms_feats)
+
+
 class MaskFiner(nn.Module):
     """The cascade.  forward(raw NHWC RGB images, uint8 or float) ->
     {'pred_logits' (b, q, nc+1), 'pred_masks' (b, q, H/p, W/p) with p the
@@ -365,18 +444,33 @@ class MaskFiner(nn.Module):
 PLAIN_DECODERS = ("MultiScaleMaskFinerTransformerDecoder",
                   "MultiScaleMaskFinerTransformerDecoder5S")
 DENSE_DECODER = "MultiScaleMaskFinerTransformerDecoderOracleTeacher"
+# the stage heads, and the pixel decoders the OracleTeacher head adds
+PLAIN_HEAD, OT_HEAD = "MaskPredictor", "MaskPredictorOracleTeacher"
+PROJ_PIXEL_DECODER = "ProjMaskFinerOracleTeacher"
+OT_PIXEL_DECODERS = ("MSDeformAttnPixelDecoderMaskFinerOracleTeacher", PROJ_PIXEL_DECODER)
 WHERE = "(ROADMAP.md section 1)"
+
+
+def stage_pixel_decoder_names(cfg, n_stages: int) -> List[str]:
+    """Each stage's MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME (one name: every stage)."""
+    names = cfg.MODEL.MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME
+    return [names] * n_stages if isinstance(names, str) else list(names)
 
 
 def refuse_unported_heads(cfg, pixel_decoders: Sequence[str], decoders: Sequence[str]) -> None:
     """Raise where a stage's pixel decoder (of ``pixel_decoders``) or the
     configured decoder is a variant that is not ported (only the relu
-    ``MSDeformAttnPixelDecoderMaskFiner`` and the post-norm decoders named
-    in ``decoders`` are), or the pixel decoder has dropout."""
+    ``MSDeformAttnPixelDecoderMaskFiner``, under the OracleTeacher stage
+    head also its lrelu form and the projection decoder, and the post-norm
+    decoders named in ``decoders`` are), or the pixel decoder has
+    dropout."""
     mfr, head = cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD
+    ported = ("MSDeformAttnPixelDecoderMaskFiner",) + (OT_PIXEL_DECODERS if head.NAME == OT_HEAD
+                                                        else ())
     for name in pixel_decoders:
-        if name != "MSDeformAttnPixelDecoderMaskFiner":
-            raise NotImplementedError(f"pixel decoder {name!r} is not ported {WHERE}")
+        if name not in ported:
+            raise NotImplementedError(f"pixel decoder {name!r} under {head.NAME} is not ported "
+                                      f"{WHERE}")
     if mfr.TRANSFORMER_DECODER_NAME not in decoders:
         raise NotImplementedError(f"decoder {mfr.TRANSFORMER_DECODER_NAME!r} is not ported {WHERE}")
     if mfr.PRE_NORM:
@@ -388,23 +482,32 @@ def refuse_unported_heads(cfg, pixel_decoders: Sequence[str], decoders: Sequence
 
 def _refuse(cfg) -> None:
     mfr, head = cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD
-    if head.NAME != "MaskPredictor":
+    if head.NAME not in (PLAIN_HEAD, OT_HEAD):
         raise NotImplementedError(f"cascade stage {head.NAME!r} is not ported {WHERE}")
-    names = head.PIXEL_DECODER_NAME
-    refuse_unported_heads(cfg, [names] if isinstance(names, str) else names, PLAIN_DECODERS[:1])
+    refuse_unported_heads(cfg, stage_pixel_decoder_names(cfg, len(cfg.MODEL.MR.NAME)),
+                          PLAIN_DECODERS[:1] + ((DENSE_DECODER,) if head.NAME == OT_HEAD else ()))
     if mfr.MASK_DECODER_ALL_LEVELS:
         raise NotImplementedError(f"MASK_DECODER_ALL_LEVELS is not ported {WHERE}")
 
 
-def build_stage_pixel_decoder(cfg, li: int, final: bool,
-                              feature_channels: Dict[str, int]) -> MaskFinerPixelDecoder:
-    """Stage li's pixel decoder: over the last li + 1 feature levels of
-    MR_SEM_SEG_HEAD.IN_FEATURES (all of them on the final stage, whose
-    finest ones beyond the transformer levels are FPN levels), with the
-    stage's entries of the per-stage lists; feature_channels: the width of
-    each level."""
+def build_stage_pixel_decoder(cfg, li: int, final: bool, feature_channels: Dict[str, int],
+                              ot_predictor: bool = False) -> nn.Module:
+    """Stage li's pixel decoder, as its PIXEL_DECODER_NAME entry names it:
+    over the last li + 1 feature levels of MR_SEM_SEG_HEAD.IN_FEATURES (all
+    of them on the final stage, whose finest ones beyond the transformer
+    levels are FPN levels), with the stage's entries of the per-stage lists;
+    feature_channels: the width of each level.  The projection decoder has
+    mask features only on the final stage; the OracleTeacher form of the
+    deformable one is leaky and has them but where the OracleTeacher stage
+    head (``ot_predictor``) runs no decoder."""
     mfr, head = cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD
     all_in, all_trans = list(head.IN_FEATURES), list(head.DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES)
+    name = stage_pixel_decoder_names(cfg, li + 1)[li]
+    if name == PROJ_PIXEL_DECODER:
+        return ProjPixelDecoderMaskFiner(feature_channels, all_in[-(li + 1):],
+                                         conv_dim=head.CONVS_DIM[li], mask_dim=mfr.MASK_DIM[li],
+                                         mask_features=final)
+    ot = name.endswith("OracleTeacher")
     return MaskFinerPixelDecoder(
         feature_channels, all_in[-(li + 1):],
         all_trans if final else all_trans[len(all_trans) - li - 1:],
@@ -412,7 +515,8 @@ def build_stage_pixel_decoder(cfg, li: int, final: bool,
         transformer_dim_feedforward=int(head.CONVS_DIM[li] * head.MLP_RATIO[li]),
         transformer_enc_layers=head.TRANSFORMER_ENC_LAYERS[li],
         # distances are squared, so halve the configured power
-        shepard_power=mfr.SHEPARD_POWER / 2.0, shepard_power_learnable=mfr.SHEPARD_POWER_LEARNABLE)
+        shepard_power=mfr.SHEPARD_POWER / 2.0, shepard_power_learnable=mfr.SHEPARD_POWER_LEARNABLE,
+        activation="lrelu" if ot else "relu", mask_features=final or not (ot and ot_predictor))
 
 
 def build_stage_mask_decoder(cfg, li: int, final: bool) -> MaskFinerTransformerDecoder:
@@ -428,22 +532,37 @@ def build_stage_mask_decoder(cfg, li: int, final: bool) -> MaskFinerTransformerD
         final_layer=final, dense_mask_features=mfr.TRANSFORMER_DECODER_NAME == DENSE_DECODER)
 
 
-def maskfiner_from_config(cfg) -> MaskFiner:
-    """The cascade from a config (the JAX package's CfgNode or the preset
-    ``config.maskfiner_mini_cfg``): per stage li, the MixRes backbone, the
-    pixel decoder over the last li + 1 feature levels (all of them on the
-    last stage, whose finest ones are FPN levels) and the decoder."""
+def build_mask_predictors(cfg) -> List[MaskPredictor]:
+    """The cascade's stages (the JAX package's ``maskfiner_from_config``
+    loop): per stage li, the pixel decoder over the last li + 1 feature
+    levels (all of them on the last stage, whose finest ones are FPN
+    levels), the decoder and the MixRes backbone; under the OracleTeacher
+    stage head (MR_SEM_SEG_HEAD.NAME) ``MaskPredictorOracleTeacher`` stages,
+    with a decoder on the final stage only."""
     _refuse(cfg)
     mr, mfr = cfg.MODEL.MR, cfg.MODEL.MASK_FINER
     n_stages, n_scales = len(mr.NAME), mfr.NUM_RESOLUTION_SCALES
+    ot = cfg.MODEL.MR_SEM_SEG_HEAD.NAME == OT_HEAD
     predictors = []
     for li in range(n_stages):
         final = li == n_stages - 1
         # stage li's backbone emits one scale s <= li each, as res{n_scales - s + 1},
         # all of width EMBED_DIM[li]
         channels = {f"res{n_scales - s + 1}": mr.EMBED_DIM[li] for s in range(li + 1)}
-        pixel_decoder = build_stage_pixel_decoder(cfg, li, final, channels)
-        mask_decoder = build_stage_mask_decoder(cfg, li, final)
-        predictors.append(MaskPredictor(mixres_stage_from_config(cfg, li), pixel_decoder,
-                                        mask_decoder))
-    return MaskFiner(predictors, tuple(cfg.MODEL.PIXEL_MEAN), tuple(cfg.MODEL.PIXEL_STD))
+        pixel_decoder = build_stage_pixel_decoder(cfg, li, final, channels, ot)
+        mask_decoder = build_stage_mask_decoder(cfg, li, final) if final or not ot else None
+        if ot:
+            predictors.append(MaskPredictorOracleTeacher(
+                mixres_stage_from_config(cfg, li), pixel_decoder, mask_decoder,
+                cfg.MODEL.MR_SEM_SEG_HEAD.CONVS_DIM[li], final))
+        else:
+            predictors.append(MaskPredictor(mixres_stage_from_config(cfg, li), pixel_decoder,
+                                            mask_decoder))
+    return predictors
+
+
+def maskfiner_from_config(cfg) -> MaskFiner:
+    """The cascade from a config (the JAX package's CfgNode or the preset
+    ``config.maskfiner_mini_cfg``)."""
+    return MaskFiner(build_mask_predictors(cfg), tuple(cfg.MODEL.PIXEL_MEAN),
+                     tuple(cfg.MODEL.PIXEL_STD))

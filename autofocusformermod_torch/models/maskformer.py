@@ -1,6 +1,6 @@
-"""MaskFormer meta-architecture: backbone (AFF, or the R50 or Swin of the
-baselines) -> pixel decoder -> masked transformer decoder, plus
-semantic-inference helpers.
+"""MaskFormer meta-architecture: backbone (AFF, the R50 or Swin of the
+baselines, or an MRML backbone) -> pixel decoder -> masked transformer
+decoder, plus semantic-inference helpers.
 
 Counterpart of ``autofocusformermod_tpu/models/maskformer.py`` (fp32 only).
 """
@@ -57,21 +57,28 @@ class MaskFormer(nn.Module):
         """The backbone's DropPath draws from ``generator`` (AFF.set_drop_path_generator)."""
         self.backbone.set_drop_path_generator(generator)
 
-    def forward(self, images: torch.Tensor) -> Dict:
+    def refuse_dropout(self) -> None:
         if self.training and self.dropout > 0:
             raise NotImplementedError(
                 f"decoder dropout is not ported: train with MODEL.MASK_FORMER.DROPOUT 0, "
                 f"not {self.dropout} (the published Mask2Former configs set 0.0)")
+
+    def forward(self, images: torch.Tensor) -> Dict:
+        self.refuse_dropout()
         return self.sem_seg_head(self.backbone(self.normalize(images)))
 
 
 def feature_channels(cfg) -> Dict[str, int]:
     """The backbone's channels per feature for MODEL.BACKBONE.NAME: AFF's
     EMBED_DIM, the R50's and Swin's c * 2**i (the JAX package's
-    ``maskformer_from_config``)."""
+    ``maskformer_from_config``), an MRML backbone's last EMBED_DIM."""
     name = cfg.MODEL.BACKBONE.NAME
     if name == "AutoFocusFormer":
         return {f"res{i + 2}": int(c) for i, c in enumerate(cfg.MODEL.AFF.EMBED_DIM)}
+    from .mrml import MRML_BACKBONES, mrml_feature_channels
+
+    if name in MRML_BACKBONES:
+        return mrml_feature_channels(cfg)
     if name == "build_resnet_backbone":
         c = cfg.MODEL.RESNETS.RES2_OUT_CHANNELS
     elif name == "D2SwinTransformer":
@@ -83,10 +90,16 @@ def feature_channels(cfg) -> Dict[str, int]:
 
 def backbone_from_config(cfg) -> nn.Module:
     """The backbone MODEL.BACKBONE.NAME names: AutoFocusFormer,
-    build_resnet_backbone or D2SwinTransformer."""
+    build_resnet_backbone, D2SwinTransformer or one of the MRML family
+    (MixResMetaLoss, MixResMeanAct, MixResMetaLossNeighbour: its meta-loss
+    outputs go unread)."""
     name = cfg.MODEL.BACKBONE.NAME
     if name == "AutoFocusFormer":
         return aff_from_config(cfg)
+    from .mrml import MRML_BACKBONES, mixres_metaloss_from_config
+
+    if name in MRML_BACKBONES:
+        return mixres_metaloss_from_config(cfg, name)
     if name == "build_resnet_backbone":
         from .resnet import resnet_from_config
 

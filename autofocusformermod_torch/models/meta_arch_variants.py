@@ -4,14 +4,20 @@
   the grid deformable pixel decoder and the shared masked transformer
   decoder (here with the grid attention mask of
   MultiScaleMaskedTransformerDecoderSwin);
+- MaskFinerOracleTeacher (and MaskFinerOracle, the same model that always
+  splits by the oracle): the MaskFiner cascade of OracleTeacher stages,
+  whose scores for the next split are held to the ground-truth-edge oracle
+  and, in training, replaced by it with probability ORACLE_TEACHER_RATIO;
 - MaskFinerOracleTeacherBB (and ...SW, the same model evaluated in sliding
   windows): one composite backbone (UpDownBackbone, or its down-only form
   OracleTeacherBackbone) and a single final-stage head, the MaskFiner
   pixel decoder and the dense OracleTeacher decoder.
 
 Counterpart of ``GridHead``, ``maskformer_swin_from_config``,
-``MaskFinerOracleTeacherBB`` and ``maskfiner_oracle_teacher_bb_from_config``
-in ``autofocusformermod_tpu/models/meta_arch_variants.py``.
+``MaskFinerOracleTeacher``, ``maskfiner_oracle_teacher_from_config``,
+``maskfiner_oracle_from_config``, ``MaskFinerOracleTeacherBB`` and
+``maskfiner_oracle_teacher_bb_from_config`` in
+``autofocusformermod_tpu/models/meta_arch_variants.py``.
 """
 
 from __future__ import annotations
@@ -22,9 +28,11 @@ import torch
 from torch import nn
 
 from .layers import DropPath
-from .maskfiner import (DENSE_DECODER, PLAIN_DECODERS, build_stage_mask_decoder,
-                        build_stage_pixel_decoder, refuse_unported_heads)
+from .maskfiner import (DENSE_DECODER, PLAIN_DECODERS, MaskFiner, build_mask_predictors,
+                        build_stage_mask_decoder, build_stage_pixel_decoder,
+                        refuse_unported_heads)
 from .maskformer import MaskFormer
+from .oracle import gt_edge_map, mix_teacher_mask, oracle_upsampling_mask
 from .pixel_decoder_grid import MSDeformAttnPixelDecoderGrid, grid_pixel_decoder_from_config
 from .swin import swin_from_config
 from .transformer_decoder import MultiScaleMaskedTransformerDecoder, transformer_decoder_from_config
@@ -57,6 +65,79 @@ def maskformer_swin_from_config(cfg) -> MaskFormer:
                     transformer_decoder_from_config(cfg, cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM))
     return MaskFormer(swin_from_config(cfg), head, tuple(cfg.MODEL.PIXEL_MEAN),
                       tuple(cfg.MODEL.PIXEL_STD), cfg.MODEL.MASK_FORMER.DROPOUT)
+
+
+class MaskFinerOracleTeacher(MaskFiner):
+    """forward(raw NHWC RGB images, uint8 or float; sem_seg_gt (b, H, W)
+    int, optional) -> {'pred_logits', 'pred_masks' (b, q, H/p, W/p) with p
+    the finest patch, 'aux_outputs' (the final stage's earlier rounds),
+    'upsampling_preds' (each stage before the last: its scores of the
+    stream's tokens), 'upsampling_oracles' (their GT-edge oracles)}; both
+    empty without ``sem_seg_gt``.  In training with ground truth, each
+    image's scores are replaced by the oracle's with probability
+    ``oracle_teacher_ratio`` before the next stage splits by them (one draw
+    per image and stage from the oracle generator)."""
+
+    def __init__(self, mask_predictors, patch_sizes: Sequence[int], min_patch_size: int,
+                 oracle_teacher_ratio: float = 0.5, ignore_label: int = 255,
+                 pixel_mean: Sequence[float] = (123.675, 116.28, 103.53),
+                 pixel_std: Sequence[float] = (58.395, 57.12, 57.375)):
+        super().__init__(mask_predictors, pixel_mean, pixel_std)
+        self.patch_sizes, self.min_patch_size = tuple(patch_sizes), min_patch_size
+        self.oracle_teacher_ratio, self.ignore_label = oracle_teacher_ratio, ignore_label
+        self.oracle_generator: Optional[torch.Generator] = None
+
+    def set_oracle_generator(self, generator: Optional[torch.Generator]) -> None:
+        """The teacher draws come from ``generator`` (on the model's device)."""
+        self.oracle_generator = generator
+
+    def forward(self, images: torch.Tensor, sem_seg_gt: Optional[torch.Tensor] = None,
+                use_oracle: Optional[Sequence[torch.Tensor]] = None) -> Dict:
+        """``use_oracle``: the teacher's draws given, one (b, 1) bool per stage
+        before the last, in place of the generator's."""
+        x = self.normalize(images)
+        edges = None if sem_seg_gt is None else gt_edge_map(sem_seg_gt, self.ignore_label)
+        features = features_pos = scores = tokens_per_scale = None
+        aux, preds, oracles = (), [], []
+        last = len(self.mask_predictors) - 1
+        for li, predictor in enumerate(self.mask_predictors):
+            outs, features, features_pos, scores, tokens_per_scale = predictor(
+                x, features, features_pos, scores, tokens_per_scale)
+            aux = aux + tuple(outs["aux_outputs"])
+            if li < last and edges is not None:
+                oracle = oracle_upsampling_mask(edges, features_pos[:, :, 1:],
+                                                features_pos[:, :, 0], self.patch_sizes,
+                                                self.min_patch_size)
+                preds.append(scores)
+                oracles.append(oracle)
+                if self.training:
+                    scores = mix_teacher_mask(self.oracle_generator, scores, oracle,
+                                              self.oracle_teacher_ratio,
+                                              None if use_oracle is None else use_oracle[li])
+        return {"pred_logits": outs["pred_logits"], "pred_masks": outs["pred_masks"],
+                "aux_outputs": aux, "upsampling_preds": tuple(preds),
+                "upsampling_oracles": tuple(oracles)}
+
+
+def maskfiner_oracle_teacher_from_config(cfg, oracle_teacher_ratio: Optional[float] = None
+                                         ) -> MaskFinerOracleTeacher:
+    """MaskFinerOracleTeacher: the cascade of ``build_mask_predictors``
+    (OracleTeacher stages under MR_SEM_SEG_HEAD.NAME
+    MaskPredictorOracleTeacher), MODEL.MASK_FINER.ORACLE_TEACHER_RATIO
+    unless ``oracle_teacher_ratio`` is given."""
+    n_scales = cfg.MODEL.MASK_FINER.NUM_RESOLUTION_SCALES
+    ratio = (cfg.MODEL.MASK_FINER.ORACLE_TEACHER_RATIO if oracle_teacher_ratio is None
+             else oracle_teacher_ratio)
+    return MaskFinerOracleTeacher(
+        build_mask_predictors(cfg), tuple(cfg.MODEL.MR.PATCH_SIZES),
+        cfg.MODEL.MR.PATCH_SIZES[n_scales - 1], ratio, cfg.MODEL.MR_SEM_SEG_HEAD.IGNORE_VALUE,
+        tuple(cfg.MODEL.PIXEL_MEAN), tuple(cfg.MODEL.PIXEL_STD))
+
+
+def maskfiner_oracle_from_config(cfg) -> MaskFinerOracleTeacher:
+    """MaskFinerOracle: the OracleTeacher cascade at ratio 1 (training always
+    splits by the oracle)."""
+    return maskfiner_oracle_teacher_from_config(cfg, 1.0)
 
 
 class MaskFinerOracleTeacherBB(nn.Module):

@@ -84,18 +84,22 @@ class OverlapPatchEmbedding(nn.Module):
 
 
 class DWConvFFN(nn.Module):
-    """fc1 -> depthwise 3x3 conv on the token grid -> exact GELU -> fc2."""
+    """fc1 -> depthwise 3x3 conv on the token grid -> exact GELU -> fc2;
+    without ``dw_conv`` (the MRML blocks, whose tokens are mixed-scale)
+    fc1 -> exact GELU -> fc2."""
 
-    def __init__(self, dim: int, hidden_dim: int, out_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, out_dim: int, dw_conv: bool = True):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden_dim)
-        self.dwconv = nn.Conv2d(hidden_dim, hidden_dim, 3, padding=1, groups=hidden_dim)
+        self.dwconv = (nn.Conv2d(hidden_dim, hidden_dim, 3, padding=1, groups=hidden_dim)
+                       if dw_conv else None)
         self.fc2 = nn.Linear(hidden_dim, out_dim)
 
     def forward(self, x, h: int, w: int):
         b, n, _ = x.shape
         x = self.fc1(x)
-        x = self.dwconv(x.transpose(1, 2).reshape(b, -1, h, w)).flatten(2).transpose(1, 2)
+        if self.dwconv is not None:
+            x = self.dwconv(x.transpose(1, 2).reshape(b, -1, h, w)).flatten(2).transpose(1, 2)
         return self.fc2(nn.functional.gelu(x))
 
 
@@ -103,17 +107,18 @@ class ViTBlock(nn.Module):
     """Pre-LN global attention + DWConv feed-forward.  With ``layer_scale`` >
     0 each residual branch is scaled per channel by a learned ``gamma1`` /
     ``gamma2`` that starts at that value; each branch goes through
-    DropPath."""
+    DropPath.  ``dw_conv`` False: the feed-forward has no depthwise conv
+    (``DWConvFFN``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_dim: int, drop_path: float = 0.0,
-                 layer_scale: float = 0.0):
+                 layer_scale: float = 0.0, dw_conv: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.norm1 = layer_norm(dim)
         self.attn_qkv = nn.Linear(dim, 3 * dim)
         self.attn_proj = nn.Linear(dim, dim)
         self.norm2 = layer_norm(dim)
-        self.mlp = DWConvFFN(dim, mlp_dim, dim)
+        self.mlp = DWConvFFN(dim, mlp_dim, dim, dw_conv)
         self.drop_path = DropPath(drop_path)
         scaled = layer_scale > 0
         self.gamma1 = nn.Parameter(layer_scale * torch.ones(dim)) if scaled else None

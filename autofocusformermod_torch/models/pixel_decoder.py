@@ -137,17 +137,17 @@ class PointConv(nn.Module):
         self.linear = nn.Linear(inner_ch * in_dim, out_dim)
 
     def forward(self, x, pos, spatial_shape=None):
-        """With ``spatial_shape``, full-grid tokens (the FPN level covers its
-        grid): interior cells mix their 3x3 neighbourhood with nine constant
+        """With ``spatial_shape`` and tokens that cover that grid (the AFF FPN
+        level): interior cells mix their 3x3 neighbourhood with nine constant
         weight vectors (nine shifted adds in raster order); border cells take
-        their exact 9-NN, ties by lowest token index.  Without it, any point
-        cloud: each token's min(9, n) nearest tokens (``knn``), weights from
-        their truncated offsets."""
-        if spatial_shape is None:
-            return self._knn_route(x, pos)
+        their exact 9-NN, ties by lowest token index.  Otherwise (any point
+        cloud, such as the MRML finest level): each token's min(9, n)
+        nearest tokens (``knn``), weights from their truncated offsets."""
         b, n, c = x.shape
+        if spatial_shape is None or n != int(spatial_shape[0]) * int(spatial_shape[1]):
+            return self._knn_route(x, pos)
         h_, w_ = int(spatial_shape[0]), int(spatial_shape[1])
-        if n != h_ * w_ or h_ < 3 or w_ < 3:
+        if h_ < 3 or w_ < 3:
             raise NotImplementedError("PointConv is ported for full grids of at least 3x3")
         dev = x.device
         border, cand_cells, cand_d2 = _grid9_static(h_, w_)
@@ -394,12 +394,25 @@ def pack_neighbor_table(nb_idx: torch.Tensor, pos: torch.Tensor) -> torch.Tensor
     return torch.cat([nb_idx.float(), nb_pos[..., 0], nb_pos[..., 1]], dim=-1)
 
 
+def activation_fn(name: str):
+    """The pixel decoders' nonlinearity: ``relu``, or ``lrelu`` (leaky, slope
+    0.01) of the OracleTeacher decoder."""
+    if name == "lrelu":
+        return lambda x: nn.functional.leaky_relu(x, 0.01)
+    if name != "relu":
+        raise ValueError(f"activation {name!r}: relu or lrelu")
+    return torch.relu
+
+
 class MSDeformAttnEncoderLayerPc(nn.Module):
-    """Deformable self-attention + FFN encoder layer (post-norm, ReLU)."""
+    """Deformable self-attention + FFN encoder layer (post-norm; the FFN's
+    ``activation``: relu or lrelu)."""
 
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int, n_points: int,
-                 shepard_power: float, shepard_power_learnable: bool = True):
+                 shepard_power: float, shepard_power_learnable: bool = True,
+                 activation: str = "relu"):
         super().__init__()
+        self.act = activation_fn(activation)
         self.self_attn = MSDeformAttnPc(d_model, n_levels, n_heads, n_points, shepard_power,
                                         shepard_power_learnable)
         self.norm1 = layer_norm(d_model)
@@ -413,7 +426,7 @@ class MSDeformAttnEncoderLayerPc(nn.Module):
         outs = []
         for src, src2 in zip(srcs, src2s):
             src = self.norm1(src + src2)
-            outs.append(self.norm2(src + self.linear2(torch.relu(self.linear1(src)))))
+            outs.append(self.norm2(src + self.linear2(self.act(self.linear1(src)))))
         return outs
 
 
@@ -434,7 +447,11 @@ class MSDeformAttnPixelDecoder(nn.Module):
     finest ``num_fpn_levels`` of ``in_features``, coarse first; by default
     those between the finest transformer level's stride and
     ``common_stride``) an adapter and a PointConv + LN, and the mask
-    features' Linear."""
+    features' Linear.  ``mask_on_full_grid`` (the MSDeformAttnPixelDecoderUp
+    form): every level, the FPN ones too, is Shepard-upsampled onto the
+    whole finest grid, and the mask features are read off that grid.
+    ``activation``: the nonlinearity of the encoder layers' FFN and of the
+    FPN (relu or lrelu)."""
 
     def __init__(self, feature_channels: Dict[str, int],
                  in_features: Sequence[str] = ("res2", "res3", "res4", "res5"),
@@ -444,9 +461,12 @@ class MSDeformAttnPixelDecoder(nn.Module):
                  transformer_dim_feedforward: int = 1024, transformer_enc_layers: int = 6,
                  common_stride: int = 4, n_points: int = 4, shepard_power: float = 3.0,
                  shepard_power_learnable: bool = True, maskformer_num_feature_levels: int = 3,
-                 num_fpn_levels: Optional[int] = None):
+                 num_fpn_levels: Optional[int] = None, mask_on_full_grid: bool = False,
+                 activation: str = "relu"):
         super().__init__()
         self.maskformer_num_feature_levels = maskformer_num_feature_levels
+        self.mask_on_full_grid = mask_on_full_grid
+        self.act = activation_fn(activation)
         if num_fpn_levels is None:
             strides = dict(zip(in_features, feature_strides))
             num_fpn_levels = int(math.log2(min(strides[f] for f in transformer_in_features))
@@ -465,7 +485,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
         self.transformer.encoder.layers = nn.ModuleList(
             MSDeformAttnEncoderLayerPc(conv_dim, transformer_dim_feedforward, num_levels,
                                        transformer_nheads, n_points, shepard_power,
-                                       shepard_power_learnable)
+                                       shepard_power_learnable, activation)
             for _ in range(transformer_enc_layers))
         for idx, f in enumerate(self.in_features[:num_fpn_levels][::-1]):
             self.add_module(f"adapter_{idx + 1}", nn.Sequential(
@@ -494,6 +514,8 @@ class MSDeformAttnPixelDecoder(nn.Module):
         lvl_pos = [pe + self.transformer.level_embed[i][None, None]
                    for i, pe in enumerate(pos_embed)]
         last_pos, last_ss = poss[-1], spatial_shapes[-1]
+        # every level's positions and canvas, the FPN levels' appended below
+        all_levels = list(zip(poss, spatial_shapes))
         spatial_shapes = list(spatial_shapes) + [grid_hw]
 
         # Morton-ordered channel-major tables for the channel-major prep: one
@@ -517,16 +539,26 @@ class MSDeformAttnPixelDecoder(nn.Module):
             last_pos = scale_pos(last_pos, last_ss, ss, no_bias=True)
             y = cur_fpn + upsample_feature_shepard(pos, last_pos, out[-1])
             conv, norm = getattr(self, f"layer_{idx + 1}")
-            y = torch.relu(norm(conv(y, pos, ss)))
+            y = self.act(norm(conv(y, pos, ss)))
             last_pos, last_ss = pos, ss
+            all_levels.append((pos, ss))
             out.append(y)
 
-        return (self.mask_features(out[-1]), last_pos, transformer_out,
+        if self.mask_on_full_grid:
+            on_grid = torch.cat([scale_pos(p, s, grid_hw, no_bias=True) for p, s in all_levels],
+                                dim=1)
+            mask_features = self.mask_features(
+                upsample_feature_shepard(grid_pos, on_grid, torch.cat(out, dim=1)))
+            last_pos = grid_pos
+        else:
+            mask_features = self.mask_features(out[-1])
+        return (mask_features, last_pos, transformer_out,
                 out[:self.maskformer_num_feature_levels],
                 poss[:self.maskformer_num_feature_levels])
 
 
-def pixel_decoder_from_config(cfg, feature_channels: Dict[str, int]) -> MSDeformAttnPixelDecoder:
+def pixel_decoder_from_config(cfg, feature_channels: Dict[str, int],
+                              mask_on_full_grid: bool = False) -> MSDeformAttnPixelDecoder:
     h = cfg.MODEL.SEM_SEG_HEAD
     return MSDeformAttnPixelDecoder(
         feature_channels,
@@ -541,4 +573,5 @@ def pixel_decoder_from_config(cfg, feature_channels: Dict[str, int]) -> MSDeform
         # distances are squared, so halve the configured power
         shepard_power=cfg.MODEL.AFF.SHEPARD_POWER / 2.0,
         shepard_power_learnable=cfg.MODEL.AFF.SHEPARD_POWER_LEARNABLE,
+        mask_on_full_grid=mask_on_full_grid,
     )

@@ -7,7 +7,9 @@ attention mask is the current mask logits Shepard-upsampled to the next
 level's positions, thresholded at sigmoid < 0.5; fully masked rows are
 unmasked.  Attention is a plain matmul + masked softmax.  The Swin variant
 resizes the mask logits to each level's grid instead; the layers can be
-pre-norm.
+pre-norm.  Mask features that do not cover the mask canvas (the plain pixel
+decoder over an MRML backbone, whose finest level is a part of its grid)
+are rasterized by scattering, their other cells 0.
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ import torch
 from torch import nn
 
 from ..geometry.gridnn import grid_shepard_upsample, pos_index_lut
+from ..geometry.rasterize import point2img
+from ..geometry.shepard import shepard_neighbours
+from ..ops.clusten import weighted_gather
 from ..ops.gather import take_rows
 from .layers import MLP, layer_norm, position_embedding_sine
 
@@ -150,14 +155,18 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
         self.class_embed = nn.Linear(hidden_dim, num_classes + 1)
         self.mask_embed = MLP(hidden_dim, hidden_dim, mask_dim, 3)
 
-    def _prediction_heads(self, output, mask_features, target_pos, mask_size, target_hw):
-        """Mask features are raster-ordered (token == cell): the attention mask
+    def _prediction_heads(self, output, mask_features, target_pos, mask_size, target_hw,
+                          to_level=None):
+        """Mask features raster-ordered (token == cell): the attention mask
         comes from the window KNN with an identity LUT, or from the resize to
-        the level's grid ``target_hw``."""
+        the level's grid ``target_hw``.  Point-cloud mask features: from the
+        Shepard neighbours ``to_level`` of the level's tokens among them."""
         dec = self.decoder_norm(output)
         outputs_class = self.class_embed(dec)
         outputs_mask = torch.einsum("bqc,bnc->bqn", self.mask_embed(dec), mask_features)
-        if self.grid_attn_mask:
+        if to_level is not None:
+            am = weighted_gather(*to_level, outputs_mask.transpose(1, 2)).transpose(1, 2)
+        elif self.grid_attn_mask:
             am = grid_attn_mask(outputs_mask.reshape(*outputs_mask.shape[:2], *mask_size),
                                 target_hw)
         else:
@@ -185,20 +194,27 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
         query_embed = self.query_embed.weight[None].expand(b, -1, -1)
         output = self.query_feat.weight[None].expand(b, -1, -1)
 
-        # mask features cover the whole canvas (the AFF finest level): permute
-        # them to raster order once, so rasterizing is a reshape and the
-        # window KNN needs no LUT
         h_m, w_m = int(mask_size[0]), int(mask_size[1])
-        if mf_pos.shape[1] != h_m * w_m:
-            raise NotImplementedError("mask features must cover the full mask canvas")
-        mask_features = take_rows(mask_features, pos_index_lut(mf_pos, h_m, w_m))
+        if mf_pos.shape[1] == h_m * w_m:
+            # mask features cover the whole canvas (the AFF finest level):
+            # permute them to raster order once, so rasterizing is a reshape
+            # and the window KNN needs no LUT
+            mask_features = take_rows(mask_features, pos_index_lut(mf_pos, h_m, w_m))
+            to_levels = [None] * n_levels
 
-        def rasterize(m):
-            return m.reshape(*m.shape[:2], h_m, w_m)
+            def rasterize(m):
+                return m.reshape(*m.shape[:2], h_m, w_m)
+        else:
+            # a point cloud: each level's Shepard neighbours among it, found
+            # once for all rounds
+            to_levels = [shepard_neighbours(p, mf_pos) for p in pos[:n_levels]]
+
+            def rasterize(m):
+                return point2img(m, mf_pos, mask_size)
 
         preds_class, preds_mask = [], []
         outputs_class, outputs_mask, attn_mask = self._prediction_heads(
-            output, mask_features, pos[0], mask_size, level_hw(0))
+            output, mask_features, pos[0], mask_size, level_hw(0), to_levels[0])
         preds_class.append(outputs_class)
         preds_mask.append(rasterize(outputs_mask))
         for i, (cross, self_attn, ffn) in enumerate(zip(
@@ -211,7 +227,7 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
             output = ffn(output)
             nxt = (i + 1) % n_levels
             outputs_class, outputs_mask, attn_mask = self._prediction_heads(
-                output, mask_features, pos[nxt], mask_size, level_hw(nxt))
+                output, mask_features, pos[nxt], mask_size, level_hw(nxt), to_levels[nxt])
             preds_class.append(outputs_class)
             preds_mask.append(rasterize(outputs_mask))
         return {

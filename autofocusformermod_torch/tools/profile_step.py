@@ -4,12 +4,13 @@
     python3 -m autofocusformermod_torch.tools.profile_step --config maskfiner_mini --batch 4
     python3 -m autofocusformermod_torch.tools.profile_step --config swin_base_384_res640 --batch 2
     python3 -m autofocusformermod_torch.tools.profile_step --config maskfiner_updown_mini --batch 4
+    python3 -m autofocusformermod_torch.tools.profile_step --config mrmlnb_mini --batch 4
     MSDETRPC_STACKED=0 python3 -m autofocusformermod_torch.tools.profile_step \\
         --config aff_mini --opts INPUT.CROP.SIZE "[384, 384]"
 
 Builds the Trainer of a preset (any meta-architecture: the MaskFiner
-cascades' and the grid baselines' steps call the same criterion and
-sampler; seeded weights,
+cascades', the MRML models' and the grid baselines' steps call the same
+criterion and sampler; seeded weights,
 synthetic batches; ``--opts``
 overrides config fields as KEY VALUE pairs; ``MSDETRPC_STACKED=0`` turns the
 pixel decoder's ``USE_STACKED_GLUE`` off, which takes the interleaved kernel

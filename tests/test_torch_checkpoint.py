@@ -19,6 +19,8 @@ from autofocusformermod_torch.engine.convert_checkpoint import (load_reference_w
                                                                 read_reference_state_dict)
 from autofocusformermod_torch.engine.train_step import device_masks
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
+
 
 class Toy(nn.Module):
     """A model with the reference's kinds of entries: weights, biases and a

@@ -29,6 +29,8 @@ from autofocusformermod_torch.data.mapper_semantic import (COCOSemanticLSJDatase
                                                            stuff_remap_lut)
 from autofocusformermod_torch.evaluation.instance_evaluation import rle_encode
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
+
 cv2 = pytest.importorskip("cv2")
 Image = pytest.importorskip("PIL.Image")
 

@@ -25,6 +25,8 @@ from autofocusformermod_torch.data.loader import TrainLoader, device_batch, eval
 from autofocusformermod_torch.data.mapper_semantic import MaskFormerSemanticDatasetMapper
 from autofocusformermod_torch.engine.train_step import device_masks
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
+
 cv2 = pytest.importorskip("cv2")
 Image = pytest.importorskip("PIL.Image")
 

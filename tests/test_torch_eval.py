@@ -40,6 +40,8 @@ from autofocusformermod_torch.models.maskformer import (init_random_weights, mas
                                                         semantic_inference, upsample_masks)
 from autofocusformermod_torch.models.tta import SemanticSegmentorWithTTA
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
+
 SCORE_RTOL = 1e-4
 TOY_ATOL = 1e-6
 

@@ -19,6 +19,8 @@ from autofocusformermod_torch.geometry.knn import (
     MAX_CELLS, PRUNED_MIN_DB, ROUTES, _knn_cuda, knn, knn_cells, knn_plain, knn_route,
     knn_scratch_stride)
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

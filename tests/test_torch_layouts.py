@@ -33,6 +33,8 @@ from autofocusformermod_torch.ops import msdetrpc as md
 from autofocusformermod_torch.ops import window_gather as wg
 from autofocusformermod_torch.ops.dispatch import plain_versions
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 MODULE_TOL = dict(rtol=2e-4, atol=2e-4)

@@ -21,6 +21,8 @@ from autofocusformermod_torch.ops import local_attn as la
 from autofocusformermod_torch.ops import window_gather as wg
 from autofocusformermod_torch.ops.dispatch import plain_versions
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
+
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 DIFF = (0, 1, 2, 5, 6, 7)                      # q, k, v, w5, b5, blank_k
 

@@ -33,6 +33,8 @@ from autofocusformermod_torch.models.registry import build_model, size_divisibil
 from autofocusformermod_torch.ops.clusten import weighted_gather
 from autofocusformermod_torch.ops.dispatch import plain_versions
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
+
 REPO = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-4)
 MINI_YAML = "configs/ade20k/semantic-segmentation/maskfiner/maskfiner_mini_bs32_80k.yaml"
@@ -175,7 +177,8 @@ def test_train_net_trains_the_cascade(tmp_path):
 @pytest.mark.parametrize("field, value", [
     ("MODEL.MASK_FINER.TRANSFORMER_DECODER_NAME", "MultiScaleMaskFinerTransformerDecoderCat"),
     ("MODEL.MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME", "MSDeformAttnPixelDecoderMaskFinerHierUp"),
-    ("MODEL.MR_SEM_SEG_HEAD.NAME", "MaskPredictorOracleTeacher"),
+    ("MODEL.MASK_FINER.PRE_NORM", "True"),
+    ("MODEL.MASK_FINER.MASK_DECODER_ALL_LEVELS", "True"),
 ])
 def test_unported_variants_raise(field, value):
     cfg = maskfiner_mini_cfg()

@@ -38,6 +38,7 @@ from autofocusformermod_torch.engine.train_step import TrainStep
 from autofocusformermod_torch.losses import criterion as tcrit
 from autofocusformermod_torch.models.maskfiner import maskfiner_from_config
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
 from test_torch_sampler import Replay, jax_ranked_draws
 
 B, T, NC, P = 2, 4, 7, 64        # images, target slots, classes, points

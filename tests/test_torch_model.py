@@ -26,6 +26,8 @@ from autofocusformermod_torch.models.maskformer import (
     init_random_weights, maskformer_from_config, semantic_inference, upsample_masks)
 from autofocusformermod_torch.ops import build
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
+
 REPO = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -30,6 +30,8 @@ from autofocusformermod_torch.ops.local_attn import (
     sfc_cluster_attention, sfc_cluster_attention_plain)
 from autofocusformermod_torch.ops.msdetrpc import msdetrpc_levels_s, msdetrpc_levels_s_plain
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 

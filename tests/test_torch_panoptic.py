@@ -40,6 +40,8 @@ from autofocusformermod_torch.evaluation.instance_evaluation import (rle_area, r
 from autofocusformermod_torch.models.inference import (instance_inference, panoptic_inference,
                                                        sem_seg_postprocess, thing_lookup)
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
+
 SCORE_ATOL = 1e-6
 METRIC_ATOL = 1e-12
 

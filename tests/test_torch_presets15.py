@@ -25,6 +25,7 @@ from autofocusformermod_torch.engine.convert_checkpoint import flax_to_torch_sta
 from autofocusformermod_torch.models import pixel_decoder as tpd
 from autofocusformermod_torch.models.maskformer import maskformer_from_config
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
 from test_torch_model import tiny_cfg
 
 REPO = Path(__file__).resolve().parents[1]

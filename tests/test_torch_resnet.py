@@ -37,6 +37,7 @@ from autofocusformermod_torch.models.pixel_decoder import scale_pos
 from autofocusformermod_torch.models.registry import build_model
 from autofocusformermod_torch.models.resnet import FrozenBN
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
 from test_torch_maskfiner_train import _record_grads, jax_group_draws
 from test_torch_sampler import Replay
 from test_torch_train import semantic_batch

@@ -22,6 +22,8 @@ from autofocusformermod_torch.losses.criterion import device_draw
 from autofocusformermod_torch.ops import point_sample as ops_ps
 from autofocusformermod_torch.ops.dispatch import plain_versions
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
+
 
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))

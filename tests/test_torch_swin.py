@@ -35,6 +35,7 @@ from autofocusformermod_torch.models.transformer_decoder import (CrossAttentionL
                                                                  SelfAttentionLayer,
                                                                  grid_attn_mask)
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
 from test_torch_resnet import (assert_close_to_scale, check_bridge, check_features,
                                check_gradients, check_loss_terms, check_outputs,
                                check_param_groups, check_preset_matches_yaml, check_update,

@@ -36,6 +36,7 @@ from autofocusformermod_torch.losses.lapjv import hungarian_lsap
 from autofocusformermod_torch.losses.matcher import matching_cost, solve_lsap
 from autofocusformermod_torch.models.maskformer import init_random_weights, maskformer_from_config
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
 from test_torch_model import tiny_cfg
 from test_torch_sampler import Replay, jax_ranked_draws
 

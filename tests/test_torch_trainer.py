@@ -34,6 +34,7 @@ from autofocusformermod_torch.models.aff import AFF
 from autofocusformermod_torch.models.layers import DropPath
 from autofocusformermod_torch.models.maskformer import maskformer_from_config
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
 from test_torch_train import (check_gradients, check_loss_terms, check_update,
                               jax_reference_step, port_step, train_cfg)
 

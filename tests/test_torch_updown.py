@@ -32,6 +32,8 @@ from autofocusformermod_torch.engine.convert_checkpoint import flax_to_torch_sta
 from autofocusformermod_torch.models import oracle as toracle
 from autofocusformermod_torch.models.registry import build_model
 
+import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
+
 B, SIZE = 2, 64
 REL = 1e-4
 REPO = Path(__file__).resolve().parents[1]
@@ -304,25 +306,32 @@ def test_forward_without_ground_truth(ref, port):
 def test_predictor_and_refusals(ref, port):
     """SemanticPredictor pads a request to the coarsest patch's multiple
     and labels every pixel; a composite backbone, pixel decoder or decoder
-    that is not ported raises before anything is built."""
+    that is not ported raises before anything is built: an MRML backbone,
+    the HierUp pixel decoder, the OracleTeacher pixel decoder under the
+    plain stage head (under the OracleTeacher head it is ported) and the
+    Cat decoder."""
     from autofocusformermod_torch.models.inference import SemanticPredictor
     from autofocusformermod_torch.models.registry import size_divisibility
 
     assert size_divisibility(ref["cfg"]) == 32
     labels = SemanticPredictor(port["model"], size_divisibility(ref["cfg"]))(ref["x"][:, :50, :60])
     assert tuple(labels.shape) == (B, 50, 60) and 0 <= labels.min() and labels.max() < 7
-    for field, value in (("MODEL.BACKBONE.NAME", "MixResMetaLoss"),
-                         ("MODEL.MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME",
-                          ["ProjMaskFinerOracleTeacher"] * 2
-                          + ["MSDeformAttnPixelDecoderMaskFinerOracleTeacher"]),
-                         ("MODEL.MASK_FINER.TRANSFORMER_DECODER_NAME",
-                          "MultiScaleMaskFinerTransformerDecoderCat")):
+    ot_decoders = ["ProjMaskFinerOracleTeacher"] * 2 + [
+        "MSDeformAttnPixelDecoderMaskFinerOracleTeacher"]
+    for fields in ({"MODEL.BACKBONE.NAME": "MixResMetaLoss"},
+                   {"MODEL.MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME":
+                    ot_decoders[:2] + ["MSDeformAttnPixelDecoderMaskFinerHierUp"]},
+                   {"MODEL.MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME": ot_decoders,
+                    "MODEL.MR_SEM_SEG_HEAD.NAME": "MaskPredictor"},
+                   {"MODEL.MASK_FINER.TRANSFORMER_DECODER_NAME":
+                    "MultiScaleMaskFinerTransformerDecoderCat"}):
         cfg = tiny_cfg()
-        *parents, leaf = field.split(".")
-        node = cfg
-        for name in parents:
-            node = getattr(node, name)
-        setattr(node, leaf, value)
+        for field, value in fields.items():
+            *parents, leaf = field.split(".")
+            node = cfg
+            for name in parents:
+                node = getattr(node, name)
+            setattr(node, leaf, value)
         with pytest.raises(NotImplementedError, match="ported"):
             build_model(cfg)
 
