@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -247,16 +249,42 @@ bool tile_fits(int n, int p, int h, int w) {
 // Nearest-cell reads for the uncertainty ranking (no gradient: the ranking is
 // a selection heuristic and runs without one).
 //
-// point_sample_nearest_kernel replaces point_sample_kernel.py:
+// K11, point_sample_nearest_kernel, replaces point_sample_kernel.py:
 // point_sample_nearest_pallas,
 //   out[m, p] = img[m, clamp(int(cy * h), 0, h - 1), clamp(int(cx * w), 0, w - 1)].
 // The TPU kernel is two one-hot matrix products, because the TPU has no fast
 // element gather, and it rounds the image to bf16 on the way.  The card
-// gathers natively, so this kernel reads the fp32 value exactly: one thread
-// per (mask, point), consecutive threads on consecutive points, the cell from
-// __fmul_rn and a truncating cast as the plain version computes it.
+// gathers natively, so this kernel reads the fp32 value exactly, the cell
+// from __fmul_rn and a truncating cast as the plain version computes it.
 //
-// point_sample_nearest_rows_kernel replaces point_sample_kernel.py:
+// What bounds it: bytes.  The coordinates (8 bytes a point) and the output
+// (4) are streamed once; at the ranking's shapes (37632 candidates a mask,
+// masks of 16x16 to 160x160) they are 82-99% of the bytes, the masks the
+// rest.  Split on the card (PERF.md section 6): a first design, one thread
+// per point reading its cell where the mask lies, ran at half its bound;
+// without that read it ran at the streaming rate.  Each read is a dependent
+// L2 access that moves a 32-byte sector for 4 useful bytes, 2.7 times the
+// streamed bytes at 128x128.
+//
+// The design: a 2-D grid of blocks, one per (tile of points, mask), so no
+// block divides by the point count.
+//   shared route, for a mask whose fp32 image fits a block's shared memory
+//     (227 KB; every shape of the ranking's i.i.d. route, 16x16 to 160x160):
+//     the block copies its mask into shared memory once (16-byte cp.async),
+//     while it issues its first coordinate loads, and every read is then a
+//     bank access.  A tile streams at least 8 times its mask's bytes, so the
+//     copies are a small share of a block's traffic.
+//   direct route, for larger masks: the same loop, the cells read where the
+//     mask lies (__ldg).
+// Each thread takes 4 points a step from two 16-byte evict-first loads
+// (__ldcs) and writes them with one 16-byte streaming store (__stcs); the next
+// step's loads are issued before this step's reads, 64 bytes of
+// coordinates in flight a thread.  An odd point count or an operand that
+// does not start at a multiple of 16 bytes takes a variant of one point a
+// slot (8-byte loads, 4-byte stores); a mask of a size not a multiple of 4
+// floats, or not 16-byte aligned, is copied 4 bytes at a time.
+//
+// K12, point_sample_nearest_rows_kernel, replaces point_sample_kernel.py:
 // point_sample_nearest_rows_pallas: the same read for y-stratified
 // candidates.  The candidates come in chunks of 128; chunk c of `chunks` lies
 // in the y-sliver [c / chunks, (c + 1) / chunks), which with chunks >= h
@@ -267,12 +295,9 @@ bool tile_fits(int n, int p, int h, int w) {
 // w = 128) coalesced into shared memory once, and each lane then reads
 // rows[cy == r0 ? 0 : 1][cx] for four candidates, cx/cy loaded and the
 // result stored 16 bytes a lane.  A cy outside {r0, r0 + 1} reads row r0 + 1
-// (the plain version raises on it instead).
-//
-// What bounds both: bytes.  At the training step's shapes (8000 masks of
-// 128x128, 37632 candidates each) the candidate arrays (coords, or cx and cy)
-// and the output are 3.6 GB against 0.5 GB of masks, so the least time is the
-// candidates' streaming time; the reads of the masks hit L2.
+// (the plain version raises on it instead).  Bytes bound it as they bound
+// K11: at a training step's shapes (8000 masks of 128x128, 37632 candidates
+// each) cx, cy and the output are 3.6 GB against 0.5 GB of masks.
 
 constexpr int kChunk = 128;          // candidates per chunk
 constexpr int kRowsWarps = 8;        // chunks (warps) per block
@@ -281,15 +306,136 @@ __device__ __forceinline__ int cell_of(float c, int size) {
   return min(max((int)__fmul_rn(c, (float)size), 0), size - 1);
 }
 
-__global__ void __launch_bounds__(kThreads)
-point_sample_nearest_kernel(const float* __restrict__ img, const float2* __restrict__ coords,
-                            float* __restrict__ out, long long total, int P, int H, int W) {
-  const long long pt = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (pt >= total) return;
-  const float2 c = coords[pt];
-  const int cx = cell_of(c.x, W);
-  const int cy = cell_of(c.y, H);
-  out[pt] = img[(pt / P) * (long long)H * W + (long long)cy * W + cx];
+constexpr int kNearThreads = 512;
+constexpr int kNearMinTile = 4096;   // points a tile, at least
+constexpr int kNearFillBlocks = 4 * 132;   // four blocks on each of the H100's SMs
+
+// the cell's value: a bank access (Shared) or a read where the mask lies
+template <bool Shared>
+__device__ __forceinline__ float cell_value(const float* im, float x, float y, int H, int W) {
+  const int at = cell_of(y, H) * W + cell_of(x, W);
+  if constexpr (Shared) return im[at];
+  else return __ldg(im + at);
+}
+
+// One slot of K11: four points (VP: two 16-byte coordinate loads, one 16-byte
+// store) or one (an 8-byte load, a 4-byte store).
+template <bool VP>
+struct NearSlot;
+
+template <>
+struct NearSlot<true> {
+  static constexpr int kPoints = 4;
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* cm, int s) {
+    a = __ldcs(reinterpret_cast<const float4*>(cm) + 2 * s);
+    b = __ldcs(reinterpret_cast<const float4*>(cm) + 2 * s + 1);
+  }
+  template <bool Shared>
+  __device__ __forceinline__ void store(float* om, int s, const float* im, int H, int W) const {
+    float4 o;
+    o.x = cell_value<Shared>(im, a.x, a.y, H, W);
+    o.y = cell_value<Shared>(im, a.z, a.w, H, W);
+    o.z = cell_value<Shared>(im, b.x, b.y, H, W);
+    o.w = cell_value<Shared>(im, b.z, b.w, H, W);
+    __stcs(reinterpret_cast<float4*>(om) + s, o);
+  }
+};
+
+template <>
+struct NearSlot<false> {
+  static constexpr int kPoints = 1;
+  float2 c;
+  __device__ __forceinline__ void load(const float* cm, int s) {
+    c = __ldcs(reinterpret_cast<const float2*>(cm) + s);
+  }
+  template <bool Shared>
+  __device__ __forceinline__ void store(float* om, int s, const float* im, int H, int W) const {
+    __stcs(om + s, cell_value<Shared>(im, c.x, c.y, H, W));
+  }
+};
+
+// Block (x, y): points [x * tile, (x + 1) * tile) of masks y, y + gridDim.y,
+// ...; tile is a multiple of 4.  Shared: the mask is copied into shared
+// memory first (VN: 16-byte copies).  A thread's slots in a step are s, s +
+// kNearThreads, ... (kUnroll of them), coalesced across the block.
+template <bool Shared, bool VN, bool VP>
+__global__ void __launch_bounds__(kNearThreads)
+point_sample_nearest_kernel(const float* __restrict__ img, const float* __restrict__ coords,
+                            float* __restrict__ out, int n, int P, int H, int W, int tile) {
+  extern __shared__ __align__(16) float cells[];
+  using Slot = NearSlot<VP>;
+  constexpr int kUnroll = VP ? 2 : 8;          // 64 bytes of coordinates a thread a step
+  constexpr int kStep = kUnroll * kNearThreads;
+  const int hw = H * W, tid = threadIdx.x;
+  const int t0 = blockIdx.x * tile;
+  const int s0 = t0 / Slot::kPoints + tid;
+  const int s1 = min(t0 + tile, P) / Slot::kPoints;
+  for (long long m = blockIdx.y; m < n; m += gridDim.y) {
+    const float* src = img + m * hw;
+    const float* im = src;
+    if constexpr (Shared) {
+      __syncthreads();                         // the last mask's reads are done
+      if constexpr (VN) {
+        for (int i = tid * 4; i < hw; i += kNearThreads * 4) cp_async16(cells + i, src + i);
+      } else {
+        for (int i = tid; i < hw; i += kNearThreads) cells[i] = src[i];
+      }
+      im = cells;
+    }
+    const float* cm = coords + m * P * 2;
+    float* om = out + m * P;
+    Slot cur[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (s0 + u * kNearThreads < s1) cur[u].load(cm, s0 + u * kNearThreads);
+    if constexpr (Shared) {
+      if constexpr (VN) cp_async_wait_all();
+      __syncthreads();
+    }
+    for (int s = s0; s < s1; s += kStep) {
+      Slot next[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (s + kStep + u * kNearThreads < s1) next[u].load(cm, s + kStep + u * kNearThreads);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (s + u * kNearThreads < s1)
+          cur[u].template store<Shared>(om, s + u * kNearThreads, im, H, W);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) cur[u] = next[u];
+    }
+  }
+}
+
+// Points a tile (a multiple of 4): at least kNearMinTile and, on the shared
+// route, a stream (12 bytes a point) of at least 8 times the mask's bytes;
+// fewer where that leaves the card short of blocks; tiles of equal size.
+int nearest_tile(int n, int p, int hw, bool shared) {
+  long long least = kNearMinTile;
+  if (shared) least = std::max(least, (long long)hw * 4 * 8 / 12);
+  long long tiles = (p + least - 1) / least;
+  const long long fill = (kNearFillBlocks + n - 1) / n;
+  if (tiles < fill) tiles = std::min(fill, (p + 1023LL) / 1024);
+  const long long tile = (p + tiles - 1) / tiles;
+  return (int)((tile + 3) / 4 * 4);
+}
+
+template <bool Shared, bool VN, bool VP>
+int launch_nearest(const float* img, const float* coords, float* out, int n, int p, int h,
+                   int w, void* stream_ptr) {
+  auto kernel = point_sample_nearest_kernel<Shared, VN, VP>;
+  const size_t smem = Shared ? (size_t)h * w * sizeof(float) : 0;
+  if (Shared) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           kMaxTileBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int tile = nearest_tile(n, p, h * w, Shared);
+  const dim3 grid((p + tile - 1) / tile, std::min(n, 65535));
+  kernel<<<grid, kNearThreads, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
+      img, coords, out, n, p, h, w, tile);
+  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void __launch_bounds__(kRowsWarps * 32)
@@ -385,16 +531,26 @@ extern "C" int aff_point_sample_bwd_shared(const float* coords, const float* g, 
                      dimg, p, h, w);
 }
 
-// img (n, h, w) f32; coords (n, p, 2) f32 (x, y) -> out (n, p): the value of
-// the cell each point falls in
+// img (n, h, w) f32; coords (n, p, 2) f32 (x, y), 8-byte aligned -> out (n,
+// p): the value of the cell each point falls in.  The direct route.
 extern "C" int aff_point_sample_nearest(const float* img, const float* coords, float* out,
                                         int n, int p, int h, int w, void* stream_ptr) {
   if (n < 1 || p < 1 || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = (long long)n * p;
-  point_sample_nearest_kernel<<<blocks_for(total), kThreads, 0,
-                                static_cast<cudaStream_t>(stream_ptr)>>>(
-      img, reinterpret_cast<const float2*>(coords), out, total, p, h, w);
-  return static_cast<int>(cudaGetLastError());
+  if (p % 4 == 0 && aligned(coords, 16) && aligned(out, 16))
+    return launch_nearest<false, false, true>(img, coords, out, n, p, h, w, stream_ptr);
+  return launch_nearest<false, false, false>(img, coords, out, n, p, h, w, stream_ptr);
+}
+
+// The same on the shared route: h * w * 4 bytes must fit 227 KB.
+extern "C" int aff_point_sample_nearest_shared(const float* img, const float* coords, float* out,
+                                               int n, int p, int h, int w, void* stream_ptr) {
+  if (!tile_fits(n, p, h, w)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vn = (h * w) % 4 == 0 && aligned(img, 16);
+  const bool vp = p % 4 == 0 && aligned(coords, 16) && aligned(out, 16);
+  if (vn && vp) return launch_nearest<true, true, true>(img, coords, out, n, p, h, w, stream_ptr);
+  if (vn) return launch_nearest<true, true, false>(img, coords, out, n, p, h, w, stream_ptr);
+  if (vp) return launch_nearest<true, false, true>(img, coords, out, n, p, h, w, stream_ptr);
+  return launch_nearest<true, false, false>(img, coords, out, n, p, h, w, stream_ptr);
 }
 
 // img (n, h, w) f32; cx, cy (n, chunks, 128) int32 cells, 0 <= cx < w, chunk

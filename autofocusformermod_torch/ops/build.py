@@ -53,6 +53,7 @@ SIGNATURES = {
     "aff_point_sample_bwd": [P, P, P, I, I, I, I, P],
     "aff_point_sample_bwd_shared": [P, P, P, I, I, I, I, P],
     "aff_point_sample_nearest": [P, P, P, I, I, I, I, P],
+    "aff_point_sample_nearest_shared": [P, P, P, I, I, I, I, P],
     "aff_point_sample_nearest_rows": [P, P, P, P, I, I, I, I, P],
     "aff_point_sample_shared": [P, P, P, I, I, I, I, P],
     "aff_window_gather": [P, P, P, I, I, I, I, P],

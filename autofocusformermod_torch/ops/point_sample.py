@@ -19,7 +19,10 @@ Counterpart of ``autofocusformermod_tpu/ops/pallas/point_sample_kernel.py``:
   ``point_sample_nearest_rows`` (``point_sample_nearest_rows_pallas``): the
   value of the cell each point falls in, for the uncertainty ranking.  They
   have no gradient and return tensors that require none.  The TPU kernel of
-  the first rounds the masks to bf16; both of these read fp32 exactly.
+  the first rounds the masks to bf16; both of these read fp32 exactly.  The
+  first has the two routes of the bilinear sample, chosen from the mask's
+  shape alone (``point_sample_nearest_route``) and counted in
+  ``point_sample_nearest.launches_by_route``.
 """
 
 from __future__ import annotations
@@ -158,32 +161,47 @@ def _gather_cells(masks, cx, cy):
     return take_scalars(masks.reshape(n, h * w), cy * w + cx)
 
 
+def point_sample_nearest_route(h: int, w: int) -> str:
+    """K11's route for (h, w) masks, by the bilinear sample's rule: "shared"
+    where one mask's fp32 image fits a block's shared memory (the block
+    reads its cells there), else "direct" (read where the mask lies)."""
+    return point_sample_route(h, w)
+
+
 @torch.no_grad()
 def point_sample_nearest(masks: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """masks (n, h, w) f32, coords (n, p, 2) f32 (x, y) -> (n, p), the value of
     the cell each point falls in (cells clamped into the image)."""
     if not use_kernel(masks, coords):
         return point_sample_nearest_plain(masks, coords)
-    return point_sample_nearest_forward(masks.contiguous(), coords.contiguous())
+    _, h, w = masks.shape
+    return point_sample_nearest_forward(masks.contiguous(), coords.contiguous(),
+                                        point_sample_nearest_route(h, w))
 
 
-def point_sample_nearest_forward(masks: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Launch the nearest-cell kernel -> (n, p)."""
+def point_sample_nearest_forward(masks: torch.Tensor, coords: torch.Tensor,
+                                 route: Optional[str] = None) -> torch.Tensor:
+    """Launch the nearest-cell kernel -> (n, p), on ``route`` (default: the
+    one ``point_sample_nearest_route`` picks; a forced "shared" must fit)."""
     n, h, w = masks.shape
     p = coords.shape[1]
+    route = _route(route, h, w)
     require(masks, "masks", torch.float32, (n, h, w))
     require(coords, "coords", torch.float32, (n, p, 2), align=8)
     out = torch.empty((n, p), dtype=torch.float32, device=masks.device)
+    name = "aff_point_sample_nearest_shared" if route == "shared" else "aff_point_sample_nearest"
     lib = load_kernels()
     with torch.cuda.device(masks.device):
-        err = lib.aff_point_sample_nearest(masks.data_ptr(), coords.data_ptr(), out.data_ptr(),
-                                           n, p, h, w, stream_of(masks))
-    check(err, "aff_point_sample_nearest")
+        err = getattr(lib, name)(masks.data_ptr(), coords.data_ptr(), out.data_ptr(),
+                                 n, p, h, w, stream_of(masks))
+    check(err, name)
     point_sample_nearest.launches += 1
+    point_sample_nearest.launches_by_route[route] += 1
     return out
 
 
 point_sample_nearest.launches = 0
+point_sample_nearest.launches_by_route = {"shared": 0, "direct": 0}
 
 ROWS_CHUNK = 128     # candidates per chunk of the row-stratified read
 ROWS_MAX_W = 768     # two rows of each of a block's 8 warps fit 48 KB of shared memory

@@ -51,7 +51,10 @@ one NVIDIA GPU.
    ms per step for both paths and peak memory;
 7. holds the two nearest-read kernels of the point ranking against their
    plain versions (exact equality: they copy floats) at the step's shapes,
-   times them beside one flat torch.gather, and checks that the whole
+   K11 also on its direct route (256x256 masks), times them beside one flat
+   torch.gather (K11 also on the card alone, with the route it took: every
+   K11 hold of phases 7, 9, 13 and 15 is appended to
+   chiprun_out/k11_holds.jsonl), and checks that the whole
    sampler picks identical points through kernels and plain versions on
    both routes (y-stratified, and i.i.d. with stratification off);
 8. trains AFF-Small at its published width and depth (DropPath 0.3, layer
@@ -83,7 +86,7 @@ one NVIDIA GPU.
    384x384 for the interleaved one) against the default layout's step from
    the same weights, batch and generators, each step's point ranking read
    on the route its masks give (K12 on 128-wide masks, K11 on the 96-wide
-   ones of 384x384);
+   ones of 384x384, held on that step's operands);
 10. the published AFF-Mini-1/5 preset (cluster merging keeps a fifth of the
    tokens: decoder levels of 3276, 655 and 131 tokens, clusters cut by n) at
    512x512: a batch-4 forward and a batch-8 training step, in the default
@@ -217,8 +220,10 @@ several paths has each path's figures under "by_path".
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1285,7 +1290,9 @@ def lapjv_costs(label, c):
 
 def check_nearest(dev, gen):
     """K11 and K12 at a batch-8 step's ranking shapes (8000 masks of 128x128,
-    37632 candidates each = 294 chunks of 128), held by hold_nearest."""
+    37632 candidates each = 294 chunks of 128), and K11 on the direct route
+    (2000 masks of 256x256: a COCO LSJ batch-2 step's logits, were they not
+    stratified), held by hold_nearest."""
     import torch
     from autofocusformermod_torch.ops.point_sample import (point_sample_nearest,
                                                            point_sample_nearest_rows)
@@ -1294,28 +1301,46 @@ def check_nearest(dev, gen):
     chunks = p // 128
     masks = torch.randn((n, h, w), generator=gen).to(dev) * 3
     coords = torch.rand((n, p, 2), generator=gen).to(dev)
-    records = [hold_nearest("", point_sample_nearest, masks, (coords,))]
+    rec = hold_nearest("phase 7", point_sample_nearest, masks, (coords,))
     del coords
     u = torch.rand((n, chunks, 128), generator=gen).to(dev)
     ys = (torch.arange(chunks, device=dev)[None, :, None] + u) * (1.0 / chunks)
     cy = (ys * h).int().clamp(0, h - 1)
     cx = (torch.rand((n, chunks, 128), generator=gen).to(dev) * w).int().clamp(0, w - 1)
     del u, ys
-    records.append(hold_nearest("", point_sample_nearest_rows, masks, (cx, cy)))
+    records = [rec, hold_nearest("", point_sample_nearest_rows, masks, (cx, cy))]
+    del masks, cx, cy
+    # made on the card from a generator of their own: `gen` feeds the later
+    # phases as it did before this call existed
+    own = torch.Generator(device=dev).manual_seed(SEED)
+    n = 10 * 2 * 100
+    masks = torch.randn((n, 256, 256), generator=own, device=dev) * 3
+    coords = torch.rand((n, p, 2), generator=own, device=dev)
+    rec["by_path"] = {"b8_128x128": {k: rec[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms",
+        "nearest_route")},
+                      "direct_256x256": hold_nearest("phase 7 direct", point_sample_nearest, masks,
+                                                     (coords,))}
     return records
 
 
 NEAREST_LINES = {"point_sample_nearest": 266, "point_sample_nearest_rows": 344}
+# K11's holds, one JSON line each: route, times on the card, bound
+NEAREST_LOG = os.path.join("chiprun_out", "k11_holds.jsonl")
 
 
 def hold_nearest(label, fn, masks, args):
     """K11 (fn point_sample_nearest, args (coords,)) or K12 (fn
     point_sample_nearest_rows, args (cx, cy)) on one call: the kernels copy
     floats, so they must equal their plain versions exactly.  The library
-    call is one flat torch.gather on a precomputed cell index.  -> the
-    kernel's record."""
+    call is one flat torch.gather on a precomputed cell index.  For K11 the
+    call must take the route point_sample_nearest_route gives (counted in
+    launches_by_route); its record also has that route and the card's time
+    alone (queued_ms), and is appended to NEAREST_LOG.  -> the kernel's
+    record."""
     import torch
     from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.ops.point_sample import point_sample_nearest_route
 
     n, h, w = masks.shape
     if len(args) == 1:
@@ -1325,7 +1350,11 @@ def hold_nearest(label, fn, masks, args):
         cell_index = (args[1] * w + args[0]).long().reshape(n, -1)
     flat = masks.reshape(n, h * w)
     name = fn.__name__
+    k11 = len(args) == 1
+    by_route = dict(fn.launches_by_route) if k11 else {}
     out = fn(masks, *args)
+    took = ({r: k - by_route[r] for r, k in fn.launches_by_route.items() if k != by_route[r]}
+            if k11 else {})
     with plain_versions():
         ref = fn(masks, *args)
         t_p = cuda_ms(lambda: fn(masks, *args), iters=3, warmup=1)
@@ -1334,15 +1363,48 @@ def hold_nearest(label, fn, masks, args):
     t_l = cuda_ms(lambda: torch.gather(flat, 1, cell_index), iters=10, warmup=2)
     same = torch.equal(out, ref) and torch.equal(lib.reshape(out.shape), ref)
     bnd = bound(nbytes(masks, *args, out), 6 * out.numel())
+    rec = {"name": name, "route": "cuda", "source": "autofocusformermod_torch/csrc/point_sample.cu",
+           "replaces": f"autofocusformermod_tpu/ops/pallas/point_sample_kernel.py:"
+                       f"{NEAREST_LINES[name]}",
+           "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p, "library_ms": t_l, **bnd}
+    extra = ""
+    if k11:
+        route = point_sample_nearest_route(h, w)
+        rec.update(nearest_route=route, device_ms=queued_ms(lambda: fn(masks, *args)))
+        extra = f", on the card {rec['device_ms']:.4f} ms, route {route}"
+        os.makedirs(os.path.dirname(NEAREST_LOG), exist_ok=True)
+        with open(NEAREST_LOG, "a") as f:
+            f.write(json.dumps({"label": label, "masks": [n, h, w], "candidates": out.shape[1],
+                                **{k: v for k, v in rec.items() if k not in (
+                                    "name", "route", "source", "replaces")}}) + "\n")
     log(f"  {name}{' ' + label if label else ''} masks={tuple(masks.shape)} candidates="
-        f"{cell_index.shape[1]}: identical={same} kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"{cell_index.shape[1]}: identical={same} kernel {t_k:.4f} ms{extra}, plain {t_p:.4f} ms, "
         f"torch.gather {t_l:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
     if not same:
         raise SystemExit(f"{name} {label}: kernel, plain version and torch.gather disagree")
-    return {"name": name, "route": "cuda", "source": "autofocusformermod_torch/csrc/point_sample.cu",
-            "replaces": f"autofocusformermod_tpu/ops/pallas/point_sample_kernel.py:"
-                        f"{NEAREST_LINES[name]}",
-            "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p, "library_ms": t_l, **bnd}
+    if k11 and took != {route: 1}:
+        raise SystemExit(f"{name} {label}: the kernel call launched {took}, expected one launch "
+                         f"on the {route} route")
+    return rec
+
+
+@contextlib.contextmanager
+def kept_nearest(calls):
+    """Within the block every K11 launch's operands are kept in `calls`, as
+    (masks, coords) copies; the launches count as they would."""
+    from autofocusformermod_torch.ops import point_sample as ops_ps
+
+    real = ops_ps.point_sample_nearest_forward
+
+    def keep(masks, coords, route=None):
+        calls.append((masks.clone(), coords.clone()))
+        return real(masks, coords, route)
+
+    ops_ps.point_sample_nearest_forward = keep
+    try:
+        yield calls
+    finally:
+        ops_ps.point_sample_nearest_forward = real
 
 
 def check_sampler(dev, gen):
@@ -1864,9 +1926,9 @@ class decoder_layout:
 
 
 def layouts_phase(dev, smi, images, default_out, counters):
-    """Phase 9's end-to-end part.  Returns {counter name: launches on the
-    layouts' forwards and steps}."""
-    import contextlib
+    """Phase 9's end-to-end part.  Returns ({counter name: launches on the
+    layouts' forwards and steps}, {"point_sample_nearest": {path: record}}:
+    K11 held on the operands of the 384x384 step's ranking)."""
     import copy
 
     import torch
@@ -1994,12 +2056,21 @@ def layouts_phase(dev, smi, images, default_out, counters):
     def worst_rel(a, b):
         return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for k in b)
 
+    paths = {}
     for size, batch_size, names in ((SIZE, TRAIN_BATCH, tuple(LAYOUTS)),
                                     (ODD_SIZE, ODD_TRAIN_BATCH, ("interleaved",))):
         batch = synthetic_batch(torch.Generator().manual_seed(SEED + 1), dev, batch_size,
                                 (size, size), cfg.TPU.MAX_GT_INSTANCES,
                                 cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
-        step(batch)                                  # warm-up, not compared
+        nearest = []
+        with kept_nearest(nearest) if size == ODD_SIZE else contextlib.nullcontext():
+            step(batch)                              # warm-up, not compared
+        if nearest:
+            (masks, coords), = nearest
+            paths["point_sample_nearest"] = {f"b{batch_size}_{size}_step": hold_nearest(
+                f"phase 9 {size}x{size} step", counters["point_sample_nearest"], masks,
+                (coords,))}
+            del nearest, masks, coords
         # each layout's step replays the default layout's discrete choices
         book = {}
         ref_terms, ref_norms, ref_got, ref_dt = step(batch, same_choices(book, record=True))
@@ -2027,7 +2098,7 @@ def layouts_phase(dev, smi, images, default_out, counters):
                                  f"norms by {norm_rel} (rel) from the default layout's")
         del batch
         torch.cuda.empty_cache()
-    return total
+    return total, paths
 
 
 # AFF-Mini-1/5's decoder levels at 512x512: its cluster merging keeps
@@ -3328,7 +3399,7 @@ def maskfiner_train_phase(dev, smi, gen, counters):
     def worst_rel(a, b):
         return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for k in b)
 
-    routes = (point_sample_bilinear, point_sample_backward)
+    routes = (point_sample_bilinear, point_sample_backward, counters["point_sample_nearest"])
     times, peaks, p_times, p_peaks = [], [], [], []
     for i in range(MASKFINER_TRAIN_STEPS):
         batch, book, gini = next(batches), {}, (([], []), ([], []))
@@ -3369,7 +3440,7 @@ def maskfiner_train_phase(dev, smi, gen, counters):
             f"backward {p_times[-1] * 1e3:.1f} ms (peak {p_peaks[-1]:.2f} GiB)")
         log(f"    launches {got}; point_sample by route: forward {by_route[0]}, backward "
             f"{by_route[1]}; the ranking through point_sample_nearest "
-            f"{got['point_sample_nearest']}, point_sample_nearest_rows "
+            f"{got['point_sample_nearest']} (by route {by_route[2]}), point_sample_nearest_rows "
             f"{got['point_sample_nearest_rows']}")
         # the split order follows each stage's disagreement, whose ties are
         # exact in one run where its sigmoids saturate and broken by rounding
@@ -3381,10 +3452,12 @@ def maskfiner_train_phase(dev, smi, gen, counters):
         if got != expected:
             raise SystemExit(f"{label} step {i + 1}: launched {got}, expected {expected}")
         if by_route != [{"direct": len(sides), "shared": len(sides)},
-                        {"direct": 0, "shared": len(sides)}]:
-            raise SystemExit(f"{label} step {i + 1}: point_sample took the routes {by_route}; the "
-                             "targets belong to the direct route, every logits group and its "
-                             "backward to the shared one")
+                        {"direct": 0, "shared": len(sides)},
+                        {"direct": 0, "shared": expected["point_sample_nearest"]}]:
+            raise SystemExit(f"{label} step {i + 1}: point_sample and point_sample_nearest took "
+                             f"the routes {by_route}; the targets belong to the direct route, "
+                             "every logits group, its backward and its ranking read to the "
+                             "shared one")
         if len(terms) != 1 + 3 * 19 or not all(math.isfinite(v) for v in terms.values()):
             raise SystemExit(f"{label} step {i + 1}: {len(terms) - 1} loss terms, or non-finite")
         if rel > LOSS_RTOL or norm_rel > GROUP_NORM_RTOL:
@@ -5749,9 +5822,12 @@ def main() -> int:
         "msdetrpc_interleaved_bwd": clusten.msdetrpc_backward,
         "window_gather": windowed_row_gather}
     by_route = dict(windowed_row_gather.launches_by_route)
-    layout_launches = layouts_phase(dev, smi, images, default_out, {
+    layout_launches, layout_paths = layouts_phase(dev, smi, images, default_out, {
         **layout_counters, "point_sample_nearest": point_sample_nearest,
         "point_sample_nearest_rows": point_sample_nearest_rows})
+    for kr in kernels:
+        for path, rec in layout_paths.get(kr["name"], {}).items():
+            kr["by_path"][path] = rec
     by_route = {r: windowed_row_gather.launches_by_route[r] - n for r, n in by_route.items()}
     log(f"  window_gather launches by route on the layouts' forwards and steps: {by_route}")
     if by_route["direct"] or by_route["shared"] < 18:

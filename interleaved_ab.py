@@ -42,18 +42,19 @@ HERE = Path(__file__).resolve().parent
 PACKAGE = "autofocusformermod_torch"
 
 
-def tree_ops(root: str, alias: str):
-    """The checkout's ops/clusten.py, its package imported as `alias` (this
-    checkout's as itself)."""
+def tree_ops(root: str, alias: str, module: str = "ops.clusten"):
+    """The checkout's `module` (default ops/clusten.py), its package imported
+    as `alias` (this checkout's as itself)."""
     pkg = Path(root).resolve() / PACKAGE
     if pkg.parent == HERE:
-        return importlib.import_module(f"{PACKAGE}.ops.clusten")
-    spec = importlib.util.spec_from_file_location(alias, pkg / "__init__.py",
-                                                  submodule_search_locations=[str(pkg)])
-    module = importlib.util.module_from_spec(spec)
-    sys.modules[alias] = module
-    spec.loader.exec_module(module)
-    return importlib.import_module(f"{alias}.ops.clusten")
+        return importlib.import_module(f"{PACKAGE}.{module}")
+    if alias not in sys.modules:
+        spec = importlib.util.spec_from_file_location(alias, pkg / "__init__.py",
+                                                      submodule_search_locations=[str(pkg)])
+        package = importlib.util.module_from_spec(spec)
+        sys.modules[alias] = package
+        spec.loader.exec_module(package)
+    return importlib.import_module(f"{alias}.{module}")
 
 
 def fold_forms():

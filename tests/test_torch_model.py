@@ -157,7 +157,7 @@ def test_import_is_jax_free():
         "import sys, pkgutil, importlib, autofocusformermod_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, interleaved_ab\n"
+        "import chip_smoke, interleaved_ab, nearest_ab\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'yaml', 'cv2',"
         " 'PIL', 'autofocusformermod_tpu')]\n"
         "assert not bad, bad\n"

@@ -102,21 +102,26 @@ def test_generator_draw_hands_out_uint32_seeds():
 
 
 # ------------------------------------------------- the kernels' plain versions
-def test_nearest_plain_matches_pallas_interpret_and_xla(jax_mods):
-    """K11's plain version: exact against the Pallas kernel (interpret mode)
-    on masks rounded to bf16 first, and exact against the XLA fall-through of
-    the JAX sampler on fp32 masks; coordinates reach outside [0, 1]."""
+@pytest.mark.parametrize("side", [16, 32, 64, 128, 160])
+def test_nearest_plain_matches_pallas_interpret_and_xla(jax_mods, side):
+    """K11's plain version at the ranking's mask sides (the MaskFiner
+    cascade's 16-64, the AFF step's 128, Swin-B's 160), on an odd number of
+    points: exact against the Pallas kernel (interpret mode) on masks
+    rounded to bf16 first, and exact against the XLA fall-through of the JAX
+    sampler on fp32 masks; coordinates reach outside [0, 1].  The Pallas
+    kernel takes whole blocks of 128 points (``_pick_block_p_nearest``), so
+    it reads the first 256 of the 257."""
     jnp, jk = jax_mods["jnp"], jax_mods["jk"]
-    rng = np.random.default_rng(6)
-    n, h, w, p = 3, 128, 128, 256
+    rng = np.random.default_rng(6 + side)
+    n, h, w, p = 3, side, side, 257
     masks = rng.standard_normal((n, h, w)).astype(np.float32)
     coords = rng.uniform(-0.05, 1.05, (n, p, 2)).astype(np.float32)
     coords[0, :4] = [[0, 0], [1, 1], [0, 1], [1, 0]]
     rounded = np.asarray(jnp.asarray(masks).astype(jnp.bfloat16).astype(jnp.float32))
-    ref = np.asarray(jk.point_sample_nearest_pallas(jnp.asarray(rounded), jnp.asarray(coords),
-                                                    interpret=True))
+    ref = np.asarray(jk.point_sample_nearest_pallas(jnp.asarray(rounded),
+                                                    jnp.asarray(coords[:, :256]), interpret=True))
     got = ops_ps.point_sample_nearest(_t(rounded), _t(coords))
-    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(got.numpy()[:, :256], ref)
 
     cx = jnp.clip((jnp.asarray(coords)[..., 0] * w).astype(jnp.int32), 0, w - 1)
     cy = jnp.clip((jnp.asarray(coords)[..., 1] * h).astype(jnp.int32), 0, h - 1)
@@ -124,6 +129,21 @@ def test_nearest_plain_matches_pallas_interpret_and_xla(jax_mods):
     xla = jnp.take(jnp.asarray(masks).reshape(-1), (row0 + cy * w + cx).reshape(-1)).reshape(n, p)
     np.testing.assert_array_equal(ops_ps.point_sample_nearest(_t(masks), _t(coords)).numpy(),
                                   np.asarray(xla))
+
+
+# K11's route: the ranking's sides, the edge of a block's 227 KB (232448
+# bytes: 241x241 is 232324, 242x242 234256; 227x256 exactly 232448), and
+# the COCO logits' and targets' sides
+NEAREST_ROUTES = [(16, 16, "shared"), (160, 160, "shared"), (241, 241, "shared"),
+                  (242, 242, "direct"), (227, 256, "shared"), (227, 257, "direct"),
+                  (256, 256, "direct"), (512, 512, "direct")]
+
+
+@pytest.mark.parametrize("h,w,route", NEAREST_ROUTES)
+def test_nearest_route_rule(h, w, route):
+    """Shared memory where one mask's fp32 image fits a block's 227 KB, the
+    direct read elsewhere, from the mask's shape alone."""
+    assert ops_ps.point_sample_nearest_route(h, w) == route
 
 
 def _rows_case(rng, n=3, h=16, w=128, chunks=24):
@@ -320,7 +340,7 @@ def test_nearest_wrappers_wiring(monkeypatch):
     launchers are the plain versions and the device rule is forced."""
     seen = {}
 
-    def nearest(masks, coords):
+    def nearest(masks, coords, route):
         seen["nearest"] = (masks.is_contiguous(), coords.is_contiguous())
         return ops_ps.point_sample_nearest_plain(masks, coords)
 
@@ -343,6 +363,27 @@ def test_nearest_wrappers_wiring(monkeypatch):
     assert torch.equal(out, ops_ps.point_sample_nearest_rows_plain(masks.detach(), _t(cx), _t(cy)))
 
 
+@pytest.mark.parametrize("h,w,route", NEAREST_ROUTES)
+def test_nearest_wrapper_passes_the_route(monkeypatch, h, w, route):
+    """On a CUDA tensor the wrapper hands its launcher the route the rule
+    picks for the masks' shape and returns what the launcher returns; here
+    the launcher is the plain version and the device rule is forced."""
+    seen = []
+
+    def launcher(masks, coords, route):
+        seen.append(route)
+        return ops_ps.point_sample_nearest_plain(masks, coords)
+
+    monkeypatch.setattr(ops_ps, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(ops_ps, "point_sample_nearest_forward", launcher)
+    rng = np.random.default_rng(h * w)
+    masks = _t(rng.standard_normal((2, h, w)).astype(np.float32))
+    coords = _t(rng.uniform(-0.5, 1.5, (2, 33, 2)).astype(np.float32))
+    out = ops_ps.point_sample_nearest(masks, coords)
+    assert seen == [route]
+    assert torch.equal(out, ops_ps.point_sample_nearest_plain(masks, coords))
+
+
 # ----------------------------------------------------------------- on the card
 @pytest.fixture
 def cuda():
@@ -359,6 +400,54 @@ def test_nearest_kernel_matches_plain_on_card(cuda):
     before = ops_ps.point_sample_nearest.launches
     got = ops_ps.point_sample_nearest(masks, coords)
     assert ops_ps.point_sample_nearest.launches == before + 1
+    with plain_versions():
+        want = ops_ps.point_sample_nearest(masks, coords)
+    assert torch.equal(got, want)
+
+
+def _offset(t, floats):
+    """A contiguous copy of t that starts `floats` floats into its storage."""
+    buf = torch.empty(t.numel() + floats, dtype=t.dtype, device=t.device)
+    view = buf[floats:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# (n, h, w, p, which operand starts off 16 bytes, forced route): both routes
+# with 4 points a slot and with one (an odd p, coordinates 8 bytes in), masks
+# copied 16 and 4 bytes at a time (h * w odd, masks 4 bytes in), the direct
+# route forced on small masks, and more masks than a grid's 65535 rows
+NEAREST_CARD_CASES = [(6, 16, 16, 4000, None, None), (3, 160, 160, 5003, None, None),
+                      (4, 241, 241, 1001, None, None), (3, 24, 40, 777, "coords", None),
+                      (3, 24, 40, 776, "masks", None), (2, 300, 300, 2048, None, None),
+                      (2, 33, 31, 999, None, "direct"), (5, 16, 16, 4000, None, "direct"),
+                      (70000, 4, 4, 8, None, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,p,offset,forced", NEAREST_CARD_CASES)
+def test_nearest_kernel_routes_on_card(cuda, n, h, w, p, offset, forced):
+    """K11 on each route and operand variant equals its plain version bit for
+    bit, coordinates outside [0, 1] and on the image's corners included, and
+    counts its launch under the route it took."""
+    rng = np.random.default_rng(n + h + p)
+    masks = _t(rng.standard_normal((n, h, w)).astype(np.float32)).to(cuda)
+    coords = rng.uniform(-0.5, 1.5, (n, p, 2)).astype(np.float32)
+    coords[0, :4] = [[0, 0], [1, 1], [0, 1], [1, 0]]
+    coords = _t(coords).to(cuda)
+    if offset == "coords":
+        coords = _offset(coords, 2)
+    elif offset == "masks":
+        masks = _offset(masks, 1)
+    route = forced or ops_ps.point_sample_nearest_route(h, w)
+    before = dict(ops_ps.point_sample_nearest.launches_by_route)
+    if forced:
+        got = ops_ps.point_sample_nearest_forward(masks, coords, forced)
+    else:
+        got = ops_ps.point_sample_nearest(masks, coords)
+    torch.cuda.synchronize()
+    after = ops_ps.point_sample_nearest.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {r: int(r == route) for r in after}
     with plain_versions():
         want = ops_ps.point_sample_nearest(masks, coords)
     assert torch.equal(got, want)

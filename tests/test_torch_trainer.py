@@ -534,13 +534,13 @@ def tiny_dataset(root, name):
 
 # ---------------------------------------------------------------- the port's imports
 def test_port_sources_name_no_jax_import():
-    """No file of the port, and neither chip_smoke.py nor interleaved_ab.py,
-    imports jax, flax, optax, yaml or the JAX package (docstrings may name
-    them)."""
+    """No file of the port, and none of chip_smoke.py, interleaved_ab.py and
+    nearest_ab.py, imports jax, flax, optax, yaml or the JAX package
+    (docstrings may name them)."""
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|yaml|orbax|autofocusformermod_tpu)\b",
                      re.M)
     files = list((REPO / "autofocusformermod_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "interleaved_ab.py"]
+        REPO / "chip_smoke.py", REPO / "interleaved_ab.py", REPO / "nearest_ab.py"]
     assert len(files) > 30
     bad = {str(f.relative_to(REPO)): pat.findall(f.read_text()) for f in files
            if pat.search(f.read_text())}
