@@ -2,7 +2,8 @@
 MaskFiner-Mini, MaskFiner-UpDown-Mini, MaskFiner-OracleTeacher-BB,
 MaskFiner-OracleTeacher, MRML-Mini, MRML-NB-Mini and MRMean-Mini models
 (ADE20K semantic), of AFF-Mini for Cityscapes
-panoptic and COCO instance segmentation, and of the grid baselines
+panoptic and COCO instance segmentation, of MaskFiner-UpDown-Tiny for COCO
+panoptic segmentation (bf16 mixed precision), and of the grid baselines
 Mask2Former-R50, Swin-T and Swin-B-384 at 640 (ADE20K semantic).
 
 ``configs/ade20k/maskformer2_aff_{mini,mini_15,small}_bs32_80k.yaml`` merged
@@ -372,6 +373,73 @@ def maskfiner_updown_mini_cfg(num_classes: int = 150) -> Cfg:
     return cfg
 
 
+def maskfiner_updown_tiny_coco_panoptic_cfg(num_classes: int = 133) -> Cfg:
+    """MaskFiner-UpDown-Tiny (MaskFinerOracleTeacherBB), COCO panoptic
+    segmentation (``configs/coco/panoptic-segmentation/maskfiner/
+    maskfiner_updown_tiny_bs16_50ep.yaml`` over ``../maskfiner_R50_bs16_50ep.yaml``,
+    ``../Base-COCO-PanopticSegmentation.yaml`` and the defaults): 133
+    classes (80 things), an UpDownBackbone of 7 MixRes stages 512, 256,
+    128, 64, 128, 256 and 512 wide (depths 1, 1, 1, 4, 4, 16, 4; 80, 70 and
+    60 % of the newest scale's tokens split; DropPath to 0.3), the head of
+    ``maskfiner_updown_mini_cfg``; training on the LSJ recipe's 1024x1024
+    canvas (scales 0.1-2.0) at batch 16 for 368,750 steps, clipped at 0.01,
+    in bf16 mixed precision (SOLVER.AMP.ENABLED); testing at short edge 800
+    (long at most 1333) with panoptic inference.  The yaml leaves
+    SEM_SEG_HEAD.NUM_CLASSES at the default 150, which evaluation reads for
+    the class count: here it is the model's 133.  SOLVER.STEPS (a
+    multi-step schedule) is not read: both packages train on the poly
+    schedule."""
+    cfg = maskfiner_updown_mini_cfg(num_classes)
+    cfg.MODEL.MR.update({
+        "EMBED_DIM": [512, 256, 128, 64, 128, 256, 512],
+        "DEPTHS": [1, 1, 1, 4, 4, 16, 4],
+        "NUM_HEADS": [16, 8, 4, 2, 4, 8, 16],
+        "DROP_PATH_RATE": 0.3,
+        "UPSCALE_RATIO": [0.0, 0.8, 0.7, 0.6, 0.0, 0.0, 0.0],
+        "MLP_RATIO": [3.0] * 7,
+    })
+    test = {"SEMANTIC_ON": True, "INSTANCE_ON": True, "PANOPTIC_ON": True,
+            "OVERLAP_THRESHOLD": 0.8, "OBJECT_MASK_THRESHOLD": 0.8}
+    cfg.MODEL.MASK_FINER.TEST = Cfg(test)
+    cfg.MODEL.MASK_FORMER.TEST = Cfg(test)
+    cfg.SOLVER.update({"IMS_PER_BATCH": 16, "BASE_LR": 0.0002, "MAX_ITER": 368750,
+                       "CHECKPOINT_PERIOD": 5000, "WARMUP_ITERS": 10,
+                       "AMP": Cfg({"ENABLED": True})})
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 0.01
+    for k, v in {
+        "DATASETS": {"TRAIN": ["coco_2017_train_panoptic"],
+                     "TEST": ["coco_2017_val_panoptic_with_sem_seg"]},
+        "INPUT": {
+            "MIN_SIZE_TRAIN": [800],
+            "MAX_SIZE_TRAIN": 1333,
+            "MIN_SIZE_TEST": 800,
+            "MAX_SIZE_TEST": 1333,
+            "CROP": {"ENABLED": False, "SIZE": [0.9, 0.9], "SINGLE_CATEGORY_MAX_AREA": 1.0},
+            "COLOR_AUG_SSD": False,
+            "SIZE_DIVISIBILITY": -1,
+            "DATASET_MAPPER_NAME": "coco_panoptic_lsj",
+            "IMAGE_SIZE": 1024,
+            "MIN_SCALE": 0.1,
+            "MAX_SCALE": 2.0,
+            "RANDOM_FLIP": "horizontal",
+        },
+        "TEST": {
+            "EVAL_PERIOD": 5000,
+            "EXPECTED_RESULTS": [],
+            "AUG": {"ENABLED": False, "MIN_SIZES": [400, 500, 600, 700, 800, 900, 1000, 1100, 1200],
+                    "MAX_SIZE": 4000, "FLIP": True},
+            "SW_ENABLED": False,
+            "SW_CROP_SIZE": [1024, 1024],
+            "SW_STRIDE": [768, 768],
+            "SAVE_EVAL_ARTIFACTS": False,
+            "DETECTIONS_PER_IMAGE": 100,
+        },
+        "DATALOADER": {"NUM_WORKERS": 10},
+    }.items():
+        cfg[k] = Cfg(v)
+    return cfg
+
+
 def maskfiner_oracle_teacher_bb_cfg(num_classes: int = 150) -> Cfg:
     """MaskFinerOracleTeacherBB with the down-only OracleTeacherBackbone
     (``configs/ade20k/semantic-segmentation/maskfiner/
@@ -678,6 +746,7 @@ def train_image_size(cfg) -> tuple:
 PRESETS = {"aff_mini": aff_mini_cfg, "aff_mini_15": aff_mini_15_cfg, "aff_small": aff_small_cfg,
            "maskfiner_mini": maskfiner_mini_cfg,
            "maskfiner_updown_mini": maskfiner_updown_mini_cfg,
+           "maskfiner_updown_tiny_coco_panoptic": maskfiner_updown_tiny_coco_panoptic_cfg,
            "maskfiner_oracle_teacher_bb": maskfiner_oracle_teacher_bb_cfg,
            "maskfiner_oracle_teacher": maskfiner_oracle_teacher_cfg,
            "mrml_mini": mrml_mini_cfg, "mrmlnb_mini": mrmlnb_mini_cfg,

@@ -54,6 +54,7 @@ from ..models.inference import (instance_inference, panoptic_inference, sem_seg_
 from ..models.maskformer import semantic_inference, upsample_masks
 from ..models.registry import META_ARCHITECTURES, build_model, meta_architecture
 from ..models.tta import SemanticSegmentorWithTTA
+from ..parallel import precision
 from .checkpoint import Checkpointer
 from .convert_checkpoint import load_reference_weights
 from .hooks import MetricLogger, device_memory_stats, nan_check
@@ -256,7 +257,8 @@ class Trainer:
 
     def _scores(self, image: np.ndarray) -> torch.Tensor:
         """(nc, H, W) class scores of one (H, W, 3) uint8 model input."""
-        out = self.model(torch.from_numpy(np.ascontiguousarray(image)).to(self.device)[None])
+        out = precision.apply(
+            self.model, torch.from_numpy(np.ascontiguousarray(image)).to(self.device)[None])
         masks = upsample_masks(out["pred_masks"], image.shape[:2])[0]
         return semantic_inference(out["pred_logits"][0], masks)
 
@@ -328,7 +330,8 @@ class Trainer:
         the model, the masks upsampled to the padded size and cropped."""
         h, w = image.shape[:2]
         padded = self._pad_eval_image(image)
-        out = self.model(torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)[None])
+        out = precision.apply(
+            self.model, torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)[None])
         masks = upsample_masks(out["pred_masks"], padded.shape[:2])[0]
         return out["pred_logits"][0], masks[:, :h, :w]
 

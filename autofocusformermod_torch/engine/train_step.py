@@ -2,7 +2,7 @@
 backward -> full-model clipping -> AdamW update.
 
 Counterpart of ``autofocusformermod_tpu/parallel/train_step.py`` on one
-device, fp32: ``make_train_step`` for a MaskFormer, and
+device: ``make_train_step`` for a MaskFormer, and
 ``make_maskfiner_train_step`` for the MaskFiner cascade, whose criterion
 runs over the last stage's outputs and every stage's rounds (19 outputs
 for MaskFiner-Mini, at one mask size per stage) with the loss weights of
@@ -21,6 +21,11 @@ takes one step and returns the metrics the JAX step returns:
 ``total_loss``, every loss term and ``grad_norm`` (before clipping).
 ``draw`` supplies the criterion's randomness
 (``losses.criterion.device_draw`` of a ``torch.Generator`` by default).
+A model built under SOLVER.AMP.ENABLED runs its forward on the bf16 view
+of the fp32 master parameters (``parallel/precision.py:apply``; one that
+its build function keeps fp32, MaskFormerSwin, stays fp32), hands fp32 outputs to the
+criterion, the matcher and the upsampling and meta losses, and gradients,
+AdamW state and BatchNorm statistics stay fp32.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from ..losses.criterion import Draw, set_criterion
 from ..models.mrml import compute_meta_loss
 from ..models.oracle import upsampling_mse_loss
 from ..models.registry import meta_architecture
+from ..parallel import precision
 from .optimizer import build_optimizer, clip_by_global_norm_, global_norm
 
 
@@ -103,9 +109,9 @@ class TrainStep:
         (total, loss terms, matched query per target of each layer)."""
         self.model.train()
         if self.with_sem_seg_gt:
-            outputs = self.model(batch["image"], batch["sem_seg_map"])
+            outputs = precision.apply(self.model, batch["image"], batch["sem_seg_map"])
         else:
-            outputs = self.model(batch["image"])
+            outputs = precision.apply(self.model, batch["image"])
         targets = {"labels": batch["labels"], "masks": device_masks(batch),
                    "valid": batch["valid"]}
         total, losses, matched = set_criterion(outputs, targets, self.num_classes, draw,

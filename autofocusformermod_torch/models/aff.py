@@ -5,7 +5,10 @@ Counterpart of ``autofocusformermod_tpu/models/aff.py``.  Features are
 tokens along a space-filling curve, finds each token's nearest clusters
 (``knn``), runs local cluster attention (the ``local_attn`` kernel on CUDA)
 and then merges the kept tokens (ClusterMerging).  Parameter names follow
-the reference PyTorch state dict.
+the reference PyTorch state dict.  Under mixed precision the local
+attention kernel takes fp32 operands (cast up at its call, its outputs cast
+back down) and the fp32 geometry terms (the rel-pos bias, the merging
+weights) are cast to the features' dtype, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from ..ops.clusten import cluster_wf
 from ..ops.gather import take_rows, topk_indices
 from ..ops.dispatch import use_kernel
 from ..ops.local_attn import build_reverse_lists, sfc_cluster_attention
-from .layers import DropPath, FlaxBatchNorm2d, Mlp, WeightNet, layer_norm, rel_pos_features
+from .layers import DropPath, FlaxBatchNorm2d, Mlp, WeightNet, dense, layer_norm, rel_pos_features
 
 
 class ClusterAttention(nn.Module):
@@ -52,17 +55,20 @@ class ClusterAttention(nn.Module):
         key, v = kv[0], kv[1]                                   # (b, h, n, c_)
         blank_k = self.blank_k.reshape(h, c_)
         if ctx["global"]:
-            pos_bias = self.pos_embed(ctx["rel_feat5"])          # (b, n, n, h)
+            pos_bias = dense(self.pos_embed, ctx["rel_feat5"]).to(feat.dtype)   # (b, n, n, h)
             attn = torch.einsum("bhnc,bhmc->bhnm", q, key) + pos_bias.permute(0, 3, 1, 2)
             blank_attn = torch.einsum("bhnc,hc->bhn", q, blank_k)[..., None]
             attn = torch.softmax(torch.cat([attn, blank_attn], dim=-1), dim=-1)
             out = torch.einsum("bhnm,bhmc->bhnc", attn[..., :-1], v)
             blank_prob = attn[..., -1:]
         else:
+            # the kernel is fp32 in and out: cast bf16 operands up at its call
             out, blank_prob = sfc_cluster_attention(
-                q.contiguous(), key.contiguous(), v.contiguous(), ctx["pos"], ctx["nc"],
-                self.pos_embed.weight.contiguous(), self.pos_embed.bias.contiguous(),
-                blank_k.contiguous(), ctx["span"], reverse=ctx.get("reverse"))
+                q.float().contiguous(), key.float().contiguous(), v.float().contiguous(),
+                ctx["pos"], ctx["nc"], self.pos_embed.weight.float().contiguous(),
+                self.pos_embed.bias.float().contiguous(), blank_k.float().contiguous(),
+                ctx["span"], reverse=ctx.get("reverse"))
+            out, blank_prob = out.to(feat.dtype), blank_prob.to(feat.dtype)
         out = out + blank_prob * self.blank_v.reshape(1, h, 1, c_)
         return self.proj(out.permute(0, 2, 1, 3).reshape(b, n, c))
 
@@ -132,7 +138,9 @@ class ClusterMerging(nn.Module):
         weights = self.weight_net(rel5)                           # (b, n', m, ic)
         if mask is not None:
             weights = weights * mask[..., None]
-        feat = cluster_wf(weights, feat * learned_prob, member_idx).reshape(b, keep_num, -1)
+        # fp32 geometry: cast down so the merge stays in the compute dtype
+        feat = cluster_wf(weights.to(feat.dtype), feat * learned_prob, member_idx).reshape(
+            b, keep_num, -1)
         return new_pos, self.linear(self.norm(feat))
 
 

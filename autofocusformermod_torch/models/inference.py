@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..ops.gather import topk_indices
+from ..parallel import precision
 from .maskformer import semantic_inference, upsample_masks
 
 
@@ -194,7 +195,7 @@ class SemanticPredictor:
         ph, pw = -(-h // self.div) * self.div, -(-w // self.div) * self.div
         if (ph, pw) != (h, w):
             x = nn.functional.pad(x, (0, 0, 0, pw - w, 0, ph - h))
-        out = self.model(x)
+        out = precision.apply(self.model, x)
         masks = upsample_masks(out["pred_masks"], (ph, pw))
         sem = semantic_inference(out["pred_logits"], masks)
         return sem[:, :, :h, :w].argmax(dim=1)

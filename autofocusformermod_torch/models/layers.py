@@ -1,6 +1,8 @@
 """Shared layers: relative-position features, MLPs, DropPath, sine position
 embedding, PointConv weight net, flax-convention BatchNorm.  Counterpart of
-``autofocusformermod_tpu/models/layers.py``.
+``autofocusformermod_tpu/models/layers.py``.  Under mixed precision the
+layers that take fp32 geometry (``dense``, ``WeightNet``) compute in fp32
+with the bf16 view of their weights, as flax promotes.
 
 Flax's LayerNorm and GroupNorm epsilon is 1e-6 (torch's default is 1e-5),
 so every LayerNorm here passes ``eps=LN_EPS`` and every GroupNorm
@@ -16,6 +18,8 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.precision import promoted
 
 REL_POS_WIDTH = 2048 // 4 - 1  # 511: relative offsets are clipped to +-511
 LN_EPS = 1e-6
@@ -49,6 +53,11 @@ def rel_pos_features(rel_pos: torch.Tensor) -> torch.Tensor:
     sin = torch.where(pos, dy / safe, zero)
     cos = torch.where(pos, dx / safe, zero)
     return torch.stack([dx, dy, dist, sin, cos], dim=-1)
+
+
+def dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)`` in the common dtype of x and the layer's parameters."""
+    return nn.functional.linear(*promoted(x, layer.weight, layer.bias))
 
 
 class Mlp(nn.Module):
@@ -131,22 +140,36 @@ class WeightNet(nn.Sequential):
     def __init__(self, inner_ch: int = 4):
         super().__init__(nn.Linear(5, inner_ch), layer_norm(inner_ch), nn.GELU())
 
+    def forward(self, rel5: torch.Tensor) -> torch.Tensor:
+        """fp32 features through bf16 weights compute in fp32."""
+        linear, norm, act = self
+        x = dense(linear, rel5)
+        x = nn.functional.layer_norm(x, norm.normalized_shape, norm.weight.to(x.dtype),
+                                     norm.bias.to(x.dtype), norm.eps)
+        return act(x)
+
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
     """BatchNorm2d with flax.linen.BatchNorm's training semantics: flax's
     default momentum 0.99 (0.01 in PyTorch's convention, where 0.1 is the
     default), and running statistics that take the biased batch variance
     (PyTorch's BatchNorm2d takes the unbiased one).  Eval mode is plain
-    BatchNorm2d."""
+    BatchNorm2d.  Under mixed precision the running statistics stay fp32,
+    are updated from fp32 batch statistics and are read in the activations'
+    dtype in eval mode (the JAX package casts its batch_stats so)."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, momentum=0.01)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            if x.dtype == self.running_mean.dtype:
+                return super().forward(x)
+            return nn.functional.batch_norm(x, self.running_mean.to(x.dtype),
+                                            self.running_var.to(x.dtype), self.weight, self.bias,
+                                            False, 0.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1

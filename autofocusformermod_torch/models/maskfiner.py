@@ -47,6 +47,7 @@ from ..geometry.rasterize import point2img
 from ..geometry.shepard import shepard_neighbours, upsample_feature_shepard
 from ..ops.clusten import weighted_gather
 from ..ops.gather import take_rows
+from ..parallel.precision import compute_dtype, f32_outputs, promoted, refuse_islands
 from .layers import MLP, DropPath, layer_norm, position_embedding_sine
 from .mixres import mixres_stage_from_config
 from .pixel_decoder import (MSDeformAttnPixelDecoder, pack_neighbor_table, raster_grid,
@@ -173,7 +174,8 @@ class MaskFinerPixelDecoder(MSDeformAttnPixelDecoder):
             poss.append(pos)
             scales.append(features[f + "_scale"].float())
             fixed_poss.append(fixed)
-            pos_embed.append(position_embedding_sine(fixed, self.conv_dim // 2))
+            # fp32 geometry, cast down to the compute dtype
+            pos_embed.append(position_embedding_sine(fixed, self.conv_dim // 2).to(srcs[-1].dtype))
             nb_packed.append(pack_neighbor_table(knn(grid, fixed, 4), fixed))
         lvl_pos = [pe + self.transformer.level_embed[i][None, None]
                    for i, pe in enumerate(pos_embed)]
@@ -190,7 +192,7 @@ class MaskFinerPixelDecoder(MSDeformAttnPixelDecoder):
             poss.append(pos)
             scales.append(features[f + "_scale"].float())
             y = getattr(self, f"adapter_{idx + 1}")(features[f])
-            y = y + upsample_feature_shepard(fixed, fixed_poss[-1], out[-1])
+            y = y + upsample_feature_shepard(fixed, fixed_poss[-1], out[-1]).to(y.dtype)
             conv, norm = getattr(self, f"layer_{idx + 1}")
             out.append(self.act(norm(conv(y, fixed))))
             fixed_poss.append(fixed)
@@ -225,7 +227,7 @@ class ProjPixelDecoderMaskFiner(nn.Module):
         srcs, poss, scales, fixed_poss = [], [], [], []
         for proj, f in zip(self.input_proj, self.in_features[::-1]):
             pos = features[f + "_pos"].float()
-            srcs.append(proj(features[f].float()))
+            srcs.append(proj(features[f]))
             poss.append(pos)
             scales.append(features[f + "_scale"].float())
             fixed_poss.append(fix_pos_no_bias(pos, features[f + "_spatial_shape"], min_ss))
@@ -259,7 +261,7 @@ class MaskFinerTransformerDecoder(MultiScaleMaskedTransformerDecoder):
         neighbours from the next level's tokens to the mask features."""
         dec = self.decoder_norm(output)
         outputs_class = self.class_embed(dec)
-        outputs_mask = torch.einsum("bqc,bnc->bqn", self.mask_embed(dec), mask_features)
+        outputs_mask = torch.einsum("bqc,bnc->bqn", *promoted(self.mask_embed(dec), mask_features))
         if to_level is None:
             return outputs_class, outputs_mask, None
         am = attention_mask(weighted_gather(*to_level, outputs_mask.transpose(1, 2)).transpose(1, 2))
@@ -287,7 +289,7 @@ class MaskFinerTransformerDecoder(MultiScaleMaskedTransformerDecoder):
                                  f"canvas: {finest_feat_shape} != {finest_input_shape}")
             h, w = finest_feat_shape
             mask_features = mask_features + position_embedding_sine(
-                finest_pos, self.mask_embed.layers[-1].out_features // 2)
+                finest_pos, self.mask_embed.layers[-1].out_features // 2).to(mask_features.dtype)
             # the masks live on the grid: their neighbours are cells, found
             # in a window; rasterizing is a reshape
             to_levels = ([grid_shepard_neighbours(p, h, w) for p in poss_scaled] if masked
@@ -309,7 +311,7 @@ class MaskFinerTransformerDecoder(MultiScaleMaskedTransformerDecoder):
         hidden = self.query_feat.weight.shape[1]
         src, pos_emb = [], []
         for i in range(nl):
-            pos_emb.append(position_embedding_sine(poss_scaled[i], hidden // 2))
+            pos_emb.append(position_embedding_sine(poss_scaled[i], hidden // 2).to(x[i].dtype))
             s = self.input_proj[i](x[i]) if self.has_input_proj else x[i]
             src.append(s + self.level_embed.weight[i][None, None, :])
         query_embed = self.query_embed.weight[None].expand(b, -1, -1)
@@ -404,18 +406,22 @@ class MaskFiner(nn.Module):
     {'pred_logits' (b, q, nc+1), 'pred_masks' (b, q, H/p, W/p) with p the
     last stage's patch size, 'aux_outputs' (every stage's rounds),
     'disagreement_masks' (one per stage), 'features_pos' (the last stage's
-    (scale, x, y))}."""
+    (scale, x, y))}.  ``compute_dtype`` bf16 (SOLVER.AMP.ENABLED): the
+    normalized images are cast to bf16 and the outputs come back fp32."""
 
     def __init__(self, mask_predictors: Sequence[MaskPredictor],
                  pixel_mean: Sequence[float] = (123.675, 116.28, 103.53),
-                 pixel_std: Sequence[float] = (58.395, 57.12, 57.375)):
+                 pixel_std: Sequence[float] = (58.395, 57.12, 57.375),
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.mask_predictors = nn.ModuleList(mask_predictors)
+        self.compute_dtype = compute_dtype
         self.register_buffer("pixel_mean", torch.tensor(pixel_mean, dtype=torch.float32), False)
         self.register_buffer("pixel_std", torch.tensor(pixel_std, dtype=torch.float32), False)
 
     def normalize(self, images: torch.Tensor) -> torch.Tensor:
-        return (images.float() - self.pixel_mean) / self.pixel_std
+        """Normalized images in the compute dtype."""
+        return ((images.float() - self.pixel_mean) / self.pixel_std).to(self.compute_dtype)
 
     def set_drop_path_generator(self, generator) -> None:
         """Every DropPath of every stage's backbone draws its keep decisions
@@ -434,9 +440,9 @@ class MaskFiner(nn.Module):
                 x, features, features_pos, upsampling_mask, tokens_per_scale)
             disagreements.append(upsampling_mask)
             aux = aux + tuple(outs["aux_outputs"])
-        return {"pred_logits": outs["pred_logits"], "pred_masks": outs["pred_masks"],
-                "aux_outputs": aux, "disagreement_masks": tuple(disagreements),
-                "features_pos": features_pos}
+        return f32_outputs({"pred_logits": outs["pred_logits"], "pred_masks": outs["pred_masks"],
+                            "aux_outputs": aux, "disagreement_masks": tuple(disagreements),
+                            "features_pos": features_pos})
 
 
 # the decoder names that build the plain decoder (5S: the 5-scale yamls'),
@@ -563,6 +569,7 @@ def build_mask_predictors(cfg) -> List[MaskPredictor]:
 
 def maskfiner_from_config(cfg) -> MaskFiner:
     """The cascade from a config (the JAX package's CfgNode or the preset
-    ``config.maskfiner_mini_cfg``)."""
+    ``config.maskfiner_mini_cfg``); SOLVER.AMP.ENABLED: bf16 compute."""
+    refuse_islands(cfg, "MaskFiner")
     return MaskFiner(build_mask_predictors(cfg), tuple(cfg.MODEL.PIXEL_MEAN),
-                     tuple(cfg.MODEL.PIXEL_STD))
+                     tuple(cfg.MODEL.PIXEL_STD), compute_dtype(cfg))

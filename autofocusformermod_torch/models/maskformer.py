@@ -2,7 +2,11 @@
 baselines, or an MRML backbone) -> pixel decoder -> masked transformer
 decoder, plus semantic-inference helpers.
 
-Counterpart of ``autofocusformermod_tpu/models/maskformer.py`` (fp32 only).
+Counterpart of ``autofocusformermod_tpu/models/maskformer.py``.  Under
+SOLVER.AMP.ENABLED the model computes in bf16 (``compute_dtype``; called on
+the bf16 view of its parameters, ``parallel/precision.py:apply``) with fp32
+positions and fp32 outputs; the active fp32 islands (``f32_islands``:
+backbone, pixel decoder, decoder) take fp32 activations.
 """
 
 from __future__ import annotations
@@ -12,22 +16,37 @@ from typing import Dict, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..parallel.precision import amp_islands, compute_dtype, f32_outputs
 from .aff import aff_from_config
 from .pixel_decoder import MSDeformAttnPixelDecoder, pixel_decoder_from_config
 from .transformer_decoder import MultiScaleMaskedTransformerDecoder, transformer_decoder_from_config
 
 
 class MaskFormerHead(nn.Module):
-    """pixel_decoder -> transformer predictor."""
+    """pixel_decoder -> transformer predictor.  Under AMP, the fp32 island
+    "pixel_decoder" takes fp32 features and hands its levels on in bf16 (its
+    mask features stay fp32, so the mask logits are not rounded); the island
+    "decoder" takes fp32 levels and mask features."""
 
     def __init__(self, pixel_decoder: MSDeformAttnPixelDecoder,
-                 predictor: MultiScaleMaskedTransformerDecoder):
+                 predictor: MultiScaleMaskedTransformerDecoder,
+                 f32_islands: Tuple[str, ...] = (), compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pixel_decoder = pixel_decoder
         self.predictor = predictor
+        self.f32_islands, self.compute_dtype = tuple(f32_islands), compute_dtype
 
     def forward(self, features: Dict) -> Dict:
-        mask_features, mf_pos, _, ms_feats, ms_poss = self.pixel_decoder(features)
+        amp = self.compute_dtype != torch.float32
+        if amp and "pixel_decoder" in self.f32_islands:
+            mask_features, mf_pos, _, ms_feats, ms_poss = self.pixel_decoder(
+                f32_outputs(features))
+            if "decoder" not in self.f32_islands:
+                ms_feats = [f.to(self.compute_dtype) for f in ms_feats]
+        else:
+            mask_features, mf_pos, _, ms_feats, ms_poss = self.pixel_decoder(features)
+        if amp and "decoder" in self.f32_islands:
+            ms_feats, mask_features = f32_outputs(ms_feats), mask_features.float()
         mask_size = features[self.pixel_decoder.in_features[0] + "_spatial_shape"]
         return self.predictor(ms_feats, ms_poss, mask_features, mf_pos, mask_size)
 
@@ -37,16 +56,20 @@ class MaskFormer(nn.Module):
     nc+1), 'pred_masks' (b, q, H/4, W/4), 'aux_outputs'}.
 
     Dropout in the decoders is not ported: a model with dropout > 0 runs in
-    eval mode and refuses train mode."""
+    eval mode and refuses train mode.  ``compute_dtype`` bf16 (SOLVER.AMP.ENABLED):
+    the normalized images are cast to bf16 (the island "backbone": its
+    features are, positions excepted) and the outputs come back fp32."""
 
     def __init__(self, backbone: nn.Module, sem_seg_head: nn.Module,
                  pixel_mean: Sequence[float] = (123.675, 116.28, 103.53),
                  pixel_std: Sequence[float] = (58.395, 57.12, 57.375),
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, compute_dtype: torch.dtype = torch.float32,
+                 f32_islands: Tuple[str, ...] = ()):
         super().__init__()
         self.backbone = backbone
         self.sem_seg_head = sem_seg_head
         self.dropout = dropout
+        self.compute_dtype, self.f32_islands = compute_dtype, tuple(f32_islands)
         self.register_buffer("pixel_mean", torch.tensor(pixel_mean, dtype=torch.float32), False)
         self.register_buffer("pixel_std", torch.tensor(pixel_std, dtype=torch.float32), False)
 
@@ -65,7 +88,17 @@ class MaskFormer(nn.Module):
 
     def forward(self, images: torch.Tensor) -> Dict:
         self.refuse_dropout()
-        return self.sem_seg_head(self.backbone(self.normalize(images)))
+        if self.compute_dtype == torch.float32:
+            return self.sem_seg_head(self.backbone(self.normalize(images)))
+        if "backbone" in self.f32_islands:
+            features = self.backbone(self.normalize(images))
+            if "pixel_decoder" not in self.f32_islands:
+                features = {k: v.to(self.compute_dtype) if torch.is_tensor(v)
+                            and v.dtype == torch.float32 and not k.endswith("_pos") else v
+                            for k, v in features.items()}
+        else:
+            features = self.backbone(self.normalize(images).to(self.compute_dtype))
+        return f32_outputs(self.sem_seg_head(features))
 
 
 def feature_channels(cfg) -> Dict[str, int]:
@@ -116,11 +149,15 @@ def maskformer_from_config(cfg) -> MaskFormer:
     MODEL.BACKBONE.NAME, from the JAX package's CfgNode or the yaml-free
     preset (``autofocusformermod_torch.config``).  The head is built before
     the backbone, so a seeded default initialisation does not depend on
-    the backbone."""
+    the backbone.  SOLVER.AMP.ENABLED: bf16 compute with the active fp32
+    islands (``parallel/precision.py``)."""
+    dtype, islands = compute_dtype(cfg), amp_islands(cfg)
     head = MaskFormerHead(pixel_decoder_from_config(cfg, feature_channels(cfg)),
-                          transformer_decoder_from_config(cfg, cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM))
+                          transformer_decoder_from_config(cfg, cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM,
+                                                          f32_mask_head="mask_head" in islands),
+                          islands, dtype)
     return MaskFormer(backbone_from_config(cfg), head, tuple(cfg.MODEL.PIXEL_MEAN),
-                      tuple(cfg.MODEL.PIXEL_STD), cfg.MODEL.MASK_FORMER.DROPOUT)
+                      tuple(cfg.MODEL.PIXEL_STD), cfg.MODEL.MASK_FORMER.DROPOUT, dtype, islands)
 
 
 @torch.no_grad()

@@ -27,6 +27,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from ..parallel.precision import compute_dtype, f32_outputs, refuse_islands
 from .layers import DropPath
 from .maskfiner import (DENSE_DECODER, PLAIN_DECODERS, MaskFiner, build_mask_predictors,
                         build_stage_mask_decoder, build_stage_pixel_decoder,
@@ -76,13 +77,15 @@ class MaskFinerOracleTeacher(MaskFiner):
     empty without ``sem_seg_gt``.  In training with ground truth, each
     image's scores are replaced by the oracle's with probability
     ``oracle_teacher_ratio`` before the next stage splits by them (one draw
-    per image and stage from the oracle generator)."""
+    per image and stage from the oracle generator).  ``compute_dtype`` as
+    ``MaskFiner``'s."""
 
     def __init__(self, mask_predictors, patch_sizes: Sequence[int], min_patch_size: int,
                  oracle_teacher_ratio: float = 0.5, ignore_label: int = 255,
                  pixel_mean: Sequence[float] = (123.675, 116.28, 103.53),
-                 pixel_std: Sequence[float] = (58.395, 57.12, 57.375)):
-        super().__init__(mask_predictors, pixel_mean, pixel_std)
+                 pixel_std: Sequence[float] = (58.395, 57.12, 57.375),
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(mask_predictors, pixel_mean, pixel_std, compute_dtype)
         self.patch_sizes, self.min_patch_size = tuple(patch_sizes), min_patch_size
         self.oracle_teacher_ratio, self.ignore_label = oracle_teacher_ratio, ignore_label
         self.oracle_generator: Optional[torch.Generator] = None
@@ -114,9 +117,9 @@ class MaskFinerOracleTeacher(MaskFiner):
                     scores = mix_teacher_mask(self.oracle_generator, scores, oracle,
                                               self.oracle_teacher_ratio,
                                               None if use_oracle is None else use_oracle[li])
-        return {"pred_logits": outs["pred_logits"], "pred_masks": outs["pred_masks"],
-                "aux_outputs": aux, "upsampling_preds": tuple(preds),
-                "upsampling_oracles": tuple(oracles)}
+        return f32_outputs({"pred_logits": outs["pred_logits"], "pred_masks": outs["pred_masks"],
+                            "aux_outputs": aux, "upsampling_preds": tuple(preds),
+                            "upsampling_oracles": tuple(oracles)})
 
 
 def maskfiner_oracle_teacher_from_config(cfg, oracle_teacher_ratio: Optional[float] = None
@@ -128,10 +131,11 @@ def maskfiner_oracle_teacher_from_config(cfg, oracle_teacher_ratio: Optional[flo
     n_scales = cfg.MODEL.MASK_FINER.NUM_RESOLUTION_SCALES
     ratio = (cfg.MODEL.MASK_FINER.ORACLE_TEACHER_RATIO if oracle_teacher_ratio is None
              else oracle_teacher_ratio)
+    refuse_islands(cfg, cfg.MODEL.META_ARCHITECTURE)
     return MaskFinerOracleTeacher(
         build_mask_predictors(cfg), tuple(cfg.MODEL.MR.PATCH_SIZES),
         cfg.MODEL.MR.PATCH_SIZES[n_scales - 1], ratio, cfg.MODEL.MR_SEM_SEG_HEAD.IGNORE_VALUE,
-        tuple(cfg.MODEL.PIXEL_MEAN), tuple(cfg.MODEL.PIXEL_STD))
+        tuple(cfg.MODEL.PIXEL_MEAN), tuple(cfg.MODEL.PIXEL_STD), compute_dtype(cfg))
 
 
 def maskfiner_oracle_from_config(cfg) -> MaskFinerOracleTeacher:
@@ -147,14 +151,18 @@ class MaskFinerOracleTeacherBB(nn.Module):
     rounds), 'upsampling_preds' (each down stage's predicted upsampling
     scores), 'upsampling_oracles' (their GT-edge oracles; empty without
     ``sem_seg_gt``)}.  In training with ground truth, the backbone may
-    split by the oracle instead of the prediction (ORACLE_TEACHER_RATIO)."""
+    split by the oracle instead of the prediction (ORACLE_TEACHER_RATIO).
+    ``compute_dtype`` bf16 (SOLVER.AMP.ENABLED): the normalized images are
+    cast to bf16 and the outputs come back fp32."""
 
     def __init__(self, backbone: UpDownBackbone, pixel_decoder: nn.Module,
                  mask_decoder: nn.Module, n_scales: int,
                  pixel_mean: Sequence[float] = (123.675, 116.28, 103.53),
-                 pixel_std: Sequence[float] = (58.395, 57.12, 57.375)):
+                 pixel_std: Sequence[float] = (58.395, 57.12, 57.375),
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.backbone = backbone
+        self.compute_dtype = compute_dtype
         self.pixel_decoder = pixel_decoder
         self.mask_decoder = mask_decoder
         self.n_scales = n_scales
@@ -162,7 +170,8 @@ class MaskFinerOracleTeacherBB(nn.Module):
         self.register_buffer("pixel_std", torch.tensor(pixel_std, dtype=torch.float32), False)
 
     def normalize(self, images: torch.Tensor) -> torch.Tensor:
-        return (images.float() - self.pixel_mean) / self.pixel_std
+        """Normalized images in the compute dtype."""
+        return ((images.float() - self.pixel_mean) / self.pixel_std).to(self.compute_dtype)
 
     def set_drop_path_generator(self, generator) -> None:
         """Every DropPath of the backbone draws its keep decisions from
@@ -184,12 +193,12 @@ class MaskFinerOracleTeacherBB(nn.Module):
         predictions, _ = self.mask_decoder(ms_feats, ms_poss, mask_features, mf_pos,
                                            finest_input_shape, input_shapes)
         n_up = self.n_scales - 1
-        return {"pred_logits": predictions["pred_logits"], "pred_masks": predictions["pred_masks"],
-                "aux_outputs": tuple(predictions["aux_outputs"]),
-                "upsampling_preds": tuple(feats[f"upsampling_mask_pred_{i}"] for i in range(n_up)),
-                "upsampling_oracles": (tuple(feats[f"upsampling_mask_oracle_{i}"]
-                                             for i in range(n_up))
-                                       if sem_seg_gt is not None else ())}
+        return f32_outputs({
+            "pred_logits": predictions["pred_logits"], "pred_masks": predictions["pred_masks"],
+            "aux_outputs": tuple(predictions["aux_outputs"]),
+            "upsampling_preds": tuple(feats[f"upsampling_mask_pred_{i}"] for i in range(n_up)),
+            "upsampling_oracles": (tuple(feats[f"upsampling_mask_oracle_{i}"] for i in range(n_up))
+                                   if sem_seg_gt is not None else ())})
 
 
 # MODEL.BACKBONE.NAME -> the composite backbone
@@ -211,8 +220,9 @@ def maskfiner_oracle_teacher_bb_from_config(cfg) -> MaskFinerOracleTeacherBB:
     names = cfg.MODEL.MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME
     refuse_unported_heads(cfg, [names if isinstance(names, str) else names[final]],
                           PLAIN_DECODERS + (DENSE_DECODER,))
+    refuse_islands(cfg, cfg.MODEL.META_ARCHITECTURE)
     backbone = COMPOSITE_BACKBONES[name](cfg)
     return MaskFinerOracleTeacherBB(
         backbone, build_stage_pixel_decoder(cfg, final, True, backbone.out_channels),
         build_stage_mask_decoder(cfg, final, True), n_scales, tuple(cfg.MODEL.PIXEL_MEAN),
-        tuple(cfg.MODEL.PIXEL_STD))
+        tuple(cfg.MODEL.PIXEL_STD), compute_dtype(cfg))

@@ -166,7 +166,7 @@ class MixResViT(nn.Module):
         pos_np = get_2dpos_of_curr_ps_in_min_ps(H, W, self.patch_size, self.min_patch_size,
                                                 self.scale)
         pos = torch.from_numpy(pos_np).to(im.device)[None].expand(b, -1, 3)
-        x = x + position_embedding_sine(pos[:, :, 1:], self.d_model // 2)
+        x = x + position_embedding_sine(pos[:, :, 1:], self.d_model // 2).to(x.dtype)
         for blk in self.blocks:
             x = blk(x, *patched)
         out = f"res{self.n_scales + 1}"

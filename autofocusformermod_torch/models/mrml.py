@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from ..ops.gather import take_rows, topk_indices
+from ..parallel.precision import compute_dtype, f32_outputs, refuse_islands
 from .layers import Mlp, layer_norm, position_embedding_sine
 from .maskformer import MaskFormer, MaskFormerHead
 from .mixres import MixResLayer, OverlapPatchEmbedding, ViTBlock, get_2dpos_of_curr_ps_in_min_ps
@@ -147,7 +148,7 @@ class MixResMetaLoss(nn.Module):
         x = self.patch_embed(im)
         pos_np = get_2dpos_of_curr_ps_in_min_ps(H, W, self.patch_sizes[0], min_ps, 0)
         pos = torch.from_numpy(pos_np).to(im.device)[None].expand(b, -1, 3)
-        x = x + position_embedding_sine(pos[:, :, 1:], self.embed_dims[0] // 2)
+        x = x + position_embedding_sine(pos[:, :, 1:], self.embed_dims[0] // 2).to(x.dtype)
         tokens_per_scale = (pos_np.shape[0],)
 
         outs: Dict = {"min_spatial_shape": min_patched}
@@ -211,12 +212,12 @@ class MaskFormerML(MaskFormer):
 
     def forward(self, images: torch.Tensor) -> Dict:
         self.refuse_dropout()
-        feats = self.backbone(self.normalize(images))
+        feats = self.backbone(self.normalize(images).to(self.compute_dtype))
         out = self.sem_seg_head(feats)
         n = self.backbone.n_scales - 1
         out["metaloss_preds"] = tuple(feats[f"metaloss{i}"] for i in range(n))
         out["metaloss_pos"] = tuple(feats[f"metaloss{i}_pos"] for i in range(n))
-        return out
+        return out if self.compute_dtype == torch.float32 else f32_outputs(out)
 
 
 def maskformer_ml_from_config(cfg) -> MaskFormerML:
@@ -226,7 +227,8 @@ def maskformer_ml_from_config(cfg) -> MaskFormerML:
     pixel decoder -- its ``MSDeformAttnPixelDecoderUp`` form (mask features
     on the full finest grid) where SEM_SEG_HEAD.PIXEL_DECODER_NAME says so
     -- and the masked decoder; the head is built first, as
-    ``maskformer_from_config`` builds it."""
+    ``maskformer_from_config`` builds it.  SOLVER.AMP.ENABLED: bf16
+    compute, fp32 outputs (no fp32 island)."""
     from .pixel_decoder import pixel_decoder_from_config
     from .transformer_decoder import transformer_decoder_from_config
 
@@ -236,8 +238,9 @@ def maskformer_ml_from_config(cfg) -> MaskFormerML:
                           transformer_decoder_from_config(cfg, cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM))
     backbone = mixres_metaloss_from_config(cfg, name if name in MRML_BACKBONES
                                            else "MixResMetaLoss")
+    refuse_islands(cfg, "MaskFormerML")
     return MaskFormerML(backbone, head, tuple(cfg.MODEL.PIXEL_MEAN), tuple(cfg.MODEL.PIXEL_STD),
-                        cfg.MODEL.MASK_FORMER.DROPOUT)
+                        cfg.MODEL.MASK_FORMER.DROPOUT, compute_dtype(cfg))
 
 
 def metaloss_l1(pred_metaloss: torch.Tensor, pos_xy: torch.Tensor, error_map: torch.Tensor,

@@ -21,6 +21,12 @@ its own kernel:
   tables through ``ops/window_gather.py:windowed_row_gather`` ->
   ``msdetrpc_levels_t``;
 - ``USE_BH_LAYOUT``: heads stay where the Linear put them -> ``msdetrpc_bh``.
+
+Under mixed precision the sampling offsets stay fp32 (KEEP_F32: their
+Linear promotes the bf16 queries), the sampling weights are fp32 geometry,
+the kernels take fp32 values and their result is cast back to the compute
+dtype; the sine embeddings, the Shepard-upsampled levels and the PointConv
+weights are cast down to it, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ from ..ops.clusten import cluster_wf, msdetrpc
 from ..ops.gather import take_rows, take_scalars
 from ..ops.msdetrpc import msdetrpc_bh, msdetrpc_levels, msdetrpc_levels_s, msdetrpc_levels_t
 from ..ops.window_gather import windowed_row_gather
-from .layers import WeightNet, layer_norm, position_embedding_sine, rel_pos_features
+from ..parallel.precision import promoted
+from .layers import WeightNet, dense, layer_norm, position_embedding_sine, rel_pos_features
 
 # The layout of the sampling operands (module docstring).  Read at call time:
 # set them on this module to choose a layout.
@@ -66,21 +73,23 @@ def _msdetrpc_dispatch(idxs_local, ws_shepard, attn_perm, values_all, level_size
     softmaxed attention; values_all: (bh, ntot, c_) -> (bh, n_i, c_).  Level
     sizes all multiples of 128: one operand per level, the attention folded
     into the weights.  Else the interleaved operands (slot = point * l +
-    level, global indices), the attention multiplied in the kernel."""
+    level, global indices), the attention multiplied in the kernel.  The
+    kernels take fp32 operands; the result comes back in values_all's dtype."""
     bh, n_i, kpts, kk = idxs_local[0].shape
     n_levels = len(level_sizes)
+    dt = values_all.dtype
     if _levels_ok(level_sizes, values_all.shape[1]):
         idxs = [i.reshape(bh, n_i, kpts * kk) for i in idxs_local]
-        ws = [(w * attn_perm[:, :, j, :, None]).reshape(bh, n_i, kpts * kk)
+        ws = [(w.float() * attn_perm[:, :, j, :, None].float()).reshape(bh, n_i, kpts * kk)
               for j, w in enumerate(ws_shepard)]
-        return msdetrpc_levels(idxs, ws, values_all, level_sizes)
+        return msdetrpc_levels(idxs, ws, values_all.float(), level_sizes).to(dt)
     offs = np.cumsum([0] + list(level_sizes))[:-1]
     nn_idxs = torch.stack([i + int(o) for i, o in zip(idxs_local, offs)], dim=3)
     nn_weights = torch.stack(ws_shepard, dim=3)
     attn_i = attn_perm.permute(0, 1, 3, 2).reshape(bh, n_i, kpts * n_levels)
     return msdetrpc(nn_idxs.reshape(bh, n_i, kpts * n_levels, kk),
-                    nn_weights.reshape(bh, n_i, kpts * n_levels, kk), attn_i.contiguous(),
-                    values_all)
+                    nn_weights.float().reshape(bh, n_i, kpts * n_levels, kk),
+                    attn_i.float().contiguous(), values_all.float()).to(dt)
 
 
 def scale_pos(pos: torch.Tensor, last_ss, cur_ss, no_bias: bool = False) -> torch.Tensor:
@@ -156,7 +165,8 @@ class PointConv(nn.Module):
         img = take_rows(x, lut).reshape(b, h_, w_, c)
 
         offs = np.asarray([(dx, dy) for dy in (-1, 0, 1) for dx in (-1, 0, 1)], np.float32)
-        w_int = self.weight_net(rel_pos_features(torch.from_numpy(-offs).to(dev)))  # (9, ic)
+        w_int = self.weight_net(rel_pos_features(torch.from_numpy(-offs).to(dev))).to(
+            x.dtype)                                                  # (9, ic)
         pad = nn.functional.pad(img, (0, 0, 1, 1, 1, 1))
         acc = None
         for s, (dx, dy) in enumerate(offs.astype(np.int64)):
@@ -174,7 +184,8 @@ class PointConv(nn.Module):
         nb_pos = torch.stack([(cell9 % w_).float(), (cell9 // w_).float()], dim=-1)
         bpos = torch.from_numpy(
             np.stack([border % w_, border // w_], axis=-1).astype(np.float32)).to(dev)
-        w_b = self.weight_net(rel_pos_features(torch.trunc(bpos[None, :, None, :] - nb_pos)))
+        w_b = self.weight_net(rel_pos_features(torch.trunc(bpos[None, :, None, :] - nb_pos))).to(
+            x.dtype)
         bacc = torch.einsum("bnsi,bnsc->bnic", w_b, take_rows(x, tok9))
         # in place on a non-leaf view: autograd records it (CopySlices), the
         # overwritten interior values get no gradient, as with JAX's .at[].set
@@ -188,7 +199,7 @@ class PointConv(nn.Module):
         b, n, _ = x.shape
         nn_idx = knn(pos, pos, min(9, n))
         rel = torch.trunc(pos[:, :, None, :] - take_rows(pos, nn_idx))   # as the reference's .long()
-        weights = self.weight_net(rel_pos_features(rel))                 # (b, n, k, ic)
+        weights = self.weight_net(rel_pos_features(rel)).to(x.dtype)     # (b, n, k, ic)
         feat = cluster_wf(weights, x, nn_idx).reshape(b, n, -1)
         return self.linear(self.norm(feat))
 
@@ -258,7 +269,7 @@ class MSDeformAttnPc(nn.Module):
                 outputs.append(self._level_fused_t(i, querys, poss, values_all, spatial_shapes,
                                                    nb_packed_t, power, level_sizes))
                 continue
-            offs = self.sampling_offsets(querys[i]).reshape(b, n_i, h, l, k, 2)
+            offs = dense(self.sampling_offsets, querys[i]).reshape(b, n_i, h, l, k, 2)
             attn = torch.softmax(self.attention_weights(querys[i]).reshape(b, n_i, h, l * k),
                                  dim=-1).reshape(b, n_i, h, l, k)
             attn_perm = attn.permute(0, 2, 1, 3, 4).reshape(b * h, n_i, l, k)
@@ -278,11 +289,12 @@ class MSDeformAttnPc(nn.Module):
                 idxs_local.append(packed[..., 0:4].int().reshape(b * h, n_i, k, 4))
                 ws_shepard.append(w.reshape(b * h, n_i, k, 4))
             if USE_STACKED_GLUE:
+                # the kernel is fp32 in and out: cast up at its call, back after
                 idx_s = torch.cat([i_.reshape(b * h, n_i, k * 4) for i_ in idxs_local], 2)
-                w_s = torch.cat([(w * attn_perm[:, :, j, :, None]).reshape(b * h, n_i, k * 4)
-                                 for j, w in enumerate(ws_shepard)], 2)
-                sampled = msdetrpc_levels_s(idx_s.contiguous(), w_s.contiguous(), values_all,
-                                            level_sizes)
+                w_s = torch.cat([(w.float() * attn_perm[:, :, j, :, None].float())
+                                 .reshape(b * h, n_i, k * 4) for j, w in enumerate(ws_shepard)], 2)
+                sampled = msdetrpc_levels_s(idx_s.contiguous(), w_s.contiguous(),
+                                            values_all.float(), level_sizes).to(values_all.dtype)
             else:
                 sampled = _msdetrpc_dispatch(idxs_local, ws_shepard, attn_perm, values_all,
                                              level_sizes)
@@ -305,10 +317,11 @@ class MSDeformAttnPc(nn.Module):
         n_i = level_sizes[i]
         gh, gw = int(spatial_shapes[-1][0]), int(spatial_shapes[-1][1])
         log2w, log2h = gw.bit_length() - 1, gh.bit_length() - 1
-        dev, dt = querys[i].device, querys[i].dtype
+        dev, dt = querys[i].device, poss[i].dtype
 
         def dense_t(lin, x):                                  # (b, n, c) -> (b, F, n)
-            return torch.matmul(lin.weight, x.transpose(1, 2)) + lin.bias[None, :, None]
+            w, x, bias = promoted(lin.weight, x, lin.bias)
+            return torch.matmul(w, x.transpose(1, 2)) + bias[None, :, None]
 
         offs_t = dense_t(self.sampling_offsets, querys[i]).reshape(b, h, l, k, 2, n_i)
         attn_t = torch.softmax(dense_t(self.attention_weights, querys[i]).reshape(b, h, l * k, n_i),
@@ -348,12 +361,13 @@ class MSDeformAttnPc(nn.Module):
             # constant power stays a float exponent here, as in the JAX module
             ipd = 1.0 / (torch.clamp(d2, min=1e-2) ** power + 1e-6)
             w = ipd / (ipd.sum(dim=1, keepdim=True) + 1e-6)
-            w = w * attn_t[:, :, j].reshape(b * h, 1, k, n_i)
+            w = w * attn_t[:, :, j].reshape(b * h, 1, k, n_i).to(w.dtype)
             # (bh, 4, k, n) -> (bh, k*4, n): only the majors move; the kernel
             # wants them contiguous
             idx_ts.append(nbi.int().permute(0, 2, 1, 3).reshape(b * h, k * 4, n_i).contiguous())
-            w_ts.append(w.permute(0, 2, 1, 3).reshape(b * h, k * 4, n_i).contiguous())
-        sampled = msdetrpc_levels_t(idx_ts, w_ts, values_all, level_sizes)     # (bh, n, c_)
+            w_ts.append(w.float().permute(0, 2, 1, 3).reshape(b * h, k * 4, n_i).contiguous())
+        sampled = msdetrpc_levels_t(idx_ts, w_ts, values_all.float(), level_sizes).to(
+            values_all.dtype)                                                  # (bh, n, c_)
         sampled = sampled.reshape(b, h, n_i, c_).permute(0, 2, 1, 3).reshape(b, n_i, self.d_model)
         return self.output_proj(sampled)
 
@@ -368,7 +382,7 @@ class MSDeformAttnPc(nn.Module):
         outputs = []
         for i in range(l):
             n_i = level_sizes[i]
-            offs = self.sampling_offsets(querys[i]).reshape(b, n_i, h, l, k, 2)
+            offs = dense(self.sampling_offsets, querys[i]).reshape(b, n_i, h, l, k, 2)
             attn = torch.softmax(self.attention_weights(querys[i]).reshape(b, n_i, h, l * k),
                                  dim=-1).reshape(b, n_i, h, l, k)
             idxs_bh, ws_bh = [], []
@@ -379,10 +393,11 @@ class MSDeformAttnPc(nn.Module):
                                    grid_cells(loc, spatial_shapes[j], grid_hw))  # (b, nhk, 12)
                 d2 = (loc[..., 0:1] - packed[..., 4:8]) ** 2 + (loc[..., 1:2] - packed[..., 8:12]) ** 2
                 w = shepard_decay_weights(d2, power=power).reshape(b, n_i, h, k, 4)
-                w = w * attn[:, :, :, j, :, None]
+                w = w * attn[:, :, :, j, :, None].to(w.dtype)
                 idxs_bh.append(packed[..., 0:4].int().reshape(b, n_i, h, k * 4))
-                ws_bh.append(w.reshape(b, n_i, h, k * 4))
-            sampled = msdetrpc_bh(idxs_bh, ws_bh, values_bh, level_sizes)
+                ws_bh.append(w.float().reshape(b, n_i, h, k * 4))
+            sampled = msdetrpc_bh(idxs_bh, ws_bh, values_bh.float(), level_sizes).to(
+                values_bh.dtype)
             outputs.append(self.output_proj(sampled.reshape(b, n_i, c)))
         return outputs
 
@@ -506,7 +521,8 @@ class MSDeformAttnPixelDecoder(nn.Module):
             ss = features[f + "_spatial_shape"]
             srcs.append(self.input_proj[idx](features[f]))
             poss.append(pos)
-            pos_embed.append(position_embedding_sine(pos, self.conv_dim // 2))
+            # fp32 geometry, cast down to the compute dtype
+            pos_embed.append(position_embedding_sine(pos, self.conv_dim // 2).to(srcs[-1].dtype))
             spatial_shapes.append(ss)
             scaled = scale_pos(pos, ss, grid_hw, no_bias=True)
             nb_tables.append(pack_neighbor_table(knn(grid_pos, scaled, 4), pos))
@@ -537,7 +553,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
             ss = features[f + "_spatial_shape"]
             cur_fpn = getattr(self, f"adapter_{idx + 1}")(features[f])
             last_pos = scale_pos(last_pos, last_ss, ss, no_bias=True)
-            y = cur_fpn + upsample_feature_shepard(pos, last_pos, out[-1])
+            y = cur_fpn + upsample_feature_shepard(pos, last_pos, out[-1]).to(cur_fpn.dtype)
             conv, norm = getattr(self, f"layer_{idx + 1}")
             y = self.act(norm(conv(y, pos, ss)))
             last_pos, last_ss = pos, ss
@@ -547,8 +563,8 @@ class MSDeformAttnPixelDecoder(nn.Module):
         if self.mask_on_full_grid:
             on_grid = torch.cat([scale_pos(p, s, grid_hw, no_bias=True) for p, s in all_levels],
                                 dim=1)
-            mask_features = self.mask_features(
-                upsample_feature_shepard(grid_pos, on_grid, torch.cat(out, dim=1)))
+            mask_features = dense(self.mask_features,
+                                  upsample_feature_shepard(grid_pos, on_grid, torch.cat(out, dim=1)))
             last_pos = grid_pos
         else:
             mask_features = self.mask_features(out[-1])

@@ -37,9 +37,10 @@ class FrozenBN(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale = self.weight / torch.sqrt(self.running_var + FROZEN_BN_EPS)
-        return (x - self.running_mean[:, None, None]) * scale[:, None, None] \
-            + self.bias[:, None, None]
+        # the statistics are read in the activations' dtype (bf16 under AMP)
+        mean, var = self.running_mean.to(x.dtype), self.running_var.to(x.dtype)
+        scale = self.weight / torch.sqrt(var + FROZEN_BN_EPS)
+        return (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
 
 
 class Conv2d(nn.Conv2d):

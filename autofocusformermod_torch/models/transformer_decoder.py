@@ -9,7 +9,9 @@ unmasked.  Attention is a plain matmul + masked softmax.  The Swin variant
 resizes the mask logits to each level's grid instead; the layers can be
 pre-norm.  Mask features that do not cover the mask canvas (the plain pixel
 decoder over an MRML backbone, whose finest level is a part of its grid)
-are rasterized by scattering, their other cells 0.
+are rasterized by scattering, their other cells 0.  Under mixed precision
+the sine embeddings are cast to the features' dtype, and ``f32_mask_head``
+(the fp32 island "mask_head") runs the prediction heads in fp32.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ..geometry.gridnn import grid_shepard_upsample, pos_index_lut
 from ..geometry.rasterize import point2img
 from ..geometry.shepard import shepard_neighbours
 from ..ops.clusten import weighted_gather
+from ..parallel.precision import promoted
 from ..ops.gather import take_rows
 from .layers import MLP, layer_norm, position_embedding_sine
 
@@ -133,10 +136,10 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
                  num_queries: int = 100, nheads: int = 8, dim_feedforward: int = 2048,
                  dec_layers: int = 9, pre_norm: bool = False, mask_dim: int = 256,
                  enforce_input_project: bool = False, num_feature_levels: int = 3,
-                 grid_attn_mask: bool = False):
+                 grid_attn_mask: bool = False, f32_mask_head: bool = False):
         super().__init__()
         self.num_queries, self.nheads = num_queries, nheads
-        self.grid_attn_mask = grid_attn_mask
+        self.grid_attn_mask, self.f32_mask_head = grid_attn_mask, f32_mask_head
         self.num_feature_levels = num_feature_levels
         self.query_feat = nn.Embedding(num_queries, hidden_dim)
         self.query_embed = nn.Embedding(num_queries, hidden_dim)
@@ -161,9 +164,11 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
         comes from the window KNN with an identity LUT, or from the resize to
         the level's grid ``target_hw``.  Point-cloud mask features: from the
         Shepard neighbours ``to_level`` of the level's tokens among them."""
+        if self.f32_mask_head:
+            output, mask_features = output.float(), mask_features.float()
         dec = self.decoder_norm(output)
         outputs_class = self.class_embed(dec)
-        outputs_mask = torch.einsum("bqc,bnc->bqn", self.mask_embed(dec), mask_features)
+        outputs_mask = torch.einsum("bqc,bnc->bqn", *promoted(self.mask_embed(dec), mask_features))
         if to_level is not None:
             am = weighted_gather(*to_level, outputs_mask.transpose(1, 2)).transpose(1, 2)
         elif self.grid_attn_mask:
@@ -188,7 +193,8 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
 
         src, pos_emb = [], []
         for i in range(self.num_feature_levels):
-            pos_emb.append(position_embedding_sine(pos[i], self.query_feat.weight.shape[1] // 2))
+            pos_emb.append(position_embedding_sine(pos[i], self.query_feat.weight.shape[1] // 2)
+                           .to(x[i].dtype))
             s = self.input_proj[i](x[i]) if self.has_input_proj else x[i]
             src.append(s + self.level_embed.weight[i][None, None, :])
         query_embed = self.query_embed.weight[None].expand(b, -1, -1)
@@ -241,7 +247,8 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
 DECODER_NAMES = ("MultiScaleMaskedTransformerDecoder", "MultiScaleMaskedTransformerDecoderSwin")
 
 
-def transformer_decoder_from_config(cfg, in_channels: int) -> MultiScaleMaskedTransformerDecoder:
+def transformer_decoder_from_config(cfg, in_channels: int, f32_mask_head: bool = False
+                                    ) -> MultiScaleMaskedTransformerDecoder:
     """MODEL.MASK_FORMER's decoder; the name ending in "Swin" selects the grid
     attention mask."""
     mf = cfg.MODEL.MASK_FORMER
@@ -253,4 +260,4 @@ def transformer_decoder_from_config(cfg, in_channels: int) -> MultiScaleMaskedTr
         hidden_dim=mf.HIDDEN_DIM, num_queries=mf.NUM_OBJECT_QUERIES, nheads=mf.NHEADS,
         dim_feedforward=mf.DIM_FEEDFORWARD, dec_layers=mf.DEC_LAYERS - 1, pre_norm=mf.PRE_NORM,
         mask_dim=cfg.MODEL.SEM_SEG_HEAD.MASK_DIM, enforce_input_project=mf.ENFORCE_INPUT_PROJ,
-        grid_attn_mask=mf.TRANSFORMER_DECODER_NAME.endswith("Swin"))
+        grid_attn_mask=mf.TRANSFORMER_DECODER_NAME.endswith("Swin"), f32_mask_head=f32_mask_head)

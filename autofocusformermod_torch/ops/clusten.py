@@ -15,6 +15,7 @@ import ctypes
 
 import torch
 
+from ..parallel.precision import promoted
 from .build import check, load_kernels
 from .dispatch import require, stream_of, use_kernel
 from .gather import take_rows
@@ -41,12 +42,13 @@ def cluster_av(attn: torch.Tensor, v: torch.Tensor, nbhd_idx: torch.Tensor) -> t
 
 def cluster_wf(weights: torch.Tensor, feat: torch.Tensor, nbhd_idx: torch.Tensor) -> torch.Tensor:
     """weights: (b, n_, m, ic); feat: (b, n, c); nbhd_idx: (b, n_, m) -> (b, n_, ic, c)."""
-    return torch.einsum("bnmi,bnmc->bnic", weights, take_rows(feat, nbhd_idx))
+    return torch.einsum("bnmi,bnmc->bnic", *promoted(weights, take_rows(feat, nbhd_idx)))
 
 
 def weighted_gather(nbhd_idx: torch.Tensor, weights: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
-    """nbhd_idx/weights: (b, n_, m); feat: (b, n, c) -> (b, n_, c)."""
-    return torch.einsum("bnm,bnmc->bnc", weights, take_rows(feat, nbhd_idx))
+    """nbhd_idx/weights: (b, n_, m); feat: (b, n, c) -> (b, n_, c), in the
+    two operands' common dtype."""
+    return torch.einsum("bnm,bnmc->bnc", *promoted(weights, take_rows(feat, nbhd_idx)))
 
 
 def msdetrpc(nn_idx: torch.Tensor, nn_weight: torch.Tensor, attn: torch.Tensor,

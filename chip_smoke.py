@@ -2258,8 +2258,9 @@ class same_choices:
         return int((rows.gather(-1, at) == mine).sum())
 
     @staticmethod
-    def check(label, book, by_scores=()):
-        """Log each choice's agreement; fail where it is below CHOICE_AGREE_MIN.
+    def check(label, book, by_scores=(), floors=None, near_tie_floors=None):
+        """Log each choice's agreement; fail where it is below its floor
+        (`floors`, CHOICE_AGREE_MIN by default).
         by_scores: kinds whose scores the caller holds to the bound their
         inputs' differences set (check_disagreement for the split order),
         which bounds where the order can differ; logged, not held here."""
@@ -2273,15 +2274,17 @@ class same_choices:
                       f"scores less what the runs' scores of it differ by, at worst {excess:.3e} "
                       f"({gap:.3e} - {bound:.3e})" for kind, (excess, gap, bound) in ties.items()))
         # under its floor, a kind measured against its scores (near_ties)
-        # passes above NEAR_TIE_AGREE_MIN where every flip is one those
-        # scores explain
+        # passes above NEAR_TIE_AGREE_MIN (or `near_tie_floors`) where every
+        # flip is one those scores explain
+        floors = CHOICE_AGREE_MIN if floors is None else floors
+        near_tie_floors = NEAR_TIE_AGREE_MIN if near_tie_floors is None else near_tie_floors
         explained = tuple(kind for kind, (excess, _, _) in ties.items()
-                          if excess <= 0 and shares.get(kind, 1.0) >= NEAR_TIE_AGREE_MIN[kind])
+                          if excess <= 0 and shares.get(kind, 1.0) >= near_tie_floors[kind])
         low = {kind: v for kind, v in shares.items()
-               if v < CHOICE_AGREE_MIN[kind] and kind not in by_scores + explained}
+               if v < floors[kind] and kind not in by_scores + explained}
         if low:
             raise SystemExit(f"{label}: the plain run's choices part from the kernel run's in "
-                             f"{low} of their elements (floors {CHOICE_AGREE_MIN})")
+                             f"{low} of their elements (floors {floors})")
 
 
 def check_forward(label, out, ref, book, b=BATCH, size=SIZE):
@@ -2424,13 +2427,14 @@ def group_norms(model):
             for label, named in param_groups(model).items()}
 
 
-def replay_step(label, model, cfg, batch, draw, near_ties=False):
+def replay_step(label, model, cfg, batch, draw, near_ties=False, loss_rtol=LOSS_RTOL,
+                group_rtol=GROUP_NORM_RTOL, floors=None, near_tie_floors=None):
     """One training step's forward, criterion and backward from the model's
     weights through the kernels, then through the plain versions from the
     same weights, batch and draws (`draw()` makes the criterion's generator
     afresh), replaying the kernel run's discrete choices.  Holds the loss
-    terms to LOSS_RTOL, the gradient norm of each optimizer group to
-    GROUP_NORM_RTOL, and that every parameter the plain step gives a
+    terms to `loss_rtol`, the gradient norm of each optimizer group to
+    `group_rtol`, and that every parameter the plain step gives a
     gradient gets one through the kernels.  Where the plain run does not
     fit the card, both runs are made again on the first half of the batch,
     and the log says so.  DropPath's generators and an OracleTeacher model's
@@ -2438,7 +2442,7 @@ def replay_step(label, model, cfg, batch, draw, near_ties=False):
     same branches and take the same teacher draws.  The weights and those
     generators are restored and the gradients cleared after.  near_ties:
     the matches and ranked points may pass under their floors as
-    same_choices.check allows.  -> (batch used, kernels' ms, plain ms,
+    same_choices.check allows (`floors`, `near_tie_floors`: its floors).  -> (batch used, kernels' ms, plain ms,
     kernels' peak GiB, plain peak GiB), each the first call of its path."""
     import contextlib
     import copy
@@ -2506,15 +2510,15 @@ def replay_step(label, model, cfg, batch, draw, near_ties=False):
         + f"; worst rel diff {max(group.values()):.3e}")
     log(f"  parameters with a gradient: plain {len(p_graded)} of "
         f"{sum(1 for _ in model.parameters())}; of those, zero through the kernels: {len(missing)}")
-    same_choices.check(f"{label} step", book)
+    same_choices.check(f"{label} step", book, floors=floors, near_tie_floors=near_tie_floors)
     if not all(math.isfinite(v) for v in k_terms.values()):
         raise SystemExit(f"{label} step: non-finite loss terms {k_terms}")
     if missing:
         raise SystemExit(f"{label} step: the kernel step gives no gradient to {missing[:10]}")
-    if worst > LOSS_RTOL:
+    if worst > loss_rtol:
         raise SystemExit(f"{label} step: loss terms of kernels and plain versions differ by "
                          f"{worst} (rel)")
-    if max(group.values()) > GROUP_NORM_RTOL:
+    if max(group.values()) > group_rtol:
         raise SystemExit(f"{label} step: gradient norms per group disagree: {group}")
     return n, k_ms, p_ms, k_peak, p_peak
 
@@ -2825,13 +2829,14 @@ def maskfiner_launches(cfg) -> dict:
 
 def path_forward_operands(model, images):
     """The operands of K1, K3 and K9 in one forward of a model (the cascade,
-    or AFF + Mask2Former), in call order: {"local_attn": [(stage n, args)], "msdetrpc": [(idx, w, val,
+    or AFF + Mask2Former; under AMP on its bf16 view), in call order: {"local_attn": [(stage n, args)], "msdetrpc": [(idx, w, val,
     level sizes, 1)], "knn": [(label, query, database, k)]}.  Captured by
     wrapping the calls in models/aff.py, models/pixel_decoder.py and the
     kernel call inside geometry.knn.knn."""
     import torch
     from autofocusformermod_torch.geometry import knn as knn_mod
     from autofocusformermod_torch.models import aff, pixel_decoder
+    from autofocusformermod_torch.parallel import precision
 
     calls = {"local_attn": [], "msdetrpc": [], "knn": []}
     real = (aff.sfc_cluster_attention, pixel_decoder.msdetrpc_levels_s, knn_mod._knn_cuda)
@@ -2853,7 +2858,7 @@ def path_forward_operands(model, images):
         local_attn, msdetrpc, nn)
     try:
         with torch.no_grad():
-            model(images)
+            precision.apply(model, images)
     finally:
         aff.sfc_cluster_attention, pixel_decoder.msdetrpc_levels_s, knn_mod._knn_cuda = real
     return calls
@@ -3278,7 +3283,8 @@ def summed(records: dict) -> dict:
             "library_ms": None if None in libs else sum(libs), **bnd, "by_call": records}
 
 
-MASKFINER_TRAIN, MASKFINER_TRAIN_BATCH, MASKFINER_TRAIN_STEPS = "maskfiner_mini_train", 4, 3
+# 2 steps (3 before phase 19 joined: the time limit's room for it)
+MASKFINER_TRAIN, MASKFINER_TRAIN_BATCH, MASKFINER_TRAIN_STEPS = "maskfiner_mini_train", 4, 2
 MASKFINER_CLI_STEPS, MASKFINER_RESUME_AT = 4, 2
 
 
@@ -4906,7 +4912,7 @@ def panoptic_instance_phase(dev, smi, gen, counters, pan_opts=(), inst_opts=(),
 # and batch per GPU (SOLVER.IMS_PER_BATCH 16 over 8 GPUs), Mask2Former-R50
 # at 512x512; ADE20K-shaped test() pairs, the second wider than 2048 once
 # its short edge is 640
-GRID_SWIN, GRID_SWIN_BATCH, GRID_SWIN_STEPS = "swin_base_384_res640", 2, 3
+GRID_SWIN, GRID_SWIN_BATCH, GRID_SWIN_STEPS = "swin_base_384_res640", 2, 2   # 3 before phase 19
 GRID_R50, GRID_R50_STEPS = "r50", 2
 GRID_EVAL_SIZES = ((512, 683), (480, 1600), (640, 480))
 
@@ -5161,23 +5167,27 @@ def grid_baselines_phase(dev, smi, gen, counters, swin_opts=(), r50_opts=(),
     return paths, total
 
 
-UPDOWN, UPDOWN_STEPS = "maskfiner_updown_mini", 2
+UPDOWN, UPDOWN_STEPS = "maskfiner_updown_mini", 1      # 2 before phase 19
 # the Trainer.test() images of phase 16, and its sliding window under
 # MaskFinerOracleTeacherSW (two windows across each 512x704 padded input)
 UPDOWN_EVAL_SIZES = EVAL_SIZES[:2]
 UPDOWN_SW = (["TEST.SW_CROP_SIZE", "[512, 512]", "TEST.SW_STRIDE", "[384, 384]"], 2)
 
 
-def check_head_outputs(label, out, ref, book, scored="upsampling_preds", by_scores=()):
+def check_head_outputs(label, out, ref, book, scored="upsampling_preds", by_scores=(),
+                       rtol=FORWARD_RTOL, mean_rtol=None, floors=None):
     """A forward through the kernels against the plain run, which replayed
     the kernel run's choices: the final and every aux output and each of
     the `scored` scores (an OracleTeacher model's upsampling scores, an
-    MRML model's meta-loss predictions) within FORWARD_RTOL of their largest
-    |entry| (at least 1); the choices to CHOICE_AGREE_MIN but `by_scores`
-    (logged: the scores that order them are held here).  The OracleTeacher-BB
-    upsampling heads end in a LayerNorm over one channel, so their scores
-    are their norm's bias: each stage's split order is the tokens' own
-    order (a stable sort of equal keys) in both runs."""
+    MRML model's meta-loss predictions) within `rtol` of their largest
+    |entry| (at least 1), and with `mean_rtol` their mean |difference|
+    within that share of their mean |entry|; the choices to `floors`
+    (CHOICE_AGREE_MIN by default) but `by_scores` (logged: the scores that
+    order them are held here).  The OracleTeacher-BB upsampling heads end in a
+    LayerNorm over one channel, so their scores are their norm's bias: each
+    stage's split order is the tokens' own order (a stable sort of equal
+    keys) in both runs.  -> {output kind: worst max rel} (and
+    "<kind> mean": worst mean rel, with `mean_rtol`)."""
     import torch
 
     pairs = [(key, out[key], ref[key]) for key in ("pred_logits", "pred_masks")]
@@ -5189,22 +5199,31 @@ def check_head_outputs(label, out, ref, book, scored="upsampling_preds", by_scor
     if len(out["aux_outputs"]) != len(ref["aux_outputs"]):
         raise SystemExit(f"{label}: {len(out['aux_outputs'])} aux outputs against "
                          f"{len(ref['aux_outputs'])}")
-    worst = {}
+    worst, over = {}, []
     for key, a, r in pairs:
         if a.shape != r.shape or not torch.isfinite(a).all():
             raise SystemExit(f"{label} {key}: shape {tuple(a.shape)} against {tuple(r.shape)}, or "
                              "non-finite")
-        e = (a - r).abs().max().item()
+        diff = (a - r).abs()
+        e = diff.max().item()
         rel = e / max(r.abs().max().item(), 1.0)
         kind = " ".join(key.split()[::2]) if key.startswith("aux") else key.rstrip("0123456789 ")
         worst[kind] = max(worst.get(kind, 0.0), rel)
-        if rel > FORWARD_RTOL:
-            raise SystemExit(f"{label} {key}: kernels and plain versions disagree by {e} "
-                             f"({rel:.3e} of its largest entry)")
-    log(f"    worst max_abs_err / max |ref| per output: "
+        if rel > rtol:
+            over.append(f"{key}: {e} ({rel:.3e} of its largest entry)")
+        if mean_rtol is not None:
+            mean = diff.float().mean().item() / max(r.abs().float().mean().item(), 1e-12)
+            worst[kind + " mean"] = max(worst.get(kind + " mean", 0.0), mean)
+            if mean > mean_rtol:
+                over.append(f"{key}: mean |difference| {mean:.3e} of its mean |entry|")
+    log(f"    worst max_abs_err / max |ref| per output"
+        + (" (and mean |difference| / mean |ref|)" if mean_rtol is not None else "") + ": "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-        + f" ({len(pairs)} outputs, limit {FORWARD_RTOL})")
-    same_choices.check(label, book, by_scores)
+        + f" ({len(pairs)} outputs, limit {rtol}"
+        + (f", mean {mean_rtol}" if mean_rtol is not None else "") + ")")
+    if over:
+        raise SystemExit(f"{label}: kernels and plain versions disagree: " + "; ".join(over))
+    same_choices.check(label, book, by_scores, floors)
     return worst
 
 
@@ -5215,7 +5234,8 @@ def updown_stream(cfg, model, images):
 
     mr, n = cfg.MODEL.MR, cfg.MODEL.MASK_FINER.NUM_RESOLUTION_SCALES
     with torch.no_grad():
-        feats = model.backbone(model.normalize(images))
+        # fp32 on the masters (an AMP model too): only the segments' sizes are read
+        feats = model.backbone(model.normalize(images).float())
     segs = [feats[f"upsampling_mask_pred_{s}"].shape[1] for s in range(n - 1)]
     segs.append(feats["res2"].shape[1])
     down = [tuple(segs[:s + 1]) for s in range(n)]
@@ -5256,7 +5276,14 @@ def updown_phase(dev, smi, gen, counters, opts=(), size=SIZE, eval_sizes=UPDOWN_
 # own operands, FAMILY_STEPS steps, test()), the global-attention MRML
 # presets a forward and a step each
 OT, MRMLNB, MRML, MRMEAN = "maskfiner_oracle_teacher", "mrmlnb_mini", "mrml_mini", "mrmean_mini"
-FAMILY_STEPS = 2
+# the script's time limit: phases 16 and 17 run their presets at their
+# published widths but one block a stage, and phases 13, 15, 16 and 17 one
+# step fewer, so that phase 19 runs UpDown-Tiny whole (phase 14's AFF-Mini keeps its depth: at a cut one its trained model
+# makes no detection to hold test() against)
+UPDOWN_DEPTHS = ["MODEL.MR.DEPTHS", "[1, 1, 1, 1, 1, 1, 1]"]
+FAMILY_DEPTHS = {OT: ["MODEL.MR.DEPTHS", "[1, 1, 1, 1]"],
+                 **{name: ["MODEL.MRML.DEPTHS", "[1, 1, 1, 1]"] for name in (MRMLNB, MRML, MRMEAN)}}
+FAMILY_STEPS = 1                                          # 2 before phase 19
 FAMILY_EVAL_SIZES = EVAL_SIZES[:2]
 
 
@@ -5601,6 +5628,384 @@ def families_phase(dev, smi, gen, counters, presets=((OT, True), (MRMLNB, True),
     return paths, total
 
 
+# phase 19: bf16 mixed precision (SOLVER.AMP.ENABLED, parallel/precision.py)
+# at the published COCO-panoptic MaskFiner-UpDown-Tiny, full width and depth,
+# 1024x1024 (the LSJ canvas), batch 2
+AMP_PRESET, AMP_SIZE, AMP_BATCH, AMP_STEPS = "maskfiner_updown_tiny_coco_panoptic", 1024, 2, 2
+AMP_EVAL_SIZES = ((480, 640), (640, 427))
+AMP_NAMES = ("smoke_coco_panoptic_train", "smoke_coco_panoptic_val")
+COCO_PANOPTIC_CLASSES, COCO_THINGS = 133, tuple(range(80))
+# Under AMP the kernels' fp32 results are rounded to bf16 after each call: a
+# last-bit difference between a kernel and its plain version moves an
+# element's bf16 rounding by 2**-8 of it, and such moves compound through
+# the layers.  The kernel run is held to the plain run (choices replayed)
+# at these budgets: the forward's outputs' largest difference relative to
+# their largest entry and their mean difference relative to their mean
+# entry, the step's loss terms, its gradient norm per optimizer group.
+AMP_FORWARD_RTOL, AMP_FORWARD_MEAN_RTOL = 0.1, 5e-2
+AMP_LOSS_RTOL, AMP_GROUP_NORM_RTOL = 2e-2, 2e-2
+# the plain run's own choices against the kernel run's: bf16 rounding moved
+# by a kernel's last bit flips near ties far more often than in fp32 (an
+# AMP forward at 1024x1024: sampling cells 0.980, attention masks 0.998;
+# a step's ranked points 0.964, matches 0.20-0.29 of all slots, on an
+# H100).  Phase 19 holds these floors; a match or a ranked point
+# under its floor passes where every flip is one the two runs' scores
+# explain (same_choices.near_tie), as in phase 17.
+AMP_CHOICE_AGREE_MIN = {**CHOICE_AGREE_MIN, "sampling cells": 0.95, "attention masks": 0.99,
+                        "ranked points": 0.95, "matches": 0.95}
+AMP_NEAR_TIE_AGREE_MIN = {"matches": 0.0, "ranked points": 0.9}
+# each loss term of the AMP steps against the same steps in fp32 (same
+# initial weights, batches, draws and DropPath draws; the fp32 run replays
+# the AMP run's discrete choices)
+AMP_FP32_BUDGET = 5e-2
+
+
+def coco_panoptic_pairs(sizes, seed=SEED):
+    """[(dataset dict, image, panoptic ids, semantic map)] shaped as COCO
+    panoptic: stuff of classes 80-132 in 64-pixel blocks (segment id =
+    class + 1), 4-12 thing instances (ellipses of classes 0-79, ids
+    (class + 1) * 1000 + k), a void band (id 0, semantic 255) along the
+    bottom; the semantic map holds each pixel's class."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, (h, w) in enumerate(sizes):
+        img = smooth_image(rng, h, w)
+        stuff = rng.integers(80, COCO_PANOPTIC_CLASSES,
+                             (h // 64 + 1, w // 64 + 1)).repeat(64, 0).repeat(64, 1)[:h, :w]
+        pan = stuff.astype(np.int64) + 1
+        sem = stuff.astype(np.uint8)
+        segs = [{"id": int(c) + 1, "category_id": int(c), "iscrowd": 0} for c in np.unique(stuff)]
+        yy, xx = np.ogrid[:h, :w]
+        for k in range(int(rng.integers(4, 13))):
+            c = int(rng.choice(COCO_THINGS))
+            cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+            ry, rx = rng.uniform(h / 20, h / 5), rng.uniform(w / 20, w / 5)
+            inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+            pan[inside], sem[inside] = (c + 1) * 1000 + k, c
+            segs.append({"id": (c + 1) * 1000 + k, "category_id": c, "iscrowd": 0})
+        pan[h - h // 16:], sem[h - h // 16:] = 0, 255
+        present = set(np.unique(pan).tolist())
+        segs = [s for s in segs if s["id"] in present]
+        name = f"smoke_coco/{i:02d}_{h}x{w}"
+        out.append(({"file_name": name + ".jpg", "pan_seg_file_name": name + "_pan.png",
+                     "image_id": name, "height": h, "width": w, "segments_info": segs},
+                    img, pan, sem))
+    return out
+
+
+def coco_panoptic_batches(pairs, batch, slots, dev):
+    """Training batches of `batch` pairs each (all of the LSJ canvas' size):
+    one target per segment (its mask and class) in `slots` padded slots,
+    and the semantic map the GT-edge oracle reads."""
+    import numpy as np
+    import torch
+
+    for start in range(0, len(pairs) - batch + 1, batch):
+        part = pairs[start:start + batch]
+        h, w = part[0][1].shape[:2]
+        masks = np.zeros((batch, slots, h, w), np.uint8)
+        labels = np.zeros((batch, slots), np.int64)
+        valid = np.zeros((batch, slots), bool)
+        for i, (d, _, pan, _) in enumerate(part):
+            for j, seg in enumerate(d["segments_info"][:slots]):
+                masks[i, j] = pan == seg["id"]
+                labels[i, j], valid[i, j] = seg["category_id"], True
+        yield {"image": torch.from_numpy(np.stack([p[1] for p in part])).to(dev),
+               "masks": torch.from_numpy(masks).to(dev),
+               "labels": torch.from_numpy(labels).to(dev),
+               "valid": torch.from_numpy(valid).to(dev),
+               "sem_seg_map": torch.from_numpy(np.stack([p[3] for p in part])).to(dev)}
+
+
+def dtype_census(model):
+    """{"parameters" / "gradients" / "buffers": the dtypes of the model's
+    parameters, of their gradients and of its float buffers}."""
+    census = {}
+    for kind, tensors in (("parameters", model.parameters()),
+                          ("gradients", (p.grad for p in model.parameters()
+                                         if p.grad is not None)),
+                          ("buffers", (b for b in model.buffers() if b.is_floating_point()))):
+        for t in tensors:
+            census.setdefault(kind, set()).add(str(t.dtype).replace("torch.", ""))
+    return census
+
+
+def amp_phase(dev, smi, gen, counters, opts=(), size=AMP_SIZE, batch=AMP_BATCH, steps=AMP_STEPS,
+              eval_sizes=AMP_EVAL_SIZES, out_dir="chiprun_out"):
+    """Phase 19: the published COCO-panoptic MaskFiner-UpDown-Tiny, which
+    turns SOLVER.AMP.ENABLED on, from a Trainer (seeded random weights) at
+    size x size: K1, K3 and K9 on a batch-`batch` AMP forward's operands
+    (the fp32 casts of the bf16 layers' tensors) against their plain
+    versions; the AMP forward through the kernels against the plain versions
+    replaying its choices (AMP_FORWARD_RTOL, the choice floors as phase 17
+    holds them); K2, K4, K10, K12 and K13 on a real AMP step's operands;
+    `steps` AMP steps on COCO-panoptic-shaped batches (133 classes, 80
+    things), each replayed through the plain versions (AMP_LOSS_RTOL,
+    AMP_GROUP_NORM_RTOL) and then taken by the Trainer (launches, fp32
+    masters, gradients, AdamW moments and BatchNorm statistics); the same
+    steps in fp32 from the same weights, each loss term of the AMP run
+    within AMP_FP32_BUDGET of the fp32 run's; test() on `eval_sizes`
+    images with panoptic inference and PQ.  ms, device busy and peak GiB
+    of the fp32 and the AMP forward and step side by side.  Writes the
+    record to out_dir/phase19.json.  Returns ({kernel: {path: record}},
+    {counter: launches of the phase's runs through the kernels})."""
+    import copy
+    import os
+    import tempfile
+
+    import torch
+    from autofocusformermod_torch.config import PRESETS
+    from autofocusformermod_torch.engine.train import Trainer
+    from autofocusformermod_torch.engine.train_step import TrainStep
+    from autofocusformermod_torch.losses.criterion import device_draw
+    from autofocusformermod_torch.models.maskformer import init_random_weights
+    from autofocusformermod_torch.models.registry import build_model
+    from autofocusformermod_torch.ops.build import BUILD_DIR
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.parallel import precision
+    from autofocusformermod_torch.tools.l2_rate import l2_read_rate
+
+    paths, total = {}, dict.fromkeys(counters, 0)
+    record = {"card": smi, "preset": AMP_PRESET, "size": size, "batch": batch}
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def add(got):
+        for name, k in got.items():
+            total[name] += k
+
+    def expect(label, got, want):
+        want = {n: want.get(n, 0) for n in counters}
+        if got != want:
+            raise SystemExit(f"{label}: launched {got}, expected {want}")
+
+    def draw(i):
+        return device_draw(torch.Generator(device=dev).manual_seed(SEED + i))
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2 ** 30
+
+    train_pairs = coco_panoptic_pairs([(size, size)] * (batch * steps), SEED + 19)
+    test_pairs = coco_panoptic_pairs(eval_sizes, SEED + 20)
+    meta = {"evaluator_type": "coco_panoptic_seg", "ignore_label": 255,
+            "thing_dataset_id_to_contiguous_id": {i: i for i in COCO_THINGS}}
+    module = "autofocusformermod_torch.data.mapper_panoptic_instance"
+    files = {d["file_name"]: img for d, img, _, _ in train_pairs + test_pairs}
+    pans = {d["pan_seg_file_name"]: pan for d, _, pan, _ in train_pairs + test_pairs}
+    segs = [len(d["segments_info"]) for d, *_ in train_pairs + test_pairs]
+    log(f"  data: {len(train_pairs)} COCO-panoptic-shaped {size}x{size} training pairs and "
+        f"{len(test_pairs)} test pairs {list(eval_sizes)}, {min(segs)}-{max(segs)} segments "
+        f"each ({COCO_PANOPTIC_CLASSES} classes, {len(COCO_THINGS)} things)")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR.parent, prefix="amp_") as tmp, \
+            in_memory_files({name: ([d for d, *_ in test_pairs], meta) for name in AMP_NAMES},
+                            {(module, "read_image"): files, (module, "read_pan_seg"): pans}), \
+            watch_predict(counters) as watch:
+        cfg = PRESETS[AMP_PRESET]()
+        cfg.merge_from_list([*opts, "SOLVER.IMS_PER_BATCH", str(batch), "OUTPUT_DIR", tmp,
+                             "DATASETS.TRAIN", f"('{AMP_NAMES[0]}',)",
+                             "DATASETS.TEST", f"('{AMP_NAMES[1]}',)"])
+        trainer = Trainer(cfg, dev)
+        model = trainer.model
+        init_random_weights(model, torch.Generator().manual_seed(SEED))
+        initial = copy.deepcopy(model.state_dict())
+        if model.compute_dtype != torch.bfloat16 or not precision.uses_amp(model):
+            raise SystemExit(f"{AMP_PRESET}: the model computes in {model.compute_dtype}")
+        n_params = sum(p.numel() for p in model.parameters())
+        fwd_want = family_launches(cfg, False, (size, size))
+        step_want = family_launches(cfg, True, (size, size))
+        images = torch.randint(0, 256, (batch, size, size, 3), dtype=torch.uint8,
+                               generator=torch.Generator().manual_seed(SEED + 3)).to(dev)
+        model.eval()
+        text, fields = updown_stream(cfg, model, images)
+        log(f"  {AMP_PRESET}: {cfg.MODEL.META_ARCHITECTURE} over {cfg.MODEL.BACKBONE.NAME}, "
+            f"{n_params / 1e6:.2f}M parameters, AMP (bf16 compute, fp32 masters); the token "
+            f"stream at {size}x{size}: {text}; launches expected per forward {fwd_want}, per "
+            f"step {step_want}")
+        record.update(parameters=n_params, **fields)
+
+        # K1, K3 and K9 on the AMP forward's operands
+        ops = path_forward_operands(model, images)
+        dtypes = {str(a.dtype) for calls in ops.values() for call in calls
+                  for a in call if torch.is_tensor(a) and a.is_floating_point()}
+        if dtypes != {"torch.float32"}:
+            raise SystemExit(f"{AMP_PRESET}: the kernels' float operands under AMP are {dtypes}")
+        paths["local_attn"] = {"amp": check_local_attn_calls("amp", ops["local_attn"])}
+        paths["msdetrpc"] = {"amp": check_msdetrpc("amp", ops["msdetrpc"], l2_read_rate())}
+        paths["knn"] = {"amp": check_knn("amp", ops["knn"])}
+        del ops
+        torch.cuda.empty_cache()
+
+        # the AMP forward through the kernels, then the plain versions replaying its choices
+        book = {}
+        with torch.no_grad():
+            reset()
+            with same_choices(book, record=True):
+                out, first_ms, got = counted_call(counters,
+                                                  lambda: precision.apply(model, images))
+            expect(f"{AMP_PRESET} AMP forward", got, fwd_want)
+            add(got)
+            with same_choices(book, record=False), plain_versions():
+                ref = precision.apply(model, images)
+            queries = cfg.MODEL.MASK_FINER.NUM_OBJECT_QUERIES
+            if tuple(out["pred_masks"].shape) != (batch, queries, size // 4, size // 4) or \
+                    out["pred_logits"].shape[-1] != COCO_PANOPTIC_CLASSES + 1:
+                raise SystemExit(f"{AMP_PRESET}: outputs {tuple(out['pred_logits'].shape)}, "
+                                 f"{tuple(out['pred_masks'].shape)}")
+            if {str(v.dtype) for v in (out["pred_logits"], out["pred_masks"])} != {"torch.float32"}:
+                raise SystemExit(f"{AMP_PRESET}: the AMP outputs are not fp32")
+            record["forward_worst_rel"] = check_head_outputs(
+                f"{AMP_PRESET} AMP forward", out, ref, book, rtol=AMP_FORWARD_RTOL,
+                mean_rtol=AMP_FORWARD_MEAN_RTOL, floors=AMP_CHOICE_AGREE_MIN)
+            del out, ref, book
+
+            # the same forward in fp32 (the model built with AMP off, the same weights)
+            cfg32 = copy.deepcopy(cfg)
+            cfg32.SOLVER.AMP.ENABLED = False
+            model32 = build_model(cfg32).to(dev)
+            model32.load_state_dict(initial)
+            model32.eval()
+
+            def forward_ms(m):
+                times, peaks = [], []
+                for _ in range(4):
+                    torch.cuda.reset_peak_memory_stats()
+                    _, ms, _ = counted_call(counters, lambda: precision.apply(m, images))
+                    times.append(ms)
+                    peaks.append(peak_gib())
+                busy, rows = device_busy(lambda: precision.apply(m, images), runs=2)
+                return {"ms": statistics.median(times[1:]), "busy_ms": busy, "rows": rows,
+                        "peak_gib": max(peaks)}
+
+            reset()
+            fwd = {"amp": forward_ms(model), "fp32": forward_ms(model32)}
+            add({name: c.launches for name, c in counters.items()})
+        for k, r in fwd.items():
+            log(f"  {AMP_PRESET} {k} forward at batch {batch} (median of 3 after one): "
+                f"{r['ms']:.2f} ms, device busy {r['busy_ms']:.2f} ms in {r['rows']:.0f} rows "
+                f"({r['busy_ms'] / r['ms']:.0%}), peak {r['peak_gib']:.2f} GiB ({smi})")
+        record["forward"] = {"first_ms": first_ms, "launches": got, **fwd}
+        del images
+        torch.cuda.empty_cache()
+
+        # the kernels on a real AMP step's operands, then the steps
+        model.train()
+        model32.train()
+        batches = list(coco_panoptic_batches(train_pairs, batch, cfg.TPU.MAX_GT_INSTANCES, dev))
+        hold_grid_step_operands(f"{AMP_PRESET}_amp_step", model, cfg, batches[0], gen, paths,
+                                local_attn=True)
+        step32 = TrainStep(model32, cfg32)
+        n_out = cfg.MODEL.MASK_FINER.DEC_LAYERS[-1]
+        record["steps"] = []
+        drop_path = trainer.generators["drop_path"]
+        gen32 = torch.Generator(device=dev)
+        model32.set_drop_path_generator(gen32)
+        for i, b in enumerate(batches):
+            used, r_ms, p_ms, r_peak, p_peak = replay_step(
+                f"{AMP_PRESET} AMP step {i + 1}", model, cfg, b, lambda: draw(i + 1), True,
+                AMP_LOSS_RTOL, AMP_GROUP_NORM_RTOL, AMP_CHOICE_AGREE_MIN, AMP_NEAR_TIE_AGREE_MIN)
+            # the AMP step through the Trainer, then the fp32 step replaying its choices
+            drop_path.manual_seed(SEED + 50 + i)
+            gen32.manual_seed(SEED + 50 + i)
+            book = {}
+            reset()
+            torch.cuda.reset_peak_memory_stats()
+            with same_choices(book, record=True):
+                metrics, ms, got = counted_call(counters, lambda: trainer.step_fn(b, draw(i + 1)))
+            add(got)
+            peak = peak_gib()
+            expect(f"{AMP_PRESET} AMP step {i + 1}", got, step_want)
+            census = dtype_census(model)
+            moments = {str(v.dtype) for st in trainer.step_fn.optimizer.state.values()
+                       for v in st.values() if torch.is_tensor(v) and v.is_floating_point()}
+            if any(d != {"float32"} for d in census.values()) or moments != {"torch.float32"}:
+                raise SystemExit(f"{AMP_PRESET} AMP step {i + 1}: dtypes {census}, AdamW "
+                                 f"moments {moments}")
+            torch.cuda.reset_peak_memory_stats()
+            with same_choices(book, record=False):
+                metrics32, ms32, _ = counted_call({}, lambda: step32(b, draw(i + 1)))
+            peak32 = peak_gib()
+            # logged: how many of the fp32 run's own choices bf16 rounding flips
+            same_choices.check(f"{AMP_PRESET} fp32 step {i + 1} replaying the AMP step's",
+                               book, by_scores=tuple({k for k, *_ in same_choices.KINDS}))
+            terms = {k: (metrics[k].item(), metrics32[k].item()) for k in metrics32
+                     if k != "grad_norm"}
+            rel = {k: abs(a - f) / max(abs(f), 1e-3) for k, (a, f) in terms.items()}
+            worst = max(rel, key=rel.get)
+            log(f"  {AMP_PRESET} step {i + 1} at batch {batch}: AMP {ms:.1f} ms (peak {peak:.2f} "
+                f"GiB), fp32 {ms32:.1f} ms (peak {peak32:.2f} GiB); total loss AMP "
+                f"{terms['total_loss'][0]:.5f} fp32 {terms['total_loss'][1]:.5f}, "
+                f"loss_upsampling {terms['loss_upsampling'][0]:.5g} / "
+                f"{terms['loss_upsampling'][1]:.5g}, grad_norm {metrics['grad_norm'].item():.4f} / "
+                f"{metrics32['grad_norm'].item():.4f}; {len(terms)} terms, worst AMP/fp32 "
+                f"{worst} {rel[worst]:.3e} (budget {AMP_FP32_BUDGET}); masters, gradients, "
+                f"buffers {census}, AdamW moments {sorted(moments)}")
+            if len(metrics) != 3 + 3 * n_out or not all(
+                    torch.isfinite(v).all() for v in metrics.values()) \
+                    or not metrics["loss_upsampling"].item() > 0:
+                raise SystemExit(f"{AMP_PRESET} AMP step {i + 1}: {len(metrics)} metrics, "
+                                 f"non-finite or loss_upsampling {metrics['loss_upsampling']}")
+            if rel[worst] > AMP_FP32_BUDGET:
+                raise SystemExit(f"{AMP_PRESET} step {i + 1}: {worst} of the AMP run "
+                                 f"{terms[worst][0]} against fp32 {terms[worst][1]}")
+            record["steps"].append({"amp_ms": ms, "amp_peak_gib": peak, "fp32_ms": ms32,
+                                    "fp32_peak_gib": peak32, "plain_ms": p_ms,
+                                    "plain_peak_gib": p_peak, "replayed_batch": used,
+                                    "terms": terms, "worst_amp_fp32": [worst, rel[worst]],
+                                    "launches": got})
+            del book
+
+        def busy_step(step_fn):
+            def one():
+                step_fn(batches[0], draw(0))
+                torch.cuda.synchronize()
+            return device_busy(one, runs=1)
+
+        reset()
+        busy, rows = busy_step(trainer.step_fn)
+        busy32, rows32 = busy_step(step32)
+        add({name: c.launches for name, c in counters.items()})
+        amp_ms = record["steps"][-1]["amp_ms"]
+        fp32_ms = record["steps"][-1]["fp32_ms"]
+        log(f"  {AMP_PRESET} step {steps} at batch {batch}: AMP {amp_ms:.1f} ms, device busy "
+            f"{busy:.1f} ms in {rows:.0f} rows ({busy / amp_ms:.0%}); fp32 {fp32_ms:.1f} ms, "
+            f"busy {busy32:.1f} ms in {rows32:.0f} rows ({busy32 / fp32_ms:.0%}) ({smi})")
+        record["step_busy_ms"] = {"amp": busy, "fp32": busy32}
+        del batches, step32, model32
+        torch.cuda.empty_cache()
+
+        # test(): panoptic inference and PQ on the AMP view
+        reset()
+        t0 = time.time()
+        results = trainer.test()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        add({name: c.launches for name, c in counters.items()})
+        pq = results[AMP_NAMES[1]]
+        log(f"  {AMP_PRESET} test() on {len(watch.images)} images: {dt:.2f} s, "
+            + ", ".join(f"{k} {v:.4f}" for k, v in pq.items())
+            + f"; ms per image by padded input {ms_by_size(watch.images)}; launches per image "
+            f"{[rec['launches'] for rec in watch.images]} ({smi})")
+        if len(watch.images) != len(eval_sizes) or not all(math.isfinite(v) for v in pq.values()) \
+                or not 0.0 <= pq["PQ"] <= 100.0:
+            raise SystemExit(f"{AMP_PRESET} test(): {len(watch.images)} images, {pq}")
+        for rec in watch.images:
+            expect(f"{AMP_PRESET} test() image {rec['input']}", rec["launches"],
+                   family_launches(cfg, False, rec["input"]))
+        record["test"] = {"seconds": dt, **pq, "ms_by_input": ms_by_size(watch.images)}
+        del trainer, model
+        torch.cuda.empty_cache()
+    record["kernels"] = paths
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "phase19.json"), "a") as f:
+        f.write(json.dumps(record, default=str) + "\n")
+    return paths, total
+
+
 def main() -> int:
     import torch
 
@@ -5905,15 +6310,16 @@ def main() -> int:
             kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
     torch.cuda.empty_cache()
 
-    log(f"phase 16: the published MaskFiner-UpDown-Mini ({UPDOWN}, MaskFinerOracleTeacherBB) at "
-        f"{SIZE}x{SIZE}: the token stream, K1, K3 and K9 on a batch-{BATCH} forward's operands, "
+    log(f"phase 16: the published MaskFiner-UpDown-Mini ({UPDOWN}, MaskFinerOracleTeacherBB; one "
+        f"block a stage) at {SIZE}x{SIZE}: the token stream, K1, K3 and K9 on a batch-{BATCH} forward's operands, "
         "the forward against the plain versions, K2, K4, K10, K12 and K13 on a real step's "
         f"operands, {UPDOWN_STEPS} steps at batch {BATCH} each replayed through the plain "
         f"versions, test() on {len(UPDOWN_EVAL_SIZES)} ADE20K-shaped images and under "
         "MaskFinerOracleTeacherSW")
     t16 = time.time()
     updown_paths, updown_launches_ = updown_phase(dev, smi, gen,
-                                                  {**train_counters, **layout_counters})
+                                                  {**train_counters, **layout_counters},
+                                                  UPDOWN_DEPTHS)
     log(f"  phase 16 took {time.time() - t16:.1f} s")
     for kr in kernels:
         for path, rec in updown_paths.get(kr["name"], {}).items():
@@ -5923,7 +6329,8 @@ def main() -> int:
             kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
     torch.cuda.empty_cache()
 
-    log(f"phase 17: the last two families at {SIZE}x{SIZE}: {OT} (MaskFinerOracleTeacher) and "
+    log(f"phase 17: the last two families at {SIZE}x{SIZE}, published widths, one block a "
+        f"stage: {OT} (MaskFinerOracleTeacher) and "
         f"{MRMLNB} (MaskFormerML over MixResMetaLossNeighbour), each with K1, K3 and K9 on a "
         f"batch-{BATCH} forward's operands, the forward against the plain versions, K2, K4, "
         f"K10, the ranking's read and K13 on a real step's operands, {FAMILY_STEPS} steps at "
@@ -5932,13 +6339,31 @@ def main() -> int:
         "attention) a forward and a step each, against the plain versions")
     t17 = time.time()
     family_paths, family_launches_ = families_phase(dev, smi, gen,
-                                                    {**train_counters, **layout_counters})
+                                                    {**train_counters, **layout_counters},
+                                                    opts=FAMILY_DEPTHS)
     log(f"  phase 17 took {time.time() - t17:.1f} s")
     for kr in kernels:
         for path, rec in family_paths.get(kr["name"], {}).items():
             kr.setdefault("by_path", {"b8_uniform": {k: kr[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
             kr["by_path"][path] = rec
+            kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
+    torch.cuda.empty_cache()
+
+    log(f"phase 19: bf16 mixed precision (SOLVER.AMP.ENABLED) at the published {AMP_PRESET} "
+        f"(MaskFinerOracleTeacherBB), full width, {AMP_SIZE}x{AMP_SIZE}, batch {AMP_BATCH}: K1, "
+        "K3 and K9 on an AMP forward's operands, the AMP forward against the plain versions, K2, "
+        f"K4, K10, K12 and K13 on a real AMP step's operands, {AMP_STEPS} AMP steps each "
+        "replayed through the plain versions and against the same steps in fp32, test() with "
+        f"PQ on {len(AMP_EVAL_SIZES)} COCO-shaped images")
+    t19 = time.time()
+    amp_paths, amp_launches_ = amp_phase(dev, smi, gen, {**train_counters, **layout_counters})
+    log(f"  phase 19 took {time.time() - t19:.1f} s")
+    for kr in kernels:
+        for path, rec in amp_paths.get(kr["name"], {}).items():
+            kr.setdefault("by_path", {"b8_uniform": {k: kr[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
+            kr["by_path"][f"{AMP_PRESET}_{path}"] = rec
             kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
     torch.cuda.empty_cache()
 
@@ -5966,12 +6391,15 @@ def main() -> int:
         kr["updown_launches"] = sum(updown_launches_.get(n, 0) for n in names)
         # phase 17: the OracleTeacher and MRML models' forwards, steps and test()
         kr["family_launches"] = sum(family_launches_.get(n, 0) for n in names)
+        # phase 19: the AMP UpDown-Tiny's forwards, steps and test()
+        kr["amp_launches"] = sum(amp_launches_.get(n, 0) for n in names)
         kr["launches"] = (kr["inference_launches"] + kr["mini_step_launches"]
                           + kr["small_run_launches"] + kr["layouts_launches"]
                           + kr["mini15_launches"] + kr["maskfiner_launches"]
                           + kr["eval_launches"] + kr["maskfiner_step_launches"]
                           + kr["panoptic_instance_launches"] + kr["grid_launches"]
-                          + kr["updown_launches"] + kr["family_launches"])
+                          + kr["updown_launches"] + kr["family_launches"]
+                          + kr["amp_launches"])
         if kr["launches"] < 1:
             raise SystemExit(f"{kr['name']}: never launched on a main path")
     if len(kernels) != 14:

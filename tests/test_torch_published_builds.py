@@ -99,3 +99,31 @@ def test_jax_entry_point_builds_the_global_backbone_for_a_neighbour_yaml():
     m = named.MODEL.MRML
     assert count["neighbour"] - count["global"] == sum(
         d * (2 * c + 6 * h) for d, c, h in zip(m.DEPTHS, m.EMBED_DIM, m.NUM_HEADS)) == 11552
+
+
+def test_updown_tiny_coco_panoptic_preset_has_jax_parameter_count():
+    """The ``maskfiner_updown_tiny_coco_panoptic`` preset builds (past the
+    cascade's refusals) with the parameter count of JAX's build of the
+    merged published yaml, both in bf16 compute (SOLVER.AMP.ENABLED)."""
+    pytest.importorskip("yaml")
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from autofocusformermod_torch.config import PRESETS
+    from autofocusformermod_tpu.models.registry import META_ARCH_REGISTRY
+
+    from test_torch_updown import _merged
+
+    model = build_model(PRESETS["maskfiner_updown_tiny_coco_panoptic"]())
+    assert type(model).__name__ == "MaskFinerOracleTeacherBB"
+    assert model.compute_dtype == torch.bfloat16
+    jcfg = _merged("configs/coco/panoptic-segmentation/maskfiner/"
+                   "maskfiner_updown_tiny_bs16_50ep.yaml")
+    jmodel = META_ARCH_REGISTRY.get(jcfg.MODEL.META_ARCHITECTURE)(jcfg)
+    assert jmodel.compute_dtype == jnp.bfloat16
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        {"params": jax.random.PRNGKey(0), "oracle": jax.random.PRNGKey(1)},
+        jnp.zeros((1, 128, 128, 3)), jnp.zeros((1, 128, 128), jnp.int32)))
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        int(np.prod(s.shape)) for s in jax.tree.leaves(shapes["params"]))
