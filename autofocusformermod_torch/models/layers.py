@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..parallel.precision import promoted
+from ..dtypes import promoted
 
 REL_POS_WIDTH = 2048 // 4 - 1  # 511: relative offsets are clipped to +-511
 LN_EPS = 1e-6

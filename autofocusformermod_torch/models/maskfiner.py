@@ -36,18 +36,20 @@ ratios raise (ROADMAP.md section 1).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Sequence
 
 import torch
 from torch import nn
 
+from ..dtypes import flax_promotion, promoted
 from ..geometry.gridnn import grid_shepard_neighbours
 from ..geometry.knn import knn
 from ..geometry.rasterize import point2img
 from ..geometry.shepard import shepard_neighbours, upsample_feature_shepard
 from ..ops.clusten import weighted_gather
 from ..ops.gather import take_rows
-from ..parallel.precision import compute_dtype, f32_outputs, promoted, refuse_islands
+from ..parallel.precision import compute_dtype, f32_outputs, refuse_islands
 from .layers import MLP, DropPath, layer_norm, position_embedding_sine
 from .mixres import mixres_stage_from_config
 from .pixel_decoder import (MSDeformAttnPixelDecoder, pack_neighbor_table, raster_grid,
@@ -227,7 +229,11 @@ class ProjPixelDecoderMaskFiner(nn.Module):
         srcs, poss, scales, fixed_poss = [], [], [], []
         for proj, f in zip(self.input_proj, self.in_features[::-1]):
             pos = features[f + "_pos"].float()
-            srcs.append(proj(features[f]))
+            # the levels are cast to fp32 here, as the JAX decoder casts them:
+            # under AMP every later layer of the cascade that they reach
+            # computes in fp32 with the bf16 view of its weights
+            # (``MaskFiner.dtype_scope``)
+            srcs.append(proj(features[f].float()))
             poss.append(pos)
             scales.append(features[f + "_scale"].float())
             fixed_poss.append(fix_pos_no_bias(pos, features[f + "_spatial_shape"], min_ss))
@@ -431,15 +437,27 @@ class MaskFiner(nn.Module):
                 if isinstance(m, DropPath):
                     m.generator = generator
 
+    def dtype_scope(self):
+        """The context of a forward: under bf16 compute with a projection
+        decoder in the cascade, ``flax_promotion`` (its fp32 levels meet
+        the later layers' bf16 weights, and JAX computes those layers in
+        fp32 with the weights widened); else none."""
+        if self.compute_dtype != torch.float32 and any(
+                isinstance(p.pixel_decoder, ProjPixelDecoderMaskFiner)
+                for p in self.mask_predictors):
+            return flax_promotion()
+        return contextlib.nullcontext()
+
     def forward(self, images: torch.Tensor) -> Dict:
-        x = self.normalize(images)
-        features = features_pos = upsampling_mask = tokens_per_scale = None
-        aux, disagreements = (), []
-        for predictor in self.mask_predictors:
-            outs, features, features_pos, upsampling_mask, tokens_per_scale = predictor(
-                x, features, features_pos, upsampling_mask, tokens_per_scale)
-            disagreements.append(upsampling_mask)
-            aux = aux + tuple(outs["aux_outputs"])
+        with self.dtype_scope():
+            x = self.normalize(images)
+            features = features_pos = upsampling_mask = tokens_per_scale = None
+            aux, disagreements = (), []
+            for predictor in self.mask_predictors:
+                outs, features, features_pos, upsampling_mask, tokens_per_scale = predictor(
+                    x, features, features_pos, upsampling_mask, tokens_per_scale)
+                disagreements.append(upsampling_mask)
+                aux = aux + tuple(outs["aux_outputs"])
         return f32_outputs({"pred_logits": outs["pred_logits"], "pred_masks": outs["pred_masks"],
                             "aux_outputs": aux, "disagreement_masks": tuple(disagreements),
                             "features_pos": features_pos})

@@ -98,25 +98,26 @@ class MaskFinerOracleTeacher(MaskFiner):
                 use_oracle: Optional[Sequence[torch.Tensor]] = None) -> Dict:
         """``use_oracle``: the teacher's draws given, one (b, 1) bool per stage
         before the last, in place of the generator's."""
-        x = self.normalize(images)
-        edges = None if sem_seg_gt is None else gt_edge_map(sem_seg_gt, self.ignore_label)
-        features = features_pos = scores = tokens_per_scale = None
-        aux, preds, oracles = (), [], []
-        last = len(self.mask_predictors) - 1
-        for li, predictor in enumerate(self.mask_predictors):
-            outs, features, features_pos, scores, tokens_per_scale = predictor(
-                x, features, features_pos, scores, tokens_per_scale)
-            aux = aux + tuple(outs["aux_outputs"])
-            if li < last and edges is not None:
-                oracle = oracle_upsampling_mask(edges, features_pos[:, :, 1:],
-                                                features_pos[:, :, 0], self.patch_sizes,
-                                                self.min_patch_size)
-                preds.append(scores)
-                oracles.append(oracle)
-                if self.training:
-                    scores = mix_teacher_mask(self.oracle_generator, scores, oracle,
-                                              self.oracle_teacher_ratio,
-                                              None if use_oracle is None else use_oracle[li])
+        with self.dtype_scope():
+            x = self.normalize(images)
+            edges = None if sem_seg_gt is None else gt_edge_map(sem_seg_gt, self.ignore_label)
+            features = features_pos = scores = tokens_per_scale = None
+            aux, preds, oracles = (), [], []
+            last = len(self.mask_predictors) - 1
+            for li, predictor in enumerate(self.mask_predictors):
+                outs, features, features_pos, scores, tokens_per_scale = predictor(
+                    x, features, features_pos, scores, tokens_per_scale)
+                aux = aux + tuple(outs["aux_outputs"])
+                if li < last and edges is not None:
+                    oracle = oracle_upsampling_mask(edges, features_pos[:, :, 1:],
+                                                    features_pos[:, :, 0], self.patch_sizes,
+                                                    self.min_patch_size)
+                    preds.append(scores)
+                    oracles.append(oracle)
+                    if self.training:
+                        scores = mix_teacher_mask(self.oracle_generator, scores, oracle,
+                                                  self.oracle_teacher_ratio,
+                                                  None if use_oracle is None else use_oracle[li])
         return f32_outputs({"pred_logits": outs["pred_logits"], "pred_masks": outs["pred_masks"],
                             "aux_outputs": aux, "upsampling_preds": tuple(preds),
                             "upsampling_oracles": tuple(oracles)})

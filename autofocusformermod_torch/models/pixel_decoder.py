@@ -48,7 +48,7 @@ from ..ops.clusten import cluster_wf, msdetrpc
 from ..ops.gather import take_rows, take_scalars
 from ..ops.msdetrpc import msdetrpc_bh, msdetrpc_levels, msdetrpc_levels_s, msdetrpc_levels_t
 from ..ops.window_gather import windowed_row_gather
-from ..parallel.precision import promoted
+from ..dtypes import promoted
 from .layers import WeightNet, dense, layer_norm, position_embedding_sine, rel_pos_features
 
 # The layout of the sampling operands (module docstring).  Read at call time:

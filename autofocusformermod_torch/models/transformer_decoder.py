@@ -26,7 +26,7 @@ from ..geometry.gridnn import grid_shepard_upsample, pos_index_lut
 from ..geometry.rasterize import point2img
 from ..geometry.shepard import shepard_neighbours
 from ..ops.clusten import weighted_gather
-from ..parallel.precision import promoted
+from ..dtypes import promoted
 from ..ops.gather import take_rows
 from .layers import MLP, layer_norm, position_embedding_sine
 

@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from ..parallel.precision import promoted
+from ..dtypes import promoted
 from .build import check, load_kernels
 from .dispatch import require, stream_of, use_kernel
 from .gather import take_rows

@@ -117,17 +117,6 @@ def f32_outputs(tree: Any) -> Any:
     return tree
 
 
-def promoted(*tensors: torch.Tensor):
-    """The tensors in their common dtype, as JAX promotes the operands of an
-    einsum or a flax layer: fp32 geometry that meets bf16 weights or
-    features computes in fp32 (the caller casts the result down where the
-    JAX module does)."""
-    dt = tensors[0].dtype
-    for t in tensors[1:]:
-        dt = torch.promote_types(dt, t.dtype)
-    return [t.to(dt) for t in tensors]
-
-
 def uses_amp(model: nn.Module) -> bool:
     """Whether the model computes in bf16 (its build function read SOLVER.AMP.ENABLED)."""
     return getattr(model, "compute_dtype", torch.float32) == torch.bfloat16
