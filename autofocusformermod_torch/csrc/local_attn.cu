@@ -110,7 +110,7 @@ constexpr int kFwdWarps = 8;      // one cluster of queries per block where span
 // instruction); a lane holds UNITS units of VEC channels: channel
 // (lig + u * LPR) * VEC, lig its place in the row's lane group -- the layout
 // of the backward's query side, whose row reads this kernel shares.
-template <int VEC, int LPR, int UNITS>
+template <int VEC, int LPR, int UNITS, int SLOTS>
 __global__ void __launch_bounds__(kFwdWarps * 32)
 local_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ pos,
@@ -120,10 +120,10 @@ local_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   float* __restrict__ lse, int B, int H, int N, int C, int NNC, int SPAN) {
   constexpr int RPI = 32 / LPR;   // rows per load instruction
   constexpr int kStep = 2;        // row groups in flight
-  __shared__ float s_feat[kFwdWarps][5][kMaxSlots];
-  __shared__ int s_key[kFwdWarps][kMaxSlots];
-  __shared__ float s_p[kFwdWarps][kMaxSlots];
-  __shared__ float s_bias[kFwdWarps][kMaxSlots];
+  __shared__ float s_feat[kFwdWarps][5][SLOTS];
+  __shared__ int s_key[kFwdWarps][SLOTS];
+  __shared__ float s_p[kFwdWarps][SLOTS];
+  __shared__ float s_bias[kFwdWarps][SLOTS];
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -264,7 +264,7 @@ constexpr int kDkvThreads = 256;
 // Query side.  VEC floats per lane and LPR lanes per row (32 / LPR rows per
 // load instruction); a lane holds UNITS units of VEC channels: channel
 // (lig + u * LPR) * VEC, lig its place in the row's lane group.
-template <int VEC, int LPR, int UNITS>
+template <int VEC, int LPR, int UNITS, int SLOTS>
 __global__ void __launch_bounds__(kBwdWarps * 32)
 local_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ pos,
@@ -276,11 +276,11 @@ local_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
                          int B, int H, int N, int C, int NNC, int SPAN) {
   constexpr int RPI = 32 / LPR;   // rows per load instruction
   constexpr int kStep = 2;        // row groups in flight
-  __shared__ float s_feat[kBwdWarps][5][kMaxSlots];
-  __shared__ int s_key[kBwdWarps][kMaxSlots];
-  __shared__ float s_p[kBwdWarps][kMaxSlots];
-  __shared__ float s_ds[kBwdWarps][kMaxSlots];
-  __shared__ float s_bias[kBwdWarps][kMaxSlots];
+  __shared__ float s_feat[kBwdWarps][5][SLOTS];
+  __shared__ int s_key[kBwdWarps][SLOTS];
+  __shared__ float s_p[kBwdWarps][SLOTS];
+  __shared__ float s_ds[kBwdWarps][SLOTS];
+  __shared__ float s_bias[kBwdWarps][SLOTS];
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -529,9 +529,15 @@ extern "C" int aff_local_attn(const float* q, const float* k, const float* v,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long rows = (long long)b * n;
   const unsigned blocks = (unsigned)((rows + kFwdWarps - 1) / kFwdWarps);
-#define FWD_LAUNCH(VEC, LPR, UNITS)                                                     \
-  local_attn_kernel<VEC, LPR, UNITS><<<blocks, kFwdWarps * 32, 0, stream>>>(             \
+  const bool small = nnc * span <= kSlotsSmall;   // the smaller slot table
+#define FWD_KERNEL(VEC, LPR, UNITS, SLOTS)                                              \
+  local_attn_kernel<VEC, LPR, UNITS, SLOTS><<<blocks, kFwdWarps * 32, 0, stream>>>(      \
       q, k, v, pos, nc, w5, b5, blank_k, out, blank_prob, lse, b, h, n, c, nnc, span)
+#define FWD_LAUNCH(VEC, LPR, UNITS)                                                     \
+  do {                                                                                  \
+    if (small) FWD_KERNEL(VEC, LPR, UNITS, kSlotsSmall);                                \
+    else FWD_KERNEL(VEC, LPR, UNITS, kMaxSlots);                                        \
+  } while (0)
   // 16 bytes per lane where every row starts at a multiple of 16 bytes
   const bool vec = c % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
                    aligned16(blank_k) && aligned16(out);
@@ -540,6 +546,7 @@ extern "C" int aff_local_attn(const float* q, const float* k, const float* v,
   else if (vec) FWD_LAUNCH(4, 16, 1);
   else FWD_LAUNCH(1, 32, 2);
 #undef FWD_LAUNCH
+#undef FWD_KERNEL
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -559,9 +566,15 @@ extern "C" int aff_local_attn_bwd_dq(const float* q, const float* k, const float
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long rows = (long long)b * n;
   const unsigned blocks = (unsigned)((rows + kBwdWarps - 1) / kBwdWarps);
-#define DQ_LAUNCH(VEC, LPR, UNITS)                                                      \
-  local_attn_bwd_dq_kernel<VEC, LPR, UNITS><<<blocks, kBwdWarps * 32, 0, stream>>>(      \
+  const bool small = nnc * span <= kSlotsSmall;   // the smaller slot table
+#define DQ_KERNEL(VEC, LPR, UNITS, SLOTS)                                               \
+  local_attn_bwd_dq_kernel<VEC, LPR, UNITS, SLOTS><<<blocks, kBwdWarps * 32, 0, stream>>>( \
       q, k, v, pos, nc, w5, b5, g, lse, delta, dq, drow, p, ds, b, h, n, c, nnc, span)
+#define DQ_LAUNCH(VEC, LPR, UNITS)                                                      \
+  do {                                                                                  \
+    if (small) DQ_KERNEL(VEC, LPR, UNITS, kSlotsSmall);                                 \
+    else DQ_KERNEL(VEC, LPR, UNITS, kMaxSlots);                                         \
+  } while (0)
   // 16 bytes per lane where every row starts at a multiple of 16 bytes
   const bool vec = c % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
                    aligned16(g) && aligned16(dq);
@@ -570,6 +583,7 @@ extern "C" int aff_local_attn_bwd_dq(const float* q, const float* k, const float
   else if (vec) DQ_LAUNCH(4, 16, 1);
   else DQ_LAUNCH(1, 32, 2);
 #undef DQ_LAUNCH
+#undef DQ_KERNEL
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,7 +19,14 @@
 
 namespace local_attn {
 
-constexpr int kMaxSlots = 128;   // nnc * span
+// nnc * span, the slots of one query's neighbourhood: the kernels that stage
+// them in shared memory are built for two bounds and the wrapper takes the
+// smaller that holds them, so the 48-slot neighbourhoods of most models keep
+// the blocks (and the occupancy) of a 128-slot table, and only AFF-Base's 6
+// clusters of 24 pay for 144 (the backward's query side: 36.9 KB of shared
+// memory a block for 128 slots, 41.5 KB for 144).
+constexpr int kSlotsSmall = 128;
+constexpr int kMaxSlots = 144;
 constexpr int kMaxC = 64;        // channels per head
 constexpr float kRelPosWidth = 511.f;
 
@@ -81,10 +88,11 @@ __device__ __forceinline__ void store_unit(float* __restrict__ dst, const float 
 // +-511, dist, sin, cos; all zero for an invalid slot and for (0, 0)), with
 // sqrtf and IEEE division as the plain path's rel_pos_features.  The caller
 // runs __syncwarp() before it reads the tables.
+template <int SLOTS>
 __device__ __forceinline__ void neighbourhood(const float* __restrict__ pos_b,
                                               const int* __restrict__ nc_i, int i, int n,
                                               int nnc, int span, int lane, int* key,
-                                              float (*feat)[kMaxSlots]) {
+                                              float (*feat)[SLOTS]) {
   const float qx = pos_b[2 * i];
   const float qy = pos_b[2 * i + 1];
   const int m = nnc * span;

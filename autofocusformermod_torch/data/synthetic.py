@@ -45,12 +45,18 @@ def synthetic_batch(generator: torch.Generator, device, batch: int, size: Tuple[
 
 def synthetic_batches(cfg, device, start_step: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
     """An endless stream of batches for ``cfg`` (SOLVER.IMS_PER_BATCH images
-    of the training size, ``config.train_image_size``).  The batch of a step depends on cfg.SEED and the
+    of the training size, ``config.train_image_size``, labels among the
+    classes the model's criterion has: MR_SEM_SEG_HEAD's for a MaskFiner
+    cascade, whose COCO-panoptic yamls leave SEM_SEG_HEAD at the default
+    150).  The batch of a step depends on cfg.SEED and the
     step alone, so a resumed run, started at its step, sees the batches the
     uninterrupted run saw."""
+    from ..engine.train_step import criterion_config
+
+    num_classes = criterion_config(cfg)[1]
     step = start_step
     while True:
         gen = torch.Generator().manual_seed(cfg.SEED * 1_000_003 + step)
         yield synthetic_batch(gen, device, cfg.SOLVER.IMS_PER_BATCH, train_image_size(cfg),
-                              cfg.TPU.MAX_GT_INSTANCES, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
+                              cfg.TPU.MAX_GT_INSTANCES, num_classes)
         step += 1

@@ -280,7 +280,7 @@ class AFF(nn.Module):
 
 
 def aff_from_config(cfg) -> AFF:
-    """Build AFF from a config (the JAX package's CfgNode or config.Cfg)."""
+    """Build AFF from a config (the port's CfgNode or the JAX package's)."""
     a = cfg.MODEL.AFF
     if not a.RESERVE or a.CLUSTER_SIZE > min(a.NBHD_SIZE):
         raise NotImplementedError("ported: reserved coarse grid, CLUSTER_SIZE <= NBHD_SIZE")

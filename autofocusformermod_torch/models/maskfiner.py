@@ -484,13 +484,15 @@ def stage_pixel_decoder_names(cfg, n_stages: int) -> List[str]:
 def refuse_unported_heads(cfg, pixel_decoders: Sequence[str], decoders: Sequence[str]) -> None:
     """Raise where a stage's pixel decoder (of ``pixel_decoders``) or the
     configured decoder is a variant that is not ported (only the relu
-    ``MSDeformAttnPixelDecoderMaskFiner``, under the OracleTeacher stage
-    head also its lrelu form and the projection decoder, and the post-norm
-    decoders named in ``decoders`` are), or the pixel decoder has
-    dropout."""
+    ``MSDeformAttnPixelDecoderMaskFiner`` and its lrelu OracleTeacher form,
+    under the OracleTeacher stage head also the projection decoder, and the
+    post-norm decoders named in ``decoders`` are), or the pixel decoder has
+    dropout.  Under the plain stage head the lrelu form keeps its
+    mask-features head on every stage, as JAX's ``build_stage_pixel_decoder``
+    builds it."""
     mfr, head = cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD
     ported = ("MSDeformAttnPixelDecoderMaskFiner",) + (OT_PIXEL_DECODERS if head.NAME == OT_HEAD
-                                                        else ())
+                                                        else OT_PIXEL_DECODERS[:1])
     for name in pixel_decoders:
         if name not in ported:
             raise NotImplementedError(f"pixel decoder {name!r} under {head.NAME} is not ported "

@@ -146,7 +146,7 @@ def backbone_from_config(cfg) -> nn.Module:
 
 def maskformer_from_config(cfg) -> MaskFormer:
     """MaskFormer with the point-cloud pixel decoder over the backbone
-    MODEL.BACKBONE.NAME, from the JAX package's CfgNode or the yaml-free
+    MODEL.BACKBONE.NAME, from the JAX package's CfgNode or the port's
     preset (``autofocusformermod_torch.config``).  The head is built before
     the backbone, so a seeded default initialisation does not depend on
     the backbone.  SOLVER.AMP.ENABLED: bf16 compute with the active fp32

@@ -206,6 +206,23 @@ one NVIDIA GPU.
    the plain versions; launches per forward, step and test image from the
    config (family_launches), times to chiprun_out/phase17.json.
 
+19. bf16 mixed precision at the published COCO-panoptic UpDown-Tiny (see
+   amp_phase); times to chiprun_out/phase19.json.
+
+20. four published yamls read by the port's own yaml reader (PyYAML neither
+   imported nor needed) and trained through `train_net --config-file` at
+   their published widths and depths (batches cut): the COCO-panoptic
+   MaskFiner cascade under AMP at 1024x1024, MaskFiner-Large at 512x512,
+   Cityscapes AFF-Base-384 at 512x1024 (K1 and K2 on 144-slot
+   neighbourhoods) and Cityscapes UpDown-Base SW at its 1024x1024 crops:
+   2 steps each, the trained model's forward against the plain versions
+   (replaying the choices), a step's device busy time, the demo on one
+   image of the yaml's test size, the sliding-window test() on a 1024x2048
+   image, the analysis tool's parameter count; on AFF-Base-384 also K1, K3
+   and K9 on the operands of a forward and K2, K4, K10, K12 and K13 on
+   those of a real step, each against its plain version; launches from
+   the config (yaml_launches), times to chiprun_out/phase20.json.
+
 Phases 6, 8, 9, 10, 13, 14, 15, 16 and 17 compare training steps whose second run replays
 the first run's discrete choices (same_choices), held to LOSS_RTOL and
 GROUP_NORM_RTOL.
@@ -286,7 +303,7 @@ CHOICE_AGREE_MIN = {"kept tokens": 0.999, "sampling cells": 0.9999, "attention m
 # explain: the recorded choice costs no more than the plain run's own, under
 # the plain run's scores, than the scores of the choices involved differ
 # between the runs (same_choices.near_tie)
-NEAR_TIE_AGREE_MIN = {"matches": 0.95, "ranked points": 0.999}
+NEAR_TIE_AGREE_MIN = {"matches": 0.95, "ranked points": 0.999, "class votes": 0.999}
 # an exact assignment solved in fp32 is optimal to a few units in the last
 # place of its summed cost
 NEAR_TIE_ROUNDING = 1e-6
@@ -322,9 +339,12 @@ STARTED = time.time()
 
 
 def log(msg: str) -> None:
-    """Print a line; a phase's first line also says when the phase began."""
+    """Print a line: a phase's first line says when the phase began, every
+    other line starts with the seconds since the script started."""
     if msg.startswith("phase "):
         msg = f"{msg} [{time.time() - STARTED:.1f} s into the script]"
+    else:
+        msg = f"[{time.time() - STARTED:7.1f}] {msg}"
     print(msg, flush=True)
 
 
@@ -1887,20 +1907,25 @@ def check_lapjv_bad_costs(dev, gen, limit_s=20.0):
 
 
 def device_busy(fn, runs=3):
-    """(device busy ms, device rows) per call of fn: the profiler's kernel and
-    memcpy rows summed, ranges left out."""
+    """(device busy ms, device rows) per call of fn: the durations of the
+    kernel, memcpy and memset rows the profiler records on the card, ranges
+    left out.  Summed from the profiler's raw events: building its event
+    tree (key_averages) took 5-9 s a call on the host, and the host's
+    operator rows are not needed."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    return (sum(e.self_device_time_total for e in rows) / 1e3 / runs,
-            sum(e.count for e in rows) / runs)
+    rows = [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", lambda: False)()]
+    if not rows:
+        raise SystemExit("device_busy: the profiler recorded no row on the card")
+    return sum(e.duration_ns() for e in rows) / 1e6 / runs, len(rows) / runs
 
 
 class decoder_layout:
@@ -2146,7 +2171,7 @@ class same_choices:
               "predicted_classes"),
              ("meta-loss split", "autofocusformermod_torch.models.mrml", None, "topk_indices"))
     SETS = ("kept tokens", "ranked points")
-    SCORED = ("ranked points", "matches")
+    SCORED = ("ranked points", "matches", "class votes")
 
     def __init__(self, book, record, skip=(), near_ties=False):
         """skip: kinds left to the run (a layout that snaps its sampling
@@ -2220,9 +2245,10 @@ class same_choices:
         queries, slots), valid target slots summed per problem; the
         solver's fp32 arithmetic adds NEAR_TIE_ROUNDING of the sum), each
         matched pair's difference; for a ranking (topk_indices'
-        uncertainties per row), the largest difference among the recorded
-        and among the own picks, since the k-th largest entry moves no more
-        than the entries do.  Keeps the worst (gap - bound, gap, bound) of
+        uncertainties per row; predicted_classes' class scores, one pick a
+        row), the largest difference among the recorded and among the own
+        picks, since the k-th largest entry moves no more than the entries
+        do.  Keeps the worst (gap - bound, gap, bound) of
         the kind in book["near ties"][kind]."""
         import torch
 
@@ -2238,6 +2264,9 @@ class same_choices:
             bound = (summed(diff, want) + summed(diff, own)
                      + NEAR_TIE_ROUNDING * summed(mine.abs(), own))
         else:
+            if own.dim() < mine.dim():            # an argmax: one pick a row
+                own, want = own[..., None], want[..., None]
+
             def least(c, picks):
                 return torch.gather(c, -1, picks.long()).amin(-1)
 
@@ -3998,6 +4027,7 @@ def eval_phase(dev, smi, counters, aff_opts=(), maskfiner_opts=(), sizes=EVAL_SI
             f"metric differences {deltas} (bounds {bounds})")
         if any(deltas[m] > bounds[m] for m in bounds) or (not n_moved and k_results != p_results):
             raise SystemExit(f"test() metrics: kernels {k_results[name]}, plain {p_results[name]}")
+        evaluated.cfg.defrost()        # train_net froze it
         evaluated.cfg.TEST.EXPECTED_RESULTS = [[name, m, k_results[name][m], bounds[m]]
                                                for m in bounds]
         evaluated.verify_results(p_results)
@@ -4758,6 +4788,7 @@ def panoptic_instance_phase(dev, smi, gen, counters, pan_opts=(), inst_opts=(),
                 own.append({**d, "pan_seg_file_name": name, "segments_info": segs})
         DatasetCatalog.register(PAN_OWN, lambda: [dict(d) for d in own])
         MetadataCatalog.get(PAN_OWN).set(**pan_meta)
+        low.cfg.defrost()              # train_net froze it
         low.cfg.DATASETS.TEST = [PAN_OWN]
         before = reset()
         try:
@@ -4878,6 +4909,7 @@ def panoptic_instance_phase(dev, smi, gen, counters, pan_opts=(), inst_opts=(),
                 own.append({**d, "annotations": annos})
         DatasetCatalog.register(INST_OWN, lambda: [dict(d) for d in own])
         MetadataCatalog.get(INST_OWN).set(**inst_meta)
+        trainer.cfg.defrost()          # train_net froze it
         trainer.cfg.DATASETS.TEST = [INST_OWN]
         before = reset()
         try:
@@ -5187,15 +5219,17 @@ UPDOWN_SW = (["TEST.SW_CROP_SIZE", "[512, 512]", "TEST.SW_STRIDE", "[384, 384]"]
 
 
 def check_head_outputs(label, out, ref, book, scored="upsampling_preds", by_scores=(),
-                       rtol=FORWARD_RTOL, mean_rtol=None, floors=None):
+                       rtol=FORWARD_RTOL, mean_rtol=None, floors=None, near_tie_floors=None):
     """A forward through the kernels against the plain run, which replayed
     the kernel run's choices: the final and every aux output and each of
     the `scored` scores (an OracleTeacher model's upsampling scores, an
     MRML model's meta-loss predictions) within `rtol` of their largest
     |entry| (at least 1), and with `mean_rtol` their mean |difference|
     within that share of their mean |entry|; the choices to `floors`
-    (CHOICE_AGREE_MIN by default) but `by_scores` (logged: the scores that
-    order them are held here).  The OracleTeacher-BB upsampling heads end in a
+    (CHOICE_AGREE_MIN by default; a kind measured against its scores,
+    same_choices near_ties, to `near_tie_floors` where the scores explain
+    every flip) but `by_scores` (logged: the scores that order them are
+    held here).  The OracleTeacher-BB upsampling heads end in a
     LayerNorm over one channel, so their scores are their norm's bias: each
     stage's split order is the tokens' own order (a stable sort of equal
     keys) in both runs.  -> {output kind: worst max rel} (and
@@ -5235,7 +5269,7 @@ def check_head_outputs(label, out, ref, book, scored="upsampling_preds", by_scor
         + (f", mean {mean_rtol}" if mean_rtol is not None else "") + ")")
     if over:
         raise SystemExit(f"{label}: kernels and plain versions disagree: " + "; ".join(over))
-    same_choices.check(label, book, by_scores, floors)
+    same_choices.check(label, book, by_scores, floors, near_tie_floors)
     return worst
 
 
@@ -5669,7 +5703,7 @@ AMP_LOSS_RTOL, AMP_GROUP_NORM_RTOL = 2e-2, 2e-2
 # assigned the 100 queries at random would agree on ~0.01.
 AMP_CHOICE_AGREE_MIN = {**CHOICE_AGREE_MIN, "sampling cells": 0.95, "attention masks": 0.99,
                         "ranked points": 0.95, "matches": 0.95, "valid matches": 0.1}
-AMP_NEAR_TIE_AGREE_MIN = {"matches": 0.0, "ranked points": 0.9}
+AMP_NEAR_TIE_AGREE_MIN = {"matches": 0.0, "ranked points": 0.9, "class votes": 0.99}
 # each loss term of the AMP steps against the same steps in fp32 (same
 # initial weights, batches, draws and DropPath draws; the fp32 run replays
 # the AMP run's discrete choices): within AMP_FP32_BUDGET, and the worst
@@ -6090,6 +6124,290 @@ def amp_phase(dev, smi, gen, counters, opts=(), size=AMP_SIZE, batch=AMP_BATCH, 
     return paths, total
 
 
+# phase 20: published yamls read by the port's own yaml reader on the card
+# and driven through train_net --config-file at their published widths and
+# depths: (label, yaml, training batch (the yaml's batch cut to what one card
+# holds), forward batch, demo image (h, w), whether the kernels are held on
+# the operands of a real forward and step: AFF-Base's 144-slot
+# neighbourhood is the one shape of K1 and K2 no other phase gives them)
+YAML_RUNS = (
+    ("coco_panoptic_maskfiner_R50", "configs/coco/panoptic-segmentation/maskfiner_R50_bs16_50ep.yaml",
+     2, 1, (800, 1200), False),
+    ("maskfiner_large",
+     "configs/ade20k/semantic-segmentation/maskfiner/maskfiner_large_bs32_80k.yaml", 4, 2,
+     (512, 683), False),
+    ("cityscapes_aff_base_384",
+     "configs/cityscapes/panoptic-segmentation/aff/maskformer2_aff_base_384_bs16_90k.yaml", 2, 1,
+     (1024, 2048), True),
+    ("cityscapes_updown_base_sw",
+     "configs/cityscapes/semantic-segmentation/maskfiner/maskfiner_updown_base_sw_bs16_90k.yaml",
+     2, 1, (1024, 2048), False),
+)
+YAML_STEPS = 2
+# the parameter counts the CPU tests hold to JAX's (tests/test_torch_config_builds.py)
+YAML_PARAMS = {"coco_panoptic_maskfiner_R50": 41_665_184, "maskfiner_large": 94_428_140,
+               "cityscapes_aff_base_384": 94_077_733, "cityscapes_updown_base_sw": 111_036_723}
+# the one image the sliding-window model's test() scores, windows included
+YAML_SW_SIZE = (1024, 2048)
+
+
+def yaml_launches(cfg, step: bool, hw) -> dict:
+    """Every kernel's launches in one forward or training step of a yaml's
+    model at (h, w): the MaskFiner cascade's (maskfiner_launches, a square
+    canvas), the OracleTeacher cascades' (family_launches), else AFF +
+    Mask2Former's (a local attention per block of a stage of more tokens
+    than its neighbourhood, an msdetrpc per encoder layer and level, 10 knn
+    less one per stage that attends globally: the clusters, the merges, the
+    decoder's tables and the FPN's upsample; a step adds the backwards and
+    the criterion's K10, K13 and the ranking's read at the masks' quarter
+    size)."""
+    from autofocusformermod_torch.losses import point_sample as sampler
+    from autofocusformermod_torch.models.registry import meta_architecture
+    from autofocusformermod_torch.ops.point_sample import point_sample_nearest_rows_supported
+
+    arch = meta_architecture(cfg)
+    if arch == "MaskFiner":
+        if step and hw[0] != hw[1]:
+            raise ValueError(f"a MaskFiner step's launches at a square canvas, not {hw}")
+        return maskfiner_step_launches(cfg, hw[0]) if step else maskfiner_launches(cfg)
+    if arch.startswith("MaskFiner"):
+        return family_launches(cfg, step, hw)
+    a = cfg.MODEL.AFF
+    n, clustered = (hw[0] // 4) * (hw[1] // 4), []
+    for i in range(len(a.DEPTHS)):
+        if n > a.NBHD_SIZE[i]:                  # else the stage attends globally
+            clustered.append(i)
+        n = int(n * a.DS_RATE)
+    blocks = sum(a.DEPTHS[i] for i in clustered)
+    layers = cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS * 3
+    fwd = {"local_attn": blocks, "msdetrpc": layers,
+           "knn": 10 - (len(a.DEPTHS) - len(clustered))}
+    if not step:
+        return fwd
+    mf = cfg.MODEL.MASK_FORMER
+    rows = int(sampler.STRATIFY_RANKING and point_sample_nearest_rows_supported(
+        hw[0] // 4, hw[1] // 4, int(mf.TRAIN_NUM_POINTS * mf.OVERSAMPLE_RATIO)))
+    return {**fwd, "local_attn_bwd": blocks, "msdetrpc_bwd": layers, "point_sample": 2,
+            "point_sample_bwd": 1, "point_sample_nearest": 1 - rows,
+            "point_sample_nearest_rows": rows, "lapjv": 1}
+
+
+def yaml_phase(dev, smi, gen, counters, runs=YAML_RUNS, steps=YAML_STEPS, params=YAML_PARAMS,
+               sw_size=YAML_SW_SIZE, out_dir="chiprun_out"):
+    """Phase 20: each of `runs` read by the port's yaml reader (PyYAML is
+    neither imported nor needed), then `python -m autofocusformermod_torch.
+    train_net --config-file <yaml> --synthetic --max-iter <steps>` in this
+    process at the yaml's published width, depth and training size (batch
+    cut as listed; seeded weights, synthetic label maps): the steps'
+    launches against yaml_launches, their ms and peak GiB from the run's
+    metrics.jsonl; the trained model's eval forward through the kernels and
+    through the plain versions replaying its choices (check_head_outputs;
+    an AMP model at AMP_FORWARD_RTOL); where the run asks for it, K1, K3 and
+    K9 on the operands of one image's forward and K2, K4, K10, the
+    ranking's read and K13 on those of a real step, each against its plain
+    version (hold_forward_operands, hold_grid_step_operands); one more
+    step's device busy time;
+    the demo's run_on_image on one image of the yaml's test size (launches
+    of one forward at its padded size); the sliding-window model's test()
+    on one sw_size image (launches per window); the analysis tool's
+    parameter count against `params`.  Writes out_dir/phase20.json.
+    Returns ({kernel: {path: record}} of the holds, {counter: launches of
+    the phase's runs through the kernels})."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+    import torch
+    from autofocusformermod_torch import train_net
+    from autofocusformermod_torch.config import published_cfg, train_image_size
+    from autofocusformermod_torch.data.synthetic import synthetic_batches
+    from autofocusformermod_torch.demo import VisualizationDemo
+    from autofocusformermod_torch.losses.criterion import device_draw
+    from autofocusformermod_torch.models.inference import sliding_window_grid
+    from autofocusformermod_torch.models.registry import meta_architecture
+    from autofocusformermod_torch.ops.build import BUILD_DIR
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+    from autofocusformermod_torch.parallel import precision
+    from autofocusformermod_torch.tools import analyze_model
+
+    paths, total, records = {}, dict.fromkeys(counters, 0), {"card": smi}
+    device_args = [] if dev.type == "cuda" else ["--device", "cpu"]
+    pyyaml = importlib.util.find_spec("yaml") is not None
+    log(f"  PyYAML {'is' if pyyaml else 'is not'} installed; the yamls are read by "
+        "autofocusformermod_torch/config/yaml_reader.py")
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def expect(label, got, want):
+        want = {n: want.get(n, 0) for n in counters}
+        if got != want:
+            raise SystemExit(f"{label}: launched {got}, expected {want}")
+
+    def add(got):
+        for name, k in got.items():
+            total[name] += k
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pairs = eval_dataset((tuple(sw_size),))
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR.parent, prefix="yamls_") as tmp, \
+            semantic_files(pairs), watch_eval(counters) as watch:
+        for label, path, batch, fwd_batch, demo_hw, hold in runs:
+            t0 = time.time()
+            cfg = published_cfg(path)
+            if sys.modules.get("yaml") is not None:
+                raise SystemExit(f"{label}: reading {path} imported PyYAML")
+            size = train_image_size(cfg)
+            arch, amp = meta_architecture(cfg), bool(cfg.SOLVER.AMP.ENABLED)
+            step_want = yaml_launches(cfg, True, size)
+            rec = {"yaml": path, "arch": arch, "backbone": cfg.MODEL.BACKBONE.NAME, "amp": amp,
+                   "train_size": size, "batch": batch, "published_batch": cfg.SOLVER.IMS_PER_BATCH,
+                   "forward_batch": fwd_batch}
+            log(f"  {label}: {path} ({arch} over {cfg.MODEL.BACKBONE.NAME}, AMP {amp}), read "
+                f"without PyYAML; training at {size[0]}x{size[1]}, batch {batch} (the yaml's "
+                f"{cfg.SOLVER.IMS_PER_BATCH}); launches expected per step {step_want}")
+            out = os.path.join(tmp, label)
+            reset()
+            torch.cuda.reset_peak_memory_stats()
+            trainer, run_ms, got = counted_call(counters, lambda: train_net.main([
+                "--config-file", path, "--synthetic", "--max-iter", str(steps), *device_args,
+                "SOLVER.IMS_PER_BATCH", str(batch), "OUTPUT_DIR", out, "TEST.EVAL_PERIOD", "0",
+                "DATASETS.TEST", f"('{EVAL_NAMES[1]}',)"]))
+            add(got)
+            expect(f"{label} train_net", got, {k: v * steps for k, v in step_want.items()})
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                logged = [json.loads(line) for line in f]
+            if [m["step"] for m in logged] != list(range(1, steps + 1)) or not all(
+                    math.isfinite(m["total_loss"]) for m in logged):
+                raise SystemExit(f"{label}: the run logged "
+                                 f"{[(m['step'], m['total_loss']) for m in logged]}")
+            cfg, model = trainer.cfg, trainer.model
+            n_params = sum(p.numel() for p in model.parameters())
+            rec.update(parameters=n_params, run_ms=run_ms, launches_per_run=got, steps=[
+                {"ms": m["seconds"] * 1e3, "peak_gib": m.get("peak_bytes_in_use", 0) / 2 ** 30,
+                 "total_loss": m["total_loss"]} for m in logged])
+            log(f"  {label}: {n_params / 1e6:.2f}M parameters; train_net ({steps} steps, "
+                f"checkpoint) {run_ms / 1e3:.1f} s; steps "
+                + ", ".join(f"{s['ms']:.1f} ms (peak {s['peak_gib']:.2f} GiB, loss "
+                            f"{s['total_loss']:.4f})" for s in rec["steps"]) + f" ({smi})")
+            if n_params != params[label]:
+                raise SystemExit(f"{label}: {n_params} parameters, the CPU tests hold "
+                                 f"{params[label]}")
+
+            # the trained model's forward through the kernels and the plain versions
+            model.eval()
+            images = torch.randint(0, 256, (fwd_batch, *size, 3), dtype=torch.uint8,
+                                   generator=torch.Generator().manual_seed(SEED + 7)).to(dev)
+            fwd_want = yaml_launches(cfg, False, size)
+            book = {}
+            with torch.no_grad():
+                reset()
+                with same_choices(book, record=True, near_ties=amp):
+                    out_k, fwd_ms, got = counted_call(counters,
+                                                      lambda: precision.apply(model, images))
+                expect(f"{label} forward", got, fwd_want)
+                add(got)
+                with same_choices(book, record=False), plain_versions():
+                    ref = precision.apply(model, images)
+            rec["forward"] = {"ms": fwd_ms, "launches": got, "worst_rel": check_head_outputs(
+                f"{label} forward", out_k, ref, book, rtol=AMP_FORWARD_RTOL if amp else FORWARD_RTOL,
+                mean_rtol=AMP_FORWARD_MEAN_RTOL if amp else None,
+                floors=AMP_CHOICE_AGREE_MIN if amp else None,
+                near_tie_floors=AMP_NEAR_TIE_AGREE_MIN if amp else None)}
+            log(f"  {label} batch-{fwd_batch} forward through the kernels {fwd_ms:.1f} ms "
+                f"(first call), held to the plain versions (choices replayed)")
+            del out_k, ref, book
+            torch.cuda.empty_cache()
+            batches = synthetic_batches(cfg, dev, steps)
+            if hold:
+                hold_forward_operands(f"{label}_forward", model, images[:1], paths)
+                model.train()
+                hold_grid_step_operands(f"{label}_step", model, cfg, next(batches), gen, paths,
+                                        local_attn=True)
+                if f"{label}_step" not in paths.get("local_attn_bwd", {}):
+                    raise SystemExit(f"{label}: the step made no local_attn backward call")
+            del images
+            torch.cuda.empty_cache()
+
+            # one more step's device busy time
+            model.train()
+
+            def one_step():
+                trainer.step_fn(next(batches), device_draw(
+                    torch.Generator(device=dev).manual_seed(SEED + 11)))
+                torch.cuda.synchronize()
+
+            reset()
+            busy, rows = device_busy(one_step, runs=1)
+            add({name: c.launches for name, c in counters.items()})
+            rec["step_busy_ms"], rec["step_rows"] = busy, rows
+            last = rec["steps"][-1]["ms"]
+            log(f"  {label} a step at batch {batch}: device busy {busy:.2f} ms in {rows:.0f} "
+                f"rows ({busy / last:.0%} of step {steps}'s {last:.1f} ms) ({smi})")
+            del batches
+            torch.cuda.empty_cache()
+
+            # the demo on one image of the yaml's test size
+            demo = VisualizationDemo(cfg, model=model)
+            rng = np.random.default_rng(SEED + 13)
+            h, w = demo_hw
+            coarse = rng.integers(0, 256, (h // 16 + 2, w // 16 + 2, 3)).astype(np.uint8)
+            img = np.ascontiguousarray(coarse.repeat(16, 0).repeat(16, 1)[:h, :w])
+            reset()
+            pred, demo_ms, got = counted_call(counters, lambda: demo.run_on_image(img))
+            add(got)
+            scale = min(demo.min_size / min(h, w), demo.max_size / max(h, w))
+            nh, nw = int(round(h * scale)), int(round(w * scale))
+            padded = (-(-nh // demo.div) * demo.div, -(-nw // demo.div) * demo.div)
+            expect(f"{label} demo", got, yaml_launches(cfg, False, padded))
+            if pred.shape != (h, w) or pred.min() < 0 or pred.max() >= demo.nc:
+                raise SystemExit(f"{label} demo: labels {pred.shape} in [{pred.min()}, "
+                                 f"{pred.max()}] for {demo.nc} classes")
+            rec["demo"] = {"image": [h, w], "padded": list(padded), "ms": demo_ms,
+                           "classes_seen": int(len(np.unique(pred))), "launches": got}
+            log(f"  {label} demo.run_on_image on a {h}x{w} image (padded {padded}): "
+                f"{demo_ms:.1f} ms (first call), {len(np.unique(pred))} classes")
+            del demo
+
+            if arch.endswith("SW"):
+                start = len(watch.images)
+                reset()
+                t1 = time.time()
+                results = trainer.test()
+                torch.cuda.synchronize()
+                dt = time.time() - t1
+                add({name: c.launches for name, c in counters.items()})
+                recs = watch.images[start:]
+                crop, stride = cfg.TEST.SW_CROP_SIZE, cfg.TEST.SW_STRIDE
+                windows = len(sliding_window_grid(sw_size, crop, stride))
+                miou = results[EVAL_NAMES[1]]["mIoU"]
+                if len(recs) != 1 or not math.isfinite(miou):
+                    raise SystemExit(f"{label} test(): {len(recs)} images, mIoU {miou}")
+                per_window = yaml_launches(cfg, False, tuple(crop))
+                expect(f"{label} test() in {windows} windows", recs[0]["launches"],
+                       {k: v * windows for k, v in per_window.items()})
+                rec["test"] = {"image": list(sw_size), "windows": windows, "seconds": dt,
+                               "mIoU": miou, "launches": recs[0]["launches"]}
+                log(f"  {label} test() on one {sw_size[0]}x{sw_size[1]} image in {windows} "
+                    f"windows of {list(crop)}: {dt:.2f} s, mIoU {miou:.4f} ({smi})")
+
+            analysed = analyze_model.main(["--config-file", path, "--tasks", "param",
+                                           *device_args])
+            if analysed["parameters"] != params[label]:
+                raise SystemExit(f"{label}: the analysis counts {analysed['parameters']} "
+                                 f"parameters, the CPU tests {params[label]}")
+            rec["seconds"] = time.time() - t0
+            log(f"  {label} took {rec['seconds']:.1f} s")
+            records[label] = rec
+            del trainer, model
+            torch.cuda.empty_cache()
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "phase20.json"), "w") as f:
+        json.dump({**records, "holds": paths}, f, indent=1, default=str)
+    return paths, total
+
+
 def main() -> int:
     import torch
 
@@ -6451,6 +6769,26 @@ def main() -> int:
             kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
     torch.cuda.empty_cache()
 
+    log(f"phase 20: the published yamls read by the port's own reader and driven through "
+        f"train_net --config-file at their published widths: "
+        + ", ".join(f"{label} (batch {b})" for label, _, b, _, _, _ in YAML_RUNS)
+        + f"; {YAML_STEPS} steps each, a forward against the plain versions, a step's device "
+        "busy time, the demo on an image of the yaml's test size, the analysis' parameter count, "
+        "the sliding-window test() on one 1024x2048 image; "
+        + ", ".join(label for label, *_, hold in YAML_RUNS if hold)
+        + ": K1, K3 and K9 on a forward's operands, K2, K4, K10, the ranking's read and K13 on "
+        "a real step's")
+    t20 = time.time()
+    yaml_paths, yaml_launches_ = yaml_phase(dev, smi, gen, {**train_counters, **layout_counters})
+    log(f"  phase 20 took {time.time() - t20:.1f} s")
+    for kr in kernels:
+        for path, rec in yaml_paths.get(kr["name"], {}).items():
+            kr.setdefault("by_path", {"b8_uniform": {k: kr[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
+            kr["by_path"][path] = rec
+            kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
+    torch.cuda.empty_cache()
+
     for kr in kernels:
         names = [kr["name"]] + (["point_sample_bwd"] if kr["name"] == "point_sample" else [])
         kr["inference_launches"] = inference_launches.get(kr["name"], 0)
@@ -6477,13 +6815,15 @@ def main() -> int:
         kr["family_launches"] = sum(family_launches_.get(n, 0) for n in names)
         # phase 19: the AMP UpDown-Tiny's forwards, steps and test()
         kr["amp_launches"] = sum(amp_launches_.get(n, 0) for n in names)
+        # phase 20: the published yamls' train_net runs, forwards, steps, demos and test()
+        kr["yaml_launches"] = sum(yaml_launches_.get(n, 0) for n in names)
         kr["launches"] = (kr["inference_launches"] + kr["mini_step_launches"]
                           + kr["small_run_launches"] + kr["layouts_launches"]
                           + kr["mini15_launches"] + kr["maskfiner_launches"]
                           + kr["eval_launches"] + kr["maskfiner_step_launches"]
                           + kr["panoptic_instance_launches"] + kr["grid_launches"]
                           + kr["updown_launches"] + kr["family_launches"]
-                          + kr["amp_launches"])
+                          + kr["amp_launches"] + kr["yaml_launches"])
         if kr["launches"] < 1:
             raise SystemExit(f"{kr['name']}: never launched on a main path")
     if len(kernels) != 14:

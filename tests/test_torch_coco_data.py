@@ -393,14 +393,16 @@ PRESET_YAMLS = {
 
 @pytest.mark.parametrize("name", sorted(PRESET_YAMLS))
 def test_task_preset_matches_yaml(name):
-    """The yaml-free preset equals merge_from_file of the published config
+    """The preset equals merge_from_file of the published config
     (over its bases and the defaults) on every field it carries."""
     pytest.importorskip("yaml")
-    from autofocusformermod_tpu.config import add_maskformer2_config, get_cfg
+    from autofocusformermod_tpu.config import (add_deeplab_config, add_maskformer2_config,
+                                               get_cfg)
 
     from autofocusformermod_torch.config import PRESETS, train_image_size
 
     cfg = get_cfg()
+    add_deeplab_config(cfg)
     add_maskformer2_config(cfg)
     cfg.merge_from_file(os.path.join(REPO, PRESET_YAMLS[name]))
     seen = []
@@ -409,9 +411,11 @@ def test_task_preset_matches_yaml(name):
         for k, v in preset.items():
             if isinstance(v, dict):
                 walk(v, node[k], path + (k,))
-            else:
+            elif path + (k,) != ("MODEL", "DEVICE"):   # "cuda" here, "tpu" there
                 got = node[k]
-                assert (list(got) if isinstance(got, (list, tuple)) else got) == v, path + (k,)
+                seq = (list, tuple)
+                assert (list(got) if isinstance(got, seq) else got) == (
+                    list(v) if isinstance(v, seq) else v), path + (k,)
                 seen.append(".".join(path + (k,)))
 
     preset = PRESETS[name]()

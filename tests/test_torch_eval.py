@@ -214,15 +214,15 @@ EVAL_SIZES = [(64, 96), (50, 90), (150, 90)]     # mapped to 64x96, 64x115, 107x
 
 
 def _port_cfg(jcfg, out_dir, dataset):
-    """The AFF-Mini preset with every field it carries taken from the JAX
-    CfgNode, the test set and the test sizes set."""
+    """The AFF-Mini preset with every field the JAX CfgNode has taken from
+    it, the test set and the test sizes set."""
     cfg = aff_mini_cfg()
 
     def copy(node, jnode):
         for k, v in node.items():
             if isinstance(v, dict):
                 copy(v, jnode[k])
-            else:
+            elif k in jnode:
                 got = jnode[k]
                 node[k] = list(got) if isinstance(got, (list, tuple)) else got
 

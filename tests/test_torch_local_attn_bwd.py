@@ -302,12 +302,13 @@ def _backward_operands(rng, dev, **kw):
 @pytest.mark.parametrize("kind,n,c,span,nnc", [
     ("local", 64, 16, 8, 6), ("local", 200, 32, 8, 6), ("local", 64, 24, 8, 3),
     ("random", 197, 32, 8, 6), ("random", 61, 5, 8, 3), ("random", 37, 7, 4, 5),
-    ("local", 96, 64, 8, 4), ("random", 90, 8, 24, 2)])
+    ("local", 96, 64, 8, 4), ("random", 90, 8, 24, 2), ("local", 300, 32, 24, 6)])
 def test_backward_kernel_pair_matches_plain_pair_on_card(rng, cuda, kind, n, c, span, nnc):
     """Both kernels against the plain pair on the same operands (channel
     counts that take 16-byte and 4-byte reads, half warps, cluster sizes
     other than 8, a random nc with duplicates and ids past the end, n not a
-    multiple of the cluster size), and two calls give the same bits."""
+    multiple of the cluster size, AFF-Base's 144-slot neighbourhood of 6
+    clusters of 24), and two calls give the same bits."""
     ops, _, _ = _backward_operands(rng, cuda, kind=kind, n=n, c=c, span=span, nnc=nnc)
     before = la.sfc_cluster_attention_backward.launches
     got = la.sfc_cluster_attention_backward(*ops)

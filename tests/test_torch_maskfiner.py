@@ -90,12 +90,14 @@ def _walk(tree, prefix=()):
 
 # ------------------------------------------------------------ preset and build
 def test_maskfiner_mini_preset_matches_yaml():
-    """The yaml-free preset equals merge_from_file of the published config
+    """The preset equals merge_from_file of the published config
     (over its two bases and the defaults) on every field it carries."""
     pytest.importorskip("yaml")
-    from autofocusformermod_tpu.config import add_maskformer2_config, get_cfg
+    from autofocusformermod_tpu.config import (add_deeplab_config, add_maskformer2_config,
+                                               get_cfg)
 
     cfg = get_cfg()
+    add_deeplab_config(cfg)
     add_maskformer2_config(cfg)
     cfg.merge_from_file(str(REPO / MINI_YAML))
     seen = []
@@ -104,9 +106,11 @@ def test_maskfiner_mini_preset_matches_yaml():
         for k, v in preset.items():
             if isinstance(v, dict):
                 walk(v, node[k], path + (k,))
-            else:
+            elif path + (k,) != ("MODEL", "DEVICE"):   # "cuda" here, "tpu" there
                 got = node[k]
-                assert (list(got) if isinstance(got, (list, tuple)) else got) == v, path + (k,)
+                seq = (list, tuple)
+                assert (list(got) if isinstance(got, seq) else got) == (
+                    list(v) if isinstance(v, seq) else v), path + (k,)
                 seen.append(".".join(path + (k,)))
 
     walk(maskfiner_mini_cfg(), cfg, ())

@@ -169,12 +169,14 @@ def test_import_is_jax_free():
 
 
 def test_aff_mini_preset_matches_yaml():
-    """The yaml-free preset equals merge_from_file of the published config on
+    """The preset equals merge_from_file of the published config on
     every field the slice reads."""
     pytest.importorskip("yaml")
-    from autofocusformermod_tpu.config import add_maskformer2_config, get_cfg
+    from autofocusformermod_tpu.config import (add_deeplab_config, add_maskformer2_config,
+                                               get_cfg)
 
     cfg = get_cfg()
+    add_deeplab_config(cfg)
     add_maskformer2_config(cfg)
     cfg.merge_from_file(str(REPO / "configs/ade20k/maskformer2_aff_mini_bs32_80k.yaml"))
     seen = []
@@ -183,9 +185,11 @@ def test_aff_mini_preset_matches_yaml():
         for k, v in preset.items():
             if isinstance(v, dict):
                 walk(v, node[k], path + (k,))
-            else:
+            elif path + (k,) != ("MODEL", "DEVICE"):   # "cuda" here, "tpu" there
                 got = node[k]
-                assert (list(got) if isinstance(got, (list, tuple)) else got) == v, path + (k,)
+                seq = (list, tuple)
+                assert (list(got) if isinstance(got, seq) else got) == (
+                    list(v) if isinstance(v, seq) else v), path + (k,)
                 seen.append(".".join(path + (k,)))
 
     walk(aff_mini_cfg(), cfg, ())

@@ -467,7 +467,7 @@ def test_maskformer_over_mean_act_matches_jax(sparse_point2img):
     ("mrmlnb_mini", ADE + "mixres-metaloss-nb/maskformer2_mrmlnb_mini_bs32_80k.yaml"),
     ("mrmean_mini", ADE + "mixres-activation/maskformer2_mrmean_mini_bs32_80k.yaml")])
 def test_preset_matches_yaml(preset, path):
-    """The yaml-free preset equals the published yaml merged over its bases
+    """The preset equals the published yaml merged over its bases
     and the defaults, field by field."""
     seen = check_preset_matches_yaml(preset, path)
     assert {"MODEL.META_ARCHITECTURE", "MODEL.BACKBONE.NAME", "MODEL.MRML.EMBED_DIM",

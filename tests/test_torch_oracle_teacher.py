@@ -326,7 +326,7 @@ def test_step_gradient_norms_per_group_match_jax(ref, port_step):
 
 # ------------------------------------------------------- presets and refusals
 def test_preset_matches_yaml():
-    """The yaml-free preset equals the published yaml merged over its bases
+    """The preset equals the published yaml merged over its bases
     and the defaults, field by field."""
     from test_torch_resnet import check_preset_matches_yaml
 
@@ -349,8 +349,8 @@ def test_preset_matches_yaml():
 ])
 def test_unported_variants_raise(field, value):
     """What stays refused: MASK_DECODER_ALL_LEVELS, the Cat decoder, the
-    HierUp pixel decoder, and the OracleTeacher pixel decoders under the
-    plain stage head."""
+    HierUp pixel decoder, and the projection pixel decoder under the plain
+    stage head (the lrelu one is ported there too)."""
     cfg = tiny_cfg()
     *parents, leaf = field.split(".")
     node = cfg

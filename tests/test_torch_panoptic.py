@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from autofocusformermod_torch.config import Cfg, aff_mini_cfg
+from autofocusformermod_torch.config import CfgNode as Cfg, aff_mini_cfg
 from autofocusformermod_torch.data.catalog import DatasetCatalog, MetadataCatalog
 from autofocusformermod_torch.data.mapper_panoptic_instance import (
     _decode_compressed_rle_counts, rle_decode)

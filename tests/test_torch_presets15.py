@@ -35,13 +35,15 @@ LEVELS = (204, 40, 8)
 
 
 def test_aff_mini_15_preset_matches_yaml():
-    """The yaml-free preset equals merge_from_file of the published config on
+    """The preset equals merge_from_file of the published config on
     every field it carries, and differs from AFF-Mini's only in DS_RATE and
     the weights file."""
     pytest.importorskip("yaml")
-    from autofocusformermod_tpu.config import add_maskformer2_config, get_cfg
+    from autofocusformermod_tpu.config import (add_deeplab_config, add_maskformer2_config,
+                                               get_cfg)
 
     cfg = get_cfg()
+    add_deeplab_config(cfg)
     add_maskformer2_config(cfg)
     cfg.merge_from_file(str(REPO / "configs/ade20k/maskformer2_aff_mini_15_bs32_80k.yaml"))
     seen = []
@@ -50,9 +52,11 @@ def test_aff_mini_15_preset_matches_yaml():
         for k, v in preset.items():
             if isinstance(v, dict):
                 walk(v, node[k], path + (k,))
-            else:
+            elif path + (k,) != ("MODEL", "DEVICE"):   # "cuda" here, "tpu" there
                 got = node[k]
-                assert (list(got) if isinstance(got, (list, tuple)) else got) == v, path + (k,)
+                seq = (list, tuple)
+                assert (list(got) if isinstance(got, seq) else got) == (
+                    list(v) if isinstance(v, seq) else v), path + (k,)
                 seen.append(".".join(path + (k,)))
 
     preset = PRESETS["aff_mini_15"]()

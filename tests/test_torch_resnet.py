@@ -271,9 +271,11 @@ def check_preset_matches_yaml(preset, yaml_path):
     """The preset equals merge_from_file of the published yaml (over its
     bases and the defaults) on every field it carries; returns the fields."""
     pytest.importorskip("yaml")
-    from autofocusformermod_tpu.config import add_maskformer2_config, get_cfg
+    from autofocusformermod_tpu.config import (add_deeplab_config, add_maskformer2_config,
+                                               get_cfg)
 
     cfg = get_cfg()
+    add_deeplab_config(cfg)
     add_maskformer2_config(cfg)
     cfg.merge_from_file(str(REPO / yaml_path))
     seen = []
@@ -282,9 +284,11 @@ def check_preset_matches_yaml(preset, yaml_path):
         for k, v in node_p.items():
             if isinstance(v, dict):
                 walk(v, node[k], path + (k,))
-            else:
+            elif path + (k,) != ("MODEL", "DEVICE"):   # "cuda" here, "tpu" there
                 got = node[k]
-                assert (list(got) if isinstance(got, (list, tuple)) else got) == v, path + (k,)
+                seq = (list, tuple)
+                assert (list(got) if isinstance(got, seq) else got) == (
+                    list(v) if isinstance(v, seq) else v), path + (k,)
                 seen.append(".".join(path + (k,)))
 
     walk(PRESETS[preset](), cfg, ())

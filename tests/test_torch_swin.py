@@ -287,7 +287,7 @@ def test_swin_presets_match_yaml(preset, yaml, embed, window, size):
             "MODEL.MASK_FORMER.TRANSFORMER_DECODER_NAME"} <= seen
     cfg = PRESETS[preset]()
     assert (cfg.MODEL.SWIN.EMBED_DIM, cfg.MODEL.SWIN.WINDOW_SIZE) == (embed, window)
-    assert cfg.INPUT.CROP.SIZE == [size, size] and cfg.INPUT.MAX_SIZE_TEST == 4 * size
+    assert tuple(cfg.INPUT.CROP.SIZE) == (size, size) and cfg.INPUT.MAX_SIZE_TEST == 4 * size
 
 
 def test_swin_base_preset_builds_and_crops_at_640():

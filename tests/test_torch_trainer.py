@@ -182,12 +182,14 @@ def test_drop_path_rates_rise_linearly_over_the_depth():
 
 # ------------------------------------------------------------------ the presets
 def test_aff_small_preset_matches_yaml():
-    """The yaml-free preset equals merge_from_file of the published config on
+    """The preset equals merge_from_file of the published config on
     every field it carries, the trainer's included."""
     pytest.importorskip("yaml")
-    from autofocusformermod_tpu.config import add_maskformer2_config, get_cfg
+    from autofocusformermod_tpu.config import (add_deeplab_config, add_maskformer2_config,
+                                               get_cfg)
 
     cfg = get_cfg()
+    add_deeplab_config(cfg)
     add_maskformer2_config(cfg)
     cfg.merge_from_file(str(REPO / "configs/ade20k/maskformer2_aff_small_bs32_80k.yaml"))
     seen = []
@@ -196,9 +198,11 @@ def test_aff_small_preset_matches_yaml():
         for k, v in preset.items():
             if isinstance(v, dict):
                 walk(v, node[k], path + (k,))
-            else:
+            elif path + (k,) != ("MODEL", "DEVICE"):   # "cuda" here, "tpu" there
                 got = node[k]
-                assert (list(got) if isinstance(got, (list, tuple)) else got) == v, path + (k,)
+                seq = (list, tuple)
+                assert (list(got) if isinstance(got, seq) else got) == (
+                    list(v) if isinstance(v, seq) else v), path + (k,)
                 seen.append(".".join(path + (k,)))
 
     preset = aff_small_cfg()
@@ -223,7 +227,7 @@ def test_cfg_overrides():
     cfg.merge_from_list(["SOLVER.MAX_ITER", "7", "OUTPUT_DIR", "runs/x", "MODEL.AFF.DEPTHS",
                          "[1, 1, 1, 1]", "SOLVER.BASE_LR", "1", "INPUT.CROP.SIZE", "(64, 64)"])
     assert cfg.SOLVER.MAX_ITER == 7 and cfg.OUTPUT_DIR == "runs/x"
-    assert cfg.MODEL.AFF.DEPTHS == [1, 1, 1, 1] and cfg.INPUT.CROP.SIZE == [64, 64]
+    assert cfg.MODEL.AFF.DEPTHS == [1, 1, 1, 1] and cfg.INPUT.CROP.SIZE == (64, 64)
     assert cfg.SOLVER.BASE_LR == 1.0 and isinstance(cfg.SOLVER.BASE_LR, float)
     with pytest.raises(KeyError, match="SOLVER.NOPE"):
         cfg.merge_from_list(["SOLVER.NOPE", "1"])
@@ -534,14 +538,19 @@ def tiny_dataset(root, name):
 
 # ---------------------------------------------------------------- the port's imports
 def test_port_sources_name_no_jax_import():
-    """No file of the port, and none of chip_smoke.py, interleaved_ab.py and
-    nearest_ab.py, imports jax, flax, optax, yaml or the JAX package
+    """No file of the port (its config package, yaml reader, demo and
+    analysis tool included), and none of chip_smoke.py, interleaved_ab.py
+    and nearest_ab.py, imports jax, flax, optax, yaml or the JAX package
     (docstrings may name them)."""
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|yaml|orbax|autofocusformermod_tpu)\b",
                      re.M)
     files = list((REPO / "autofocusformermod_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "interleaved_ab.py", REPO / "nearest_ab.py"]
     assert len(files) > 30
+    port = REPO / "autofocusformermod_torch"
+    assert {port / "config" / name for name in ("__init__.py", "cfg_node.py", "yaml_reader.py",
+                                                "defaults.py", "presets.py")} | {
+        port / "demo.py", port / "tools" / "analyze_model.py"} <= set(files)
     bad = {str(f.relative_to(REPO)): pat.findall(f.read_text()) for f in files
            if pat.search(f.read_text())}
     assert not bad, bad

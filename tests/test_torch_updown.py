@@ -307,9 +307,9 @@ def test_predictor_and_refusals(ref, port):
     """SemanticPredictor pads a request to the coarsest patch's multiple
     and labels every pixel; a composite backbone, pixel decoder or decoder
     that is not ported raises before anything is built: an MRML backbone,
-    the HierUp pixel decoder, the OracleTeacher pixel decoder under the
-    plain stage head (under the OracleTeacher head it is ported) and the
-    Cat decoder."""
+    the HierUp pixel decoder, the projection pixel decoder under the plain
+    stage head (under the OracleTeacher head it is ported; the lrelu one is
+    ported under both) and the Cat decoder."""
     from autofocusformermod_torch.models.inference import SemanticPredictor
     from autofocusformermod_torch.models.registry import size_divisibility
 
@@ -321,7 +321,8 @@ def test_predictor_and_refusals(ref, port):
     for fields in ({"MODEL.BACKBONE.NAME": "MixResMetaLoss"},
                    {"MODEL.MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME":
                     ot_decoders[:2] + ["MSDeformAttnPixelDecoderMaskFinerHierUp"]},
-                   {"MODEL.MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME": ot_decoders,
+                   {"MODEL.MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME":
+                    ot_decoders[:2] + ["ProjMaskFinerOracleTeacher"],
                     "MODEL.MR_SEM_SEG_HEAD.NAME": "MaskPredictor"},
                    {"MODEL.MASK_FINER.TRANSFORMER_DECODER_NAME":
                     "MultiScaleMaskFinerTransformerDecoderCat"}):
@@ -334,6 +335,10 @@ def test_predictor_and_refusals(ref, port):
             setattr(node, leaf, value)
         with pytest.raises(NotImplementedError, match="ported"):
             build_model(cfg)
+    cfg = tiny_cfg()
+    cfg.MODEL.MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME = ot_decoders
+    cfg.MODEL.MR_SEM_SEG_HEAD.NAME = "MaskPredictor"
+    assert build_model(cfg).pixel_decoder.mask_features is not None
 
 
 def test_bridge_covers_every_leaf_and_tensor(ref, port):
@@ -659,9 +664,11 @@ def test_mixres_vit_drop_path_draws_from_the_model_generator():
 
 # -------------------------------------------------------- presets and builds
 def _merged(path):
-    from autofocusformermod_tpu.config import add_maskformer2_config, get_cfg
+    from autofocusformermod_tpu.config import (add_deeplab_config, add_maskformer2_config,
+                                               get_cfg)
 
     cfg = get_cfg()
+    add_deeplab_config(cfg)
     add_maskformer2_config(cfg)
     cfg.merge_from_file(str(REPO / path))
     return cfg
@@ -680,7 +687,7 @@ YAMLS = {
 
 @pytest.mark.parametrize("preset", ["maskfiner_updown_mini", "maskfiner_oracle_teacher_bb"])
 def test_preset_matches_yaml(preset):
-    """The yaml-free preset equals merge_from_file of the published config
+    """The preset equals merge_from_file of the published config
     (over its two bases and the defaults) on every field it carries."""
     pytest.importorskip("yaml")
     cfg = _merged(YAMLS[preset])
@@ -690,9 +697,11 @@ def test_preset_matches_yaml(preset):
         for k, v in node.items():
             if isinstance(v, dict):
                 walk(v, ref_node[k], path + (k,))
-            else:
+            elif path + (k,) != ("MODEL", "DEVICE"):   # "cuda" here, "tpu" there
                 got = ref_node[k]
-                assert (list(got) if isinstance(got, (list, tuple)) else got) == v, path + (k,)
+                seq = (list, tuple)
+                assert (list(got) if isinstance(got, seq) else got) == (
+                    list(v) if isinstance(v, seq) else v), path + (k,)
                 seen.append(".".join(path + (k,)))
 
     walk(PRESETS[preset](), cfg, ())
