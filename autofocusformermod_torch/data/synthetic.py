@@ -10,6 +10,7 @@ from typing import Dict, Iterator, Tuple
 import torch
 
 from ..config import train_image_size
+from ..parallel import mesh
 
 
 def synthetic_batch(generator: torch.Generator, device, batch: int, size: Tuple[int, int],
@@ -50,13 +51,15 @@ def synthetic_batches(cfg, device, start_step: int = 0) -> Iterator[Dict[str, to
     cascade, whose COCO-panoptic yamls leave SEM_SEG_HEAD at the default
     150).  The batch of a step depends on cfg.SEED and the
     step alone, so a resumed run, started at its step, sees the batches the
-    uninterrupted run saw."""
+    uninterrupted run saw.  Under a data axis of several processes each
+    yields its rows of that global batch (``mesh.shard_batch``)."""
     from ..engine.train_step import criterion_config
 
     num_classes = criterion_config(cfg)[1]
     step = start_step
     while True:
         gen = torch.Generator().manual_seed(cfg.SEED * 1_000_003 + step)
-        yield synthetic_batch(gen, device, cfg.SOLVER.IMS_PER_BATCH, train_image_size(cfg),
-                              cfg.TPU.MAX_GT_INSTANCES, num_classes)
+        batch = synthetic_batch(gen, "cpu", cfg.SOLVER.IMS_PER_BATCH, train_image_size(cfg),
+                                cfg.TPU.MAX_GT_INSTANCES, num_classes)
+        yield {k: v.to(device) for k, v in mesh.shard_batch(batch).items()}
         step += 1

@@ -13,6 +13,8 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
+from ..parallel import mesh
+
 
 def nan_check(model: nn.Module, optimizer: Optional[torch.optim.Optimizer] = None) -> List[str]:
     """Names of the parameters, buffers and optimizer-state tensors that hold
@@ -42,7 +44,8 @@ def device_memory_stats(device: torch.device) -> Dict[str, int]:
 class MetricLogger:
     """Scalars to stdout every ``period`` steps and, with an output
     directory, to ``metrics.jsonl`` on every step; to TensorBoard and wandb
-    too where those packages are installed."""
+    too where those packages are installed.  Only the first process of a
+    group prints (``parallel/mesh.py is_main``)."""
 
     def __init__(self, output_dir: Optional[str] = None, period: int = 20,
                  wandb_name: Optional[str] = None):
@@ -81,7 +84,7 @@ class MetricLogger:
                 self._tb.add_scalar(k, v, step)
         if self._wandb is not None:
             self._wandb.log(scalars, step=step)
-        if step % self.period == 0:
+        if mesh.is_main() and step % self.period == 0:
             now = time.perf_counter()
             steps = max(step - self._last_step, 1)
             brief = {k: round(v, 4) for k, v in scalars.items()

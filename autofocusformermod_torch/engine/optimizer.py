@@ -10,7 +10,7 @@ BACKBONE_MULTIPLIER, detectron2's WarmupPolyLR, and optax's
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -85,11 +85,14 @@ def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((g ** 2).sum() for g in grads))
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: when the global norm reaches
     max_norm every gradient becomes g / norm * max_norm (no epsilon, unlike
-    torch's clip_grad_norm_).  Returns the norm before clipping."""
-    norm = global_norm(grads)
+    torch's clip_grad_norm_).  ``norm``: the global norm where the caller
+    has it (of sharded gradients), else ``global_norm(grads)``.  Returns the
+    norm before clipping."""
+    norm = global_norm(grads) if norm is None else norm
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))

@@ -22,6 +22,18 @@ model's (parameters and BatchNorm statistics), the optimizer's and the
 schedule's, so a resumed run continues the stream the interrupted one left.
 The data loader's order is not in the checkpoint: a resumed run reads other
 samples than the uninterrupted one would have.
+
+Several processes (``parallel/mesh.py``: ``train_net --num-gpus N`` or
+``torchrun``): each is a rank of the data axis, on the device its caller
+gives it.  The loader gives each rank its share of every batch
+(SOLVER.IMS_PER_BATCH is the global batch), the mappers draw from cfg.SEED
+plus the rank, the generators above are seeded alike on every rank (each
+draws the global batch's numbers and keeps its rows), and the step is data
+parallel (``engine/train_step.py``).  Rank 0 alone writes checkpoints and
+metric files, then every rank waits for it; every rank restores.  test()
+scores each rank's shard of every test set and merges the evaluators
+(``evaluation/distributed.py``), so every rank holds the global metrics;
+rank 0 prints them.
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ from ..data.mapper_semantic import COCOSemanticLSJDatasetMapper, MaskFormerSeman
 from ..data.transforms import resize_nearest
 from ..evaluation import (CityscapesInstanceEvaluator, InstanceSegEvaluator,
                           LVISInstanceSegEvaluator, PanopticEvaluator)
+from ..evaluation.distributed import merge_across_processes
 from ..evaluation.sem_seg_evaluation import (MaskFinerSemSegEvaluator, MetaLossSemSegEvaluator,
                                              SemSegEvaluator)
 from ..losses.criterion import device_draw
@@ -54,7 +67,7 @@ from ..models.inference import (instance_inference, panoptic_inference, sem_seg_
 from ..models.maskformer import semantic_inference, upsample_masks
 from ..models.registry import META_ARCHITECTURES, build_model, meta_architecture
 from ..models.tta import SemanticSegmentorWithTTA
-from ..parallel import precision
+from ..parallel import mesh, precision
 from .checkpoint import Checkpointer
 from .convert_checkpoint import load_reference_weights
 from .hooks import MetricLogger, device_memory_stats, nan_check
@@ -69,6 +82,11 @@ def require_trainable(cfg) -> None:
     if arch not in META_ARCHITECTURES:
         raise NotImplementedError(f"training the {arch} meta-architecture is not ported (ROADMAP.md "
                                   f"section 1); ported: {sorted(META_ARCHITECTURES)}")
+
+
+def eval_shard() -> Dict[str, int]:
+    """This rank's shard of a test set, as ``eval_loader`` takes it."""
+    return {"process_index": mesh.axis_index(), "process_count": mesh.axis_size()}
 
 
 class Trainer:
@@ -94,9 +112,24 @@ class Trainer:
                 cfg.SEED + 3)
             self.model.set_oracle_generator(self.generators["oracle"])
         self.checkpointer = Checkpointer(os.path.join(cfg.OUTPUT_DIR, "checkpoints"))
-        self.logger = MetricLogger(cfg.OUTPUT_DIR, wandb_name=wandb_name)
+        self.logger = MetricLogger(cfg.OUTPUT_DIR if self.is_main else None,
+                                   wandb_name=wandb_name if self.is_main else None)
         self.start_step = 0
         self.results: Optional[Dict[str, Dict[str, float]]] = None   # of the latest test()
+
+    # the data axis (parallel/mesh.py): this rank's shard of the data and its
+    # mappers' seeds; the main process writes checkpoints and metric files
+    @property
+    def process_index(self) -> int:
+        return mesh.axis_index()
+
+    @property
+    def process_count(self) -> int:
+        return mesh.axis_size()
+
+    @property
+    def is_main(self) -> bool:
+        return mesh.is_main()
 
     # -------------------------------------------------------------- resume
     def state(self, step: int) -> Dict:
@@ -121,7 +154,8 @@ class Trainer:
         weights = self.cfg.MODEL.WEIGHTS
         if resume and self.checkpointer.latest_step() is not None:
             self.load_state(self.checkpointer.restore())
-            print(f"resumed from step {self.start_step}", flush=True)
+            if self.is_main:
+                print(f"resumed from step {self.start_step}", flush=True)
         elif weights:
             load_reference_weights(self.model, weights)
 
@@ -137,15 +171,16 @@ class Trainer:
             raise FileNotFoundError(f"DATASETS.TRAIN {list(cfg.DATASETS.TRAIN)} hold no sample "
                                     "(are its files under $DETECTRON2_DATASETS?)")
         return TrainLoader(dataset, self.build_mapper(is_train=True), cfg.SOLVER.IMS_PER_BATCH,
-                           seed=cfg.SEED, num_workers=cfg.DATALOADER.NUM_WORKERS)
+                           seed=cfg.SEED, num_workers=cfg.DATALOADER.NUM_WORKERS,
+                           process_index=self.process_index, process_count=self.process_count)
 
     def build_mapper(self, is_train: bool) -> Callable[[Dict], Dict]:
         """The mapper INPUT.DATASET_MAPPER_NAME names: coco_semantic2 (LSJ,
         training; its test mapper is the semantic one), mask_former_semantic
         and coco_semantic* (semantic), mask_former_panoptic,
         mask_former_instance, coco_instance_lsj and coco_panoptic_lsj (the
-        LSJ instance mapper)."""
-        cfg, seed = self.cfg, self.cfg.SEED
+        LSJ instance mapper), drawing from cfg.SEED plus the rank."""
+        cfg, seed = self.cfg, self.cfg.SEED + mesh.axis_index()
         name = cfg.INPUT.DATASET_MAPPER_NAME
         if name == "coco_semantic2" and is_train:
             return COCOSemanticLSJDatasetMapper.from_config(cfg, is_train=True, seed=seed)
@@ -185,7 +220,9 @@ class Trainer:
                     nan_check(self.model, self.step_fn.optimizer)
                     raise FloatingPointError(f"non-finite loss at step {step}")
                 if step % solver.CHECKPOINT_PERIOD == 0 or step == last:
-                    self.checkpointer.save(step, self.state(step))
+                    if self.is_main:
+                        self.checkpointer.save(step, self.state(step))
+                    mesh.barrier()
                 self.start_step = step
                 if eval_period and step % eval_period == 0:
                     self.test()
@@ -210,8 +247,10 @@ class Trainer:
                 results[name] = self._eval_instance(name)
             else:
                 results[name] = self._eval_sem_seg(name)
-            print(f"[eval {name}] " + ", ".join(f"{k}={v:.2f}" for k, v in results[name].items()
-                                                if not k.startswith("IoU-")), flush=True)
+            if mesh.is_main():
+                print(f"[eval {name}] " + ", ".join(f"{k}={v:.2f}" for k, v in
+                                                    results[name].items()
+                                                    if not k.startswith("IoU-")), flush=True)
         self.results = results
         self.verify_results(results)
         return results
@@ -303,7 +342,8 @@ class Trainer:
                            save_predictions=cfg.TEST.SAVE_EVAL_ARTIFACTS and bool(cfg.OUTPUT_DIR))
         mapper = MaskFormerSemanticDatasetMapper.from_config(cfg, is_train=False)
         with self._eval_mode():
-            for sample in eval_loader(DatasetCatalog.get(dataset_name), mapper):
+            for sample in eval_loader(DatasetCatalog.get(dataset_name), mapper,
+                                      **eval_shard()):
                 sem = self.eval_scores(sample["image"], (sample["height"], sample["width"]))
                 pred = sem.argmax(0).cpu().numpy()
                 gt = sample["sem_seg"]
@@ -311,6 +351,7 @@ class Trainer:
                     # the ground truth went through the mapper's resize too
                     gt = resize_nearest(gt.astype(np.int32), pred.shape)
                 evaluator.process(pred, gt, sample.get("file_name", ""))
+        merge_across_processes(evaluator)
         return evaluator.evaluate()
 
     @contextlib.contextmanager
@@ -346,12 +387,14 @@ class Trainer:
         mapper = MaskFormerPanopticDatasetMapper.from_config(cfg, is_train=False)
         test = cfg.MODEL.MASK_FORMER.TEST
         with self._eval_mode():
-            for sample in eval_loader(DatasetCatalog.get(dataset_name), mapper):
+            for sample in eval_loader(DatasetCatalog.get(dataset_name), mapper,
+                                      **eval_shard()):
                 logits, masks = self._predict_image(sample["image"])
                 pan, info = panoptic_inference(logits, masks, thing_ids, nc,
                                                test.OBJECT_MASK_THRESHOLD, test.OVERLAP_THRESHOLD)
                 evaluator.process(pan.cpu().numpy(), info, sample["pan_seg"],
                                   sample["segments_info"])
+        merge_across_processes(evaluator)
         return evaluator.evaluate()
 
     def _eval_instance(self, dataset_name: str) -> Dict[str, float]:
@@ -380,7 +423,8 @@ class Trainer:
                                                  max_size_test=cfg.INPUT.MAX_SIZE_TEST)
         dataset = DatasetCatalog.get(dataset_name)
         with self._eval_mode():
-            for d, sample in zip(dataset, eval_loader(dataset, mapper)):
+            for d, sample in zip(dataset[mesh.axis_index()::mesh.axis_size()],
+                                 eval_loader(dataset, mapper, **eval_shard())):
                 logits, masks = self._predict_image(sample["image"])
                 oh, ow = d.get("height"), d.get("width")
                 # the mask logits resized to the original size, then thresholded
@@ -405,5 +449,7 @@ class Trainer:
                 evaluator.process(d.get("image_id", d["file_name"]), inst["masks"].cpu().numpy(),
                                   inst["labels"].cpu().numpy(), inst["scores"].cpu().numpy(),
                                   np.stack(gm), np.asarray(gl))
-        evaluator.save_coco_results()
+        merge_across_processes(evaluator)
+        if mesh.is_main():
+            evaluator.save_coco_results()
         return evaluator.evaluate()

@@ -26,10 +26,27 @@ of the fp32 master parameters (``parallel/precision.py:apply``; one that
 its build function keeps fp32, MaskFormerSwin, stays fp32), hands fp32 outputs to the
 criterion, the matcher and the upsampling and meta losses, and gradients,
 AdamW state and BatchNorm statistics stay fp32.
+
+Data parallelism (``parallel/mesh.py``): under an active data axis the
+model and its loss run as one module inside
+``DistributedDataParallel`` (buffers not broadcast: the BatchNorm
+statistics are already global; unused parameters searched for, since some
+meta-architectures leave parameters without a gradient, on one rank or on
+all).  Each rank's loss is its share of the global batch's loss (the
+criterion's terms by their global normalisers, the upsampling and meta
+losses, means over equal local batches, by 1 / W); the backward runs on W
+times the share, so the gradients DDP averages are those of the global
+loss, and the clipping sees the same gradients on every rank.  The loss
+terms returned are summed over the axis: every rank reports the global
+values.  Under a (data x model) mesh, ``mesh.shard_state_tp`` keeps each
+rank's shard of the large matrices and of their AdamW moments; the step
+gathers them before the forward and cuts the reduced gradients back to the
+shards, on which AdamW steps.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List, Tuple
 
 import torch
@@ -39,7 +56,7 @@ from ..losses.criterion import Draw, set_criterion
 from ..models.mrml import compute_meta_loss
 from ..models.oracle import upsampling_mse_loss
 from ..models.registry import meta_architecture
-from ..parallel import precision
+from ..parallel import mesh, precision
 from .optimizer import build_optimizer, clip_by_global_norm_, global_norm
 
 
@@ -73,6 +90,20 @@ def criterion_config(cfg) -> Tuple:
     return cfg.MODEL.MASK_FORMER, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
 
 
+class _ModelWithLoss(nn.Module):
+    """The model and its training loss as one module, whose forward returns
+    (total, loss terms, matches): DistributedDataParallel wraps this, so
+    the search for unused parameters starts from the loss."""
+
+    def __init__(self, step: "TrainStep"):
+        super().__init__()
+        self.model = step.model
+        self.loss = step.local_loss
+
+    def forward(self, batch: Dict, draw: Draw):
+        return self.loss(batch, draw)
+
+
 class TrainStep:
     """One optimizer step of a MaskFormer or a MaskFiner cascade on one
     batch: ``step(batch, draw)``.
@@ -99,15 +130,28 @@ class TrainStep:
         clip = cfg.SOLVER.CLIP_GRADIENTS
         full = clip.ENABLED and clip.CLIP_TYPE == "full_model" and clip.CLIP_VALUE > 0
         self.clip_value = clip.CLIP_VALUE if full else None
+        self.world = mesh.axis_size()
+        self.tp = None                     # mesh.shard_state_tp sets it
+        self.ddp = None
+        if mesh.distributed():
+            from torch.nn.parallel import DistributedDataParallel
+
+            with warnings.catch_warnings():
+                # newer releases rename broadcast_buffers; False is still the
+                # way to keep them from being synchronised at all
+                warnings.filterwarnings("ignore", message=".*broadcast_buffers.*",
+                                        category=FutureWarning)
+                self.ddp = DistributedDataParallel(
+                    _ModelWithLoss(self), process_group=mesh.axis_group(mesh.DATA_AXIS),
+                    broadcast_buffers=False, find_unused_parameters=True)
 
     def parameters(self) -> List[nn.Parameter]:
         return [p for p in self.model.parameters() if p.requires_grad]
 
-    def loss_and_grads(self, batch: Dict, draw: Draw) -> Tuple[torch.Tensor, Dict, list]:
-        """Forward, criterion and backward; every parameter's ``.grad`` is
-        set (zeros where no loss reaches it, as jax.grad gives).  Returns
-        (total, loss terms, matched query per target of each layer)."""
-        self.model.train()
+    def local_loss(self, batch: Dict, draw: Draw) -> Tuple[torch.Tensor, Dict, list]:
+        """Forward and criterion on this rank's rows: (its share of the
+        total, of each loss term, the matched query per target of each
+        layer)."""
         if self.with_sem_seg_gt:
             outputs = precision.apply(self.model, batch["image"], batch["sem_seg_map"])
         else:
@@ -118,30 +162,63 @@ class TrainStep:
                                                **self.criterion)
         if outputs.get("upsampling_preds"):
             losses["loss_upsampling"] = upsampling_mse_loss(outputs["upsampling_preds"],
-                                                            outputs["upsampling_oracles"])
+                                                            outputs["upsampling_oracles"]
+                                                            ) / self.world
             total = total + self.upsampling_weight * losses["loss_upsampling"]
         if self.metaloss_weight > 0 and "metaloss_preds" in outputs:
             losses["meta_loss"] = compute_meta_loss(outputs, targets["labels"], targets["masks"],
-                                                    targets["valid"], self.ml_min_patch_size)
+                                                    targets["valid"], self.ml_min_patch_size
+                                                    ) / self.world
             total = total + self.metaloss_weight * losses["meta_loss"]
+        return total, losses, matched
+
+    def loss_and_grads(self, batch: Dict, draw: Draw) -> Tuple[torch.Tensor, Dict, list]:
+        """Forward, criterion and backward; every parameter's ``.grad`` is
+        set (zeros where no loss reaches it, as jax.grad gives), to the
+        gradient of the global batch's loss under a data axis.  Returns
+        (total, loss terms, matched query per target of each layer)."""
+        self.model.train()
+        if self.tp is not None:
+            self.tp.gather()
+        with mesh.global_batch():
+            total, losses, matched = (self.ddp or self.local_loss)(batch, draw)
         self.model.zero_grad(set_to_none=True)
-        total.backward()
+        (total * self.world if self.world > 1 else total).backward()
         for p in self.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.world > 1:
+            with mesh.global_batch():
+                summed = mesh.data_sum_detached(torch.stack([total.detach().float()] + [
+                    v.detach().float() for v in losses.values()]))
+            total = summed[0]
+            losses = dict(zip(losses, summed[1:]))
         return total.detach(), {k: v.detach() for k, v in losses.items()}, matched
 
     def apply_gradients(self) -> torch.Tensor:
         """Clip the whole model's gradients, take the AdamW step and advance
         the schedule.  Returns the global gradient norm before clipping."""
+        if self.tp is not None:
+            self.tp.scatter()
         grads = [p.grad for p in self.parameters()]
+        norm = None if self.tp is None else self.tp_global_norm()
         if self.clip_value is None:
-            grad_norm = global_norm(grads)
+            grad_norm = global_norm(grads) if norm is None else norm
         else:
-            grad_norm = clip_by_global_norm_(grads, self.clip_value)
+            grad_norm = clip_by_global_norm_(grads, self.clip_value, norm)
         self.optimizer.step()
         self.scheduler.step()
         return grad_norm.detach()
+
+    def tp_global_norm(self) -> torch.Tensor:
+        """The global gradient norm over the shards: each shard counted once
+        (its squares summed over ``model``), each replicated leaf once."""
+        sharded = self.tp.sharded_ids()
+        sq = [(p.grad.float() ** 2).sum() for p in self.parameters() if id(p) in sharded]
+        rep = [(p.grad.float() ** 2).sum() for p in self.parameters() if id(p) not in sharded]
+        part = torch.stack(sq).sum() if sq else torch.zeros((), device=self.tp.device)
+        torch.distributed.all_reduce(part, group=mesh.axis_group(mesh.MODEL_AXIS))
+        return torch.sqrt(part + (torch.stack(rep).sum() if rep else 0.0))
 
     def __call__(self, batch: Dict, draw: Draw) -> Dict[str, torch.Tensor]:
         total, losses, _ = self.loss_and_grads(batch, draw)

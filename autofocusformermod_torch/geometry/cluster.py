@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from .sfc import scanline_order_keys
 
 
@@ -72,7 +73,9 @@ def space_filling_cluster(pos: torch.Tensor, m: int, h: int, w: int):
         dist_prev = ((pos - prev_assign) ** 2).sum(-1)
         dist_next = ((pos - next_assign) ** 2).sum(-1)
         dist_ratio = dist_prev / (dist_next + 1e-5)
-        key = rank.float() * (dist_ratio.max() + 1) + dist_ratio
+        # the whole batch's largest ratio (the global batch's in a
+        # data-parallel step), as the reference
+        key = rank.float() * (mesh.data_max_detached(dist_ratio.max()) + 1) + dist_ratio
         pos_ranking = torch.argsort(key, dim=1, stable=True)
     else:
         # too few anchors for the prev/next refinement: order tokens on the

@@ -20,6 +20,15 @@ remainder; with ``NN_RANK_UNCERTAINTY`` off ``draw((n, 3p, 2))``, the
 candidates, and the same remainder.  The JAX package splits its key in the
 same order (seeds from ``k1`` of the group's key, the remainder from ``k2``),
 so a test can replay its draws.
+
+Under a data axis of several processes (``parallel/mesh.py``) each rank
+holds its rows of the global batch and the criterion is the global one, as
+the JAX package's one program over that batch computes it: every draw is
+the global batch's, of which the rank keeps its rows (``draw_rows``), the
+ranking's counters are global, and the normalisers -- the number of valid
+targets and each layer's class weights -- are summed over the axis
+(detached).  Each rank's total and terms are then its share of the global
+loss: the shares sum to it over the ranks.
 """
 
 from __future__ import annotations
@@ -29,8 +38,9 @@ from typing import Dict, Tuple
 import torch
 from torch.nn import functional as F
 
+from ..parallel import mesh
 from .matcher import matching_cost, solve_lsap
-from .point_sample import (Draw, get_uncertain_point_coords_nn_ranked,
+from .point_sample import (Draw, draw_rows, get_uncertain_point_coords_nn_ranked,
                            get_uncertain_point_coords_with_randomness, point_sample_auto,
                            point_sample_shared_batch)
 
@@ -40,10 +50,12 @@ from .point_sample import (Draw, get_uncertain_point_coords_nn_ranked,
 NN_RANK_UNCERTAINTY = True
 
 
-def _uncertain_coords(draw, src_flat, num_points, oversample_ratio, importance_sample_ratio):
+def _uncertain_coords(draw, src_flat, num_points, oversample_ratio, importance_sample_ratio,
+                      layout):
     fn = (get_uncertain_point_coords_nn_ranked if NN_RANK_UNCERTAINTY
           else get_uncertain_point_coords_with_randomness)
-    return fn(draw, src_flat, num_points, oversample_ratio, importance_sample_ratio)
+    return fn(draw, src_flat, num_points, oversample_ratio, importance_sample_ratio,
+              layout=layout)
 
 
 class _GeneratorDraw:
@@ -85,8 +97,9 @@ def sigmoid_ce_loss(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
 
 
 def _loss_labels(pred_logits, tgt_labels, tgt_valid, matched, num_classes: int,
-                 eos_coef: float) -> torch.Tensor:
-    """Cross-entropy with the no-object class down-weighted."""
+                 eos_coef: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy with the no-object class down-weighted: (the weighted
+    sum, the sum of the weights, by which it is divided)."""
     b, q, _ = pred_logits.shape
     target_classes = torch.full((b, q), num_classes, dtype=torch.long,
                                 device=pred_logits.device)
@@ -96,7 +109,7 @@ def _loss_labels(pred_logits, tgt_labels, tgt_valid, matched, num_classes: int,
     logp = torch.log_softmax(pred_logits.float(), dim=-1)
     nll = -torch.gather(logp, 2, target_classes[..., None])[..., 0]
     weight = torch.where(target_classes == num_classes, eos_coef, 1.0)
-    return (weight * nll).sum() / weight.sum()
+    return (weight * nll).sum(), weight.sum()
 
 
 def set_criterion(
@@ -114,13 +127,12 @@ def set_criterion(
     tgt_labels, tgt_masks, tgt_valid = targets["labels"], targets["masks"], targets["valid"]
     b, t = tgt_labels.shape
     H, W = tgt_masks.shape[-2:]
-    num_masks = torch.clamp(tgt_valid.float().sum(), min=1.0)
     all_outputs = [outputs] + list(outputs.get("aux_outputs", ()))
     nl = len(all_outputs)
 
     # one target sampling for every layer's matcher points, then the cost of
     # each layer and one stacked solve per cost shape
-    layer_coords = [draw((b, num_points, 2)) for _ in all_outputs]
+    layer_coords = [draw_rows(draw, b, (num_points, 2), (1, b, 1)) for _ in all_outputs]
     with torch.no_grad():
         tgt_pts = point_sample_shared_batch(
             tgt_masks.reshape(b, t, H * W).transpose(1, 2), H, W, torch.cat(layer_coords, 1))
@@ -138,6 +150,15 @@ def set_criterion(
         for k, i in enumerate(idxs):
             matched_all[i] = sol[k * b:(k + 1) * b]
 
+    # the class loss's sums and weights of every layer; the normalisers (the
+    # valid targets, each layer's weights) are the global batch's, summed in
+    # one reduction
+    ce = [_loss_labels(out["pred_logits"], tgt_labels, tgt_valid, matched_all[i], num_classes,
+                       eos_coef) for i, out in enumerate(all_outputs)]
+    norms = mesh.data_sum_detached(torch.stack([tgt_valid.float().sum()]
+                                               + [w.float() for _, w in ce]))
+    num_masks = torch.clamp(norms[0], min=1.0)
+
     # mask losses: every layer of one mask resolution in one sampling pass;
     # the targets, the same for every layer, are sampled once with the layer
     # axis folded into the point axis
@@ -151,7 +172,7 @@ def set_criterion(
         src_flat = torch.cat([select_matched(all_outputs[i]["pred_masks"], matched_all[i])
                               .reshape(b * t, *shape_hw) for i in idxs], 0)
         coords = _uncertain_coords(draw, src_flat.detach(), num_points, oversample_ratio,
-                                   importance_sample_ratio)
+                                   importance_sample_ratio, (nlg, b, t))
         ct = (coords.reshape(nlg, b * t, num_points, 2).transpose(0, 1)
               .reshape(b * t, nlg * num_points, 2))
         with torch.no_grad():
@@ -169,8 +190,7 @@ def set_criterion(
     losses: Dict[str, torch.Tensor] = {}
     total = 0.0
     for i, out in enumerate(all_outputs):
-        l_ce = _loss_labels(out["pred_logits"], tgt_labels, tgt_valid, matched_all[i],
-                            num_classes, eos_coef)
+        l_ce = ce[i][0] / norms[1 + i]
         l_mask, l_dice = mask_losses[i]
         suffix = "" if i == 0 else f"_{i - 1}"
         losses[f"loss_ce{suffix}"] = l_ce

@@ -17,11 +17,13 @@ i.i.d. route with a global top-k elsewhere.
 
 from __future__ import annotations
 
-from typing import Optional, Protocol, Sequence
+import functools
+from typing import Optional, Protocol, Sequence, Tuple
 
 import torch
 
 from ..ops.gather import topk_indices
+from ..parallel import mesh
 
 
 class Draw(Protocol):
@@ -33,6 +35,36 @@ class Draw(Protocol):
 
     def seeds(self, count: int) -> torch.Tensor:
         """(count,) int64 values in [0, 2**32): seeds of the counter hash."""
+
+
+# how a sampler's n masks lie over the batch: (groups, images, masks an
+# image), flattened in that order
+Layout = Tuple[int, int, int]
+
+
+def draw_rows(draw: Draw, n: int, rest: Sequence[int],
+              layout: Optional[Layout] = None) -> torch.Tensor:
+    """Uniforms (n, *rest) for n masks laid out as ``layout`` (groups,
+    images, per image).  Under a data axis of W processes the draw is the
+    global batch's (groups * W * images * per image, *rest), of which this
+    rank keeps its own images (``mesh.global_rows``): every rank draws the
+    same numbers, and together they draw what one process draws for the
+    whole batch.  Without a layout, or alone, the draw is (n, *rest)."""
+    if layout is None or mesh.batch_size_factor() == 1:
+        return draw((n, *rest))
+    groups = layout[0]
+    return mesh.global_rows(draw((n * mesh.batch_size_factor(), *rest)), groups)
+
+
+def global_row_index(layout: Layout, device) -> torch.Tensor:
+    """(n,) int32: each local mask's index among the global batch's masks
+    laid out as ``layout``, under a data axis."""
+    groups, b, per = layout
+    w = mesh.batch_size_factor()
+    ar = functools.partial(torch.arange, dtype=torch.int32, device=device)
+    return (ar(groups)[:, None, None] * (b * w * per)
+            + (mesh.axis_index() * b + ar(b))[None, :, None] * per
+            + ar(per)[None, None, :]).reshape(-1)
 
 
 def point_sample(masks: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
@@ -102,17 +134,18 @@ def calculate_uncertainty(logits: torch.Tensor) -> torch.Tensor:
 
 def get_uncertain_point_coords_with_randomness(
     draw: Draw, mask_logits: torch.Tensor, num_points: int, oversample_ratio: float,
-    importance_sample_ratio: float,
+    importance_sample_ratio: float, layout: Optional[Layout] = None,
 ) -> torch.Tensor:
     """The most uncertain fraction of an oversampled random pool plus a random
     remainder: mask_logits (n, h, w) -> coords (n, num_points, 2) in [0, 1].
 
     Draws, in order: the candidates (n, num_points * oversample_ratio, 2),
-    then the remainder (n, num_points - num_uncertain, 2).  The ranking read
-    runs without gradient."""
+    then the remainder (n, num_points - num_uncertain, 2), each the global
+    batch's under a data axis (``draw_rows``; ``layout``: how the n masks
+    lie over the batch).  The ranking read runs without gradient."""
     n = mask_logits.shape[0]
     num_sampled = int(num_points * oversample_ratio)
-    coords = draw((n, num_sampled, 2))
+    coords = draw_rows(draw, n, (num_sampled, 2), layout)
     with torch.no_grad():
         unc = calculate_uncertainty(point_sample_auto(mask_logits.detach(), coords))
     num_uncertain = int(importance_sample_ratio * num_points)
@@ -120,7 +153,7 @@ def get_uncertain_point_coords_with_randomness(
     idx = torch.topk(unc, num_uncertain, dim=1).indices
     picked = torch.gather(coords, 1, idx[..., None].expand(n, num_uncertain, 2))
     if num_random > 0:
-        picked = torch.cat([picked, draw((n, num_random, 2))], dim=1)
+        picked = torch.cat([picked, draw_rows(draw, n, (num_random, 2), layout)], dim=1)
     return picked
 
 
@@ -175,6 +208,7 @@ def _seed_bits(seeds: torch.Tensor) -> torch.Tensor:
 def get_uncertain_point_coords_nn_ranked(
     draw: Draw, mask_logits: torch.Tensor, num_points: int, oversample_ratio: float,
     importance_sample_ratio: float, stratified: Optional[bool] = None,
+    layout: Optional[Layout] = None,
 ) -> torch.Tensor:
     """``get_uncertain_point_coords_with_randomness`` with a cheap ranking
     read: the candidates are continuous uniforms, hashed from counters; only
@@ -192,18 +226,28 @@ def get_uncertain_point_coords_nn_ranked(
     the i.i.d. candidates are read through ``point_sample_nearest``.
 
     Draws, in order: two seeds, then the remainder (n, num_points -
-    num_uncertain, 2)."""
+    num_uncertain, 2).  Under a data axis (``layout``: how the n masks lie
+    over the batch) the seeds are the same on every rank, a candidate's
+    counter is its index among the global batch's candidates, and the
+    remainder is the global batch's (``draw_rows``), so the W ranks pick
+    what one process picks for the whole batch."""
     from ..ops.point_sample import (ROWS_CHUNK, ROWS_MAX_W, point_sample_nearest,
                                     point_sample_nearest_rows, point_sample_nearest_rows_supported)
 
     n, h, w = mask_logits.shape
     num_sampled = int(num_points * oversample_ratio)
     chunks = num_sampled // ROWS_CHUNK
-    if n * num_sampled >= 1 << 31:
-        raise ValueError(f"{n} masks x {num_sampled} candidates overflow the int32 counters")
+    n_global = n * (mesh.batch_size_factor() if layout is not None else 1)
+    if n_global * num_sampled >= 1 << 31:
+        raise ValueError(f"{n_global} masks x {num_sampled} candidates overflow the int32 "
+                         "counters")
     seeds = _seed_bits(draw.seeds(2))
     dev = mask_logits.device
-    ctr = torch.arange(n * num_sampled, dtype=torch.int32, device=dev).reshape(n, num_sampled)
+    if layout is None or mesh.batch_size_factor() == 1:
+        ctr = torch.arange(n * num_sampled, dtype=torch.int32, device=dev).reshape(n, num_sampled)
+    else:                               # below 2**31, checked above
+        ctr = (global_row_index(layout, dev)[:, None] * num_sampled
+               + torch.arange(num_sampled, dtype=torch.int32, device=dev))
     ux = _counter_uniform(seeds[0], ctr)
     uy = _counter_uniform(seeds[1], ctr)
     if stratified is None:
@@ -254,5 +298,5 @@ def get_uncertain_point_coords_nn_ranked(
     picked = torch.stack([_counter_uniform(seeds[0], ctr_pick),
                           y_of(_counter_uniform(seeds[1], ctr_pick), idx)], dim=-1)
     if num_random > 0:
-        picked = torch.cat([picked, draw((n, num_random, 2))], dim=1)
+        picked = torch.cat([picked, draw_rows(draw, n, (num_random, 2), layout)], dim=1)
     return picked

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..dtypes import promoted
+from ..parallel import mesh
 
 REL_POS_WIDTH = 2048 // 4 - 1  # 511: relative offsets are clipped to +-511
 LN_EPS = 1e-6
@@ -77,7 +78,9 @@ class DropPath(nn.Module):
     with probability ``rate`` and scale the kept ones by 1 / (1 - rate).  The
     keep decisions come from ``generator`` (a ``torch.Generator`` on the
     input's device; None is PyTorch's global one), set by whoever owns the
-    model, so a run can checkpoint the stream and continue it."""
+    model, so a run can checkpoint the stream and continue it.  Under a data
+    axis of several processes each draws the global batch's decisions and
+    keeps its own rows (``mesh.global_rand``)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -86,7 +89,7 @@ class DropPath(nn.Module):
 
     def keep_mask(self, shape, device) -> torch.Tensor:
         """bool (b, 1, ...): True where the sample's branch is kept."""
-        return torch.rand(shape, generator=self.generator, device=device) < 1.0 - self.rate
+        return mesh.global_rand(shape, self.generator, device) < 1.0 - self.rate
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
@@ -115,15 +118,16 @@ def position_embedding_sine(pos: torch.Tensor, num_pos_feats: int,
                             temperature: float = 10000.0, normalize: bool = True,
                             scale: Optional[float] = None) -> torch.Tensor:
     """Sine/cosine embedding of point positions (b, n, 2) -> (b, n, 2*num_pos_feats).
-    Normalizes by the max coordinate over the WHOLE batch, as the reference."""
+    Normalizes by the max coordinate over the WHOLE batch, as the reference
+    (the global batch's inside a data-parallel step: ``mesh.global_batch``)."""
     if scale is None:
         scale = 2 * math.pi
     y_embed = pos[:, :, 1].float()
     x_embed = pos[:, :, 0].float()
     if normalize:
         eps = 1e-6
-        y_embed = y_embed / (y_embed.max() + eps) * scale
-        x_embed = x_embed / (x_embed.max() + eps) * scale
+        y_embed = y_embed / (mesh.data_max_detached(y_embed.max()) + eps) * scale
+        x_embed = x_embed / (mesh.data_max_detached(x_embed.max()) + eps) * scale
     dim_t = torch.arange(num_pos_feats, dtype=torch.float32, device=pos.device)
     dim_t = temperature ** (2 * torch.div(dim_t, 2, rounding_mode="floor") / num_pos_feats)
     pos_x = x_embed[:, :, None] / dim_t
@@ -156,10 +160,36 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     (PyTorch's BatchNorm2d takes the unbiased one).  Eval mode is plain
     BatchNorm2d.  Under mixed precision the running statistics stay fp32,
     are updated from fp32 batch statistics and are read in the activations'
-    dtype in eval mode (the JAX package casts its batch_stats so)."""
+    dtype in eval mode (the JAX package casts its batch_stats so).  Training
+    takes flax's arithmetic (``_flax_forward``): the per-channel sum, sum of
+    squares and count in fp32, summed over the data axis inside the training
+    step of several processes (``parallel/mesh.py global_batch``; the
+    gradient flows back through the sum to every rank), the variance
+    E[x^2] - E[x]^2, the normalisation in fp32 rounded once to the
+    activations' dtype, and the running statistics from the global mean and
+    variance.  One process and W ranks then compute a batch alike, and the
+    statistics are the global batch's, as flax computes them over the batch
+    of one program.
+    """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, momentum=0.01)
+
+    def _flax_forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        count = torch.full((1,), xf.numel() / xf.shape[1], dtype=torch.float32, device=x.device)
+        sums = mesh.data_sum(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]))
+        c = self.num_features
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+            self.num_batches_tracked += 1
+        scale = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias.float()[:, None, None]
+        return y.to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -168,10 +198,4 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
             return nn.functional.batch_norm(x, self.running_mean.to(x.dtype),
                                             self.running_var.to(x.dtype), self.weight, self.bias,
                                             False, 0.0, self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked += 1
-        return nn.functional.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                                        self.eps)
+        return self._flax_forward(x)

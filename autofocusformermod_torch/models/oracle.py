@@ -18,6 +18,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..parallel import mesh
+
 
 def gt_edge_map(sem_seg: torch.Tensor, ignore_label: int = 255) -> torch.Tensor:
     """(b, H, W) integer labels -> (b, H, W) float 0/1: a pixel is an edge
@@ -65,8 +67,8 @@ def mix_teacher_mask(generator: Optional[torch.Generator], predicted: torch.Tens
     if teacher_ratio <= 0:
         return predicted
     if use_oracle is None:
-        use_oracle = torch.rand((predicted.shape[0], 1), generator=generator,
-                                device=predicted.device) < teacher_ratio
+        use_oracle = mesh.global_rand((predicted.shape[0], 1), generator,
+                                      predicted.device) < teacher_ratio
     return torch.where(use_oracle, oracle, predicted)
 
 

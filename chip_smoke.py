@@ -223,6 +223,20 @@ one NVIDIA GPU.
    those of a real step, each against its plain version; launches from
    the config (yaml_launches), times to chiprun_out/phase20.json.
 
+21. data parallelism: two ranks on the one card (gloo over an explicit
+   device map: NCCL takes one rank a device) each take two steps of the
+   published AFF-Mini at 512x512, batch 4, through Trainer / TrainStep
+   (DistributedDataParallel, the global BatchNorm statistics and
+   criterion, the global batch's draws cut to each rank's rows), held
+   against one process's two steps on the global batch of 8 whose discrete
+   choices they replay, cut to their rows (loss terms, grad_norm, the
+   update's norm per parameter group, the stem's BatchNorm statistics, one
+   model on both ranks), each rank's launches counted (distributed_launches);
+   then train_net under a torchrun-style environment of one process
+   (WORLD_SIZE=1: an NCCL group, the DDP wrapper, the evaluators' merge)
+   for 2 steps and --eval-only on two images; times to
+   chiprun_out/phase21.json.
+
 Phases 6, 8, 9, 10, 13, 14, 15, 16 and 17 compare training steps whose second run replays
 the first run's discrete choices (same_choices), held to LOSS_RTOL and
 GROUP_NORM_RTOL.
@@ -6408,6 +6422,359 @@ def yaml_phase(dev, smi, gen, counters, runs=YAML_RUNS, steps=YAML_STEPS, params
     return paths, total
 
 
+DIST_PRESET = "aff_mini"
+DIST_RANKS, DIST_LOCAL_BATCH, DIST_STEPS = 2, 4, 2
+# each rank's own limit: the spawn, the model's build and two steps take
+# ~1 min on the card; a hung collective fails the run after this
+DIST_JOIN_S = 420
+DIST_EVAL_SIZES = EVAL_SIZES[:2]
+DIST_PER_STEP = {"local_attn": 12, "local_attn_bwd": 12, "msdetrpc": 18, "msdetrpc_bwd": 18,
+                 "point_sample": 2, "point_sample_bwd": 1, "lapjv": 1, "knn": 10,
+                 "point_sample_nearest": 0, "point_sample_nearest_rows": 1}
+
+
+def dist_cfg(out_dir, opts=(), batch=DIST_RANKS * DIST_LOCAL_BATCH):
+    """The published AFF-Mini preset at its full width, 512x512 crops, the
+    global batch `batch`, checkpoints under `out_dir`; `opts` override
+    (a CPU rehearsal's tiny sizes)."""
+    from autofocusformermod_torch.config import PRESETS
+
+    cfg = PRESETS[DIST_PRESET]()
+    cfg.merge_from_list(["SOLVER.IMS_PER_BATCH", str(batch), "OUTPUT_DIR", out_dir] + list(opts))
+    return cfg
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_gib(dev):
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda" else 0.0
+
+
+def _compact(t):
+    """A recorded choice for a file: an expanded view as its base slice."""
+    if t.dim() and 0 in t.stride():
+        idx = tuple(slice(None) if s else slice(0, 1) for s in t.stride())
+        return ("expanded", t[idx].contiguous().cpu(), tuple(t.shape))
+    return t.cpu()
+
+
+def _expand(rec, dev):
+    if isinstance(rec, tuple) and rec and rec[0] == "expanded":
+        return rec[1].to(dev).expand(rec[2])
+    return rec.to(dev)
+
+
+def shard_book(book, rank, world, groups, dev):
+    """A one-process recording of the global batch's choices cut to rank
+    `rank`'s rows: each choice of `groups` {kind: layer groups} laid out
+    (groups, global batch, ...) along its first axis (the matches and ranked
+    points of every decoder layer at once), the others batch-leading."""
+    kinds = {(module, cls, name): kind for kind, module, cls, name in same_choices.KINDS}
+    out = {}
+    for where, calls in book.items():
+        if where not in kinds:
+            continue
+        g = groups.get(kinds[where], 1)
+        cut = []
+        for rec in calls:
+            t = _expand(rec, dev)
+            per = t.shape[0] // g
+            local = per // world
+            cut.append(t.reshape(g, per, *t.shape[1:])[:, rank * local:(rank + 1) * local]
+                       .reshape(g * local, *t.shape[1:]))
+        out[where] = cut
+    return out
+
+
+def _dist_counters():
+    from autofocusformermod_torch.geometry.knn import knn
+    from autofocusformermod_torch.losses.lapjv import lapjv
+    from autofocusformermod_torch.ops.local_attn import (sfc_cluster_attention,
+                                                         sfc_cluster_attention_backward)
+    from autofocusformermod_torch.ops.msdetrpc import msdetrpc_levels_s, msdetrpc_levels_s_backward
+    from autofocusformermod_torch.ops.point_sample import (
+        point_sample_backward, point_sample_bilinear, point_sample_nearest,
+        point_sample_nearest_rows)
+
+    return {"local_attn": sfc_cluster_attention,
+            "local_attn_bwd": sfc_cluster_attention_backward,
+            "msdetrpc": msdetrpc_levels_s, "msdetrpc_bwd": msdetrpc_levels_s_backward,
+            "point_sample": point_sample_bilinear, "point_sample_bwd": point_sample_backward,
+            "lapjv": lapjv, "knn": knn, "point_sample_nearest": point_sample_nearest,
+            "point_sample_nearest_rows": point_sample_nearest_rows}
+
+
+def dist_steps(trainer, batches, steps):
+    """`steps` steps of the Trainer's TrainStep on the next batches: (every
+    step's metrics as floats, ms per step between synchronisations)."""
+    metrics, times = [], []
+    for _ in range(steps):
+        batch = next(batches)
+        _sync(trainer.device)
+        t0 = time.time()
+        m = trainer.step_fn(batch, trainer.draw)
+        metrics.append({k: float(v) for k, v in m.items()})
+        times.append((time.time() - t0) * 1e3)
+    return metrics, times
+
+
+def dist_state(model):
+    """(parameters, the stem BatchNorm's running statistics) on the CPU."""
+    params = {n: p.detach().float().cpu().clone() for n, p in model.named_parameters()}
+    stats = {n: b.detach().cpu().clone() for n, b in model.named_buffers() if "running" in n}
+    return params, stats
+
+
+def _dist_rank(device, tmp, opts):
+    """Phase 21, one rank: the Trainer's two steps on this rank's rows of
+    the global batches, replaying the one-process run's choices cut to its
+    rows; results to <tmp>/rank<r>.pt."""
+    import torch
+    from autofocusformermod_torch.data.synthetic import synthetic_batches
+    from autofocusformermod_torch.engine.train import Trainer
+    from autofocusformermod_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = mesh.process_index(), mesh.process_count()
+    cfg = dist_cfg(os.path.join(tmp, "ranks"), opts)
+    trainer = Trainer(cfg, device)
+    book = torch.load(os.path.join(tmp, "book.pt"), weights_only=False)
+    replay = shard_book(book, rank, world, {"ranked points": cfg.MODEL.MASK_FORMER.DEC_LAYERS,
+                                            "matches": cfg.MODEL.MASK_FORMER.DEC_LAYERS}, device)
+    counters = _dist_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    batches = synthetic_batches(cfg, device)
+    with same_choices(replay, record=False):
+        metrics, times = dist_steps(trainer, batches, DIST_STEPS)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    params, stats = dist_state(trainer.model)
+    # one step more without the replay: the step's time apart from it
+    _, bare_ms = dist_steps(trainer, batches, 1)
+    torch.save({"metrics": metrics, "ms": times, "bare_ms": bare_ms[0], "launches": launches,
+                "params": params, "stats": stats, "agree": replay["agree"],
+                "batch": trainer.process_count, "peak_gib": _peak_gib(device),
+                "ddp": trainer.step_fn.ddp is not None},
+               os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def distributed_phase(dev, smi, counters, opts=()):
+    """Phase 21.  Two ranks on the one card (gloo: NCCL takes one rank a
+    device) each take two AFF-Mini steps at batch 4 through Trainer /
+    TrainStep (DistributedDataParallel, the global BatchNorm statistics,
+    the global criterion), against one process's two steps on the global
+    batch of 8 from the same generators; the ranks replay the one-process
+    run's discrete choices cut to their rows.  Then train_net under a
+    torchrun-style environment (WORLD_SIZE=1: an NCCL group, the DDP
+    wrapper, the merge of the evaluators) for 2 steps and --eval-only on two
+    images.  `opts` override the preset (a CPU rehearsal's tiny sizes).
+    -> (record, {counter: launches of every run of the phase})."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from autofocusformermod_torch import train_net
+    from autofocusformermod_torch.data.synthetic import synthetic_batches
+    from autofocusformermod_torch.engine.optimizer import param_groups
+    from autofocusformermod_torch.engine.train import Trainer
+    from autofocusformermod_torch.ops.build import BUILD_DIR
+    from autofocusformermod_torch.parallel import mesh
+
+    t_phase = time.time()
+    total = {n: 0 for n in counters}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    record = {"card": smi}
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR.parent, prefix="dist_") as tmp:
+        # one process, the global batch of 8
+        trainer = Trainer(dist_cfg(os.path.join(tmp, "one"), opts), dev)
+        cfg = trainer.cfg
+        initial, _ = dist_state(trainer.model)
+        labels = {n: label for label, named in param_groups(trainer.model).items()
+                  for n, _ in named}
+        for fn in counters.values():
+            fn.launches = 0
+        book = {}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        batches = synthetic_batches(cfg, dev)
+        with same_choices(book, record=True):
+            one_metrics, one_ms = dist_steps(trainer, batches, DIST_STEPS)
+        one_peak = _peak_gib(dev)
+        one_launches = {n: fn.launches for n, fn in counters.items()}
+        for n, v in one_launches.items():
+            total[n] += v
+        one_params, one_stats = dist_state(trainer.model)
+        # one step more without the record: the step's time apart from it
+        _, one_bare_ms = dist_steps(trainer, batches, 1)
+        torch.save({where: [_compact(t) for t in calls] for where, calls in book.items()
+                    if isinstance(where, tuple) and where[0] != "scores"},
+                   os.path.join(tmp, "book.pt"))
+        del trainer, book
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        log(f"  one process, batch {DIST_RANKS * DIST_LOCAL_BATCH}: ms per step "
+            + ", ".join(f"{t:.1f}" for t in one_ms) + f" recording its choices, "
+            f"{one_bare_ms[0]:.1f} a third step without (peak {one_peak:.2f} GiB, {smi}); total "
+            "loss " + ", ".join(f"{m['total_loss']:.6f}" for m in one_metrics))
+
+        # two ranks on cuda:0, gloo, batch 4 each
+        t0 = time.time()
+        mesh.launch(_dist_rank, DIST_RANKS, dist_url=f"file://{os.path.join(tmp, 'rendezvous')}",
+                    args=(tmp, list(opts)), device_map=[str(dev)] * DIST_RANKS,
+                    timeout_s=DIST_JOIN_S)
+        t_ranks = time.time() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DIST_RANKS)]
+        for r, got in enumerate(ranks):
+            want = {n: v * DIST_STEPS for n, v in DIST_PER_STEP.items()}
+            if dev.type == "cuda" and got["launches"] != want:
+                raise SystemExit(f"rank {r} launched {got['launches']} in {DIST_STEPS} steps, "
+                                 f"expected {want}")
+            if not got["ddp"] or got["batch"] != DIST_RANKS:
+                raise SystemExit(f"rank {r}: no DDP wrapper or a data axis of {got['batch']}")
+            for n in total:
+                total[n] += got["launches"][n]
+            # the replay holds every choice; the floors catch a rank that
+            # takes the wrong rows of a global draw (its own choices would
+            # part from the one-process run's, the replayed ones would not)
+            same_choices.check(f"rank {r} replaying the one-process run",
+                               {"agree": got["agree"]})
+            log(f"  rank {r}: ms per step " + ", ".join(f"{t:.1f}" for t in got["ms"])
+                + f" replaying, {got['bare_ms']:.1f} a third step without (peak {got['peak_gib']:.2f} GiB, both ranks on one card, {smi})")
+        loss_worst = grad_norm_worst = 0.0
+        for r, got in enumerate(ranks):
+            for s, (m, w) in enumerate(zip(got["metrics"], one_metrics)):
+                if set(m) != set(w) or not all(math.isfinite(v) for v in m.values()):
+                    raise SystemExit(f"rank {r} step {s + 1}: metrics {m}")
+                worst = max(abs(m[k] - w[k]) / max(abs(w[k]), 1e-6) for k in w
+                            if k != "grad_norm")
+                gn = abs(m["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                loss_worst, grad_norm_worst = max(loss_worst, worst), max(grad_norm_worst, gn)
+                if worst > LOSS_RTOL or gn > GROUP_NORM_RTOL:
+                    raise SystemExit(f"rank {r} step {s + 1}: loss terms part from one process's "
+                                     f"by {worst} (rel), grad_norm by {gn}")
+        # the updates per parameter group, the stem's statistics, one model
+        update_worst, stats_worst, ranks_apart = {}, 0.0, 0.0
+        for r, got in enumerate(ranks):
+            for label in set(labels.values()):
+                names = [n for n, lab in labels.items() if lab == label]
+                a = math.sqrt(sum(float(((got["params"][n] - initial[n]) ** 2).sum())
+                                  for n in names))
+                b = math.sqrt(sum(float(((one_params[n] - initial[n]) ** 2).sum())
+                                  for n in names))
+                update_worst[label] = max(update_worst.get(label, 0.0),
+                                          abs(a - b) / max(b, 1e-12))
+            for n, v in one_stats.items():
+                stats_worst = max(stats_worst, float((got["stats"][n] - v).abs().max())
+                                  / max(float(v.abs().max()), 1e-12))
+        for n, p in ranks[0]["params"].items():
+            ranks_apart = max(ranks_apart, float((p - ranks[1]["params"][n]).abs().max()))
+        log(f"  {DIST_RANKS} ranks against one process over {DIST_STEPS} steps: loss terms "
+            f"{loss_worst:.3e} (rel, LOSS_RTOL {LOSS_RTOL}), grad_norm {grad_norm_worst:.3e}, "
+            "the update's norm per parameter group "
+            + ", ".join(f"{k} {v:.3e}" for k, v in sorted(update_worst.items()))
+            + f" (GROUP_NORM_RTOL {GROUP_NORM_RTOL}), the BatchNorm statistics {stats_worst:.3e}; "
+            f"the ranks' parameters apart by {ranks_apart:.3e}; the ranks' call {t_ranks:.1f} s")
+        if max(update_worst.values()) > GROUP_NORM_RTOL or stats_worst > GROUP_NORM_RTOL:
+            raise SystemExit("the two ranks' update or statistics part from one process's")
+        if ranks_apart > 0:
+            raise SystemExit(f"the two ranks' parameters differ by {ranks_apart}")
+        record.update({"one_ms": one_ms, "rank_ms": [g["ms"] for g in ranks],
+                       "one_bare_ms": one_bare_ms[0], "rank_bare_ms": [g["bare_ms"] for g in ranks],
+                       "one_peak_gib": one_peak, "rank_peak_gib": [g["peak_gib"] for g in ranks],
+                       "loss_rel": loss_worst, "grad_norm_rel": grad_norm_worst,
+                       "update_rel": update_worst, "stats_rel": stats_worst,
+                       "agree": [g["agree"] for g in ranks], "ranks_call_s": t_ranks})
+        del ranks
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # train_net in a torchrun-style group of one: NCCL, DDP, the merge
+        backends = []
+        real_init = mesh.init_group
+
+        def init_group(backend, *a, **k):
+            backends.append(backend)
+            return real_init(backend, *a, **k)
+
+        env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(mesh._free_port())}
+        saved_env = {k: os.environ.get(k) for k in env}
+        out = os.path.join(tmp, "nccl")
+        device_args = [] if dev.type == "cuda" else ["--device", "cpu"]
+        run_opts = device_args + ["SOLVER.IMS_PER_BATCH", str(DIST_LOCAL_BATCH), "DATASETS.TEST",
+                                  f"('{EVAL_NAMES[2]}',)", "OUTPUT_DIR", out] + list(opts)
+        os.environ.update(env)
+        mesh.init_group = init_group
+        try:
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.time()
+            trained = train_net.main(["--config", DIST_PRESET, "--synthetic", "--max-iter",
+                                      str(DIST_STEPS)] + run_opts)
+            t_train = time.time() - t0
+            wrapped = trained.step_fn.ddp is not None
+            del trained
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                steps = [json.loads(line) for line in f]
+            if [m["step"] for m in steps] != list(range(1, DIST_STEPS + 1)) or not all(
+                    np.isfinite(m["total_loss"]) for m in steps):
+                raise SystemExit(f"train_net under WORLD_SIZE=1 logged {steps}")
+            pairs = eval_dataset(DIST_EVAL_SIZES)
+            t0 = time.time()
+            with semantic_files(pairs):
+                evaluated = train_net.main(["--config", DIST_PRESET, "--eval-only", "--resume"]
+                                           + run_opts)
+            t_eval = time.time() - t0
+            results = evaluated.results[EVAL_NAMES[2]]
+            nccl_launches = {n: fn.launches for n, fn in counters.items()}
+            del evaluated
+        finally:
+            mesh.init_group = real_init
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        backend = mesh.default_backend(dev.type)
+        if backends != [backend, backend] or not wrapped:
+            raise SystemExit(f"train_net under WORLD_SIZE=1 joined {backends}, DDP {wrapped}")
+        if not 0 <= results["mIoU"] <= 100 or evaluated_steps(out) != DIST_STEPS:
+            raise SystemExit(f"--eval-only gave {results}")
+        for n, v in nccl_launches.items():
+            total[n] += v
+        want_min = {n: v * DIST_STEPS for n, v in DIST_PER_STEP.items() if v and n in counters}
+        short = {n: nccl_launches[n] for n in want_min if nccl_launches[n] < want_min[n]}
+        if short:
+            raise SystemExit(f"the NCCL runs launched {short}, fewer than {want_min}")
+        log(f"  train_net under WORLD_SIZE=1 ({backend}, DDP): {DIST_STEPS} steps at batch "
+            f"{DIST_LOCAL_BATCH} in {t_train:.1f} s, loss " + ", ".join(
+                f"{m['total_loss']:.4f}" for m in steps) + f"; --eval-only --resume on "
+            f"{len(pairs)} images in {t_eval:.1f} s: mIoU {results['mIoU']:.3f} ({smi})")
+        record.update({"nccl_train_s": t_train, "nccl_eval_s": t_eval,
+                       "nccl_miou": results["mIoU"]})
+    record["phase_s"] = time.time() - t_phase
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "phase21.json"), "w") as f:
+        json.dump(record, f, indent=1, default=str)
+    return record, total
+
+
+def evaluated_steps(out):
+    """The step of the latest checkpoint under a run's OUTPUT_DIR."""
+    from autofocusformermod_torch.engine.checkpoint import Checkpointer
+
+    return Checkpointer(os.path.join(out, "checkpoints")).latest_step()
+
+
 def main() -> int:
     import torch
 
@@ -6789,6 +7156,18 @@ def main() -> int:
             kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
     torch.cuda.empty_cache()
 
+    log(f"phase 21: data parallelism: {DIST_RANKS} ranks on the one card (gloo, an explicit "
+        f"device map) each take {DIST_STEPS} {DIST_PRESET} steps at {SIZE}x{SIZE}, batch "
+        f"{DIST_LOCAL_BATCH}, through Trainer / TrainStep (DistributedDataParallel, global "
+        f"BatchNorm statistics, the global criterion) against one process's {DIST_STEPS} steps "
+        f"on the global batch of {DIST_RANKS * DIST_LOCAL_BATCH}, replaying its choices; then "
+        f"train_net under WORLD_SIZE=1 (NCCL) for {DIST_STEPS} steps and --eval-only on "
+        f"{len(DIST_EVAL_SIZES)} images")
+    t21 = time.time()
+    _, dist_launches = distributed_phase(dev, smi, train_counters)
+    log(f"  phase 21 took {time.time() - t21:.1f} s")
+    torch.cuda.empty_cache()
+
     for kr in kernels:
         names = [kr["name"]] + (["point_sample_bwd"] if kr["name"] == "point_sample" else [])
         kr["inference_launches"] = inference_launches.get(kr["name"], 0)
@@ -6817,13 +7196,17 @@ def main() -> int:
         kr["amp_launches"] = sum(amp_launches_.get(n, 0) for n in names)
         # phase 20: the published yamls' train_net runs, forwards, steps, demos and test()
         kr["yaml_launches"] = sum(yaml_launches_.get(n, 0) for n in names)
+        # phase 21: the one-process and both ranks' steps, the NCCL train_net
+        # run and its --eval-only
+        kr["distributed_launches"] = sum(dist_launches.get(n, 0) for n in names)
         kr["launches"] = (kr["inference_launches"] + kr["mini_step_launches"]
                           + kr["small_run_launches"] + kr["layouts_launches"]
                           + kr["mini15_launches"] + kr["maskfiner_launches"]
                           + kr["eval_launches"] + kr["maskfiner_step_launches"]
                           + kr["panoptic_instance_launches"] + kr["grid_launches"]
                           + kr["updown_launches"] + kr["family_launches"]
-                          + kr["amp_launches"] + kr["yaml_launches"])
+                          + kr["amp_launches"] + kr["yaml_launches"]
+                          + kr["distributed_launches"])
         if kr["launches"] < 1:
             raise SystemExit(f"{kr['name']}: never launched on a main path")
     if len(kernels) != 14:

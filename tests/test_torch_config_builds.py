@@ -209,7 +209,7 @@ def tiny_yaml(tmp_path):
     return path
 
 
-def test_train_net_config_file_takes_a_cpu_step(tiny_yaml, tmp_path):
+def test_train_net_config_file_takes_a_cpu_step(tiny_yaml, tmp_path, monkeypatch):
     from autofocusformermod_torch import train_net
 
     out = tmp_path / "out"
@@ -223,8 +223,11 @@ def test_train_net_config_file_takes_a_cpu_step(tiny_yaml, tmp_path):
     assert [m["step"] for m in metrics] == [1] and np.isfinite(metrics[0]["total_loss"])
     with pytest.raises(SystemExit):               # the yaml and a preset exclude each other
         train_net.main(["--config-file", str(tiny_yaml), "--config", "aff_mini", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        train_net.main(["--config-file", str(tiny_yaml), "--device", "cpu", "--num-gpus", "2"])
+    with monkeypatch.context() as m:              # more GPUs than the machine has refuse
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(SystemExit, match="asks for 2 GPUs"):
+            train_net.main(["--config-file", str(tiny_yaml), "--num-gpus", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="--device cpu"):
             train_net.main(["--config-file", str(tiny_yaml), "--synthetic"])
