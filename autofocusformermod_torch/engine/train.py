@@ -62,6 +62,7 @@ from ..evaluation.distributed import merge_across_processes
 from ..evaluation.sem_seg_evaluation import (MaskFinerSemSegEvaluator, MetaLossSemSegEvaluator,
                                              SemSegEvaluator)
 from ..losses.criterion import device_draw
+from ..models.layers import set_dropout_generator
 from ..models.inference import (instance_inference, panoptic_inference, sem_seg_postprocess,
                                 sliding_window_semantic_scores, thing_lookup)
 from ..models.maskformer import semantic_inference, upsample_masks
@@ -103,9 +104,9 @@ class Trainer:
         self.step_fn = TrainStep(self.model, cfg)
         self.generators = {
             "criterion": torch.Generator(device=self.device).manual_seed(cfg.SEED + 1),
-            "drop_path": torch.Generator(device=self.device).manual_seed(cfg.SEED + 2)}
+            "dropout": torch.Generator(device=self.device).manual_seed(cfg.SEED + 2)}
         self.draw = device_draw(self.generators["criterion"])
-        self.model.set_drop_path_generator(self.generators["drop_path"])
+        set_dropout_generator(self.model, self.generators["dropout"])
         if hasattr(self.model, "set_oracle_generator"):
             # the OracleTeacher cascades' teacher draws
             self.generators["oracle"] = torch.Generator(device=self.device).manual_seed(

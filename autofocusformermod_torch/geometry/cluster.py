@@ -1,9 +1,10 @@
 """Balanced clustering of token point clouds along a space-filling curve.
 
-Counterpart of ``autofocusformermod_tpu/geometry/cluster.py`` for the
-default scanline curve (``sf_type=''``).  Tokens are sorted along the curve
-over anchor patches and the sorted sequence is cut into clusters of exactly
-``m`` tokens.  Everything here is index bookkeeping with no gradient.
+Counterpart of ``autofocusformermod_tpu/geometry/cluster.py``: the scanline
+curve (``sf_type=''``, what every model uses), the Peano curve and the
+Hilbert curve.  Tokens are sorted along the curve over anchor patches and
+the sorted sequence is cut into clusters of exactly ``m`` tokens.
+Everything here is index bookkeeping with no gradient.
 """
 
 from __future__ import annotations
@@ -15,22 +16,36 @@ import numpy as np
 import torch
 
 from ..parallel import mesh
-from .sfc import scanline_order_keys
+from .sfc import calculate_hilbert_order, calculate_peano_order, scanline_order_keys
+
+CURVES = {"peano": calculate_peano_order, "hilbert": calculate_hilbert_order}
 
 
-def _anchor_grid(h: int, w: int, k: int):
-    """Anchor-patch layout: grid size and patch extents."""
+def _anchor_grid(h: int, w: int, k: int, sf_type: str = ""):
+    """Anchor-patch layout: grid size and patch extents (a power of 3 or 2
+    of rows for the Peano and Hilbert curves)."""
     patch_len = (h * w / k) ** 0.5
     num_patch_h = max(1, int(round(h / patch_len)))
     num_patch_w = max(1, int(round(w / patch_len)))
-    return num_patch_h, num_patch_w, h / num_patch_h, w / num_patch_w
+    patch_len_h, patch_len_w = h / num_patch_h, w / num_patch_w
+    if sf_type in CURVES:
+        base = 3 if sf_type == "peano" else 2
+        num_patch_h = max(base, int(base ** round(math.log(num_patch_h, base))))
+        patch_len_h = h / num_patch_h
+        num_patch_w = int(round(w / h * base) * (num_patch_h / base))
+        patch_len_w = w / num_patch_w
+    return num_patch_h, num_patch_w, patch_len_h, patch_len_w
 
 
-def _grid_curve_order(num_patch_h: int, num_patch_w: int, w: int):
-    """Scanline order of the anchor cells: (order_grid_idx, order_idx, grid_pos)."""
+def _grid_curve_order(num_patch_h: int, num_patch_w: int, w: int, sf_type: str = ""):
+    """The anchor cells' order on the curve: (order_grid_idx, order_idx, grid_pos)."""
     xs = np.arange(num_patch_w)[None, :].repeat(num_patch_h, 0)
     ys = np.arange(num_patch_h)[:, None].repeat(num_patch_w, 1)
     grid_pos = np.stack([xs, ys], axis=2).reshape(-1, 2).astype(np.float32)
+    if sf_type in CURVES:
+        order_grid_idx, order_idx = CURVES[sf_type](num_patch_h, num_patch_w,
+                                                    torch.from_numpy(grid_pos)[None])
+        return order_grid_idx[0].long().numpy(), order_idx[0].long().numpy(), grid_pos
     order_mask = np.where(ys % 2 == 0, 1, -1) * xs + ys * w
     order_mask = (order_mask + np.where(ys % 2 == 0, 0, w - 1)).reshape(-1)
     order_idx = np.argsort(order_mask, kind="stable")
@@ -39,8 +54,9 @@ def _grid_curve_order(num_patch_h: int, num_patch_w: int, w: int):
     return order_grid_idx, order_idx, grid_pos
 
 
-def space_filling_cluster(pos: torch.Tensor, m: int, h: int, w: int):
-    """Cluster (b, n, 2) positions on an (h, w) canvas into ceil(n/m) clusters.
+def space_filling_cluster(pos: torch.Tensor, m: int, h: int, w: int, sf_type: str = ""):
+    """Cluster (b, n, 2) positions on an (h, w) canvas into ceil(n/m) clusters
+    along the curve ``sf_type`` ('', scanline; 'peano'; 'hilbert').
 
     Returns (pos_sorted (b, n, 2), cluster_mean_pos (b, k, 2), member_idx
     (b, k, m) int32 indices into the sorted tokens, cluster_mask (b, k, m)
@@ -50,10 +66,10 @@ def space_filling_cluster(pos: torch.Tensor, m: int, h: int, w: int):
     dev = pos.device
     b, n, d = pos.shape
     k = int(math.ceil(n / m))
-    nph, npw, plh, plw = _anchor_grid(h, w, k)
+    nph, npw, plh, plw = _anchor_grid(h, w, k, sf_type)
 
     if nph * npw >= 3:
-        order_grid_idx, order_idx, grid_pos = _grid_curve_order(nph, npw, w)
+        order_grid_idx, order_idx, grid_pos = _grid_curve_order(nph, npw, w, sf_type)
         ordered_grid = grid_pos[order_idx]
         patch_len_hw = np.array([plw, plh], dtype=np.float32)
         init_pos_means = ordered_grid * patch_len_hw + patch_len_hw / 2 - 0.5
@@ -77,9 +93,11 @@ def space_filling_cluster(pos: torch.Tensor, m: int, h: int, w: int):
         # data-parallel step), as the reference
         key = rank.float() * (mesh.data_max_detached(dist_ratio.max()) + 1) + dist_ratio
         pos_ranking = torch.argsort(key, dim=1, stable=True)
-    else:
+    elif sf_type in CURVES:
         # too few anchors for the prev/next refinement: order tokens on the
-        # scanline curve directly
+        # curve directly
+        pos_ranking = CURVES[sf_type](h, w, pos)[1].long()
+    else:
         order = torch.from_numpy(scanline_order_keys(h, w)).to(dev)
         keys = order[(pos[..., 0] + pos[..., 1] * w).long()]
         pos_ranking = torch.argsort(keys, dim=1, stable=True)

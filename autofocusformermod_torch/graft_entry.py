@@ -71,9 +71,9 @@ def entry(device: Optional[str] = None):
 
 def dryrun_cfg():
     """The JAX dry run's tiny model: 64x64 crops, 7 classes, one block a
-    stage, one encoder layer, 4 decoder layers, 5 queries; decoder dropout
-    0 (the port trains without it, as every published Mask2Former config
-    does)."""
+    stage, one encoder layer, 4 decoder layers, 5 queries, the encoder
+    layer's dropout at the default 0.1; its 64 criterion points, which JAX
+    passes to ``make_train_step``, as TRAIN_NUM_POINTS."""
     cfg = _flagship_cfg(num_classes=7)
     cfg.MODEL.AFF.EMBED_DIM = [16, 24, 32, 40]
     cfg.MODEL.AFF.DEPTHS = [1, 1, 1, 1]
@@ -88,7 +88,6 @@ def dryrun_cfg():
     cfg.MODEL.MASK_FORMER.DIM_FEEDFORWARD = 32
     cfg.MODEL.MASK_FORMER.DEC_LAYERS = 4
     cfg.MODEL.MASK_FORMER.TRAIN_NUM_POINTS = 64
-    cfg.MODEL.MASK_FORMER.DROPOUT = 0.0
     cfg.TPU.USE_PALLAS = False
     return cfg
 
@@ -114,6 +113,7 @@ def dryrun_batch(n_data: int, size: int = 64, t: int = 3):
 def _dryrun_rank(device: torch.device, n: int) -> None:
     from .engine.train_step import TrainStep
     from .losses.criterion import device_draw
+    from .models.layers import set_dropout_generator
     from .models.maskformer import init_random_weights, maskformer_from_config
     from .parallel import mesh
 
@@ -123,7 +123,7 @@ def _dryrun_rank(device: torch.device, n: int) -> None:
     cfg = dryrun_cfg()
     model = maskformer_from_config(cfg)
     init_random_weights(model, torch.Generator().manual_seed(0))
-    model.set_drop_path_generator(torch.Generator().manual_seed(2))
+    set_dropout_generator(model, torch.Generator().manual_seed(2))
     step = TrainStep(model, cfg)
     if n_model > 1:
         mesh.shard_state_tp(step)

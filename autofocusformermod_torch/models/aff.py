@@ -24,16 +24,24 @@ from ..geometry.cluster import nbhd_from_cluster_ids, space_filling_cluster
 from ..geometry.knn import knn
 from ..ops.clusten import cluster_wf
 from ..ops.gather import take_rows, topk_indices
-from ..ops.dispatch import use_kernel
+from ..ops.dispatch import local_cluster_attention_reference, use_kernel
 from ..ops.local_attn import build_reverse_lists, sfc_cluster_attention
-from .layers import DropPath, FlaxBatchNorm2d, Mlp, WeightNet, dense, layer_norm, rel_pos_features
+from .layers import (DropPath, Dropout, FlaxBatchNorm2d, Mlp, WeightNet, dense, layer_norm,
+                     rel_pos_features)
 
 
 class ClusterAttention(nn.Module):
     """Local attention over each token's neighbour clusters, with a learned
-    rel-pos bias and a learnable blank attention sink."""
+    rel-pos bias and a learnable blank attention sink.  In train mode
+    ``attn_drop`` drops attention probabilities (the blank sink's too) and
+    ``proj_drop`` the output.  The local_attn kernel computes no
+    probabilities to drop, as JAX's Pallas kernel applies no attention
+    dropout: a CUDA call in train mode at ``attn_drop`` > 0 raises, and the
+    plain path (CPU tensors, ``plain_versions``) drops them in the gather
+    composition, as JAX's gather path does."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} not divisible by num_heads {num_heads}")
@@ -44,6 +52,22 @@ class ClusterAttention(nn.Module):
         self.blank_v = nn.Parameter(torch.randn(dim))
         self.pos_embed = nn.Linear(5, num_heads)
         self.proj = nn.Linear(dim, dim)
+        self.attn_drop, self.proj_drop = Dropout(attn_drop), Dropout(proj_drop)
+
+    def _dropped_attention(self, q, key, v, blank_k, ctx):
+        """The gather composition with the probabilities dropped -> (out,
+        blank_prob); padded slots excluded exactly, as everywhere in the
+        port."""
+        if use_kernel(q, key, v):
+            raise NotImplementedError(
+                f"attention dropout (ATTN_DROP_RATE {self.attn_drop.rate}) in train mode on the "
+                "local_attn kernel: JAX's Pallas path applies none and the kernel has no "
+                "probabilities to drop; train with ATTN_DROP_RATE 0 on the card")
+        member, mask, rel5 = nbhd_from_cluster_ids(ctx["pos"], ctx["nc"], ctx["span"], q.shape[2])
+        bias = dense(self.pos_embed, rel5).to(q.dtype)                         # (b, n, m, h)
+        blank_attn = torch.einsum("bhnc,hc->bhn", q, blank_k)[..., None]
+        return local_cluster_attention_reference(q, key, v, member, bias, mask, blank_attn,
+                                                 drop=self.attn_drop)
 
     def forward(self, feat: torch.Tensor, ctx: Dict) -> torch.Tensor:
         b, n, c = feat.shape
@@ -58,9 +82,11 @@ class ClusterAttention(nn.Module):
             pos_bias = dense(self.pos_embed, ctx["rel_feat5"]).to(feat.dtype)   # (b, n, n, h)
             attn = torch.einsum("bhnc,bhmc->bhnm", q, key) + pos_bias.permute(0, 3, 1, 2)
             blank_attn = torch.einsum("bhnc,hc->bhn", q, blank_k)[..., None]
-            attn = torch.softmax(torch.cat([attn, blank_attn], dim=-1), dim=-1)
+            attn = self.attn_drop(torch.softmax(torch.cat([attn, blank_attn], dim=-1), dim=-1))
             out = torch.einsum("bhnm,bhmc->bhnc", attn[..., :-1], v)
             blank_prob = attn[..., -1:]
+        elif self.training and self.attn_drop.rate > 0:
+            out, blank_prob = self._dropped_attention(q, key, v, blank_k, ctx)
         else:
             # the kernel is fp32 in and out: cast bf16 operands up at its call
             out, blank_prob = sfc_cluster_attention(
@@ -70,21 +96,24 @@ class ClusterAttention(nn.Module):
                 ctx["span"], reverse=ctx.get("reverse"))
             out, blank_prob = out.to(feat.dtype), blank_prob.to(feat.dtype)
         out = out + blank_prob * self.blank_v.reshape(1, h, 1, c_)
-        return self.proj(out.permute(0, 2, 1, 3).reshape(b, n, c))
+        return self.proj_drop(self.proj(out.permute(0, 2, 1, 3).reshape(b, n, c)))
 
 
 class ClusterTransformerBlock(nn.Module):
     """Pre-LN attention + FFN block.  With ``layer_scale`` > 0 each residual
     branch is scaled per channel by a learned ``gamma1`` / ``gamma2`` that
-    starts at that value; each branch goes through DropPath."""
+    starts at that value; each branch goes through DropPath.  ``drop``: the
+    attention's output and the MLP's dropout; ``attn_drop``: the attention
+    probabilities' (``ClusterAttention``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 2.0,
-                 drop_path: float = 0.0, layer_scale: float = 0.0):
+                 drop_path: float = 0.0, layer_scale: float = 0.0, drop: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
         self.norm1 = layer_norm(dim)
-        self.attn = ClusterAttention(dim, num_heads)
+        self.attn = ClusterAttention(dim, num_heads, attn_drop, drop)
         self.norm2 = layer_norm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop)
         self.drop_path = DropPath(drop_path)
         scaled = layer_scale > 0
         self.gamma1 = nn.Parameter(layer_scale * torch.ones(dim)) if scaled else None
@@ -102,14 +131,14 @@ class ClusterTransformerBlock(nn.Module):
 
 
 class ClusterMerging(nn.Module):
-    """Adaptive downsampling: grid prior + learned importance, reserved
-    coarse-grid tokens forced to survive, top-k keep, PointConv merge of the
-    kept tokens' neighbourhoods."""
+    """Adaptive downsampling: grid prior + learned importance, with
+    ``reserve_on`` reserved coarse-grid tokens forced to survive, top-k
+    keep, PointConv merge of the kept tokens' neighbourhoods."""
 
     def __init__(self, dim: int, out_dim: int, alpha: float = 4.0, ds_rate: float = 0.25,
-                 inner_ch: int = 4):
+                 inner_ch: int = 4, reserve_on: bool = True):
         super().__init__()
-        self.alpha, self.ds_rate = alpha, ds_rate
+        self.alpha, self.ds_rate, self.reserve_on = alpha, ds_rate, reserve_on
         self.weight_net = WeightNet(inner_ch)
         self.norm = layer_norm(inner_ch * dim)
         self.linear = nn.Linear(inner_ch * dim, out_dim)
@@ -126,11 +155,14 @@ class ClusterMerging(nn.Module):
             ada_stride = 2.0 ** (torch.ceil(torch.log2(torch.clamp(min_dist, min=1e-6))) + 1)
             grid_prob = (pos_int % ada_stride[..., None].int() == 0).all(-1).float()
         final_prob = grid_prob + learned_prob.detach().reshape(b, n) * self.alpha
-        # the coarse grid (every 2*stride) is reserved: it always survives
-        reserve_mask = (pos_int % (stride * 2) == 0).all(-1).float()
-        final_prob = final_prob + reserve_mask * (-100.0)
-        idx = torch.cat([topk_indices(final_prob, keep_num - reserve_num),
-                         topk_indices(reserve_mask, reserve_num)], dim=1)
+        if self.reserve_on:
+            # the coarse grid (every 2*stride) is reserved: it always survives
+            reserve_mask = (pos_int % (stride * 2) == 0).all(-1).float()
+            final_prob = final_prob + reserve_mask * (-100.0)
+            idx = torch.cat([topk_indices(final_prob, keep_num - reserve_num),
+                             topk_indices(reserve_mask, reserve_num)], dim=1)
+        else:
+            idx = topk_indices(final_prob, keep_num)
 
         new_pos = take_rows(pos, idx)
         member_idx, mask, rel5 = nbhd_from_cluster_ids(pos, take_rows(nc, idx), span, n,
@@ -153,21 +185,31 @@ def attention_context(pos, b: int, cluster_size: int, nbhd_size: int, h: int, w:
     space-filling curve into clusters of cluster_size and each finds its
     nearest clusters (``knn``); with gradients on and on the kernel route,
     the backward kernels' reverse lists (a function of nc alone) are built
-    here once for all the stage's blocks."""
+    here once for all the stage's blocks.  The neighbourhood is min(
+    round(nbhd_size / cluster_size), the cluster count) clusters, so a
+    cluster larger than nbhd_size gives one cluster of cluster_size tokens;
+    where there are as many clusters as tokens (cluster_size 1), every
+    token is its own cluster, in the incoming order."""
     n = pos.shape[1]
     if nbhd_size >= n:
         ctx = {"global": True,
                "rel_feat5": rel_pos_features(pos[:, None, :, :] - pos[:, :, None, :])}
         return ctx, pos.expand(b, n, 2), None
     m = cluster_size
-    nnc = min(int(round(nbhd_size / float(m))), int(math.ceil(n / float(m))))
-    pos, cluster_mean_pos, _, _, pos_ranking = space_filling_cluster(pos, m, h, w)
+    k = int(math.ceil(n / float(m)))
+    nnc = min(int(round(nbhd_size / float(m))), k)
+    if k == n:
+        span, cluster_mean_pos, rank = 1, pos, None
+    else:
+        span = m
+        pos, cluster_mean_pos, _, _, pos_ranking = space_filling_cluster(pos, m, h, w)
+        rank = pos_ranking[..., 0].long().expand(b, n)
     nc = knn(pos, cluster_mean_pos, nnc).expand(b, n, nnc).contiguous()
     pos = pos.expand(b, n, 2).contiguous()
-    ctx = {"global": False, "pos": pos, "nc": nc, "span": m}
+    ctx = {"global": False, "pos": pos, "nc": nc, "span": span}
     if torch.is_grad_enabled() and use_kernel(pos, nc):
-        ctx["reverse"] = build_reverse_lists(nc, n, m)
-    return ctx, pos, pos_ranking[..., 0].long().expand(b, n)
+        ctx["reverse"] = build_reverse_lists(nc, n, span)
+    return ctx, pos, rank
 
 
 class BasicLayer(nn.Module):
@@ -176,17 +218,19 @@ class BasicLayer(nn.Module):
     def __init__(self, dim: int, out_dim: Optional[int], cluster_size: int, nbhd_size: int,
                  depth: int, num_heads: int, mlp_ratio: float, alpha: float = 4.0,
                  ds_rate: float = 0.25, has_downsample: bool = True,
-                 drop_path: Sequence[float] = (), layer_scale: float = 0.0):
+                 drop_path: Sequence[float] = (), layer_scale: float = 0.0,
+                 drop: float = 0.0, attn_drop: float = 0.0, reserve_on: bool = True):
         super().__init__()
         self.cluster_size, self.nbhd_size = cluster_size, nbhd_size
         drop_path = tuple(drop_path) or (0.0,) * depth
         self.blocks = nn.ModuleList(
-            ClusterTransformerBlock(dim, num_heads, mlp_ratio, drop_path[i], layer_scale)
+            ClusterTransformerBlock(dim, num_heads, mlp_ratio, drop_path[i], layer_scale, drop,
+                                    attn_drop)
             for i in range(depth))
         self.has_downsample = has_downsample
         if has_downsample:
             self.prob_net = nn.Linear(dim, 1)
-            self.downsample = ClusterMerging(dim, out_dim, alpha, ds_rate)
+            self.downsample = ClusterMerging(dim, out_dim, alpha, ds_rate, reserve_on=reserve_on)
 
     def forward(self, pos, feat, h: int, w: int, stride: int):
         b, n, _ = feat.shape
@@ -236,40 +280,42 @@ class PatchEmbed(nn.Module):
 class AFF(nn.Module):
     """The 4-stage AutoFocusFormer backbone.  forward(NHWC images) ->
     {"res2".."res5": feat, "res*_pos": pos, "res*_spatial_shape": (h, w)}.
+    ``drop_rate``: dropout after the patch embedding, on each block's
+    attention output and in its MLP; ``attn_drop_rate``: on the attention
+    probabilities (``ClusterAttention``); ``reserve_on``: the merges keep
+    the coarse grid.
 
     The blocks' DropPath rates rise linearly over the depth from 0 to
-    ``drop_path_rate``; ``set_drop_path_generator`` gives them their stream."""
+    ``drop_path_rate``; ``layers.set_dropout_generator`` gives them and the
+    Dropouts their stream."""
 
     def __init__(self, embed_dim: Sequence[int] = (32, 128, 256, 512), cluster_size: int = 8,
                  nbhd_size: Sequence[int] = (48, 48, 48, 48), alpha: float = 4.0,
                  ds_rate: float = 0.25, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), mlp_ratio: float = 2.0,
                  patch_norm: bool = True, drop_path_rate: float = 0.0,
-                 layer_scale: float = 0.0):
+                 layer_scale: float = 0.0, drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                 reserve_on: bool = True):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         nl = len(depths)
         dpr = [float(r) for r in np.linspace(0, drop_path_rate, sum(depths))]
         self.patch_embed = PatchEmbed(embed_dim[0], patch_norm)
+        self.pos_drop = Dropout(drop_rate)
         self.layers = nn.ModuleList(
             BasicLayer(embed_dim[i], embed_dim[i + 1] if i < nl - 1 else None, cluster_size,
                        nbhd_size[i], depths[i], num_heads[i], mlp_ratio, alpha, ds_rate,
                        has_downsample=i < nl - 1,
                        drop_path=dpr[sum(depths[:i]):sum(depths[:i + 1])],
-                       layer_scale=layer_scale)
+                       layer_scale=layer_scale, drop=drop_rate, attn_drop=attn_drop_rate,
+                       reserve_on=reserve_on)
             for i in range(nl))
         for i in range(nl):
             self.add_module(f"norm{i}", layer_norm(embed_dim[i]))
 
-    def set_drop_path_generator(self, generator: Optional[torch.Generator]) -> None:
-        """Every DropPath of the backbone draws its keep decisions from this
-        generator (on the device the model runs on), in forward order."""
-        for m in self.modules():
-            if isinstance(m, DropPath):
-                m.generator = generator
-
     def forward(self, x: torch.Tensor) -> Dict:
         pos, feat, h, w = self.patch_embed(x)
+        feat = self.pos_drop(feat)
         outs: Dict = {}
         for i, layer in enumerate(self.layers):
             pos_out, x_out, pos, feat = layer(pos, feat, h, w, stride=2 ** (i + 1))
@@ -282,10 +328,9 @@ class AFF(nn.Module):
 def aff_from_config(cfg) -> AFF:
     """Build AFF from a config (the port's CfgNode or the JAX package's)."""
     a = cfg.MODEL.AFF
-    if not a.RESERVE or a.CLUSTER_SIZE > min(a.NBHD_SIZE):
-        raise NotImplementedError("ported: reserved coarse grid, CLUSTER_SIZE <= NBHD_SIZE")
     return AFF(embed_dim=tuple(a.EMBED_DIM), cluster_size=a.CLUSTER_SIZE,
                nbhd_size=tuple(a.NBHD_SIZE), alpha=a.ALPHA, ds_rate=a.DS_RATE,
                depths=tuple(a.DEPTHS), num_heads=tuple(a.NUM_HEADS),
                mlp_ratio=a.MLP_RATIO, patch_norm=a.PATCH_NORM,
-               drop_path_rate=a.DROP_PATH_RATE, layer_scale=a.LAYER_SCALE)
+               drop_path_rate=a.DROP_PATH_RATE, layer_scale=a.LAYER_SCALE,
+               drop_rate=a.DROP_RATE, attn_drop_rate=a.ATTN_DROP_RATE, reserve_on=a.RESERVE)

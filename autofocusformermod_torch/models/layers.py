@@ -1,4 +1,4 @@
-"""Shared layers: relative-position features, MLPs, DropPath, sine position
+"""Shared layers: relative-position features, MLPs, Dropout and DropPath, sine position
 embedding, PointConv weight net, flax-convention BatchNorm.  Counterpart of
 ``autofocusformermod_tpu/models/layers.py``.  Under mixed precision the
 layers that take fp32 geometry (``dense``, ``WeightNet``) compute in fp32
@@ -61,26 +61,17 @@ def dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return nn.functional.linear(*promoted(x, layer.weight, layer.bias))
 
 
-class Mlp(nn.Module):
-    """Linear -> exact GELU -> Linear."""
-
-    def __init__(self, in_features: int, hidden_features: int, out_features: int):
-        super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden_features)
-        self.fc2 = nn.Linear(hidden_features, out_features)
-
-    def forward(self, x):
-        return self.fc2(nn.functional.gelu(self.fc1(x)))
-
-
-class DropPath(nn.Module):
-    """Stochastic depth: in train mode drop the residual branch of a sample
-    with probability ``rate`` and scale the kept ones by 1 / (1 - rate).  The
-    keep decisions come from ``generator`` (a ``torch.Generator`` on the
-    input's device; None is PyTorch's global one), set by whoever owns the
-    model, so a run can checkpoint the stream and continue it.  Under a data
-    axis of several processes each draws the global batch's decisions and
-    keeps its own rows (``mesh.global_rand``)."""
+class Stochastic(nn.Module):
+    """A module that, in train mode at a ``rate`` above 0, keeps each element
+    of a mask with probability 1 - rate and scales the kept ones by 1 / (1 -
+    rate).  The keep decisions come from ``generator`` (a ``torch.Generator``
+    on the input's device; None is PyTorch's global one), which
+    ``set_dropout_generator`` gives every such module of a model, so a run
+    can checkpoint the stream and continue it: one stream, as the JAX
+    package's one ``"dropout"`` key.  Under a data axis of several processes
+    each draws the global batch's decisions and keeps its own rows
+    (``mesh.global_rand``).  ``keep_mask`` is the one place a mask is drawn,
+    so a test can replace it."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -88,14 +79,57 @@ class DropPath(nn.Module):
         self.generator: Optional[torch.Generator] = None
 
     def keep_mask(self, shape, device) -> torch.Tensor:
-        """bool (b, 1, ...): True where the sample's branch is kept."""
+        """bool ``shape``: True where the element is kept."""
         return mesh.global_rand(shape, self.generator, device) < 1.0 - self.rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def dropped(self, x: torch.Tensor, shape) -> torch.Tensor:
+        """x with a mask of ``shape`` (broadcast over x) applied, or x itself
+        in eval mode or at rate 0."""
         if self.rate == 0.0 or not self.training:
             return x
-        mask = self.keep_mask((x.shape[0],) + (1,) * (x.dim() - 1), x.device)
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        mask = self.keep_mask(shape, x.device)
         return torch.where(mask, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+class Dropout(Stochastic):
+    """``flax.linen.Dropout``: each element kept with probability 1 - rate
+    and scaled by 1 / (1 - rate) in train mode, the identity in eval mode or
+    at rate 0 (and zeros at rate 1)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dropped(x, x.shape)
+
+
+class DropPath(Stochastic):
+    """Stochastic depth: in train mode drop the residual branch of a sample
+    with probability ``rate`` and scale the kept ones by 1 / (1 - rate)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dropped(x, (x.shape[0],) + (1,) * (x.dim() - 1))
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Every DropPath and Dropout of ``model`` draws its keep decisions from
+    ``generator`` (on the device the model runs on), in forward order."""
+    for m in model.modules():
+        if isinstance(m, Stochastic):
+            m.generator = generator
+
+
+class Mlp(nn.Module):
+    """Linear -> exact GELU -> Dropout -> Linear -> Dropout (both at ``drop``)."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 drop: float = 0.0):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc2 = nn.Linear(hidden_features, out_features)
+        self.drop1, self.drop2 = Dropout(drop), Dropout(drop)
+
+    def forward(self, x):
+        return self.drop2(self.fc2(self.drop1(nn.functional.gelu(self.fc1(x)))))
 
 
 class MLP(nn.Module):

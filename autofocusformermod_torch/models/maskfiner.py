@@ -27,11 +27,14 @@ stages: before the last, a backbone and the projection-only pixel decoder
 split, with no mask decoder; its pixel decoders' OracleTeacher form has a
 leaky-ReLU and a mask-features head only where a decoder reads it.
 
-Ported: the relu and lrelu pixel decoders without HierUp, the projection
-decoder, and the decoder with or without dense mask features, without
-concatenated levels; the HierUp and Cat variants, the pre-norm decoder,
-MASK_DECODER_ALL_LEVELS, ConvNeXtV2 stages and the eval-time dynamic split
-ratios raise (ROADMAP.md section 1).
+Ported: the relu and lrelu pixel decoders, their HierUp form (each FPN
+level painted onto the whole min-patch grid, the mask features from that
+dense level alone) and the projection decoder, each with the stage's
+dropout; the decoder post-norm or pre-norm, with or without dense mask
+features, cycling over the levels or attending to all of them at once (the
+Cat decoder); MASK_DECODER_ALL_LEVELS (mask features, and under the
+OracleTeacher head a decoder, on every stage).  ConvNeXtV2 stages and the
+eval-time dynamic split ratios raise (ROADMAP.md section 1).
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ from ..geometry.shepard import shepard_neighbours, upsample_feature_shepard
 from ..ops.clusten import weighted_gather
 from ..ops.gather import take_rows
 from ..parallel.precision import compute_dtype, f32_outputs, refuse_islands
-from .layers import MLP, DropPath, layer_norm, position_embedding_sine
+from .layers import MLP, layer_norm, position_embedding_sine
 from .mixres import mixres_stage_from_config
 from .pixel_decoder import (MSDeformAttnPixelDecoder, pack_neighbor_table, raster_grid,
                             scale_pos)
@@ -142,7 +145,12 @@ class MaskFinerPixelDecoder(MSDeformAttnPixelDecoder):
     ``pixel_decoder.MSDeformAttnPixelDecoder``'s, with an FPN level for each
     of ``in_features`` that is not a transformer level.  The OracleTeacher
     form: ``activation`` "lrelu" (the encoder layers' FFN and the FPN), and
-    without ``mask_features`` no mask-features head (mask features None)."""
+    without ``mask_features`` no mask-features head (mask features None).
+    ``hierup`` (the HierUp form): each FPN level's lateral and every level
+    before it are painted onto the whole min-patch grid
+    (``hierarchical_upsample_dense``) before the previous level's Shepard
+    upsample is added there, so the FPN level covers the grid, and the mask
+    features are that last level's alone.  ``dropout``: the encoder layers'."""
 
     def __init__(self, feature_channels: Dict[str, int], in_features: Sequence[str],
                  transformer_in_features: Sequence[str], conv_dim: int = 256,
@@ -150,7 +158,7 @@ class MaskFinerPixelDecoder(MSDeformAttnPixelDecoder):
                  transformer_dim_feedforward: int = 1024, transformer_enc_layers: int = 6,
                  n_points: int = 4, shepard_power: float = 3.0,
                  shepard_power_learnable: bool = True, activation: str = "relu",
-                 mask_features: bool = True):
+                 mask_features: bool = True, hierup: bool = False, dropout: float = 0.0):
         super().__init__(feature_channels, in_features, transformer_in_features,
                          conv_dim=conv_dim, mask_dim=mask_dim,
                          transformer_nheads=transformer_nheads,
@@ -159,7 +167,8 @@ class MaskFinerPixelDecoder(MSDeformAttnPixelDecoder):
                          shepard_power=shepard_power,
                          shepard_power_learnable=shepard_power_learnable,
                          num_fpn_levels=len(in_features) - len(transformer_in_features),
-                         activation=activation)
+                         activation=activation, dropout=dropout)
+        self.hierup = hierup
         if not mask_features:
             self.mask_features = None
 
@@ -194,16 +203,19 @@ class MaskFinerPixelDecoder(MSDeformAttnPixelDecoder):
             poss.append(pos)
             scales.append(features[f + "_scale"].float())
             y = getattr(self, f"adapter_{idx + 1}")(features[f])
+            if self.hierup:
+                y = hierarchical_upsample_dense(out + [y], fixed_poss + [fixed], min_ss)
+                fixed = grid
             y = y + upsample_feature_shepard(fixed, fixed_poss[-1], out[-1]).to(y.dtype)
             conv, norm = getattr(self, f"layer_{idx + 1}")
             out.append(self.act(norm(conv(y, fixed))))
             fixed_poss.append(fixed)
 
-        mask_features = (None if self.mask_features is None
-                         else self.mask_features(torch.cat(out, dim=1)))
+        mf = out[-1] if self.hierup else torch.cat(out, dim=1)
+        mask_features = None if self.mask_features is None else self.mask_features(mf)
+        mf_pos = fixed_poss[-1] if self.hierup else torch.cat(fixed_poss, dim=1)
         input_shapes = [features[f + "_spatial_shape"] for f in self.in_features[::-1]]
-        return (mask_features, torch.cat(fixed_poss, dim=1), out, poss, scales, min_ss,
-                input_shapes)
+        return mask_features, mf_pos, out, poss, scales, min_ss, input_shapes
 
 
 class ProjPixelDecoderMaskFiner(nn.Module):
@@ -253,13 +265,16 @@ class MaskFinerTransformerDecoder(MultiScaleMaskedTransformerDecoder):
     give the stage's disagreement (``gini_disagreement``).  A stage whose
     one level is the mask features itself attends unmasked.  Parameters as
     ``MultiScaleMaskedTransformerDecoder``'s; ``final_layer``: the last
-    stage, whose last round is the cascade's prediction."""
+    stage, whose last round is the cascade's prediction.  ``cat_features``
+    (the Cat decoder): every round attends to all the levels at once, their
+    tokens concatenated, with the attention masks at all their positions."""
 
     def __init__(self, *args, final_layer: bool = False, dense_mask_features: bool = False,
-                 **kwargs):
+                 cat_features: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
         self.final_layer = final_layer
         self.dense_mask_features = dense_mask_features
+        self.cat_features = cat_features
 
     def _prediction_heads(self, output, mask_features, to_level):
         """-> (class logits (b, q, nc+1), mask logits (b, q, n_mf), attention
@@ -289,6 +304,9 @@ class MaskFinerTransformerDecoder(MultiScaleMaskedTransformerDecoder):
         poss_scaled = [scale_pos(fix_pos_no_bias(p, s, finest_input_shape), finest_input_shape,
                                  finest_feat_shape) for p, s in zip(pos, shapes)]
         finest_pos = raster_grid(finest_feat_shape, b, mf_pos.device)
+        # where the attention masks are read: each level's tokens, or all of
+        # them at once for the Cat decoder
+        targets = [torch.cat(poss_scaled, dim=1)] if self.cat_features else poss_scaled
         if self.dense_mask_features:
             if tuple(finest_input_shape) != tuple(finest_feat_shape):
                 raise ValueError(f"dense mask features need the finest level on the min-patch "
@@ -298,16 +316,16 @@ class MaskFinerTransformerDecoder(MultiScaleMaskedTransformerDecoder):
                 finest_pos, self.mask_embed.layers[-1].out_features // 2).to(mask_features.dtype)
             # the masks live on the grid: their neighbours are cells, found
             # in a window; rasterizing is a reshape
-            to_levels = ([grid_shepard_neighbours(p, h, w) for p in poss_scaled] if masked
-                         else [None] * nl)
+            to_levels = ([grid_shepard_neighbours(p, h, w) for p in targets] if masked
+                         else [None] * len(targets))
 
             def rasterize(pred_mask):
                 return pred_mask.reshape(b, -1, h, w)
         else:
             # the Shepard neighbours of every level's tokens and of the finest
             # grid among the mask features, once for all rounds
-            to_levels = ([shepard_neighbours(p, mf_pos_scaled) for p in poss_scaled] if masked
-                         else [None] * nl)
+            to_levels = ([shepard_neighbours(p, mf_pos_scaled) for p in targets] if masked
+                         else [None] * len(targets))
             to_grid = shepard_neighbours(finest_pos, mf_pos_scaled)
 
             def rasterize(pred_mask):
@@ -320,6 +338,9 @@ class MaskFinerTransformerDecoder(MultiScaleMaskedTransformerDecoder):
             pos_emb.append(position_embedding_sine(poss_scaled[i], hidden // 2).to(x[i].dtype))
             s = self.input_proj[i](x[i]) if self.has_input_proj else x[i]
             src.append(s + self.level_embed.weight[i][None, None, :])
+        if self.cat_features:
+            # one memory of every level, attended to in every round
+            src, pos_emb, nl = [torch.cat(src, dim=1)], [torch.cat(pos_emb, dim=1)], 1
         query_embed = self.query_embed.weight[None].expand(b, -1, -1)
         output = self.query_feat.weight[None].expand(b, -1, -1)
 
@@ -429,14 +450,6 @@ class MaskFiner(nn.Module):
         """Normalized images in the compute dtype."""
         return ((images.float() - self.pixel_mean) / self.pixel_std).to(self.compute_dtype)
 
-    def set_drop_path_generator(self, generator) -> None:
-        """Every DropPath of every stage's backbone draws its keep decisions
-        from ``generator`` (on the model's device), in forward order."""
-        for predictor in self.mask_predictors:
-            for m in predictor.backbone.modules():
-                if isinstance(m, DropPath):
-                    m.generator = generator
-
     def dtype_scope(self):
         """The context of a forward: under bf16 compute with a projection
         decoder in the cascade, ``flax_promotion`` (its fp32 levels meet
@@ -463,15 +476,21 @@ class MaskFiner(nn.Module):
                             "features_pos": features_pos})
 
 
-# the decoder names that build the plain decoder (5S: the 5-scale yamls'),
-# and the dense one's
+# the decoder names that build the plain decoder (5S: the 5-scale yamls';
+# SingleScale the same class under another name; Cat the decoder that
+# attends to all levels at once), and the dense one's
 PLAIN_DECODERS = ("MultiScaleMaskFinerTransformerDecoder",
-                  "MultiScaleMaskFinerTransformerDecoder5S")
+                  "MultiScaleMaskFinerTransformerDecoder5S",
+                  "MultiScaleMaskFinerTransformerDecoderCat",
+                  "MultiScaleMaskFinerTransformerDecoderSingleScale")
 DENSE_DECODER = "MultiScaleMaskFinerTransformerDecoderOracleTeacher"
-# the stage heads, and the pixel decoders the OracleTeacher head adds
+# the stage heads and the stage pixel decoders
 PLAIN_HEAD, OT_HEAD = "MaskPredictor", "MaskPredictorOracleTeacher"
 PROJ_PIXEL_DECODER = "ProjMaskFinerOracleTeacher"
-OT_PIXEL_DECODERS = ("MSDeformAttnPixelDecoderMaskFinerOracleTeacher", PROJ_PIXEL_DECODER)
+HIERUP_PIXEL_DECODER = "MSDeformAttnPixelDecoderMaskFinerHierUp"
+PIXEL_DECODERS = ("MSDeformAttnPixelDecoderMaskFiner",
+                  "MSDeformAttnPixelDecoderMaskFinerOracleTeacher", HIERUP_PIXEL_DECODER,
+                  PROJ_PIXEL_DECODER)
 WHERE = "(ROADMAP.md section 1)"
 
 
@@ -481,39 +500,24 @@ def stage_pixel_decoder_names(cfg, n_stages: int) -> List[str]:
     return [names] * n_stages if isinstance(names, str) else list(names)
 
 
-def refuse_unported_heads(cfg, pixel_decoders: Sequence[str], decoders: Sequence[str]) -> None:
+def refuse_unported_heads(cfg, pixel_decoders: Sequence[str]) -> None:
     """Raise where a stage's pixel decoder (of ``pixel_decoders``) or the
-    configured decoder is a variant that is not ported (only the relu
-    ``MSDeformAttnPixelDecoderMaskFiner`` and its lrelu OracleTeacher form,
-    under the OracleTeacher stage head also the projection decoder, and the
-    post-norm decoders named in ``decoders`` are), or the pixel decoder has
-    dropout.  Under the plain stage head the lrelu form keeps its
-    mask-features head on every stage, as JAX's ``build_stage_pixel_decoder``
-    builds it."""
+    configured decoder is not one of the stage builders' names
+    (``PIXEL_DECODERS``, ``PLAIN_DECODERS`` and ``DENSE_DECODER``)."""
     mfr, head = cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD
-    ported = ("MSDeformAttnPixelDecoderMaskFiner",) + (OT_PIXEL_DECODERS if head.NAME == OT_HEAD
-                                                        else OT_PIXEL_DECODERS[:1])
     for name in pixel_decoders:
-        if name not in ported:
+        if name not in PIXEL_DECODERS:
             raise NotImplementedError(f"pixel decoder {name!r} under {head.NAME} is not ported "
                                       f"{WHERE}")
-    if mfr.TRANSFORMER_DECODER_NAME not in decoders:
+    if mfr.TRANSFORMER_DECODER_NAME not in PLAIN_DECODERS + (DENSE_DECODER,):
         raise NotImplementedError(f"decoder {mfr.TRANSFORMER_DECODER_NAME!r} is not ported {WHERE}")
-    if mfr.PRE_NORM:
-        raise NotImplementedError(f"the pre-norm MaskFiner decoder is not ported {WHERE}")
-    if head.DROPOUT:
-        raise NotImplementedError("the pixel decoder's dropout is not ported; the published "
-                                  "configs set MR_SEM_SEG_HEAD.DROPOUT 0")
 
 
 def _refuse(cfg) -> None:
-    mfr, head = cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD
+    head = cfg.MODEL.MR_SEM_SEG_HEAD
     if head.NAME not in (PLAIN_HEAD, OT_HEAD):
         raise NotImplementedError(f"cascade stage {head.NAME!r} is not ported {WHERE}")
-    refuse_unported_heads(cfg, stage_pixel_decoder_names(cfg, len(cfg.MODEL.MR.NAME)),
-                          PLAIN_DECODERS[:1] + ((DENSE_DECODER,) if head.NAME == OT_HEAD else ()))
-    if mfr.MASK_DECODER_ALL_LEVELS:
-        raise NotImplementedError(f"MASK_DECODER_ALL_LEVELS is not ported {WHERE}")
+    refuse_unported_heads(cfg, stage_pixel_decoder_names(cfg, len(cfg.MODEL.MR.NAME)))
 
 
 def build_stage_pixel_decoder(cfg, li: int, final: bool, feature_channels: Dict[str, int],
@@ -522,18 +526,20 @@ def build_stage_pixel_decoder(cfg, li: int, final: bool, feature_channels: Dict[
     over the last li + 1 feature levels of MR_SEM_SEG_HEAD.IN_FEATURES (all
     of them on the final stage, whose finest ones beyond the transformer
     levels are FPN levels), with the stage's entries of the per-stage lists;
-    feature_channels: the width of each level.  The projection decoder has
-    mask features only on the final stage; the OracleTeacher form of the
-    deformable one is leaky and has them but where the OracleTeacher stage
-    head (``ot_predictor``) runs no decoder."""
+    feature_channels: the width of each level.  The projection decoder and
+    the HierUp form have mask features only on the final stage; the
+    OracleTeacher form of the deformable one is leaky and has them but where
+    the OracleTeacher stage head (``ot_predictor``) runs no decoder; under
+    MASK_DECODER_ALL_LEVELS every stage has them."""
     mfr, head = cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD
     all_in, all_trans = list(head.IN_FEATURES), list(head.DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES)
     name = stage_pixel_decoder_names(cfg, li + 1)[li]
+    all_levels = mfr.MASK_DECODER_ALL_LEVELS
     if name == PROJ_PIXEL_DECODER:
         return ProjPixelDecoderMaskFiner(feature_channels, all_in[-(li + 1):],
                                          conv_dim=head.CONVS_DIM[li], mask_dim=mfr.MASK_DIM[li],
-                                         mask_features=final)
-    ot = name.endswith("OracleTeacher")
+                                         mask_features=final or all_levels)
+    ot, hierup = name.endswith("OracleTeacher"), name == HIERUP_PIXEL_DECODER
     return MaskFinerPixelDecoder(
         feature_channels, all_in[-(li + 1):],
         all_trans if final else all_trans[len(all_trans) - li - 1:],
@@ -542,20 +548,23 @@ def build_stage_pixel_decoder(cfg, li: int, final: bool, feature_channels: Dict[
         transformer_enc_layers=head.TRANSFORMER_ENC_LAYERS[li],
         # distances are squared, so halve the configured power
         shepard_power=mfr.SHEPARD_POWER / 2.0, shepard_power_learnable=mfr.SHEPARD_POWER_LEARNABLE,
-        activation="lrelu" if ot else "relu", mask_features=final or not (ot and ot_predictor))
+        activation="lrelu" if ot else "relu", hierup=hierup, dropout=head.DROPOUT,
+        mask_features=(final if hierup else final or not (ot and ot_predictor)) or all_levels)
 
 
 def build_stage_mask_decoder(cfg, li: int, final: bool) -> MaskFinerTransformerDecoder:
     """Stage li's masked transformer decoder; the OracleTeacher decoder name
-    gives the dense one (mask features painted on the finest grid)."""
+    gives the dense one (mask features painted on the finest grid), the Cat
+    name the one that attends to all levels at once."""
     mfr, head = cfg.MODEL.MASK_FINER, cfg.MODEL.MR_SEM_SEG_HEAD
     return MaskFinerTransformerDecoder(
         in_channels=head.CONVS_DIM[li], num_classes=head.NUM_CLASSES,
         hidden_dim=mfr.HIDDEN_DIM[li], num_queries=mfr.NUM_OBJECT_QUERIES,
         nheads=mfr.NHEADS[li], dim_feedforward=mfr.DIM_FEEDFORWARD[li],
-        dec_layers=mfr.DEC_LAYERS[li] - 1, mask_dim=mfr.MASK_DIM[li],
+        dec_layers=mfr.DEC_LAYERS[li] - 1, pre_norm=mfr.PRE_NORM, mask_dim=mfr.MASK_DIM[li],
         enforce_input_project=mfr.ENFORCE_INPUT_PROJ, num_feature_levels=mfr.DECODER_LEVELS[li],
-        final_layer=final, dense_mask_features=mfr.TRANSFORMER_DECODER_NAME == DENSE_DECODER)
+        final_layer=final, dense_mask_features=mfr.TRANSFORMER_DECODER_NAME == DENSE_DECODER,
+        cat_features="Cat" in mfr.TRANSFORMER_DECODER_NAME)
 
 
 def build_mask_predictors(cfg) -> List[MaskPredictor]:
@@ -564,7 +573,8 @@ def build_mask_predictors(cfg) -> List[MaskPredictor]:
     levels (all of them on the last stage, whose finest ones are FPN
     levels), the decoder and the MixRes backbone; under the OracleTeacher
     stage head (MR_SEM_SEG_HEAD.NAME) ``MaskPredictorOracleTeacher`` stages,
-    with a decoder on the final stage only."""
+    with a decoder on the final stage only (on every stage under
+    MASK_DECODER_ALL_LEVELS)."""
     _refuse(cfg)
     mr, mfr = cfg.MODEL.MR, cfg.MODEL.MASK_FINER
     n_stages, n_scales = len(mr.NAME), mfr.NUM_RESOLUTION_SCALES
@@ -576,7 +586,8 @@ def build_mask_predictors(cfg) -> List[MaskPredictor]:
         # all of width EMBED_DIM[li]
         channels = {f"res{n_scales - s + 1}": mr.EMBED_DIM[li] for s in range(li + 1)}
         pixel_decoder = build_stage_pixel_decoder(cfg, li, final, channels, ot)
-        mask_decoder = build_stage_mask_decoder(cfg, li, final) if final or not ot else None
+        mask_decoder = (build_stage_mask_decoder(cfg, li, final)
+                        if final or not ot or mfr.MASK_DECODER_ALL_LEVELS else None)
         if ot:
             predictors.append(MaskPredictorOracleTeacher(
                 mixres_stage_from_config(cfg, li), pixel_decoder, mask_decoder,

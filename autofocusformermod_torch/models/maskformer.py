@@ -55,20 +55,20 @@ class MaskFormer(nn.Module):
     """forward(raw NHWC RGB images, uint8 or float) -> {'pred_logits' (b, q,
     nc+1), 'pred_masks' (b, q, H/4, W/4), 'aux_outputs'}.
 
-    Dropout in the decoders is not ported: a model with dropout > 0 runs in
-    eval mode and refuses train mode.  ``compute_dtype`` bf16 (SOLVER.AMP.ENABLED):
+    MODEL.MASK_FORMER.DROPOUT is the point-cloud pixel decoder's (its
+    encoder layers'); the grid pixel decoder has none, as in the JAX
+    package.  ``compute_dtype`` bf16 (SOLVER.AMP.ENABLED):
     the normalized images are cast to bf16 (the island "backbone": its
     features are, positions excepted) and the outputs come back fp32."""
 
     def __init__(self, backbone: nn.Module, sem_seg_head: nn.Module,
                  pixel_mean: Sequence[float] = (123.675, 116.28, 103.53),
                  pixel_std: Sequence[float] = (58.395, 57.12, 57.375),
-                 dropout: float = 0.0, compute_dtype: torch.dtype = torch.float32,
+                 compute_dtype: torch.dtype = torch.float32,
                  f32_islands: Tuple[str, ...] = ()):
         super().__init__()
         self.backbone = backbone
         self.sem_seg_head = sem_seg_head
-        self.dropout = dropout
         self.compute_dtype, self.f32_islands = compute_dtype, tuple(f32_islands)
         self.register_buffer("pixel_mean", torch.tensor(pixel_mean, dtype=torch.float32), False)
         self.register_buffer("pixel_std", torch.tensor(pixel_std, dtype=torch.float32), False)
@@ -76,18 +76,7 @@ class MaskFormer(nn.Module):
     def normalize(self, images: torch.Tensor) -> torch.Tensor:
         return (images.float() - self.pixel_mean) / self.pixel_std
 
-    def set_drop_path_generator(self, generator) -> None:
-        """The backbone's DropPath draws from ``generator`` (AFF.set_drop_path_generator)."""
-        self.backbone.set_drop_path_generator(generator)
-
-    def refuse_dropout(self) -> None:
-        if self.training and self.dropout > 0:
-            raise NotImplementedError(
-                f"decoder dropout is not ported: train with MODEL.MASK_FORMER.DROPOUT 0, "
-                f"not {self.dropout} (the published Mask2Former configs set 0.0)")
-
     def forward(self, images: torch.Tensor) -> Dict:
-        self.refuse_dropout()
         if self.compute_dtype == torch.float32:
             return self.sem_seg_head(self.backbone(self.normalize(images)))
         if "backbone" in self.f32_islands:
@@ -157,7 +146,7 @@ def maskformer_from_config(cfg) -> MaskFormer:
                                                           f32_mask_head="mask_head" in islands),
                           islands, dtype)
     return MaskFormer(backbone_from_config(cfg), head, tuple(cfg.MODEL.PIXEL_MEAN),
-                      tuple(cfg.MODEL.PIXEL_STD), cfg.MODEL.MASK_FORMER.DROPOUT, dtype, islands)
+                      tuple(cfg.MODEL.PIXEL_STD), dtype, islands)
 
 
 @torch.no_grad()

@@ -28,10 +28,8 @@ import torch
 from torch import nn
 
 from ..parallel.precision import compute_dtype, f32_outputs, refuse_islands
-from .layers import DropPath
-from .maskfiner import (DENSE_DECODER, PLAIN_DECODERS, MaskFiner, build_mask_predictors,
-                        build_stage_mask_decoder, build_stage_pixel_decoder,
-                        refuse_unported_heads)
+from .maskfiner import (MaskFiner, build_mask_predictors, build_stage_mask_decoder,
+                        build_stage_pixel_decoder, refuse_unported_heads)
 from .maskformer import MaskFormer
 from .oracle import gt_edge_map, mix_teacher_mask, oracle_upsampling_mask
 from .pixel_decoder_grid import MSDeformAttnPixelDecoderGrid, grid_pixel_decoder_from_config
@@ -65,7 +63,7 @@ def maskformer_swin_from_config(cfg) -> MaskFormer:
     head = GridHead(grid_pixel_decoder_from_config(cfg, channels),
                     transformer_decoder_from_config(cfg, cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM))
     return MaskFormer(swin_from_config(cfg), head, tuple(cfg.MODEL.PIXEL_MEAN),
-                      tuple(cfg.MODEL.PIXEL_STD), cfg.MODEL.MASK_FORMER.DROPOUT)
+                      tuple(cfg.MODEL.PIXEL_STD))
 
 
 class MaskFinerOracleTeacher(MaskFiner):
@@ -174,13 +172,6 @@ class MaskFinerOracleTeacherBB(nn.Module):
         """Normalized images in the compute dtype."""
         return ((images.float() - self.pixel_mean) / self.pixel_std).to(self.compute_dtype)
 
-    def set_drop_path_generator(self, generator) -> None:
-        """Every DropPath of the backbone draws its keep decisions from
-        ``generator`` (on the model's device), in forward order."""
-        for m in self.backbone.modules():
-            if isinstance(m, DropPath):
-                m.generator = generator
-
     def set_oracle_generator(self, generator: Optional[torch.Generator]) -> None:
         """The teacher draws (one per image and down stage, in training with
         ground truth and ORACLE_TEACHER_RATIO above 0) come from
@@ -219,8 +210,7 @@ def maskfiner_oracle_teacher_bb_from_config(cfg) -> MaskFinerOracleTeacherBB:
     n_scales = cfg.MODEL.MASK_FINER.NUM_RESOLUTION_SCALES
     final = n_scales - 1
     names = cfg.MODEL.MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME
-    refuse_unported_heads(cfg, [names if isinstance(names, str) else names[final]],
-                          PLAIN_DECODERS + (DENSE_DECODER,))
+    refuse_unported_heads(cfg, [names if isinstance(names, str) else names[final]])
     refuse_islands(cfg, cfg.MODEL.META_ARCHITECTURE)
     backbone = COMPOSITE_BACKBONES[name](cfg)
     return MaskFinerOracleTeacherBB(

@@ -16,9 +16,15 @@ Counterpart of ``autofocusformermod_tpu/models/mixres.py``:
 Tokens stay ordered by scale in contiguous segments whose lengths
 (``tokens_per_scale``) follow from the image size.  The global attention of
 stage 0 is a plain matrix product, as in the JAX package (an einsum there,
-outside any Pallas kernel).  The XAttn variant (``cross_attend_image``),
-register tokens, the eval-time dynamic split ratios and a MixResNeighbour
-first stage are not ported and raise.
+outside any Pallas kernel).  ``MODEL.MR.DROP_RATE`` drops in the
+feed-forwards and on the cluster attention's output, ``ATTN_DROP_RATE``
+the cluster attention's probabilities (``aff.ClusterAttention``: on the
+plain path only, as in the JAX package).  Register tokens are prepended to
+stage 0's tokens and cut off after its blocks, as the JAX package does; its
+depthwise conv then meets h * w + R tokens on an h x w grid and raises, as
+the JAX reshape does.  The XAttn variant (``cross_attend_image``), the
+eval-time dynamic split ratios and a MixResNeighbour first stage are not
+ported and raise.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from torch import nn
 
 from ..ops.gather import take_rows
 from .aff import ClusterTransformerBlock, attention_context
-from .layers import GN_EPS, DropPath, Mlp, layer_norm, position_embedding_sine
+from .layers import GN_EPS, DropPath, Dropout, Mlp, layer_norm, position_embedding_sine
 
 
 def get_2dpos_of_curr_ps_in_min_ps(height: int, width: int, patch_size: int,
@@ -84,41 +90,47 @@ class OverlapPatchEmbedding(nn.Module):
 
 
 class DWConvFFN(nn.Module):
-    """fc1 -> depthwise 3x3 conv on the token grid -> exact GELU -> fc2;
-    without ``dw_conv`` (the MRML blocks, whose tokens are mixed-scale)
-    fc1 -> exact GELU -> fc2."""
+    """fc1 -> depthwise 3x3 conv on the token grid -> exact GELU -> Dropout
+    -> fc2 -> Dropout; without ``dw_conv`` (the MRML blocks, whose tokens
+    are mixed-scale) no conv.  The conv takes exactly the h x w tokens of
+    the grid."""
 
-    def __init__(self, dim: int, hidden_dim: int, out_dim: int, dw_conv: bool = True):
+    def __init__(self, dim: int, hidden_dim: int, out_dim: int, dw_conv: bool = True,
+                 drop: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.dwconv = (nn.Conv2d(hidden_dim, hidden_dim, 3, padding=1, groups=hidden_dim)
                        if dw_conv else None)
         self.fc2 = nn.Linear(hidden_dim, out_dim)
+        self.drop1, self.drop2 = Dropout(drop), Dropout(drop)
 
     def forward(self, x, h: int, w: int):
         b, n, _ = x.shape
         x = self.fc1(x)
         if self.dwconv is not None:
+            if n != h * w:
+                raise ValueError(f"the depthwise conv reshapes {n} tokens onto a {h} x {w} grid "
+                                 "(register tokens reach it, as in the JAX package)")
             x = self.dwconv(x.transpose(1, 2).reshape(b, -1, h, w)).flatten(2).transpose(1, 2)
-        return self.fc2(nn.functional.gelu(x))
+        return self.drop2(self.fc2(self.drop1(nn.functional.gelu(x))))
 
 
 class ViTBlock(nn.Module):
     """Pre-LN global attention + DWConv feed-forward.  With ``layer_scale`` >
     0 each residual branch is scaled per channel by a learned ``gamma1`` /
     ``gamma2`` that starts at that value; each branch goes through
-    DropPath.  ``dw_conv`` False: the feed-forward has no depthwise conv
-    (``DWConvFFN``)."""
+    DropPath.  ``dw_conv`` False: the feed-forward has no depthwise conv;
+    ``drop``: its dropout (``DWConvFFN``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_dim: int, drop_path: float = 0.0,
-                 layer_scale: float = 0.0, dw_conv: bool = True):
+                 layer_scale: float = 0.0, dw_conv: bool = True, drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.norm1 = layer_norm(dim)
         self.attn_qkv = nn.Linear(dim, 3 * dim)
         self.attn_proj = nn.Linear(dim, dim)
         self.norm2 = layer_norm(dim)
-        self.mlp = DWConvFFN(dim, mlp_dim, dim, dw_conv)
+        self.mlp = DWConvFFN(dim, mlp_dim, dim, dw_conv, drop)
         self.drop_path = DropPath(drop_path)
         scaled = layer_scale > 0
         self.gamma1 = nn.Parameter(layer_scale * torch.ones(dim)) if scaled else None
@@ -143,18 +155,24 @@ class ViTBlock(nn.Module):
 class MixResViT(nn.Module):
     """Cascade stage 0.  forward(im, ...) -> (outs, tokens_per_scale) with
     outs {res{n_scales+1}: feat, _pos: (x, y), _scale, _spatial_shape,
-    min_spatial_shape}."""
+    min_spatial_shape}.  ``num_register_tokens``: zero-initialised
+    ``register_tokens`` prepended before the blocks and cut off after
+    them; ``dropout``: the blocks' feed-forward dropout."""
 
     def __init__(self, scale: int, n_scales: int, patch_size: int, min_patch_size: int,
                  d_model: int, n_layers: int, n_heads: int, mlp_ratio: float = 4.0,
-                 drop_path: Sequence[float] = (), layer_scale: float = 0.0):
+                 drop_path: Sequence[float] = (), layer_scale: float = 0.0,
+                 dropout: float = 0.0, num_register_tokens: int = 0):
         super().__init__()
         self.scale, self.n_scales = scale, n_scales
         self.patch_size, self.min_patch_size, self.d_model = patch_size, min_patch_size, d_model
         self.patch_embed = OverlapPatchEmbedding(patch_size, d_model)
+        self.register_tokens = (nn.Parameter(torch.zeros(1, num_register_tokens, d_model))
+                                if num_register_tokens else None)
         drop_path = tuple(drop_path) or (0.0,) * n_layers
         self.blocks = nn.ModuleList(
-            ViTBlock(d_model, n_heads, int(d_model * mlp_ratio), drop_path[i], layer_scale)
+            ViTBlock(d_model, n_heads, int(d_model * mlp_ratio), drop_path[i], layer_scale,
+                     drop=dropout)
             for i in range(n_layers))
         self.norm_out = layer_norm(d_model)
 
@@ -167,8 +185,12 @@ class MixResViT(nn.Module):
                                                 self.scale)
         pos = torch.from_numpy(pos_np).to(im.device)[None].expand(b, -1, 3)
         x = x + position_embedding_sine(pos[:, :, 1:], self.d_model // 2).to(x.dtype)
+        n_reg = 0 if self.register_tokens is None else self.register_tokens.shape[1]
+        if n_reg:
+            x = torch.cat([self.register_tokens.to(x.dtype).expand(b, -1, -1), x], dim=1)
         for blk in self.blocks:
             x = blk(x, *patched)
+        x = x[:, n_reg:]
         out = f"res{self.n_scales + 1}"
         outs = {out: self.norm_out(x), out + "_pos": pos[:, :, 1:],
                 out + "_spatial_shape": patched, out + "_scale": pos[:, :, 0],
@@ -179,15 +201,18 @@ class MixResViT(nn.Module):
 class MixResLayer(nn.Module):
     """Cluster-attention blocks over a mixed-scale point cloud: cluster on
     (x, y) along the space-filling curve, find each token's nearest clusters,
-    run the blocks, then restore the incoming (scale-segment) token order."""
+    run the blocks, then restore the incoming (scale-segment) token order.
+    ``drop`` / ``attn_drop``: the blocks' dropout (``ClusterTransformerBlock``)."""
 
     def __init__(self, dim: int, cluster_size: int, nbhd_size: int, depth: int, num_heads: int,
-                 mlp_ratio: float, drop_path: Sequence[float] = (), layer_scale: float = 0.0):
+                 mlp_ratio: float, drop_path: Sequence[float] = (), layer_scale: float = 0.0,
+                 drop: float = 0.0, attn_drop: float = 0.0):
         super().__init__()
         self.cluster_size, self.nbhd_size = cluster_size, nbhd_size
         drop_path = tuple(drop_path) or (0.0,) * depth
         self.blocks = nn.ModuleList(
-            ClusterTransformerBlock(dim, num_heads, mlp_ratio, drop_path[i], layer_scale)
+            ClusterTransformerBlock(dim, num_heads, mlp_ratio, drop_path[i], layer_scale, drop,
+                                    attn_drop)
             for i in range(depth))
 
     def forward(self, pos, feat, h: int, w: int):
@@ -219,7 +244,8 @@ class MixResNeighbour(nn.Module):
                  cluster_size: int = 8, nbhd_size: int = 48, mlp_ratio: float = 4.0,
                  split_ratio: int = 4, upscale_ratio: float = 0.25,
                  drop_path: Sequence[float] = (), layer_scale: float = 0.0,
-                 in_channels: int = 256, keep_old_scale: bool = True):
+                 in_channels: int = 256, keep_old_scale: bool = True, dropout: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
         self.scale, self.n_scales = scale, n_scales
         self.patch_sizes, self.min_patch_size = tuple(patch_sizes), min_patch_size
@@ -237,7 +263,7 @@ class MixResNeighbour(nn.Module):
         self.token_projection = (nn.Linear(in_channels, d_model) if in_channels != d_model
                                  else None)
         self.layers = MixResLayer(d_model, cluster_size, nbhd_size, n_layers, n_heads, mlp_ratio,
-                                  drop_path, layer_scale)
+                                  drop_path, layer_scale, dropout, attn_drop)
         self.norm_out = layer_norm(d_model)
 
     def _split_tokens(self, feat, pos, scores, k_split: int):
@@ -324,22 +350,12 @@ class MixResNeighbour(nn.Module):
         return outs, tps
 
 
-def refuse_unported_mixres(mr) -> None:
-    """Raise where MODEL.MR asks for register tokens or dropout, which are
-    not ported."""
-    if getattr(mr, "NUM_REGISTER_TOKENS", 0):
-        raise NotImplementedError("MixRes register tokens are not ported (ROADMAP.md section 1)")
-    if any(mr.DROP_RATE) or any(mr.ATTN_DROP_RATE):
-        raise NotImplementedError("MixRes dropout is not ported; the published configs set 0")
-
-
 def mixres_stage_from_config(cfg, li: int) -> nn.Module:
     """Cascade stage li's backbone from MODEL.MR (the JAX package's
     ``build_backbone_indexed``): MixResViT at stage 0, MixResNeighbour after."""
     mr = cfg.MODEL.MR
     n_scales = cfg.MODEL.MASK_FINER.NUM_RESOLUTION_SCALES
     name = mr.NAME[li]
-    refuse_unported_mixres(mr)
     # a scalar DROP_PATH_RATE is the end of one ramp over the whole depth; a
     # per-stage list gives stage li its own end on that ramp (the JAX rule)
     rate = mr.DROP_PATH_RATE
@@ -352,14 +368,16 @@ def mixres_stage_from_config(cfg, li: int) -> nn.Module:
                   mlp_ratio=mr.MLP_RATIO[li])
     if name == "MixResViT" and li == 0:
         return MixResViT(patch_size=mr.PATCH_SIZES[li], drop_path=drop_path,
-                         layer_scale=mr.LAYER_SCALE, **common)
+                         layer_scale=mr.LAYER_SCALE, dropout=mr.DROP_RATE[li],
+                         num_register_tokens=mr.NUM_REGISTER_TOKENS, **common)
     if name == "MixResNeighbour" and li > 0:
         return MixResNeighbour(
             patch_sizes=tuple(mr.PATCH_SIZES[:li + 1]), cluster_size=mr.CLUSTER_SIZE[li],
             nbhd_size=mr.NBHD_SIZE[li], split_ratio=mr.SPLIT_RATIO[li],
             upscale_ratio=mr.UPSCALE_RATIO[li], drop_path=drop_path, layer_scale=mr.LAYER_SCALE,
             in_channels=cfg.MODEL.MR_SEM_SEG_HEAD.CONVS_DIM[li - 1],
-            keep_old_scale=mr.KEEP_OLD_SCALE, **common)
+            keep_old_scale=mr.KEEP_OLD_SCALE, dropout=mr.DROP_RATE[li],
+            attn_drop=mr.ATTN_DROP_RATE[li], **common)
     raise NotImplementedError(
         f"cascade stage {li} backbone {name!r} is not ported: MixResViT first, MixResNeighbour "
         "after (XAttn, ConvNeXtV2 and the other variants wait; ROADMAP.md section 1)")

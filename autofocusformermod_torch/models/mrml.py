@@ -107,10 +107,6 @@ class MixResMetaLoss(nn.Module):
         self.downsamplers = nn.ModuleList(nn.Linear(embed_dims[l], embed_dims[l + 1])
                                           for l in splits)
 
-    def set_drop_path_generator(self, generator) -> None:
-        """No DropPath: the JAX package builds this backbone without it
-        (it does not read DROP_PATH_RATE)."""
-
     def scores(self, l: int, feat: torch.Tensor) -> torch.Tensor:
         """Scale l's split scores of its newest tokens (b, n, c) -> (b, n):
         the predicted meta loss, or the mean absolute activation; no
@@ -211,7 +207,6 @@ class MaskFormerML(MaskFormer):
     'metaloss_pos' (their (b, n, 2) positions on the min-patch canvas)."""
 
     def forward(self, images: torch.Tensor) -> Dict:
-        self.refuse_dropout()
         feats = self.backbone(self.normalize(images).to(self.compute_dtype))
         out = self.sem_seg_head(feats)
         n = self.backbone.n_scales - 1
@@ -240,7 +235,7 @@ def maskformer_ml_from_config(cfg) -> MaskFormerML:
                                            else "MixResMetaLoss")
     refuse_islands(cfg, "MaskFormerML")
     return MaskFormerML(backbone, head, tuple(cfg.MODEL.PIXEL_MEAN), tuple(cfg.MODEL.PIXEL_STD),
-                        cfg.MODEL.MASK_FORMER.DROPOUT, compute_dtype(cfg))
+                        compute_dtype(cfg))
 
 
 def metaloss_l1(pred_metaloss: torch.Tensor, pos_xy: torch.Tensor, error_map: torch.Tensor,

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..geometry.gridnn import lex_sort, pos_index_lut
+from ..geometry.gridnn import grid_neighbors9, lex_sort, pos_index_lut
 from ..geometry.knn import knn
 from ..geometry.morton import is_pow2, morton_perm, morton_rank
 from ..geometry.shepard import shepard_decay_weights, upsample_feature_shepard
@@ -49,7 +49,8 @@ from ..ops.gather import take_rows, take_scalars
 from ..ops.msdetrpc import msdetrpc_bh, msdetrpc_levels, msdetrpc_levels_s, msdetrpc_levels_t
 from ..ops.window_gather import windowed_row_gather
 from ..dtypes import promoted
-from .layers import WeightNet, dense, layer_norm, position_embedding_sine, rel_pos_features
+from .layers import (Dropout, WeightNet, dense, layer_norm, position_embedding_sine,
+                     rel_pos_features)
 
 # The layout of the sampling operands (module docstring).  Read at call time:
 # set them on this module to choose a layout.
@@ -149,7 +150,9 @@ class PointConv(nn.Module):
         """With ``spatial_shape`` and tokens that cover that grid (the AFF FPN
         level): interior cells mix their 3x3 neighbourhood with nine constant
         weight vectors (nine shifted adds in raster order); border cells take
-        their exact 9-NN, ties by lowest token index.  Otherwise (any point
+        their exact 9-NN, ties by lowest token index.  A full grid narrower
+        than 3 takes every token's exact 9 nearest grid tokens from a window
+        (``grid_neighbors9``, JAX's route there).  Otherwise (any point
         cloud, such as the MRML finest level): each token's min(9, n)
         nearest tokens (``knn``), weights from their truncated offsets."""
         b, n, c = x.shape
@@ -157,7 +160,7 @@ class PointConv(nn.Module):
             return self._knn_route(x, pos)
         h_, w_ = int(spatial_shape[0]), int(spatial_shape[1])
         if h_ < 3 or w_ < 3:
-            raise NotImplementedError("PointConv is ported for full grids of at least 3x3")
+            return self._knn_route(x, pos, grid_neighbors9(pos, h_, w_))
         dev = x.device
         border, cand_cells, cand_d2 = _grid9_static(h_, w_)
         nb = len(border)
@@ -195,9 +198,10 @@ class PointConv(nn.Module):
         feat = take_rows(acc.reshape(b, n, -1), cell)
         return self.linear(self.norm(feat))
 
-    def _knn_route(self, x, pos):
+    def _knn_route(self, x, pos, nn_idx=None):
         b, n, _ = x.shape
-        nn_idx = knn(pos, pos, min(9, n))
+        if nn_idx is None:
+            nn_idx = knn(pos, pos, min(9, n))
         rel = torch.trunc(pos[:, :, None, :] - take_rows(pos, nn_idx))   # as the reference's .long()
         weights = self.weight_net(rel_pos_features(rel)).to(x.dtype)     # (b, n, k, ic)
         feat = cluster_wf(weights, x, nn_idx).reshape(b, n, -1)
@@ -421,11 +425,13 @@ def activation_fn(name: str):
 
 class MSDeformAttnEncoderLayerPc(nn.Module):
     """Deformable self-attention + FFN encoder layer (post-norm; the FFN's
-    ``activation``: relu or lrelu)."""
+    ``activation``: relu or lrelu).  ``dropout`` in train mode, per level:
+    on the attention's output (``dropout1``), inside the FFN (``dropout2``)
+    and on its output (``dropout3``), as the JAX layer's three drops."""
 
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int, n_points: int,
                  shepard_power: float, shepard_power_learnable: bool = True,
-                 activation: str = "relu"):
+                 activation: str = "relu", dropout: float = 0.0):
         super().__init__()
         self.act = activation_fn(activation)
         self.self_attn = MSDeformAttnPc(d_model, n_levels, n_heads, n_points, shepard_power,
@@ -434,14 +440,17 @@ class MSDeformAttnEncoderLayerPc(nn.Module):
         self.norm2 = layer_norm(d_model)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
+        self.dropout1, self.dropout2, self.dropout3 = (Dropout(dropout), Dropout(dropout),
+                                                       Dropout(dropout))
 
     def forward(self, srcs, poss, spatial_shapes, pos_embeds, nb_packed, nb_packed_t=None):
         with_pe = [s + p for s, p in zip(srcs, pos_embeds)]
         src2s = self.self_attn(with_pe, poss, srcs, spatial_shapes, nb_packed, nb_packed_t)
         outs = []
         for src, src2 in zip(srcs, src2s):
-            src = self.norm1(src + src2)
-            outs.append(self.norm2(src + self.linear2(self.act(self.linear1(src)))))
+            src = self.norm1(src + self.dropout1(src2))
+            ffn = self.linear2(self.dropout2(self.act(self.linear1(src))))
+            outs.append(self.norm2(src + self.dropout3(ffn)))
         return outs
 
 
@@ -466,7 +475,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
     form): every level, the FPN ones too, is Shepard-upsampled onto the
     whole finest grid, and the mask features are read off that grid.
     ``activation``: the nonlinearity of the encoder layers' FFN and of the
-    FPN (relu or lrelu)."""
+    FPN (relu or lrelu); ``dropout``: the encoder layers' rate."""
 
     def __init__(self, feature_channels: Dict[str, int],
                  in_features: Sequence[str] = ("res2", "res3", "res4", "res5"),
@@ -477,7 +486,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
                  common_stride: int = 4, n_points: int = 4, shepard_power: float = 3.0,
                  shepard_power_learnable: bool = True, maskformer_num_feature_levels: int = 3,
                  num_fpn_levels: Optional[int] = None, mask_on_full_grid: bool = False,
-                 activation: str = "relu"):
+                 activation: str = "relu", dropout: float = 0.0):
         super().__init__()
         self.maskformer_num_feature_levels = maskformer_num_feature_levels
         self.mask_on_full_grid = mask_on_full_grid
@@ -500,7 +509,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
         self.transformer.encoder.layers = nn.ModuleList(
             MSDeformAttnEncoderLayerPc(conv_dim, transformer_dim_feedforward, num_levels,
                                        transformer_nheads, n_points, shepard_power,
-                                       shepard_power_learnable, activation)
+                                       shepard_power_learnable, activation, dropout)
             for _ in range(transformer_enc_layers))
         for idx, f in enumerate(self.in_features[:num_fpn_levels][::-1]):
             self.add_module(f"adapter_{idx + 1}", nn.Sequential(
@@ -585,6 +594,7 @@ def pixel_decoder_from_config(cfg, feature_channels: Dict[str, int],
         transformer_nheads=cfg.MODEL.MASK_FORMER.NHEADS,
         transformer_dim_feedforward=1024,
         transformer_enc_layers=h.TRANSFORMER_ENC_LAYERS,
+        dropout=cfg.MODEL.MASK_FORMER.DROPOUT,
         common_stride=h.COMMON_STRIDE,
         # distances are squared, so halve the configured power
         shepard_power=cfg.MODEL.AFF.SHEPARD_POWER / 2.0,

@@ -113,9 +113,6 @@ class ResNet(nn.Module):
             self.add_module(f"res{stage + 2}", nn.Sequential(*blocks))
             out_ch *= 2
 
-    def set_drop_path_generator(self, generator) -> None:
-        """No DropPath in a ResNet: nothing draws."""
-
     def forward(self, x: torch.Tensor) -> Dict:
         y = self.stem(x.permute(0, 3, 1, 2))
         b = y.shape[0]

@@ -193,13 +193,6 @@ class SwinTransformer(nn.Module):
                 self.add_module(f"norm{i}", layer_norm(dim))
             dim *= 2
 
-    def set_drop_path_generator(self, generator: Optional[torch.Generator]) -> None:
-        """Every DropPath of the backbone draws its keep decisions from this
-        generator, in forward order."""
-        for m in self.modules():
-            if isinstance(m, DropPath):
-                m.generator = generator
-
     def forward(self, x: torch.Tensor) -> Dict:
         x = self.patch_embed(x)
         b, c, h, w = x.shape

@@ -34,7 +34,7 @@ import torch
 from torch import nn
 
 from .layers import layer_norm
-from .mixres import MixResLayer, MixResNeighbour, MixResViT, refuse_unported_mixres
+from .mixres import MixResLayer, MixResNeighbour, MixResViT
 from .oracle import gt_edge_map, mix_teacher_mask, oracle_upsampling_mask
 
 
@@ -69,10 +69,14 @@ class UpDownBackbone(nn.Module):
                  nbhd_sizes: Sequence[int], upscale_ratios: Sequence[float],
                  split_ratios: Sequence[int], drop_path_rate: float = 0.0,
                  layer_scale: float = 0.0, keep_old_scale: bool = True,
-                 oracle_ratio: float = 0.0, ignore_label: int = 255, down_only: bool = False):
+                 oracle_ratio: float = 0.0, ignore_label: int = 255, down_only: bool = False,
+                 drop_rates: Sequence[float] = (), attn_drop_rates: Sequence[float] = (),
+                 num_register_tokens: int = 0):
         super().__init__()
         n = n_scales
         n_stages = n if down_only else 2 * n - 1
+        drop_rates = tuple(drop_rates) or (0.0,) * n_stages
+        attn_drop_rates = tuple(attn_drop_rates) or (0.0,) * n_stages
         kind = "OracleTeacherBackbone" if down_only else "UpDownBackbone"
         if len(names) != n_stages:
             raise ValueError(f"{kind} needs {n_stages} per-stage entries, got {len(names)}")
@@ -98,7 +102,8 @@ class UpDownBackbone(nn.Module):
         self.backbones = nn.ModuleList([MixResViT(
             scale=0, n_scales=n, patch_size=patch_sizes[0], min_patch_size=min_ps,
             d_model=embed_dims[0], n_layers=depths[0], n_heads=num_heads[0],
-            mlp_ratio=mlp_ratios[0], drop_path=stage_drop_path(0), layer_scale=layer_scale)])
+            mlp_ratio=mlp_ratios[0], drop_path=stage_drop_path(0), layer_scale=layer_scale,
+            dropout=drop_rates[0], num_register_tokens=num_register_tokens)])
         for s in range(1, n):
             self.backbones.append(MixResNeighbour(
                 scale=s, n_scales=n, patch_sizes=tuple(patch_sizes[:s + 1]),
@@ -106,7 +111,8 @@ class UpDownBackbone(nn.Module):
                 n_heads=num_heads[s], cluster_size=cluster_sizes[s], nbhd_size=nbhd_sizes[s],
                 mlp_ratio=mlp_ratios[s], split_ratio=split_ratios[s],
                 upscale_ratio=upscale_ratios[s], drop_path=stage_drop_path(s),
-                layer_scale=layer_scale, in_channels=embed_dims[s - 1], keep_old_scale=True))
+                layer_scale=layer_scale, in_channels=embed_dims[s - 1], keep_old_scale=True,
+                dropout=drop_rates[s], attn_drop=attn_drop_rates[s]))
         self.upsamplers = nn.ModuleList(MLPDeepNorm(embed_dims[s], embed_dims[s], 1)
                                         for s in range(n - 1))
         self.up_token_norm, self.up_token_projection = nn.ModuleList(), nn.ModuleList()
@@ -120,7 +126,7 @@ class UpDownBackbone(nn.Module):
             nbhd = math.inf if names[t] == "MixResViT" else nbhd_sizes[t]
             self.backbones.append(MixResLayer(embed_dims[t], cluster_sizes[t], nbhd, depths[t],
                                               num_heads[t], mlp_ratios[t], stage_drop_path(t),
-                                              layer_scale))
+                                              layer_scale, drop_rates[t], attn_drop_rates[t]))
         # each resolution's width: the last stage that emits it
         self.out_channels = {f"res{n - t + 1}": embed_dims[n - 1] for t in range(n)}
         if not down_only:
@@ -211,7 +217,6 @@ def updown_from_config(cfg, down_only: bool = False) -> UpDownBackbone:
     OracleTeacherBackbone from n-entry lists.  A list-valued DROP_PATH_RATE
     is read as its largest entry, the end of the one ramp."""
     mr = cfg.MODEL.MR
-    refuse_unported_mixres(mr)
     rate = mr.DROP_PATH_RATE
     return UpDownBackbone(
         n_scales=cfg.MODEL.MASK_FINER.NUM_RESOLUTION_SCALES, names=tuple(mr.NAME),
@@ -223,4 +228,6 @@ def updown_from_config(cfg, down_only: bool = False) -> UpDownBackbone:
                         else float(rate)),
         layer_scale=mr.LAYER_SCALE, keep_old_scale=mr.KEEP_OLD_SCALE,
         oracle_ratio=cfg.MODEL.MASK_FINER.ORACLE_TEACHER_RATIO,
-        ignore_label=cfg.MODEL.MR_SEM_SEG_HEAD.IGNORE_VALUE, down_only=down_only)
+        ignore_label=cfg.MODEL.MR_SEM_SEG_HEAD.IGNORE_VALUE, down_only=down_only,
+        drop_rates=tuple(mr.DROP_RATE), attn_drop_rates=tuple(mr.ATTN_DROP_RATE),
+        num_register_tokens=mr.NUM_REGISTER_TOKENS)

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -72,12 +72,16 @@ def local_cluster_attention_reference(
     pos_bias: torch.Tensor,
     cluster_mask: Optional[torch.Tensor],
     blank_attn: torch.Tensor,
+    drop: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Unfused gather composition.
 
     q/key/v: (b, h, n, c_); member_idx: (b, n, m); pos_bias: (b, n, m, h);
     cluster_mask: (b, n, m) or None; blank_attn: (b, h, n, 1) pre-softmax
-    logit.  Returns (feat (b, h, n, c_), blank_prob (b, h, n, 1)).
+    logit; ``drop``: applied to the probabilities (b, h, n, m + 1), the
+    blank sink's column with them, before they are split (the JAX gather
+    path's attention dropout).  Returns (feat (b, h, n, c_), blank_prob (b,
+    h, n, 1)).
 
     Padded slots (mask 0: past the last token of a cut last cluster) are
     excluded exactly, as the kernels and the JAX package's semantic
@@ -94,4 +98,6 @@ def local_cluster_attention_reference(
     if cluster_mask is not None:
         attn = attn.masked_fill(cluster_mask.reshape(b, 1, n, -1) == 0, -torch.inf)
     attn = torch.softmax(torch.cat([attn, blank_attn], dim=-1), dim=-1)
+    if drop is not None:
+        attn = drop(attn)
     return cluster_av(attn[..., :-1], v, member_idx), attn[..., -1:]

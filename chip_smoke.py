@@ -5,8 +5,9 @@ resume, the pixel decoder's alternate operand layouts, the AFF-Mini-1/5
 preset, MaskFiner-Mini inference, training from the dataset loader with
 evaluation, MaskFiner-Mini training, Cityscapes-panoptic and
 COCO-instance training and evaluation, the Swin-B and R50 grid
-baselines, and the MaskFiner-UpDown-Mini (OracleTeacher-BB) cascade -- on
-one NVIDIA GPU.
+baselines, the MaskFiner-UpDown-Mini (OracleTeacher-BB) cascade, and the
+JAX package's flagship trained at its decoder dropout with the AFF and
+MaskFiner variants -- on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -236,6 +237,14 @@ one NVIDIA GPU.
    (WORLD_SIZE=1: an NCCL group, the DDP wrapper, the evaluators' merge)
    for 2 steps and --eval-only on two images; times to
    chiprun_out/phase21.json.
+
+22. what the ported models refused or ignored until then (see
+   dropout_phase): the JAX package's flagship trained at its decoder
+   dropout 0.1 as bench.py trains it (AMP, 512x512, batch 8, 2 steps),
+   AFF-Mini without the reserved grid at a 64-token span, and MaskFiner-Mini
+   with the pre-norm Cat decoder, MASK_DECODER_ALL_LEVELS, a HierUp stage and
+   its stage dropouts; every step replayed through the plain versions, each
+   Dropout's kept share held; times to chiprun_out/phase22.json.
 
 Phases 6, 8, 9, 10, 13, 14, 15, 16 and 17 compare training steps whose second run replays
 the first run's discrete choices (same_choices), held to LOSS_RTOL and
@@ -1927,19 +1936,27 @@ def device_busy(fn, runs=3):
     tree (key_averages) took 5-9 s a call on the host, and the host's
     operator rows are not needed."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
+    busy, rows = device_rows(prof, "device_busy")
+    return busy / runs, rows / runs
+
+
+def device_rows(prof, label):
+    """(busy ms, rows) of a finished profiler session: its kernel, memcpy
+    and memset rows on the card, ranges left out."""
+    from torch.autograd import DeviceType
+
     rows = [e for e in prof.profiler.kineto_results.events()
             if e.device_type() == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", lambda: False)()]
     if not rows:
-        raise SystemExit("device_busy: the profiler recorded no row on the card")
-    return sum(e.duration_ns() for e in rows) / 1e6 / runs, len(rows) / runs
+        raise SystemExit(f"{label}: the profiler recorded no row on the card")
+    return sum(e.duration_ns() for e in rows) / 1e6, len(rows)
 
 
 class decoder_layout:
@@ -2484,7 +2501,8 @@ def group_norms(model):
 
 
 def replay_step(label, model, cfg, batch, draw, near_ties=False, loss_rtol=LOSS_RTOL,
-                group_rtol=GROUP_NORM_RTOL, floors=None, near_tie_floors=None):
+                group_rtol=GROUP_NORM_RTOL, floors=None, near_tie_floors=None,
+                disagreement=False):
     """One training step's forward, criterion and backward from the model's
     weights through the kernels, then through the plain versions from the
     same weights, batch and draws (`draw()` makes the criterion's generator
@@ -2493,24 +2511,29 @@ def replay_step(label, model, cfg, batch, draw, near_ties=False, loss_rtol=LOSS_
     `group_rtol`, and that every parameter the plain step gives a
     gradient gets one through the kernels.  Where the plain run does not
     fit the card, both runs are made again on the first half of the batch,
-    and the log says so.  DropPath's generators and an OracleTeacher model's
-    teacher generator start each run from the same state, so both drop the
-    same branches and take the same teacher draws.  The weights and those
+    and the log says so.  The generators of DropPath and Dropout and an
+    OracleTeacher model's teacher generator start each run from the same
+    state, so both drop the same branches and elements and take the same
+    teacher draws.  The weights and those
     generators are restored and the gradients cleared after.  near_ties:
     the matches and ranked points may pass under their floors as
-    same_choices.check allows (`floors`, `near_tie_floors`: its floors).  -> (batch used, kernels' ms, plain ms,
-    kernels' peak GiB, plain peak GiB), each the first call of its path."""
+    same_choices.check allows (`floors`, `near_tie_floors`: its floors).
+    disagreement: a MaskFiner cascade's split order is held, as phase 13
+    holds it, through each stage's disagreement (check_disagreement on both
+    runs' gini_disagreement inputs), not by its positional agreement.  ->
+    (batch used, kernels' ms, plain ms, kernels' peak GiB, plain peak GiB),
+    each the first call of its path."""
     import contextlib
     import copy
 
     import torch
     from autofocusformermod_torch.engine.train_step import TrainStep
-    from autofocusformermod_torch.models.layers import DropPath
+    from autofocusformermod_torch.models.layers import Stochastic
     from autofocusformermod_torch.ops.dispatch import plain_versions
 
     initial = copy.deepcopy(model.state_dict())
     gens = {id(m.generator): m.generator for m in model.modules()
-            if isinstance(m, DropPath) and m.generator is not None}
+            if isinstance(m, Stochastic) and m.generator is not None}
     # an OracleTeacher model's teacher draws
     for owner in (model, getattr(model, "backbone", None)):
         if getattr(owner, "oracle_generator", None) is not None:
@@ -2522,13 +2545,14 @@ def replay_step(label, model, cfg, batch, draw, near_ties=False, loss_rtol=LOSS_
         for k, g in gens.items():
             g.set_state(gen_states[k])
 
-    def run(part, plain, book):
+    def run(part, plain, book, gini):
         restore()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         with plain_versions() if plain else contextlib.nullcontext(), \
-                same_choices(book, record=not plain, near_ties=near_ties):
+                same_choices(book, record=not plain, near_ties=near_ties), \
+                gini_inputs(*gini) if disagreement else contextlib.nullcontext():
             total, losses, _ = TrainStep(model, cfg).loss_and_grads(part, draw())
         torch.cuda.synchronize()
         ms = (time.time() - t0) * 1e3
@@ -2539,10 +2563,10 @@ def replay_step(label, model, cfg, batch, draw, near_ties=False, loss_rtol=LOSS_
     n = batch["image"].shape[0]
     while True:
         part = {k: v[:n] for k, v in batch.items()}
-        book = {}
-        k_terms, k_norms, k_graded, k_ms, k_peak = run(part, False, book)
+        book, gini = {}, (([], []), ([], []))
+        k_terms, k_norms, k_graded, k_ms, k_peak = run(part, False, book, gini[0])
         try:
-            p_terms, p_norms, p_graded, p_ms, p_peak = run(part, True, book)
+            p_terms, p_norms, p_graded, p_ms, p_peak = run(part, True, book, gini[1])
             break
         except torch.cuda.OutOfMemoryError:
             model.zero_grad(set_to_none=True)
@@ -2566,7 +2590,10 @@ def replay_step(label, model, cfg, batch, draw, near_ties=False, loss_rtol=LOSS_
         + f"; worst rel diff {max(group.values()):.3e}")
     log(f"  parameters with a gradient: plain {len(p_graded)} of "
         f"{sum(1 for _ in model.parameters())}; of those, zero through the kernels: {len(missing)}")
-    same_choices.check(f"{label} step", book, floors=floors, near_tie_floors=near_tie_floors)
+    if disagreement:
+        check_disagreement(f"{label} step", gini[0][1], gini[1][1], gini[0][0], gini[1][0])
+    same_choices.check(f"{label} step", book, by_scores=("split tokens",) if disagreement else (),
+                       floors=floors, near_tie_floors=near_tie_floors)
     if not all(math.isfinite(v) for v in k_terms.values()):
         raise SystemExit(f"{label} step: non-finite loss terms {k_terms}")
     if missing:
@@ -5865,6 +5892,7 @@ def amp_phase(dev, smi, gen, counters, opts=(), size=AMP_SIZE, batch=AMP_BATCH, 
     from autofocusformermod_torch.engine.train import Trainer
     from autofocusformermod_torch.engine.train_step import TrainStep
     from autofocusformermod_torch.losses.criterion import device_draw
+    from autofocusformermod_torch.models.layers import set_dropout_generator
     from autofocusformermod_torch.models.maskformer import init_random_weights
     from autofocusformermod_torch.models.registry import build_model
     from autofocusformermod_torch.ops.build import BUILD_DIR
@@ -6032,9 +6060,9 @@ def amp_phase(dev, smi, gen, counters, opts=(), size=AMP_SIZE, batch=AMP_BATCH, 
         step32 = TrainStep(model32, cfg32)
         n_out = cfg.MODEL.MASK_FINER.DEC_LAYERS[-1]
         record["steps"] = []
-        drop_path = trainer.generators["drop_path"]
+        drop_path = trainer.generators["dropout"]
         gen32 = torch.Generator(device=dev)
-        model32.set_drop_path_generator(gen32)
+        set_dropout_generator(model32, gen32)
         for i, b in enumerate(batches):
             used, r_ms, p_ms, r_peak, p_peak = replay_step(
                 f"{AMP_PRESET} AMP step {i + 1}", model, cfg, b, lambda: draw(i + 1), True,
@@ -6768,6 +6796,333 @@ def distributed_phase(dev, smi, counters, opts=()):
     return record, total
 
 
+# phase 22: what the ported models once refused or ignored.  (a) the
+# JAX package's flagship (__graft_entry__._flagship_cfg: AFF-Mini, CONVS_DIM
+# 128, MASK_FORMER.DROPOUT at its default 0.1) trained as bench.py trains it:
+# 512x512, batch 8, SOLVER.AMP.ENABLED; (b) AFF-Mini without the reserved grid
+# and with clusters of 64 over neighbourhoods of 48 (K1 and K2 at a 64-token
+# span), one block a stage; (c) MaskFiner-Mini, one block a stage, with the
+# pre-norm Cat decoder, MASK_DECODER_ALL_LEVELS, a HierUp last stage and the
+# stage dropouts at 0.1
+DROPOUT_SIZE, DROPOUT_BATCH, DROPOUT_STEPS = 512, 8, 2
+DROPOUT_SPAN_OPTS = ["MODEL.AFF.DEPTHS", "[1, 1, 1, 1]", "MODEL.AFF.RESERVE", "False",
+                     "MODEL.AFF.CLUSTER_SIZE", "64", "MODEL.AFF.NBHD_SIZE", "[48, 48, 48, 48]"]
+DROPOUT_CASCADE_OPTS = [
+    "MODEL.MR.DEPTHS", "[1, 1, 1, 1]", "MODEL.MASK_FINER.PRE_NORM", "True",
+    "MODEL.MASK_FINER.MASK_DECODER_ALL_LEVELS", "True",
+    "MODEL.MASK_FINER.TRANSFORMER_DECODER_NAME", "MultiScaleMaskFinerTransformerDecoderCat",
+    "MODEL.MR_SEM_SEG_HEAD.DROPOUT", "0.1", "MODEL.MR.DROP_RATE", "[0.1, 0.1, 0.1, 0.1]",
+    # the HierUp stage's decoder reads its three transformer levels: the JAX
+    # HierUp decoder hands on its FPN level painted on the whole grid but
+    # with its tokens' own positions, which a decoder reading it cannot add
+    # (in either package)
+    "MODEL.MASK_FINER.DECODER_LEVELS", "[1, 2, 3, 3]"]
+# one pixel decoder name a stage (the preset's one name is a string)
+DROPOUT_CASCADE_DECODERS = ["MSDeformAttnPixelDecoderMaskFiner"] * 3 + [
+    "MSDeformAttnPixelDecoderMaskFinerHierUp"]
+# a Dropout's kept share over a step against 1 - rate: within this many
+# standard deviations of the binomial share of its elements
+DROPOUT_SIGMAS = 5.0
+# the kernels each run of (b) and (c) must launch at least once
+DROPOUT_PATH_KERNELS = ("local_attn", "local_attn_bwd", "msdetrpc", "msdetrpc_bwd", "knn",
+                        "point_sample", "point_sample_bwd", "lapjv")
+
+
+class dropout_census:
+    """Within the block every Dropout of `model` that drops counts the
+    elements it keeps and draws (on the card, read once at the end);
+    `shares()` -> {module: (kept share, rate, elements, bound)} with bound =
+    DROPOUT_SIGMAS binomial standard deviations of the share."""
+
+    def __init__(self, model):
+        self.model, self.counts, self.rates = model, {}, {}
+
+    def __enter__(self):
+        from autofocusformermod_torch.models.layers import Dropout
+
+        for name, m in self.model.named_modules():
+            if isinstance(m, Dropout) and m.rate > 0:
+                m.keep_mask = self._wrap(name, m)
+        return self
+
+    def _wrap(self, name, module):
+        draw = type(module).keep_mask
+
+        def keep_mask(shape, device):
+            mask = draw(module, shape, device)
+            kept, total = self.counts.get(name, (0, 0))
+            self.counts[name] = (kept + mask.sum(), total + mask.numel())
+            return mask
+
+        self.rates[name] = module.rate
+        return keep_mask
+
+    def __exit__(self, *exc):
+        from autofocusformermod_torch.models.layers import Dropout
+
+        for m in self.model.modules():
+            if isinstance(m, Dropout) and "keep_mask" in m.__dict__:
+                del m.keep_mask
+
+    def shares(self):
+        out = {}
+        for name, (kept, total) in self.counts.items():
+            p = self.rates[name]
+            out[name] = (float(kept) / total, p, total,
+                         DROPOUT_SIGMAS * math.sqrt(p * (1 - p) / total))
+        return out
+
+    def check(self, label):
+        """Every Dropout of the model drew, each within its bound; -> the
+        worst (|share - (1 - rate)| / bound, module)."""
+        shares = self.shares()
+        if set(shares) != set(self.rates) or not shares:
+            raise SystemExit(f"{label}: Dropouts {sorted(set(self.rates) - set(shares))} drew "
+                             f"nothing; {len(shares)} drew")
+        worst = max((abs(s - (1 - p)) / b, n) for n, (s, p, t, b) in shares.items())
+        for name, (share, p, total, b) in shares.items():
+            if abs(share - (1 - p)) > b:
+                raise SystemExit(f"{label}: {name} kept {share:.5f} of {total} elements at rate "
+                                 f"{p}, outside 1 - rate +- {b:.2e} ({DROPOUT_SIGMAS:g} sigma)")
+        log(f"  {label}: {len(shares)} Dropouts drew, each kept share within "
+            f"{DROPOUT_SIGMAS:g} sigma of 1 - rate; worst {worst[0]:.2f} of the bound at "
+            f"{worst[1]} ({shares[worst[1]][0]:.5f} of {shares[worst[1]][2]} at rate "
+            f"{shares[worst[1]][1]})")
+        return {"dropouts": len(shares), "worst_of_bound": worst[0], "worst_module": worst[1],
+                "shares": {n: s[:3] for n, s in shares.items()}}
+
+
+@contextlib.contextmanager
+def computing_fp32(model):
+    """Within the block `model` computes in fp32, as built without
+    SOLVER.AMP.ENABLED (every module's compute_dtype; the fp32 masters are
+    the weights either way)."""
+    import torch
+
+    saved = [(m, m.compute_dtype) for m in model.modules() if hasattr(m, "compute_dtype")]
+    for m, _ in saved:
+        m.compute_dtype = torch.float32
+    try:
+        yield
+    finally:
+        for m, dtype in saved:
+            m.compute_dtype = dtype
+
+
+def profiled_step(fn):
+    """(fn(), ms between synchronisations of the card, device busy ms, rows):
+    one call under the profiler (raw device events, as device_busy)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+    return (out, ms, *device_rows(prof, "profiled_step"))
+
+
+def dropout_phase(dev, smi, gen, counters, flagship_opts=(), span_opts=(), cascade_opts=(),
+                  size=DROPOUT_SIZE, batch=DROPOUT_BATCH, steps=DROPOUT_STEPS,
+                  out_dir="chiprun_out"):
+    """Phase 22 (a)-(c).  Every model is a Trainer's (seeded random weights,
+    synthetic label maps, 100 target slots).  (a) the flagship: `steps`
+    steps at `batch`, each replayed through the plain versions first in
+    fp32 (replay_step under computing_fp32, LOSS_RTOL: the dropout stream
+    restored, so both runs drop alike; under AMP a kernel's last bit moves
+    bf16 roundings, and the AFF keep scores' bf16 near ties flip, so the
+    tight comparison is the fp32 one, as phase 6's), then the Trainer's AMP
+    step under the profiler (ms, device busy, peak GiB; launches per step
+    as phase 6's; each Dropout's kept share, dropout_census).  (b) K1, K3 and K9 on a forward's operands and
+    K2, K4, K10, the ranking's read and K13 on a real step's, each against
+    its plain version; a step replayed through the plain versions, then the
+    Trainer's (launches as phase 6's at one block a stage); in train mode
+    at ATTN_DROP_RATE 0.1 the kernel path raises.  (c) a step replayed (the
+    split order held through each stage's disagreement, as phase 13 holds
+    it; matches and ranked points against their scores, as phase 17's
+    cascades), then the Trainer's (kept shares held); with
+    NUM_REGISTER_TOKENS 2 the cascade raises at stage 0's depthwise conv,
+    as JAX's does.  Extra overrides per model for a rehearsal.  Appends the
+    records to out_dir/phase22.json.  Returns ({kernel: {path: record}},
+    {counter: launches of the phase's runs through the kernels})."""
+    import tempfile
+
+    import torch
+    from autofocusformermod_torch.config import PRESETS
+    from autofocusformermod_torch.data.synthetic import synthetic_batches
+    from autofocusformermod_torch.engine.train import Trainer
+    from autofocusformermod_torch.graft_entry import _flagship_cfg
+    from autofocusformermod_torch.losses.criterion import device_draw
+    from autofocusformermod_torch.models.maskformer import init_random_weights
+    from autofocusformermod_torch.models.registry import build_model
+    from autofocusformermod_torch.ops.build import BUILD_DIR
+
+    paths, total, record = {}, dict.fromkeys(counters, 0), {"card": smi, "size": size}
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def draw(i):
+        return device_draw(torch.Generator(device=dev).manual_seed(SEED + i))
+
+    def add(got):
+        for name, k in got.items():
+            total[name] += k
+
+    def trainer_for(cfg, tmp):
+        cfg.merge_from_list(["SOLVER.IMS_PER_BATCH", str(batch), "OUTPUT_DIR", tmp,
+                             "INPUT.CROP.SIZE", f"[{size}, {size}]"])
+        trainer = Trainer(cfg, dev)
+        init_random_weights(trainer.model, torch.Generator().manual_seed(SEED))
+        return trainer, synthetic_batches(cfg, dev)
+
+    def steps_of(label, trainer, cfg, batches, n, replay_args, want=None, replay_scope=None):
+        """n steps: each replayed (within `replay_scope(model)`), then the
+        Trainer's under the profiler."""
+        model, recs = trainer.model.train(), []
+        for i in range(n):
+            b = next(batches)
+            with (replay_scope or (lambda m: contextlib.nullcontext()))(model):
+                used, r_ms, p_ms, r_peak, p_peak = replay_step(
+                    f"{label} step {i + 1}", model, cfg, b, lambda: draw(i + 1), *replay_args)
+            reset()
+            torch.cuda.reset_peak_memory_stats()
+            with dropout_census(model) as census:
+                metrics, ms, busy, rows = profiled_step(lambda: trainer.step_fn(b, draw(i + 1)))
+            got = {name: c.launches for name, c in counters.items()}
+            add(got)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if not all(torch.isfinite(v).all() for v in metrics.values()):
+                raise SystemExit(f"{label} step {i + 1}: non-finite metrics")
+            log(f"  {label} step {i + 1} at batch {batch} (the Trainer's, profiled): {ms:.1f} ms, "
+                f"device busy {busy:.2f} ms in {rows} rows ({busy / ms:.0%}), peak {peak:.2f} "
+                f"GiB, total loss {metrics['total_loss'].item():.6f}, grad_norm "
+                f"{metrics['grad_norm'].item():.5f}; launches {got}; the replay's plain step "
+                f"(batch {used}) {p_ms:.1f} ms, peak {p_peak:.2f} GiB ({smi})")
+            if want is not None and any(got[k] != v for k, v in want.items()):
+                raise SystemExit(f"{label} step {i + 1}: launched {got}, expected {want}")
+            missing = [k for k in DROPOUT_PATH_KERNELS if k in got and not got[k]]
+            if missing:
+                raise SystemExit(f"{label} step {i + 1}: {missing} never launched")
+            kept = census.check(f"{label} step {i + 1}") if census.rates else None
+            recs.append({"ms": ms, "busy_ms": busy, "rows": rows, "peak_gib": peak,
+                         "plain_ms": p_ms, "plain_peak_gib": p_peak, "replayed_batch": used,
+                         "total_loss": metrics["total_loss"].item(), "launches": got,
+                         "dropout": kept})
+            del b, metrics
+        return recs
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR.parent, prefix="dropout_") as tmp:
+        # (a) the flagship as bench.py trains it
+        t0 = time.time()
+        cfg = _flagship_cfg()
+        cfg.merge_from_list(["SOLVER.AMP.ENABLED", "True", *flagship_opts])
+        trainer, batches = trainer_for(cfg, os.path.join(tmp, "flagship"))
+        rates = sorted({round(m.rate, 6) for m in trainer.model.modules()
+                        if type(m).__name__ == "Dropout" and m.rate > 0})
+        log(f"  (a) the flagship: CONVS_DIM {cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM}, "
+            f"{cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS} encoder layers, "
+            f"{cfg.MODEL.MASK_FORMER.DEC_LAYERS} decoder layers, MASK_FORMER.DROPOUT "
+            f"{cfg.MODEL.MASK_FORMER.DROPOUT} (Dropout rates {rates}), AMP "
+            f"{cfg.SOLVER.AMP.ENABLED}, {sum(p.numel() for p in trainer.model.parameters()) / 1e6:.2f}M "
+            "parameters")
+        if cfg.MODEL.MASK_FORMER.DROPOUT != 0.1 or rates != [0.1]:
+            raise SystemExit(f"the flagship trains at MASK_FORMER.DROPOUT "
+                             f"{cfg.MODEL.MASK_FORMER.DROPOUT}, Dropout rates {rates}")
+        per_step = {"local_attn": sum(cfg.MODEL.AFF.DEPTHS), "msdetrpc": 18, "knn": 10,
+                    "local_attn_bwd": sum(cfg.MODEL.AFF.DEPTHS), "msdetrpc_bwd": 18,
+                    "point_sample": 2, "point_sample_bwd": 1, "lapjv": 1,
+                    "point_sample_nearest": 0, "point_sample_nearest_rows": 1}
+        record["flagship"] = {"steps": steps_of(
+            "(a) flagship", trainer, cfg, batches, steps, (),
+            {k: v for k, v in per_step.items() if k in counters}, computing_fp32)}
+        record["flagship"]["seconds"] = time.time() - t0
+        del trainer, batches
+        torch.cuda.empty_cache()
+
+        # (b) no reserved grid, clusters of 64 over neighbourhoods of 48
+        t0 = time.time()
+        cfg = PRESETS["aff_mini"]()
+        cfg.merge_from_list([*DROPOUT_SPAN_OPTS, *span_opts])
+        trainer, batches = trainer_for(cfg, os.path.join(tmp, "span"))
+        model = trainer.model
+        key = "aff_mini_unreserved_span64"
+        label = f"(b) {key}"
+        image = torch.randint(0, 256, (1, size, size, 3), dtype=torch.uint8,
+                              generator=torch.Generator().manual_seed(SEED + 5)).to(dev)
+        ops = path_forward_operands(model.eval(), image)
+        spans = sorted({int(args[8]) for args in ops["local_attn"]})
+        nnc = sorted({int(args[4].shape[-1]) for args in ops["local_attn"]})
+        log(f"  {label}: K1's spans {spans}, neighbour clusters {nnc}")
+        if spans != [cfg.MODEL.AFF.CLUSTER_SIZE] or nnc != [1]:
+            raise SystemExit(f"{label}: K1 took spans {spans} over {nnc} clusters")
+        del ops
+        hold_forward_operands(key, model, image, paths)
+        hold_grid_step_operands(f"{key}_step", model.train(), cfg, next(batches), gen, paths,
+                                local_attn=True)
+        per_step.update(local_attn=sum(cfg.MODEL.AFF.DEPTHS),
+                        local_attn_bwd=sum(cfg.MODEL.AFF.DEPTHS))
+        record["span"] = {"spans": spans, "steps": steps_of(
+            label, trainer, cfg, batches, 1, (),
+            {k: v for k, v in per_step.items() if k in counters})}
+        cfg.defrost()
+        cfg.MODEL.AFF.ATTN_DROP_RATE = 0.1
+        refusing = build_model(cfg).to(dev).train()
+        try:
+            with torch.no_grad():
+                refusing(image)
+        except NotImplementedError as e:
+            log(f"  {label}: train mode at ATTN_DROP_RATE 0.1 on the kernel path raises: {e}")
+        else:
+            # the CPU's plain path drops the probabilities, as JAX's gather path
+            if dev.type == "cuda":
+                raise SystemExit(f"{label}: attention dropout ran on the local_attn kernel")
+        record["span"]["seconds"] = time.time() - t0
+        del trainer, batches, model, refusing, image
+        torch.cuda.empty_cache()
+
+        # (c) the MaskFiner options with the stage dropouts
+        t0 = time.time()
+        cfg = PRESETS["maskfiner_mini"]()
+        cfg.merge_from_list([*DROPOUT_CASCADE_OPTS, *cascade_opts])
+        cfg.MODEL.MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME = list(DROPOUT_CASCADE_DECODERS)
+        trainer, batches = trainer_for(cfg, os.path.join(tmp, "cascade"))
+        stages = trainer.model.mask_predictors
+        label = "(c) maskfiner_mini_options"
+        log(f"  {label}: pixel decoders {[type(p.pixel_decoder).__name__ + ('/hierup' if getattr(p.pixel_decoder, 'hierup', False) else '') for p in stages]}, "
+            f"decoders pre-norm "
+            f"{all(l.pre_norm for p in stages for l in p.mask_decoder.transformer_ffn_layers)}, "
+            f"concatenated levels {[p.mask_decoder.cat_features for p in stages]}, mask features "
+            f"on every stage {all(p.pixel_decoder.mask_features is not None for p in stages)}")
+        record["cascade"] = {"steps": steps_of(
+            label, trainer, cfg, batches, 1,
+            (True, LOSS_RTOL, GROUP_NORM_RTOL, None, None, True))}
+        cfg.defrost()
+        cfg.MODEL.MR.NUM_REGISTER_TOKENS = 2
+        with_registers = build_model(cfg).to(dev).eval()
+        try:
+            with torch.no_grad():
+                with_registers(next(batches)["image"][:1])
+        except ValueError as e:
+            log(f"  {label}: NUM_REGISTER_TOKENS 2 builds "
+                f"({tuple(with_registers.mask_predictors[0].backbone.register_tokens.shape)} "
+                f"zeros) and raises as JAX's reshape does: {e}")
+        else:
+            raise SystemExit(f"{label}: register tokens ran through stage 0's depthwise conv")
+        record["cascade"]["seconds"] = time.time() - t0
+        del trainer, batches, with_registers
+        torch.cuda.empty_cache()
+    record["kernels"] = paths
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "phase22.json"), "a") as f:
+        f.write(json.dumps(record, default=str) + "\n")
+    return paths, total
+
+
 def evaluated_steps(out):
     """The step of the latest checkpoint under a run's OUTPUT_DIR."""
     from autofocusformermod_torch.engine.checkpoint import Checkpointer
@@ -7168,6 +7523,25 @@ def main() -> int:
     log(f"  phase 21 took {time.time() - t21:.1f} s")
     torch.cuda.empty_cache()
 
+    log(f"phase 22: what the ported models once refused or ignored: (a) the JAX package's flagship "
+        f"(MASK_FORMER.DROPOUT 0.1, CONVS_DIM 128) trained as bench.py trains it, AMP, "
+        f"{DROPOUT_SIZE}x{DROPOUT_SIZE}, batch {DROPOUT_BATCH}, {DROPOUT_STEPS} steps; (b) "
+        "AFF-Mini without the reserved grid, clusters of 64 over neighbourhoods of 48, one block "
+        "a stage: K1, K3, K9, K2, K4, K10, K12, K13 on its operands, a step; (c) MaskFiner-Mini "
+        "one block a stage with the pre-norm Cat decoder, MASK_DECODER_ALL_LEVELS, a HierUp last "
+        "stage and the stage dropouts at 0.1, a step; every step replayed through the plain "
+        "versions and each Dropout's kept share held")
+    t22 = time.time()
+    dropout_paths, dropout_launches = dropout_phase(dev, smi, gen, train_counters)
+    log(f"  phase 22 took {time.time() - t22:.1f} s")
+    for kr in kernels:
+        for path, rec in dropout_paths.get(kr["name"], {}).items():
+            kr.setdefault("by_path", {"b8_uniform": {k: kr[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
+            kr["by_path"][path] = rec
+            kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
+    torch.cuda.empty_cache()
+
     for kr in kernels:
         names = [kr["name"]] + (["point_sample_bwd"] if kr["name"] == "point_sample" else [])
         kr["inference_launches"] = inference_launches.get(kr["name"], 0)
@@ -7199,6 +7573,9 @@ def main() -> int:
         # phase 21: the one-process and both ranks' steps, the NCCL train_net
         # run and its --eval-only
         kr["distributed_launches"] = sum(dist_launches.get(n, 0) for n in names)
+        # phase 22: the flagship's steps, the unreserved span-64 AFF's and the
+        # MaskFiner options' steps and replays
+        kr["dropout_launches"] = sum(dropout_launches.get(n, 0) for n in names)
         kr["launches"] = (kr["inference_launches"] + kr["mini_step_launches"]
                           + kr["small_run_launches"] + kr["layouts_launches"]
                           + kr["mini15_launches"] + kr["maskfiner_launches"]
@@ -7206,7 +7583,7 @@ def main() -> int:
                           + kr["panoptic_instance_launches"] + kr["grid_launches"]
                           + kr["updown_launches"] + kr["family_launches"]
                           + kr["amp_launches"] + kr["yaml_launches"]
-                          + kr["distributed_launches"])
+                          + kr["distributed_launches"] + kr["dropout_launches"])
         if kr["launches"] < 1:
             raise SystemExit(f"{kr['name']}: never launched on a main path")
     if len(kernels) != 14:

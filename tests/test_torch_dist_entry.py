@@ -1,6 +1,6 @@
 """The PyTorch port's entry points (``graft_entry``) and its (data x model) mesh:
 ``graft_entry`` against the JAX package's ``__graft_entry__`` (the flagship
-config field by field; ``entry()``'s forward against the JAX model's at a
+config and the dry run's config field by field; ``entry()``'s forward against the JAX model's at a
 small image, the port's seeded weights carried over), ``dryrun_multichip``
 at 2 and 4 gloo processes, a (2 x 2) step against the two-rank data-parallel
 step, and ``tp_leaf_spec`` against JAX's placement for every leaf of the
@@ -48,6 +48,41 @@ def test_flagship_cfg_equals_jax_field_by_field():
               if k != "MODEL.DEVICE" and (got[k] != want[k] or type(got[k]) is not type(want[k]))}
     assert not differ, differ
     assert got["MODEL.AFF.EMBED_DIM"] == [32, 128, 256, 384]
+
+
+def test_dryrun_cfg_equals_jax_field_by_field(monkeypatch):
+    """``dryrun_cfg()`` against the config JAX's dry run builds its model
+    from (caught at ``maskformer_from_config`` inside ``dryrun_multichip``,
+    on one CPU device): every field equal, MASK_FORMER.DROPOUT the default
+    0.1 in both, but TRAIN_NUM_POINTS, which JAX passes to
+    ``make_train_step`` (64) instead of setting it."""
+    pytest.importorskip("jax")
+    import jax
+
+    import __graft_entry__ as jax_entry
+    import autofocusformermod_tpu.models as jax_models
+
+    class Caught(Exception):
+        pass
+
+    seen = []
+
+    def catch(cfg):
+        seen.append(cfg)
+        raise Caught
+
+    monkeypatch.setattr(jax_models, "maskformer_from_config", catch)
+    with pytest.raises(Caught):
+        jax_entry._dryrun_multichip_impl(1, jax.devices("cpu"))
+    want = dict(_flat(seen[0]))
+    got = dict(_flat(graft_entry.dryrun_cfg()))
+    assert set(got) == set(want)
+    assert got["MODEL.MASK_FORMER.TRAIN_NUM_POINTS"] == 64
+    differ = {k: (got[k], want[k]) for k in want
+              if k not in ("MODEL.DEVICE", "MODEL.MASK_FORMER.TRAIN_NUM_POINTS")
+              and (got[k] != want[k] or type(got[k]) is not type(want[k]))}
+    assert not differ, differ
+    assert got["MODEL.MASK_FORMER.DROPOUT"] == 0.1
 
 
 def test_entry_forward_matches_jax_at_a_small_image():

@@ -185,10 +185,28 @@ def test_train_net_trains_the_cascade(tmp_path):
     ("MODEL.MASK_FINER.MASK_DECODER_ALL_LEVELS", "True"),
 ])
 def test_unported_variants_raise(field, value):
+    """The variants that once raised build from the preset, with the field
+    read where JAX reads it (their forwards are held to JAX in
+    ``test_torch_variants.py``): the Cat decoder on every stage, the HierUp
+    form of the last stage's pixel decoder (the others take the default
+    decoder's name), the pre-norm decoder layers, and mask features on every
+    stage under MASK_DECODER_ALL_LEVELS."""
     cfg = maskfiner_mini_cfg()
     cfg.merge_from_list([field, value])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        maskfiner_from_config(cfg)
+    model = maskfiner_from_config(cfg)
+    stages = model.mask_predictors
+    decoders = [p.mask_decoder for p in stages]
+    if value.endswith("Cat"):
+        assert all(d.cat_features for d in decoders)
+    elif value.endswith("HierUp"):
+        assert all(p.pixel_decoder.hierup for p in stages)
+        assert [p.pixel_decoder.mask_features is not None for p in stages] == [False] * (
+            len(stages) - 1) + [True]
+    elif field.endswith("PRE_NORM"):
+        assert all(layer.pre_norm for d in decoders
+                   for layer in d.transformer_self_attention_layers)
+    else:
+        assert all(p.pixel_decoder.mask_features is not None for p in stages)
 
 
 # ------------------------------------------------------------ the bridge

@@ -348,17 +348,30 @@ def test_preset_matches_yaml():
     ("MODEL.MR_SEM_SEG_HEAD.NAME", "MaskPredictor"),
 ])
 def test_unported_variants_raise(field, value):
-    """What stays refused: MASK_DECODER_ALL_LEVELS, the Cat decoder, the
-    HierUp pixel decoder, and the projection pixel decoder under the plain
-    stage head (the lrelu one is ported there too)."""
+    """The variants that once raised build (their forwards are held to JAX in
+    ``test_torch_variants.py``): MASK_DECODER_ALL_LEVELS gives every stage
+    a decoder and mask features, the Cat decoder attends to all levels, the
+    HierUp pixel decoder paints the last stage's FPN level onto the grid
+    (its earlier stages take no mask features, as JAX's), and under the
+    plain stage head the projection decoders have mask features on the last
+    stage only and every stage a decoder."""
     cfg = tiny_cfg()
     *parents, leaf = field.split(".")
     node = cfg
     for name in parents:
         node = getattr(node, name)
     setattr(node, leaf, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg)
+    stages = build_model(cfg).mask_predictors
+    features = [p.pixel_decoder.mask_features is not None for p in stages]
+    decoders = [p.mask_decoder is not None for p in stages]
+    if field.endswith("MASK_DECODER_ALL_LEVELS"):
+        assert features == decoders == [True, True, True]
+    elif field.endswith("TRANSFORMER_DECODER_NAME"):
+        assert stages[-1].mask_decoder.cat_features and decoders == [False, False, True]
+    elif field.endswith("PIXEL_DECODER_NAME"):
+        assert stages[-1].pixel_decoder.hierup and features == [False, False, True]
+    else:
+        assert features == [False, False, True] and decoders == [True, True, True]
 
 
 # ------------------------------------------------------------- the entry points
@@ -399,7 +412,7 @@ def test_train_net_trains_and_evaluates(tmp_path, monkeypatch):
     terms = {k: v for k, v in metrics.items() if k.startswith("loss_")}
     assert len(terms) == 3 * 3 + 1 and metrics["loss_upsampling"] > 0
     assert all(np.isfinite(v) for v in terms.values())
-    assert set(trainer.generators) == {"criterion", "drop_path", "oracle"}
+    assert set(trainer.generators) == {"criterion", "dropout", "oracle"}
     assert trainer.model.oracle_generator is trainer.generators["oracle"]
     head = trainer.model.mask_predictors[1].upsample_out.layers[2].weight
     assert head.grad is not None and head.grad.abs().sum() > 0

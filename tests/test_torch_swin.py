@@ -28,7 +28,7 @@ import torch
 
 from autofocusformermod_torch.config import PRESETS
 from autofocusformermod_torch.engine.convert_checkpoint import flax_to_torch_state_dict
-from autofocusformermod_torch.models.layers import DropPath
+from autofocusformermod_torch.models.layers import DropPath, set_dropout_generator
 from autofocusformermod_torch.models.pixel_decoder_grid import MSDeformAttnGrid, bilinear_sample
 from autofocusformermod_torch.models.registry import build_model
 from autofocusformermod_torch.models.transformer_decoder import (CrossAttentionLayer, FFNLayer,
@@ -102,7 +102,7 @@ def test_swin_features_match_jax(ref, port):
 
 def test_swin_drop_path_draws_from_its_generator():
     """Rates rise linearly over the depth to DROP_PATH_RATE; every DropPath
-    takes the generator that set_drop_path_generator gives, so two models on
+    takes the generator that set_dropout_generator gives, so two models on
     equal generators drop the same branches."""
     cfg = tiny_swin_cfg()
     cfg.MODEL.SWIN.DROP_PATH_RATE = 0.3
@@ -114,7 +114,7 @@ def test_swin_drop_path_draws_from_its_generator():
     for _ in range(2):
         torch.manual_seed(0)
         m = build_model(cfg).train()
-        m.set_drop_path_generator(torch.Generator().manual_seed(7))
+        set_dropout_generator(m, torch.Generator().manual_seed(7))
         assert all(d.generator is not None for d in m.modules() if isinstance(d, DropPath))
         outs.append(m.backbone(m.normalize(x))["res5"])
     torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)

@@ -456,7 +456,12 @@ def test_stem_batchnorm_uses_flax_momentum():
 def test_drop_path_rate_is_read_and_refused_in_train_mode():
     """Regression: aff_from_config ignored DROP_PATH_RATE.  The rate is read
     and reaches the blocks' DropPath, which evaluates as the identity and
-    trains; decoder dropout (not ported) is still refused in train mode."""
+    trains.  Decoder dropout (MODEL.MASK_FORMER.DROPOUT, once refused in
+    train mode) reaches every encoder layer's three Dropouts and trains: the
+    identity in eval mode, drawn from the model's generator in train mode
+    (the same seed, the same output; another seed, another)."""
+    from autofocusformermod_torch.models.layers import set_dropout_generator
+
     cfg = train_cfg()
     cfg.MODEL.AFF.DROP_PATH_RATE = 0.3
     model = maskformer_from_config(cfg)
@@ -468,8 +473,20 @@ def test_drop_path_rate_is_read_and_refused_in_train_mode():
         model.train()(x)
     cfg = train_cfg()
     cfg.MODEL.MASK_FORMER.DROPOUT = 0.1
-    with pytest.raises(NotImplementedError, match="DROPOUT"):
-        maskformer_from_config(cfg).train()(x)
+    model = init_random_weights(maskformer_from_config(cfg), torch.Generator().manual_seed(0))
+    layers = model.sem_seg_head.pixel_decoder.transformer.encoder.layers
+    assert all(d.rate == pytest.approx(0.1) for layer in layers
+               for d in (layer.dropout1, layer.dropout2, layer.dropout3))
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (1, 128, 128, 3))
+                         .astype(np.uint8))
+    outs = []
+    with torch.no_grad():
+        evals = [model.eval()(x)["pred_masks"] for _ in range(2)]
+        for seed in (1, 1, 2):
+            set_dropout_generator(model, torch.Generator().manual_seed(seed))
+            outs.append(model.train()(x)["pred_masks"])
+    assert torch.equal(evals[0], evals[1]) and torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[0], outs[2]) and not torch.equal(outs[0], evals[0])
 
 
 def test_aff_mini_preset_trains_without_drop_path():

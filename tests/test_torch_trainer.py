@@ -31,7 +31,7 @@ from autofocusformermod_torch.engine.hooks import MetricLogger, device_memory_st
 from autofocusformermod_torch.engine.train import Trainer
 from autofocusformermod_torch.losses import criterion as tcrit
 from autofocusformermod_torch.models.aff import AFF
-from autofocusformermod_torch.models.layers import DropPath
+from autofocusformermod_torch.models.layers import DropPath, set_dropout_generator
 from autofocusformermod_torch.models.maskformer import maskformer_from_config
 
 import share_cores  # noqa: F401 (each test worker's share of the CPU cores)
@@ -170,7 +170,7 @@ def test_drop_path_rates_rise_linearly_over_the_depth():
     rates = [blk.drop_path.rate for layer in aff.layers for blk in layer.blocks]
     assert rates == [float(r) for r in np.linspace(0, 0.3, sum(depths))]
     gen = torch.Generator().manual_seed(0)
-    aff.set_drop_path_generator(gen)
+    set_dropout_generator(aff, gen)
     assert all(blk.drop_path.generator is gen for layer in aff.layers for blk in layer.blocks)
     blk = aff.layers[2].blocks[5]
     assert torch.equal(blk.gamma1.detach(), torch.full((6,), 1e-5))
@@ -328,7 +328,7 @@ def test_trainer_checkpoints_on_period_and_at_the_end(tmp_path):
     state = trainer.checkpointer.restore(2)
     assert state["step"] == 2
     assert set(state) == {"step", "model", "optimizer", "scheduler", "generators"}
-    assert set(state["generators"]) == {"criterion", "drop_path"}
+    assert set(state["generators"]) == {"criterion", "dropout"}
     assert "backbone.patch_embed.bn.running_mean" in state["model"]
     # the schedule ran to SOLVER.MAX_ITER = 3: lr (1 - 2/3) ** 0.9 of its base after 2 steps
     lrs = {g["label"]: g["lr"] for g in state["optimizer"]["param_groups"]}

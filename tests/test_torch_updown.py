@@ -305,11 +305,12 @@ def test_forward_without_ground_truth(ref, port):
 
 def test_predictor_and_refusals(ref, port):
     """SemanticPredictor pads a request to the coarsest patch's multiple
-    and labels every pixel; a composite backbone, pixel decoder or decoder
-    that is not ported raises before anything is built: an MRML backbone,
-    the HierUp pixel decoder, the projection pixel decoder under the plain
-    stage head (under the OracleTeacher head it is ported; the lrelu one is
-    ported under both) and the Cat decoder."""
+    and labels every pixel; a composite backbone that is not ported (an MRML
+    one) raises before anything is built; the head's variants that once
+    raised build: the HierUp pixel decoder, the projection pixel decoder
+    under the plain stage head (mask features: the head is the final
+    stage's) and the Cat decoder (the lrelu pixel decoder keeps its
+    mask-features head under both stage heads)."""
     from autofocusformermod_torch.models.inference import SemanticPredictor
     from autofocusformermod_torch.models.registry import size_divisibility
 
@@ -333,8 +334,16 @@ def test_predictor_and_refusals(ref, port):
             for name in parents:
                 node = getattr(node, name)
             setattr(node, leaf, value)
-        with pytest.raises(NotImplementedError, match="ported"):
-            build_model(cfg)
+        if "MODEL.BACKBONE.NAME" in fields:
+            with pytest.raises(NotImplementedError, match="ported"):
+                build_model(cfg)
+            continue
+        model = build_model(cfg)
+        assert model.pixel_decoder.mask_features is not None
+        name = cfg.MODEL.MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME[-1]
+        assert getattr(model.pixel_decoder, "hierup", False) == name.endswith("HierUp")
+        assert model.mask_decoder.cat_features == ("MODEL.MASK_FINER.TRANSFORMER_DECODER_NAME"
+                                                   in fields)
     cfg = tiny_cfg()
     cfg.MODEL.MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME = ot_decoders
     cfg.MODEL.MR_SEM_SEG_HEAD.NAME = "MaskPredictor"
@@ -622,11 +631,11 @@ def test_mixres_vit_layer_scale_matches_jax():
 
 def test_mixres_vit_drop_path_draws_from_the_model_generator():
     """In train mode every DropPath of the backbone draws one keep decision
-    per image from the generator set_drop_path_generator gives, in forward
+    per image from the generator set_dropout_generator gives, in forward
     order (stage 0's blocks, the attention branch before the feed-forward
     one, then the later stages'): the masks equal a fresh generator's
     draws in that order, and the same seed gives the same output."""
-    from autofocusformermod_torch.models.layers import DropPath
+    from autofocusformermod_torch.models.layers import DropPath, set_dropout_generator
 
     cfg = tiny_cfg()
     cfg.MODEL.MR.DROP_PATH_RATE = 0.5
@@ -648,7 +657,7 @@ def test_mixres_vit_drop_path_draws_from_the_model_generator():
     for _ in range(2):
         order.clear()
         masks.clear()
-        model.set_drop_path_generator(torch.Generator().manual_seed(11))
+        set_dropout_generator(model, torch.Generator().manual_seed(11))
         with torch.no_grad():
             outs.append(model(x)["pred_masks"])
     # stage 0's rate is 0: it never draws
@@ -766,7 +775,7 @@ def test_train_net_trains_and_evaluates(tmp_path, monkeypatch):
     terms = {k: v for k, v in metrics.items() if k.startswith("loss_")}
     assert len(terms) == 3 * 3 + 1 and metrics["loss_upsampling"] > 0
     assert all(np.isfinite(v) for v in terms.values())
-    assert set(trainer.generators) == {"criterion", "drop_path", "oracle"}
+    assert set(trainer.generators) == {"criterion", "dropout", "oracle"}
     assert trainer.model.backbone.oracle_generator is trainer.generators["oracle"]
 
     windows = []

@@ -18,6 +18,8 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
+from autofocusformermod_torch.models.layers import set_dropout_generator
+
 JOIN_TIMEOUT_S = 150.0
 
 
@@ -142,8 +144,8 @@ def step_worker(cfg, state_dict: Dict, batch: Dict, draws, nn_rank=None, steps: 
     _criterion_rank(nn_rank)
     model = build_model(cfg)
     model.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()})
-    gens = {"drop_path": torch.Generator().manual_seed(seed + 2)}
-    model.set_drop_path_generator(gens["drop_path"])
+    gens = {"dropout": torch.Generator().manual_seed(seed + 2)}
+    set_dropout_generator(model, gens["dropout"])
     if hasattr(model, "set_oracle_generator"):
         gens["oracle"] = torch.Generator().manual_seed(seed + 3)
         model.set_oracle_generator(gens["oracle"])
@@ -234,7 +236,7 @@ def tp_step_worker(cfg, state_dict: Dict, batch: Dict, n_model: int, steps: int 
         mesh.make_mesh_2d(mesh.process_count() // n_model, n_model)
     model = build_model(cfg)
     model.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()})
-    model.set_drop_path_generator(torch.Generator().manual_seed(9))
+    set_dropout_generator(model, torch.Generator().manual_seed(9))
     step = TrainStep(model, cfg)
     if n_model > 1:
         mesh.shard_state_tp(step)
