@@ -36,6 +36,10 @@ _RULES = (
      r"backbone.\1.\2"),
     # the OracleTeacher stages' score MLP
     (r"\.upsample_out\.layers_(\d+)", r".upsample_out.layers.\1"),
+    # the XAttn stages' per-block cross-attention and the ConvNeXtV2 stages' blocks
+    (r"\.x_attn_norm_(\d+)", r".x_attn_norm.\1"),
+    (r"\.x_attn_(\d+)", r".x_attn.\1"),
+    (r"\.stage_(\d+)", r".stage.\1"),
     # the R50 (detectron2 names)
     (r"^backbone\.stem_conv1", r"backbone.stem.conv1"),
     (r"^backbone\.res(\d)_(\d+)", r"backbone.res\1.\2"),

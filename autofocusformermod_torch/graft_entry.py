@@ -10,8 +10,9 @@ Counterpart of the JAX package's ``__graft_entry__.py``:
                          model (seeded random weights) and a (1, 512, 512, 3)
                          image, on the card unless ``device`` says otherwise.
   dryrun_multichip(n) -> one full training step (forward, Hungarian matching,
-                         criterion, gradients, clipping, AdamW), then a
-                         second, over n gloo processes on the CPU, as JAX's
+                         criterion, gradients, clipping, AdamW; matched by
+                         scipy), then a second (the default solver), over n
+                         gloo processes on the CPU, as JAX's
                          runs over n virtual CPU devices, on its tiny shapes;
                          a (n/2 x 2) data x model mesh for an even n >= 4.
 """
@@ -112,6 +113,7 @@ def dryrun_batch(n_data: int, size: int = 64, t: int = 3):
 
 def _dryrun_rank(device: torch.device, n: int) -> None:
     from .engine.train_step import TrainStep
+    from .losses import matcher
     from .losses.criterion import device_draw
     from .models.layers import set_dropout_generator
     from .models.maskformer import init_random_weights, maskformer_from_config
@@ -131,8 +133,18 @@ def _dryrun_rank(device: torch.device, n: int) -> None:
     batch = mesh.shard_batch(batch)
     draw = device_draw(torch.Generator().manual_seed(1))
     losses = []
-    for count in (1, 2):
-        metrics = step(batch, draw)
+    # the first step's assignments by scipy on the host (the JAX package's
+    # CPU default), the second's by the default solver, as JAX's second
+    # step forces its "jv" backend
+    for count, backend in ((1, "scipy"), (2, "jv")):
+        before = dict(matcher.solve_lsap.solves_by_backend)
+        matcher.set_matcher_backend(backend)
+        try:
+            metrics = step(batch, draw)
+        finally:
+            matcher.set_matcher_backend(None)
+        solves = {k: n - before[k] for k, n in matcher.solve_lsap.solves_by_backend.items()}
+        assert solves[backend] > 0 and sum(solves.values()) == solves[backend], (backend, solves)
         total = float(metrics["total_loss"])
         assert np.isfinite(total), f"non-finite loss at step {count}: {total}"
         assert step.scheduler.last_epoch == count, (step.scheduler.last_epoch, count)
@@ -150,7 +162,7 @@ def _dryrun_rank(device: torch.device, n: int) -> None:
             f"rank {rank}'s parameters differ from rank {mesh.process_index()}'s by {diff}")
     if mesh.is_main():
         print(f"dryrun_multichip({n}) OK: {n_data} x {n_model} mesh, loss={losses[0]:.4f} "
-              f"second step loss={losses[1]:.4f}", flush=True)
+              f"(scipy) second step loss={losses[1]:.4f} (jv)", flush=True)
 
 
 def dryrun_multichip(n_devices: int, dist_url: Optional[str] = None) -> None:
@@ -158,12 +170,11 @@ def dryrun_multichip(n_devices: int, dist_url: Optional[str] = None) -> None:
     CPU: (n/2 x 2) (data x model) for an even n >= 4, the large matrices and
     their AdamW moments sharded over ``model`` (``mesh.shard_state_tp``),
     else n data ranks.  Asserts a finite loss and the step count after each
-    step, and the same parameters on every rank after both.  The port has
-    one assignment solver (the plain LSAP on the CPU, the lapjv kernel on the
-    card), so there is no second solver to switch to for the second step as
-    JAX's run switches its backend; the second step runs on the first's
-    updated state.  ``dist_url``: the rendezvous (default: a file in a new
-    temporary directory)."""
+    step, and the same parameters on every rank after both.  The first step
+    matches by scipy on the host, the second by the default solver (the
+    plain LSAP on the CPU), as JAX's run switches its backend to "jv"; each
+    step asserts that its solver alone ran.  ``dist_url``: the rendezvous
+    (default: a file in a new temporary directory)."""
     from .parallel import mesh
 
     with tempfile.TemporaryDirectory() as tmp:

@@ -29,6 +29,10 @@ ranking's counters are global, and the normalisers -- the number of valid
 targets and each layer's class weights -- are summed over the axis
 (detached).  Each rank's total and terms are then its share of the global
 loss: the shares sum to it over the ranks.
+
+``set_criterion_downsample`` is the downsampled criterion (no points
+drawn): the targets max-pooled to each layer's mask resolution, matched by
+``matching_cost_downsample`` and supervised dense over every pixel.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import torch
 from torch.nn import functional as F
 
 from ..parallel import mesh
-from .matcher import matching_cost, solve_lsap
+from .matcher import matching_cost, matching_cost_downsample, max_pool_to, solve_lsap
 from .point_sample import (Draw, draw_rows, get_uncertain_point_coords_nn_ranked,
                            get_uncertain_point_coords_with_randomness, point_sample_auto,
                            point_sample_shared_batch)
@@ -141,14 +145,7 @@ def set_criterion(
                                dice_weight, tgt_pts=tgt_pts[..., i * num_points:
                                                             (i + 1) * num_points])
                  for i, out in enumerate(all_outputs)]
-    matched_all = [None] * nl
-    by_shape: Dict[Tuple, list] = {}
-    for i, c in enumerate(costs):
-        by_shape.setdefault(tuple(c.shape), []).append(i)
-    for idxs in by_shape.values():
-        sol = solve_lsap(torch.cat([costs[i] for i in idxs], 0))
-        for k, i in enumerate(idxs):
-            matched_all[i] = sol[k * b:(k + 1) * b]
+    matched_all = _solve_by_shape(costs, b)
 
     # the class loss's sums and weights of every layer; the normalisers (the
     # valid targets, each layer's weights) are the global batch's, summed in
@@ -197,4 +194,58 @@ def set_criterion(
         losses[f"loss_mask{suffix}"] = l_mask
         losses[f"loss_dice{suffix}"] = l_dice
         total = total + class_weight * l_ce + mask_weight * l_mask + dice_weight * l_dice
+    return total, losses, matched_all
+
+
+def _solve_by_shape(costs, b: int) -> list:
+    """One stacked solve per cost shape -> each layer's (b, t) matches."""
+    matched = [None] * len(costs)
+    by_shape: Dict[Tuple, list] = {}
+    for i, c in enumerate(costs):
+        by_shape.setdefault(tuple(c.shape), []).append(i)
+    for idxs in by_shape.values():
+        sol = solve_lsap(torch.cat([costs[i] for i in idxs], 0))
+        for k, i in enumerate(idxs):
+            matched[i] = sol[k * b:(k + 1) * b]
+    return matched
+
+
+def set_criterion_downsample(
+    outputs: Dict, targets: Dict, num_classes: int, draw: Draw = None, *,
+    eos_coef: float = 0.1, class_weight: float = 2.0, mask_weight: float = 5.0,
+    dice_weight: float = 5.0, **_unused,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], list]:
+    """The downsampled deep-supervision loss: as ``set_criterion`` (its
+    arguments; ``draw`` and the point counts are accepted and unused, since
+    nothing is drawn), with each layer matched by
+    ``matching_cost_downsample`` (one stacked solve per cost shape) and its
+    mask losses the sigmoid cross-entropy and dice over all of its pixels
+    against the max-pooled targets.  -> (total, unweighted terms, matches)."""
+    tgt_labels, tgt_masks, tgt_valid = targets["labels"], targets["masks"], targets["valid"]
+    b, t = tgt_labels.shape
+    all_outputs = [outputs] + list(outputs.get("aux_outputs", ()))
+    costs = [matching_cost_downsample(out["pred_logits"], out["pred_masks"], tgt_labels,
+                                      tgt_masks, tgt_valid, class_weight, mask_weight, dice_weight)
+             for out in all_outputs]
+    matched_all = _solve_by_shape(costs, b)
+    ce = [_loss_labels(out["pred_logits"], tgt_labels, tgt_valid, matched_all[i], num_classes,
+                       eos_coef) for i, out in enumerate(all_outputs)]
+    norms = mesh.data_sum_detached(torch.stack([tgt_valid.float().sum()]
+                                               + [w.float() for _, w in ce]))
+    num_masks = torch.clamp(norms[0], min=1.0)
+    vf = tgt_valid.reshape(b * t).float()
+    losses: Dict[str, torch.Tensor] = {}
+    total = 0.0
+    for i, out in enumerate(all_outputs):
+        src = select_matched(out["pred_masks"], matched_all[i])               # (b, t, h, w)
+        h, w = src.shape[-2:]
+        src_flat = src.reshape(b * t, h * w)
+        tgt_flat = max_pool_to(tgt_masks.to(src.dtype), (h, w)).reshape(b * t, h * w)
+        suffix = "" if i == 0 else f"_{i - 1}"
+        losses[f"loss_ce{suffix}"] = ce[i][0] / norms[1 + i]
+        losses[f"loss_mask{suffix}"] = (sigmoid_ce_loss(src_flat, tgt_flat) * vf).sum() / num_masks
+        losses[f"loss_dice{suffix}"] = (dice_loss(src_flat, tgt_flat) * vf).sum() / num_masks
+        total = (total + class_weight * losses[f"loss_ce{suffix}"]
+                 + mask_weight * losses[f"loss_mask{suffix}"]
+                 + dice_weight * losses[f"loss_dice{suffix}"])
     return total, losses, matched_all

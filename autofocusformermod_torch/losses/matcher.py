@@ -5,19 +5,45 @@ sampled class + mask + dice cost and the LSAP solve).  Targets are padded
 to a fixed count per image with a validity mask; padded target columns get
 a large constant cost, which leaves the assignment over the valid columns
 optimal (the losses mask the padded matches out).  The LSAP runs in the
-``lapjv`` kernel on CUDA tensors (``losses/lapjv.py``).
+``lapjv`` kernel on CUDA tensors (``losses/lapjv.py``) unless
+``set_matcher_backend`` forces another solver: "scipy" (scipy's
+``linear_sum_assignment`` on the host, the JAX package's CPU default),
+"jv" (the default's solver) or "auction" (``losses/auction.py``).
+
+``matching_cost_downsample`` is the downsampled matcher's cost: the targets
+max-pooled to the prediction's resolution (``max_pool_to``) and the mask
+and dice costs dense over every prediction pixel, no points drawn.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
+import numpy as np
 import torch
 from torch.nn import functional as F
 
 from ..ops.dispatch import use_kernel
+from .auction import auction_lsap
 from .lapjv import hungarian_lsap, lapjv
 from .point_sample import point_sample_shared_batch
 
 _INVALID_COST = 1e8
+
+# the LSAP solver: None (the default) and "jv" the lapjv kernel on CUDA
+# tensors and its plain version on CPU tensors, "scipy" the host's
+# linear_sum_assignment, "auction" the auction
+BACKENDS = (None, "scipy", "jv", "auction")
+_MATCHER_BACKEND: Optional[str] = None
+
+
+def set_matcher_backend(backend: Optional[str]) -> None:
+    """Force the LSAP solver of every later ``solve_lsap``: one of
+    ``BACKENDS``."""
+    global _MATCHER_BACKEND
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown matcher backend {backend!r}; known: {BACKENDS}")
+    _MATCHER_BACKEND = backend
 
 
 def batch_sigmoid_ce_cost(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -65,12 +91,63 @@ def matching_cost(pred_logits, pred_masks, tgt_labels, tgt_masks, tgt_valid, poi
     return torch.where(tgt_valid[:, None, :], cost, torch.full_like(cost, _INVALID_COST))
 
 
+def max_pool_to(masks: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """(b, t, H, W) -> (b, t, h, w): max over (H // h) x (W // w) windows."""
+    H, W = masks.shape[-2:]
+    kh, kw = H // out_hw[0], W // out_hw[1]
+    if kh == 1 and kw == 1:
+        return masks
+    return F.max_pool2d(masks, (kh, kw), stride=(kh, kw))
+
+
+@torch.no_grad()
+def matching_cost_downsample(pred_logits, pred_masks, tgt_labels, tgt_masks, tgt_valid,
+                             cost_class: float, cost_mask: float, cost_dice: float
+                             ) -> torch.Tensor:
+    """The downsampled matcher's class + mask + dice cost (b, q, t): the
+    targets max-pooled to the predictions' (h, w), the mask and dice costs
+    over all h * w pixels; padded target columns at _INVALID_COST."""
+    b, q, h, w = pred_masks.shape
+    t = tgt_labels.shape[1]
+    out_flat = pred_masks.reshape(b, q, h * w)
+    tgt_flat = max_pool_to(tgt_masks.float(), (h, w)).reshape(b, t, h * w).to(out_flat.dtype)
+    out_prob = torch.softmax(pred_logits, dim=-1)
+    cc = -torch.gather(out_prob, 2, tgt_labels.long()[:, None, :].expand(b, q, t))
+    cost = (cost_mask * batch_sigmoid_ce_cost(out_flat, tgt_flat) + cost_class * cc
+            + cost_dice * batch_dice_cost(out_flat, tgt_flat))
+    return torch.where(tgt_valid[:, None, :], cost, torch.full_like(cost, _INVALID_COST))
+
+
+def _lsap_host(cost: np.ndarray) -> np.ndarray:
+    """scipy's assignment of each problem of (b, q, t) -> (b, t) int64; NaN
+    and +inf read as _INVALID_COST, -inf as its negative."""
+    from scipy.optimize import linear_sum_assignment
+
+    out = np.zeros((cost.shape[0], cost.shape[2]), dtype=np.int64)
+    for i, c in enumerate(cost):
+        c = np.nan_to_num(c, nan=_INVALID_COST, posinf=_INVALID_COST, neginf=-_INVALID_COST)
+        rows, cols = linear_sum_assignment(c)
+        out[i, cols] = rows
+    return out
+
+
 def solve_lsap(cost: torch.Tensor) -> torch.Tensor:
     """Solve the batched assignment: cost (b, q, t), t <= q -> (b, t) int64
-    matched query per target slot (the ``lapjv`` kernel on CUDA tensors, its
-    plain version on CPU tensors).  Stack the deep-supervision layers into
-    ``b``: one solve then serves them all."""
+    matched query per target slot, by the solver ``set_matcher_backend``
+    chose (by default the ``lapjv`` kernel on CUDA tensors, its plain
+    version on CPU tensors); ``solve_lsap.solves_by_backend`` counts each
+    solver's calls.  Stack the deep-supervision layers into ``b``: one
+    solve then serves them all."""
     cost = cost.detach().float().contiguous()
     if cost.shape[2] > cost.shape[1]:
         raise ValueError(f"more targets than queries: {tuple(cost.shape)}")
+    backend = _MATCHER_BACKEND or "jv"
+    solve_lsap.solves_by_backend[backend] += 1
+    if backend == "scipy":
+        return torch.from_numpy(_lsap_host(cost.cpu().numpy())).to(cost.device)
+    if backend == "auction":
+        return auction_lsap(cost)
     return lapjv(cost) if use_kernel(cost) else hungarian_lsap(cost)
+
+
+solve_lsap.solves_by_backend = {"scipy": 0, "jv": 0, "auction": 0}

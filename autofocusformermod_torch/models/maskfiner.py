@@ -33,15 +33,21 @@ dense level alone) and the projection decoder, each with the stage's
 dropout; the decoder post-norm or pre-norm, with or without dense mask
 features, cycling over the levels or attending to all of them at once (the
 Cat decoder); MASK_DECODER_ALL_LEVELS (mask features, and under the
-OracleTeacher head a decoder, on every stage).  ConvNeXtV2 stages and the
-eval-time dynamic split ratios raise (ROADMAP.md section 1).
+OracleTeacher head a decoder, on every stage).  Each stage's backbone is
+the one MODEL.MR.NAME names (``build_backbone_indexed``): MixResViT,
+MixResNeighbour, MixResNeighbourXAttn or ConvNeXtV2
+(``models/convnextv2.py``), first or later.  ``maskfiner_dynamic_eval``
+runs the cascade with the eval-time dynamic split ratios: stage by stage,
+each stage's split count from its predecessor's disagreement on the host
+(``mixres.dynamic_k_split``).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -53,8 +59,9 @@ from ..geometry.shepard import shepard_neighbours, upsample_feature_shepard
 from ..ops.clusten import weighted_gather
 from ..ops.gather import take_rows
 from ..parallel.precision import compute_dtype, f32_outputs, refuse_islands
+from .convnextv2 import ConvNeXtV2Stage
 from .layers import MLP, layer_norm, position_embedding_sine
-from .mixres import mixres_stage_from_config
+from .mixres import MixResNeighbour, MixResViT, dynamic_k_split
 from .pixel_decoder import (MSDeformAttnPixelDecoder, pack_neighbor_table, raster_grid,
                             scale_pos)
 from .transformer_decoder import MultiScaleMaskedTransformerDecoder
@@ -376,9 +383,10 @@ class MaskFinerTransformerDecoder(MultiScaleMaskedTransformerDecoder):
 
 class MaskPredictor(nn.Module):
     """One cascade stage: backbone -> pixel decoder -> mask decoder.
-    forward(im, features, features_pos, upsampling_mask, tokens_per_scale)
-    -> (predictions, the pixel decoder's levels concatenated, their (scale,
-    x, y), the disagreement, the levels' sizes)."""
+    forward(im, features, features_pos, upsampling_mask, tokens_per_scale,
+    k_split) -> (predictions, the pixel decoder's levels concatenated, their
+    (scale, x, y), the disagreement, the levels' sizes); ``k_split``: the
+    backbone's split count where not its static ratio's."""
 
     def __init__(self, backbone: nn.Module, pixel_decoder: MaskFinerPixelDecoder,
                  mask_decoder: MaskFinerTransformerDecoder):
@@ -387,8 +395,10 @@ class MaskPredictor(nn.Module):
         self.pixel_decoder = pixel_decoder
         self.mask_decoder = mask_decoder
 
-    def forward(self, im, features, features_pos, upsampling_mask, tokens_per_scale):
-        feats, _ = self.backbone(im, features, features_pos, upsampling_mask, tokens_per_scale)
+    def forward(self, im, features, features_pos, upsampling_mask, tokens_per_scale,
+                k_split: Optional[int] = None):
+        feats, _ = self.backbone(im, features, features_pos, upsampling_mask, tokens_per_scale,
+                                 k_split=k_split)
         (mask_features, mf_pos, ms_feats, ms_poss, ms_scales, finest_input_shape,
          input_shapes) = self.pixel_decoder(feats)
         predictions, upsampling_mask = self.mask_decoder(
@@ -413,8 +423,10 @@ class MaskPredictorOracleTeacher(MaskPredictor):
         super().__init__(backbone, pixel_decoder, mask_decoder)
         self.upsample_out = None if final_layer else MLP(hidden_dim, 2 * hidden_dim, 1, 3)
 
-    def forward(self, im, features, features_pos, upsampling_mask, tokens_per_scale):
-        feats, _ = self.backbone(im, features, features_pos, upsampling_mask, tokens_per_scale)
+    def forward(self, im, features, features_pos, upsampling_mask, tokens_per_scale,
+                k_split: Optional[int] = None):
+        feats, _ = self.backbone(im, features, features_pos, upsampling_mask, tokens_per_scale,
+                                 k_split=k_split)
         (mask_features, mf_pos, ms_feats, ms_poss, ms_scales, finest_input_shape,
          input_shapes) = self.pixel_decoder(feats)
         predictions = {"aux_outputs": ()}
@@ -434,7 +446,9 @@ class MaskFiner(nn.Module):
     last stage's patch size, 'aux_outputs' (every stage's rounds),
     'disagreement_masks' (one per stage), 'features_pos' (the last stage's
     (scale, x, y))}.  ``compute_dtype`` bf16 (SOLVER.AMP.ENABLED): the
-    normalized images are cast to bf16 and the outputs come back fp32."""
+    normalized images are cast to bf16 and the outputs come back fp32.
+    ``k_splits``: each stage's split count where not its static ratio's
+    (None for a stage, or for all, keeps it)."""
 
     def __init__(self, mask_predictors: Sequence[MaskPredictor],
                  pixel_mean: Sequence[float] = (123.675, 116.28, 103.53),
@@ -461,19 +475,51 @@ class MaskFiner(nn.Module):
             return flax_promotion()
         return contextlib.nullcontext()
 
-    def forward(self, images: torch.Tensor) -> Dict:
+    def forward(self, images: torch.Tensor, k_splits: Optional[Sequence] = None) -> Dict:
         with self.dtype_scope():
             x = self.normalize(images)
             features = features_pos = upsampling_mask = tokens_per_scale = None
             aux, disagreements = (), []
-            for predictor in self.mask_predictors:
+            for li, predictor in enumerate(self.mask_predictors):
                 outs, features, features_pos, upsampling_mask, tokens_per_scale = predictor(
-                    x, features, features_pos, upsampling_mask, tokens_per_scale)
+                    x, features, features_pos, upsampling_mask, tokens_per_scale,
+                    None if k_splits is None else k_splits[li])
                 disagreements.append(upsampling_mask)
                 aux = aux + tuple(outs["aux_outputs"])
         return f32_outputs({"pred_logits": outs["pred_logits"], "pred_masks": outs["pred_masks"],
                             "aux_outputs": aux, "disagreement_masks": tuple(disagreements),
                             "features_pos": features_pos})
+
+
+@torch.no_grad()
+def maskfiner_dynamic_eval(model: MaskFiner, images: torch.Tensor, threshold: float = 0.5,
+                           cap_ratio: float = 1.0,
+                           buckets: Sequence[float] = (0.1, 0.25, 0.5, 0.75, 1.0)) -> Dict:
+    """The cascade's eval forward with the eval-time dynamic split ratios:
+    stage by stage, the previous stage's disagreement (over the newest
+    scale's tokens) is brought to the host and each later stage splits
+    ``dynamic_k_split(scores, n_curr, threshold, cap_ratio, buckets)``
+    tokens.  The images are normalised in fp32 and the model's own
+    parameters run, as the JAX function runs the variables it is given.
+    -> the forward's dict plus 'k_splits' (None for the first stage)."""
+    x = (images.float() - model.pixel_mean) / model.pixel_std
+    features = features_pos = upsampling_mask = tokens_per_scale = None
+    aux, disagreements, k_splits = (), [], []
+    for li, predictor in enumerate(model.mask_predictors):
+        k_split = None
+        if li > 0 and upsampling_mask is not None:
+            n_curr, n_old = tokens_per_scale[-1], sum(tokens_per_scale[:-1])
+            scores = upsampling_mask.float().cpu().numpy()
+            scores = scores if scores.shape[1] == n_curr else scores[:, n_old:]
+            k_split = dynamic_k_split(scores, n_curr, threshold, cap_ratio, buckets)
+        outs, features, features_pos, upsampling_mask, tokens_per_scale = predictor(
+            x, features, features_pos, upsampling_mask, tokens_per_scale, k_split)
+        k_splits.append(k_split)
+        disagreements.append(upsampling_mask)
+        aux = aux + tuple(outs["aux_outputs"])
+    return {"pred_logits": outs["pred_logits"], "pred_masks": outs["pred_masks"],
+            "aux_outputs": aux, "disagreement_masks": tuple(disagreements),
+            "features_pos": features_pos, "k_splits": tuple(k_splits)}
 
 
 # the decoder names that build the plain decoder (5S: the 5-scale yamls';
@@ -518,6 +564,43 @@ def _refuse(cfg) -> None:
     if head.NAME not in (PLAIN_HEAD, OT_HEAD):
         raise NotImplementedError(f"cascade stage {head.NAME!r} is not ported {WHERE}")
     refuse_unported_heads(cfg, stage_pixel_decoder_names(cfg, len(cfg.MODEL.MR.NAME)))
+
+
+def build_backbone_indexed(cfg, li: int, name: Optional[str] = None) -> nn.Module:
+    """Cascade stage li's backbone as MODEL.MR.NAME[li] (or ``name``) names
+    it: MixResViT, MixResNeighbour, MixResNeighbourXAttn or ConvNeXtV2, the
+    first stage embedding the image and a later one taking the stream of
+    width MR_SEM_SEG_HEAD.CONVS_DIM[li - 1].  Any other name raises
+    KeyError."""
+    mr = cfg.MODEL.MR
+    n_scales = cfg.MODEL.MASK_FINER.NUM_RESOLUTION_SCALES
+    name = name or mr.NAME[li]
+    common = dict(scale=li, n_scales=n_scales, min_patch_size=mr.PATCH_SIZES[n_scales - 1],
+                  d_model=mr.EMBED_DIM[li], n_layers=mr.DEPTHS[li],
+                  in_channels=3 if li == 0 else cfg.MODEL.MR_SEM_SEG_HEAD.CONVS_DIM[li - 1],
+                  first_layer=li == 0)
+    if name == "ConvNeXtV2":
+        return ConvNeXtV2Stage(patch_size=mr.PATCH_SIZES[li], **common)
+    # a scalar DROP_PATH_RATE is the end of one ramp over the whole depth; a
+    # per-stage list gives stage li its own end on that ramp (the JAX rule)
+    rate = mr.DROP_PATH_RATE
+    max_rate = float(rate[li]) if isinstance(rate, (list, tuple)) else float(rate)
+    dpr = np.linspace(0, max_rate, sum(mr.DEPTHS))
+    lo = sum(mr.DEPTHS[:li])
+    common.update(n_heads=mr.NUM_HEADS[li], mlp_ratio=mr.MLP_RATIO[li],
+                  drop_path=tuple(float(d) for d in dpr[lo:lo + mr.DEPTHS[li]]),
+                  layer_scale=mr.LAYER_SCALE, dropout=mr.DROP_RATE[li])
+    if name == "MixResViT":
+        return MixResViT(patch_size=mr.PATCH_SIZES[li], num_register_tokens=mr.NUM_REGISTER_TOKENS,
+                         **common)
+    if name in ("MixResNeighbour", "MixResNeighbourXAttn"):
+        return MixResNeighbour(
+            patch_sizes=tuple(mr.PATCH_SIZES[:li + 1]), cluster_size=mr.CLUSTER_SIZE[li],
+            nbhd_size=mr.NBHD_SIZE[li], split_ratio=mr.SPLIT_RATIO[li],
+            upscale_ratio=mr.UPSCALE_RATIO[li], attn_drop=mr.ATTN_DROP_RATE[li],
+            keep_old_scale=mr.KEEP_OLD_SCALE, cross_attend_image=name == "MixResNeighbourXAttn",
+            **common)
+    raise KeyError(f"unknown cascade-stage backbone {name!r}")
 
 
 def build_stage_pixel_decoder(cfg, li: int, final: bool, feature_channels: Dict[str, int],
@@ -590,10 +673,10 @@ def build_mask_predictors(cfg) -> List[MaskPredictor]:
                         if final or not ot or mfr.MASK_DECODER_ALL_LEVELS else None)
         if ot:
             predictors.append(MaskPredictorOracleTeacher(
-                mixres_stage_from_config(cfg, li), pixel_decoder, mask_decoder,
+                build_backbone_indexed(cfg, li), pixel_decoder, mask_decoder,
                 cfg.MODEL.MR_SEM_SEG_HEAD.CONVS_DIM[li], final))
         else:
-            predictors.append(MaskPredictor(mixres_stage_from_config(cfg, li), pixel_decoder,
+            predictors.append(MaskPredictor(build_backbone_indexed(cfg, li), pixel_decoder,
                                             mask_decoder))
     return predictors
 

@@ -4,14 +4,16 @@ cascades.
 Counterpart of ``autofocusformermod_tpu/models/updown.py``.  A chain of
 2n - 1 MixRes stages runs the scales 0 .. n-1 .. 0 of an n-scale model:
 
-- the down pass is a MixResViT (stage 0) and n - 1 MixResNeighbour stages,
+- the down pass is a MixResViT (stage 0) and n - 1 MixResNeighbour stages
+  (whatever MR.NAME calls them: the JAX package builds these),
   each splitting the tokens of the newest scale that its predecessor's
   upsampling head (``MLPDeepNorm``, over the newest scale's tokens only)
   scores highest; in training with ground truth the head's score may be
   replaced by the GT-edge oracle's (``models/oracle.py``), and the pairs of
   score and oracle are returned for the upsampling loss;
-- the up pass (n - 1 stages, ``MixResLayer``: cluster attention, or global
-  attention where the stage is named MixResViT) re-processes ever shorter
+- the up pass (n - 1 stages, ``MixResLayer``: global attention where the
+  stage is named MixResViT, else cluster attention, whatever the name, as
+  in the JAX package) re-processes ever shorter
   prefixes of the token stream, one scale segment fewer each stage, with
   the mirrored down stage's stream concatenated channel-wise (LayerNorm +
   Linear); each stage's finest remaining segment is that resolution's
@@ -80,11 +82,10 @@ class UpDownBackbone(nn.Module):
         kind = "OracleTeacherBackbone" if down_only else "UpDownBackbone"
         if len(names) != n_stages:
             raise ValueError(f"{kind} needs {n_stages} per-stage entries, got {len(names)}")
-        if names[0] != "MixResViT" or any(nm not in ("MixResViT", "MixResNeighbour")
-                                          for nm in names[1:]):
-            raise NotImplementedError(f"{kind} stages {list(names)}: MixResViT first, then "
-                                      "MixResNeighbour or MixResViT (the XAttn and ConvNeXtV2 "
-                                      "stages wait; ROADMAP.md section 1)")
+        # as in the JAX package, the names past stage 0 choose only an up
+        # stage's attention: every later down stage is a MixResNeighbour
+        if names[0] != "MixResViT":
+            raise ValueError(f"{kind}'s first stage must be MixResViT, got {names[0]!r}")
         if not keep_old_scale:
             raise ValueError(f"{kind} needs KEEP_OLD_SCALE: the mirrored residual concat relies "
                              "on each scale segment keeping its tokens")

@@ -7,7 +7,8 @@ evaluation, MaskFiner-Mini training, Cityscapes-panoptic and
 COCO-instance training and evaluation, the Swin-B and R50 grid
 baselines, the MaskFiner-UpDown-Mini (OracleTeacher-BB) cascade, and the
 JAX package's flagship trained at its decoder dropout with the AFF and
-MaskFiner variants -- on one NVIDIA GPU.
+MaskFiner variants, and the XAttn / ConvNeXtV2 cascade with the dynamic
+split ratios and the other assignment backends -- on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -114,7 +115,8 @@ MaskFiner variants -- on one NVIDIA GPU.
 12. evaluation and the dataset path, through the package's command line in
    this process, on 12 image and label-map pairs made from a numpy seed at
    ADE20K's aspect ratios (the mapper's two file readers replaced by
-   lookups, as the card's machine has no PIL): AFF-Mini trained 4 steps at
+   lookups, as the card's machine has no PIL): AFF-Mini (one block a stage,
+   ONE_BLOCK_AFF) trained 4 steps at
    batch 8 from TrainLoader (the mapper's resize, crop, colour jitter, flip
    and padding) with test() after steps 2 and 4, then --eval-only on the
    checkpoint, which must equal the in-loop test(); the loader's batches,
@@ -125,7 +127,8 @@ MaskFiner variants -- on one NVIDIA GPU.
    run's choices (class scores to FORWARD_RTOL, predictions equal but at
    near-tied pixels, metrics within what those pixels can move, and
    verify_results); ms per image by padded size (up to 512x2048, 65,536
-   first-stage tokens); MaskFiner-Mini --eval-only on two images;
+   first-stage tokens); MaskFiner-Mini (one block a stage) --eval-only on
+   two images;
 13. the published MaskFiner-Mini cascade's training step at 512x512, batch
    4 (100 target slots, 12544 points, the loss weights of MODEL.MASK_FINER,
    19 supervised outputs at masks of 16x16, 32x32, 64x64 and 128x128):
@@ -144,7 +147,8 @@ MaskFiner variants -- on one NVIDIA GPU.
 14. panoptic and instance segmentation through the package's command line
    in this process, on seeded in-memory data (the mappers' file readers
    replaced by lookups): the published AFF-Mini Cityscapes-panoptic preset
-   trained 3 steps at batch 4 on 512x1024 crops from the panoptic mapper
+   (one block a stage, ONE_BLOCK_AFF) trained 3 steps at batch 4 on
+   512x1024 crops from the panoptic mapper
    (Cityscapes-shaped image / panoptic-id pairs: stuff, thing instances, a
    crowd segment, a void band), then test() with PQ over the test set at
    1024x2048, --eval-only on the checkpoint, and test() at the seeded
@@ -245,6 +249,15 @@ MaskFiner variants -- on one NVIDIA GPU.
    with the pre-norm Cat decoder, MASK_DECODER_ALL_LEVELS, a HierUp stage and
    its stage dropouts; every step replayed through the plain versions, each
    Dropout's kept share held; times to chiprun_out/phase22.json.
+
+23. the stages and backends the port once refused (see xattn_phase):
+   MaskFiner-Mini at its published widths with a ConvNeXtV2 first stage and
+   MixResNeighbourXAttn stages (K1, K3, K9 on a batch-4 forward's operands,
+   the forward and one Trainer step against the plain versions), a
+   MixResNeighbour first stage, the eval-time dynamic split ratios, the
+   auction against the lapjv kernel, the downsampled criterion against the
+   CPU and the demo's AsyncPredictor; each kernel's launches there as
+   xattn_launches; times to chiprun_out/phase23.json.
 
 Phases 6, 8, 9, 10, 13, 14, 15, 16 and 17 compare training steps whose second run replays
 the first run's discrete choices (same_choices), held to LOSS_RTOL and
@@ -2888,12 +2901,14 @@ MASKFINER = "maskfiner_mini"
 
 def maskfiner_launches(cfg) -> dict:
     """K1, K3 and K9 launches of one MaskFiner forward, from the config: a
-    local attention per cluster block of stages 1-; an msdetrpc per encoder
-    layer and transformer level; knn for each later stage's clusters, each
-    transformer level's 4-NN table, each FPN level's Shepard upsample and
-    PointConv, and in the decoder the Shepard neighbours of each attended
-    level (none where stage 0's one level is the mask features) and of the
-    finest grid, once per forward."""
+    local attention per block of each cluster-attention stage (a
+    MixResNeighbour or MixResNeighbourXAttn: every stage after the first in
+    the published cascades, and a first one so named); an msdetrpc per
+    encoder layer and transformer level; knn for each cluster-attention
+    stage's clusters, each transformer level's 4-NN table, each FPN level's
+    Shepard upsample and PointConv, and in the decoder the Shepard
+    neighbours of each attended level (none where stage 0's one level is the
+    mask features) and of the finest grid, once per forward."""
     mr, head = cfg.MODEL.MR, cfg.MODEL.MR_SEM_SEG_HEAD
     levels = cfg.MODEL.MASK_FINER.DECODER_LEVELS
     n_stages = len(mr.NAME)
@@ -2903,10 +2918,11 @@ def maskfiner_launches(cfg) -> dict:
         final = li == n_stages - 1
         trans = n_trans if final else min(li + 1, n_trans)
         fpn = (li + 1) - trans
-        local_attn += mr.DEPTHS[li] if li else 0
+        clustered = mr.NAME[li] in ("MixResNeighbour", "MixResNeighbourXAttn")
+        local_attn += mr.DEPTHS[li] if clustered else 0
         msdetrpc += head.TRANSFORMER_ENC_LAYERS[li] * trans
         masked = not (li == 0 and levels[li] == 1)
-        nn_calls += (li > 0) + trans + 2 * fpn + (levels[li] if masked else 0) + 1
+        nn_calls += clustered + trans + 2 * fpn + (levels[li] if masked else 0) + 1
     return {"local_attn": local_attn, "msdetrpc": msdetrpc, "knn": nn_calls}
 
 
@@ -3661,6 +3677,13 @@ def maskfiner_train_phase(dev, smi, gen, counters):
 EVAL_SIZES = ((512, 683), (300, 400), (768, 1024), (480, 1600), (640, 480), (512, 512),
               (256, 1024), (200, 1000), (375, 500), (427, 640), (683, 512), (600, 800))
 EVAL_PRESET, EVAL_STEPS, EVAL_PERIOD, EVAL_BATCH = "aff_mini", 4, 2, 8
+# phase 12's models and phase 14's panoptic one run one block a stage
+# (published widths): they hold the dataset, evaluation and post-processing
+# paths, which depth does not change, and the script's time limit needs the
+# room (phase 14's COCO-instance model keeps its depth: cut, it makes no
+# detection after its 2 steps, and its AP check needs some)
+ONE_BLOCK_AFF = ["MODEL.AFF.DEPTHS", "[1, 1, 1, 1]"]
+ONE_BLOCK_MR = ["MODEL.MR.DEPTHS", "[1, 1, 1, 1]"]
 # the datasets phase 12 registers: training, test, and the test set's first
 # two pairs (MaskFiner-Mini's --eval-only)
 EVAL_NAMES = ("smoke_ade20k_train", "smoke_ade20k_val", "smoke_ade20k_val_2")
@@ -7123,6 +7146,389 @@ def dropout_phase(dev, smi, gen, counters, flagship_opts=(), span_opts=(), casca
     return paths, total
 
 
+# Phase 23: the stages and backends the port once refused: (a) MaskFiner-Mini
+# at its published widths with a ConvNeXtV2 first stage and XAttn stages
+# after it; (b) a MixResNeighbour first stage, one block a stage; (c) the
+# eval-time dynamic split ratios; (d) the auction and the downsampled
+# criterion beside the default solver, and the demo's AsyncPredictor
+XATTN_NAMES = ["ConvNeXtV2", "MixResNeighbourXAttn", "MixResNeighbourXAttn",
+               "MixResNeighbourXAttn"]
+XATTN_BATCH = 4
+XATTN_FIRST_OPTS = ["MODEL.MR.DEPTHS", "[1, 1, 1, 1]"]
+XATTN_THRESHOLD = 0.5
+XATTN_BUCKETS = (0.1, 0.25, 0.5, 0.75, 1.0)
+ASYNC_IMAGES = 4
+# the share of an AsyncPredictor result's pixels that must equal the
+# synchronous call's (a pixel whose class scores tie within the last bits of
+# two runs may part)
+ASYNC_AGREE_MIN = 0.999
+# the auction's costs against K13's: within Q * eps_final, plus the fp32
+# rounding of the sums (this share of the summed |cost| of the valid slots)
+AUCTION_ROUNDING = 1e-6
+
+
+def host_k_split(scores, n_curr, threshold, buckets, cap=1.0):
+    """The dynamic split rule written out on the host, apart from
+    models/mixres.py: the batch's largest share of scores above the
+    threshold, clamped to [0.1, cap], the first bucket not below it (the
+    largest bucket where none is), capped; that share of n_curr, at least
+    1."""
+    share = max(float((row > threshold).sum()) / row.size for row in scores)
+    share = min(max(share, 0.1), cap)
+    fits = [r for r in sorted(buckets) if r >= share]
+    ratio = min(fits[0] if fits else max(buckets), cap)
+    return max(1, int(n_curr * ratio))
+
+
+def auction_bound(cost, phases=6):
+    """(b,) Q * eps_final of each problem of cost (b, Q, T): the last
+    phase's eps of the auction, half the range of the benefits (the negated
+    costs shifted per target, Q - T rows of zeros beside them) over 8 ** (phases - 1)."""
+    import torch
+
+    b, q, t = cost.shape
+    benefit = -cost.double().transpose(1, 2)
+    benefit = benefit - benefit.amax(dim=2, keepdim=True)
+    lo, hi = benefit.amin(dim=(1, 2)), benefit.amax(dim=(1, 2))
+    if t < q:
+        lo, hi = torch.clamp(lo, max=0.0), torch.clamp(hi, min=0.0)
+    return q * torch.clamp(hi - lo, min=1e-3) / 2.0 / 8.0 ** (phases - 1)
+
+
+def check_cascade_forward(label, model, cfg, images, counters, expected):
+    """A batch forward of a cascade through the kernels (launches against
+    `expected`) against the plain run that replays its choices
+    (check_cascade); -> (ms of the kernel run, launches, its outputs)."""
+    import torch
+    from autofocusformermod_torch.ops.dispatch import plain_versions
+
+    book, gini = {}, ([], [])
+    with torch.no_grad():
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with same_choices(book, record=True), gini_inputs(gini[0]):
+            out = model(images)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        launches = {name: c.launches for name, c in counters.items()}
+        with same_choices(book, record=False), plain_versions(), gini_inputs(gini[1]):
+            ref = model(images)
+    log(f"  {label}: batch-{images.shape[0]} forward {ms:.1f} ms (first call); launches "
+        f"{launches} (expected {expected}); tokens per stage "
+        f"{[tuple(d.shape) for d in out['disagreement_masks']]}")
+    if launches != expected:
+        raise SystemExit(f"{label}: the forward launched {launches}, expected {expected}")
+    check_cascade(label, out, ref, book, gini)
+    del ref, book, gini
+    return ms, launches, out
+
+
+def xattn_phase(dev, smi, gen, counters, opts=(), first_opts=(), size=SIZE, batch=XATTN_BATCH,
+                out_dir="chiprun_out"):
+    """Phase 23 (a)-(d).  (a) MaskFiner-Mini at its published widths with
+    MR.NAME XATTN_NAMES, a Trainer's (seeded random weights, synthetic label
+    maps): K1, K3 and K9 on the operands of a batch-`batch` forward, each
+    against its plain version; that forward against the plain run replaying
+    its choices (check_cascade); one step replayed through the plain versions
+    (replay_step: loss terms, group norms, the split order through each
+    stage's disagreement), then the Trainer's under the profiler (ms, device
+    busy, peak GiB, launches against maskfiner_step_launches).  (b) a
+    MixResNeighbour first stage, one block a stage: a forward against the
+    plain run.  (c) maskfiner_dynamic_eval on (a)'s model: with the one
+    bucket UPSCALE_RATIO it replays the static forward's choices and equals
+    it within FORWARD_RTOL; with XATTN_BUCKETS at XATTN_THRESHOLD each
+    stage's split count equals host_k_split of its predecessor's
+    disagreement.  (d) on the stacked matcher costs of (a)'s outputs, the
+    auction against K13 (total cost within auction_bound); the downsampled
+    criterion on the card against its CPU run with the card's matches
+    replayed (LOSS_RTOL); the demo's AsyncPredictor over ASYNC_IMAGES images
+    against the synchronous calls.  Extra overrides for a rehearsal.
+    Appends its records to out_dir/phase23.json.  Returns ({kernel: {path:
+    record}}, {counter: launches of (a)-(c)'s runs and the demo's calls})."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from autofocusformermod_torch.config import PRESETS
+    from autofocusformermod_torch.data.synthetic import synthetic_batches
+    from autofocusformermod_torch.demo import AsyncPredictor, VisualizationDemo
+    from autofocusformermod_torch.engine.train import Trainer
+    from autofocusformermod_torch.engine.train_step import TrainStep, device_masks
+    from autofocusformermod_torch.losses import criterion
+    from autofocusformermod_torch.losses.auction import auction_lsap
+    from autofocusformermod_torch.losses.criterion import device_draw, set_criterion_downsample
+    from autofocusformermod_torch.losses.lapjv import lapjv
+    from autofocusformermod_torch.models.maskfiner import maskfiner_dynamic_eval
+    from autofocusformermod_torch.models.maskformer import init_random_weights
+    from autofocusformermod_torch.models.registry import build_model
+    from autofocusformermod_torch.ops.build import BUILD_DIR
+    from autofocusformermod_torch.tools.l2_rate import l2_read_rate
+
+    paths, total, record = {}, dict.fromkeys(counters, 0), {"card": smi, "size": size}
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def add(got):
+        for name, k in got.items():
+            total[name] += k
+
+    def draw(i):
+        return device_draw(torch.Generator(device=dev).manual_seed(SEED + i))
+
+    def launches():
+        return {name: c.launches for name, c in counters.items()}
+
+    images = torch.randint(0, 256, (batch, size, size, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(SEED + 23)).to(dev)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR.parent, prefix="xattn_") as tmp:
+        # (a) ConvNeXtV2 first, XAttn after
+        t0 = time.time()
+        cfg = PRESETS[MASKFINER]()
+        cfg.merge_from_list(["SOLVER.IMS_PER_BATCH", str(batch), "OUTPUT_DIR", tmp,
+                             "INPUT.CROP.SIZE", f"[{size}, {size}]", *opts])
+        cfg.MODEL.MR.NAME = list(XATTN_NAMES)
+        trainer = Trainer(cfg, dev)
+        init_random_weights(trainer.model, torch.Generator().manual_seed(SEED))
+        model, batches = trainer.model.eval(), synthetic_batches(cfg, dev)
+        label = "(a) maskfiner_mini_xattn"
+        stages = [type(p.backbone).__name__ + ("/xattn" if getattr(p.backbone, "x_attn_patcher",
+                                                                     None) is not None else "")
+                  for p in model.mask_predictors]
+        log(f"  {label}: stages {stages}, EMBED_DIM {cfg.MODEL.MR.EMBED_DIM}, DEPTHS "
+            f"{cfg.MODEL.MR.DEPTHS}, {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M "
+            f"parameters")
+        ops = path_forward_operands(model, images)
+        paths["local_attn"] = {"maskfiner_mini_xattn": check_local_attn_calls(label,
+                                                                              ops["local_attn"])}
+        paths["msdetrpc"] = {"maskfiner_mini_xattn": check_msdetrpc(label, ops["msdetrpc"],
+                                                                    l2_read_rate())}
+        paths["knn"] = {"maskfiner_mini_xattn": check_knn(label, ops["knn"])}
+        del ops
+        torch.cuda.empty_cache()
+        expected = {n: maskfiner_launches(cfg).get(n, 0) for n in counters}
+        fwd_ms, got, static = check_cascade_forward(label, model, cfg, images, counters, expected)
+        add(got)
+        record["xattn"] = {"forward_ms": fwd_ms, "launches": got}
+        model.train()
+        step_b = next(batches)
+        used, r_ms, p_ms, r_peak, p_peak = replay_step(
+            f"{label} step 1", model, cfg, step_b, lambda: draw(1), True, LOSS_RTOL,
+            GROUP_NORM_RTOL, None, None, True)
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, ms, busy, rows = profiled_step(lambda: trainer.step_fn(step_b, draw(1)))
+        got = launches()
+        add(got)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {n: maskfiner_step_launches(cfg, size).get(n, 0) for n in counters}
+        log(f"  {label} step at batch {batch} (the Trainer's, profiled): {ms:.1f} ms, device busy "
+            f"{busy:.2f} ms in {rows} rows ({busy / ms:.0%}), peak {peak:.2f} GiB, total loss "
+            f"{metrics['total_loss'].item():.6f}; launches {got} (expected {want}); the replay's "
+            f"plain step (batch {used}) {p_ms:.1f} ms, peak {p_peak:.2f} GiB ({smi})")
+        if not all(torch.isfinite(v).all() for v in metrics.values()):
+            raise SystemExit(f"{label}: non-finite metrics")
+        if got != want:
+            raise SystemExit(f"{label} step: launched {got}, expected {want}")
+        record["xattn"].update(step_ms=ms, busy_ms=busy, rows=rows, peak_gib=peak,
+                               plain_step_ms=p_ms, plain_peak_gib=p_peak, replayed_batch=used,
+                               step_launches=got, total_loss=metrics["total_loss"].item())
+        record["xattn"]["seconds"] = time.time() - t0
+        model.eval()
+        torch.cuda.empty_cache()
+
+        # (c) the dynamic split ratios on (a)'s model
+        t0 = time.time()
+        label = "(c) maskfiner_dynamic_eval"
+        ratio = float(cfg.MODEL.MR.UPSCALE_RATIO[1])
+        book = {}
+        with torch.no_grad():
+            reset()
+            with same_choices(book, record=True):
+                static = model(images)
+            with same_choices(book, record=False):
+                fixed = maskfiner_dynamic_eval(model, images, buckets=(ratio,))
+            got = launches()
+            add(got)
+            if got != {n: 2 * v for n, v in expected.items()}:
+                raise SystemExit(f"{label}: the static forward and the dynamic eval launched "
+                                 f"{got}, expected twice {expected}")
+            counts = {}
+            for i, d in enumerate(static["disagreement_masks"][:-1]):
+                counts[i + 1] = int(d.shape[1] - (0 if i == 0 else static["disagreement_masks"][
+                    i - 1].shape[1]))
+            if list(fixed["k_splits"][1:]) != [max(1, int(n * ratio)) for n in counts.values()]:
+                raise SystemExit(f"{label}: at the one bucket {ratio} the split counts are "
+                                 f"{fixed['k_splits']}, not the static ones of {counts}")
+            worst = 0.0
+            for key in ("pred_logits", "pred_masks"):
+                e = (fixed[key] - static[key]).abs().max().item()
+                worst = max(worst, e / max(static[key].abs().max().item(), 1.0))
+            if worst > FORWARD_RTOL or not torch.equal(fixed["features_pos"],
+                                                       static["features_pos"]):
+                raise SystemExit(f"{label}: at the one bucket {ratio} it parts from the static "
+                                 f"forward by {worst:.3e} (limit {FORWARD_RTOL}) or in positions")
+            same_choices.check(f"{label} at the one bucket {ratio}", book)
+            reset()
+            dyn = maskfiner_dynamic_eval(model, images, threshold=XATTN_THRESHOLD,
+                                         buckets=XATTN_BUCKETS)
+            got = launches()
+            add(got)
+            if got != expected:
+                raise SystemExit(f"{label}: the dynamic eval launched {got}, expected {expected}")
+        # each stage's count from its predecessor's disagreement over the
+        # newest scale's tokens: the grid of the first stage, then the four
+        # children of each token the stage split
+        n_curr = (size // cfg.MODEL.MR.PATCH_SIZES[0]) ** 2
+        host = []
+        for li in range(1, len(XATTN_NAMES)):
+            scores = dyn["disagreement_masks"][li - 1][:, -n_curr:].float().cpu().numpy()
+            host.append(host_k_split(scores, n_curr, XATTN_THRESHOLD, XATTN_BUCKETS))
+            n_curr = 4 * dyn["k_splits"][li]
+        log(f"  {label}: at the one bucket {ratio}: split counts {list(fixed['k_splits'][1:])}, "
+            f"worst rel diff to the static forward {worst:.3e}; at threshold {XATTN_THRESHOLD} "
+            f"over {XATTN_BUCKETS}: split counts {list(dyn['k_splits'][1:])}, host {host}, final "
+            f"tokens {dyn['features_pos'].shape[1]} (static {static['features_pos'].shape[1]}); "
+            f"launches {got}")
+        if list(dyn["k_splits"][1:]) != host:
+            raise SystemExit(f"{label}: split counts {dyn['k_splits']} against the host's {host}")
+        if not all(torch.isfinite(dyn[k]).all() for k in ("pred_logits", "pred_masks")):
+            raise SystemExit(f"{label}: non-finite outputs")
+        record["dynamic"] = {"k_splits": list(dyn["k_splits"][1:]), "host": host,
+                             "final_tokens": int(dyn["features_pos"].shape[1]),
+                             "static_tokens": int(static["features_pos"].shape[1]),
+                             "one_bucket_rel_diff": worst, "seconds": time.time() - t0}
+        del fixed, dyn, static, book
+        torch.cuda.empty_cache()
+
+        # (d) the backends on (a)'s outputs
+        t0 = time.time()
+        label = "(d) backends"
+        step = TrainStep(model, cfg)
+        batch_d = next(batches)
+        targets = {"labels": batch_d["labels"], "masks": device_masks(batch_d),
+                   "valid": batch_d["valid"]}
+        costs, real = [], criterion.solve_lsap
+        with torch.no_grad():
+            outputs = model(batch_d["image"])
+            criterion.solve_lsap = lambda c: (costs.append(c.detach().clone()), real(c))[1]
+            try:
+                criterion.set_criterion(outputs, targets, step.num_classes, draw(4),
+                                        **step.criterion)
+            finally:
+                criterion.solve_lsap = real
+            auction = []
+            for cost in costs:
+                torch.cuda.synchronize()
+                t1 = time.time()
+                a = auction_lsap(cost)
+                torch.cuda.synchronize()
+                a_ms = (time.time() - t1) * 1e3
+                k = lapjv(cost)
+                q, t = cost.shape[1:]
+                valid = cost[:, 0, :] < 1e8
+                picked = [torch.gather(cost.double(), 1, m[:, None, :])[:, 0] for m in (a, k)]
+                sums = [(p * valid).sum(1) for p in picked]
+                bound = auction_bound(cost) + AUCTION_ROUNDING * (picked[1].abs() * valid).sum(1)
+                excess = sums[0] - sums[1]
+                perm = all(int(torch.unique(r).numel()) == t for r in a)
+                auction.append({"shape": list(cost.shape), "ms": a_ms,
+                                "worst_excess": float(excess.max()),
+                                "worst_share_of_bound": float((excess / bound).max()),
+                                "same_matches": float((a == k).double().mean())})
+                log(f"  {label}: auction_lsap on the stacked costs {tuple(cost.shape)}: {a_ms:.1f} "
+                    f"ms, a permutation of the queries {perm}; its total cost over K13's at worst "
+                    f"{float(excess.max()):.3e} ({float((excess / bound).max()):.3f} of Q * "
+                    f"eps_final + rounding), matches equal {auction[-1]['same_matches']:.4f}")
+                if not perm or bool((excess > bound).any()) or bool((excess < -bound).any()):
+                    raise SystemExit(f"{label}: the auction's assignment is no permutation or "
+                                     f"costs {excess.tolist()} against the bound {bound.tolist()}")
+            book = {}
+            with same_choices(book, record=True):
+                k_total, k_terms, _ = set_criterion_downsample(outputs, targets, step.num_classes,
+                                                               **step.criterion)
+            for key, rec in list(book.items()):
+                if isinstance(rec, list):
+                    book[key] = [r.cpu() if torch.is_tensor(r) else r for r in rec]
+            cpu_out = {"pred_logits": outputs["pred_logits"].cpu(),
+                       "pred_masks": outputs["pred_masks"].cpu(),
+                       "aux_outputs": [{k: v.cpu() for k, v in a.items()}
+                                       for a in outputs["aux_outputs"]]}
+            with same_choices(book, record=False):
+                p_total, p_terms, _ = set_criterion_downsample(
+                    cpu_out, {k: v.cpu() for k, v in targets.items()}, step.num_classes,
+                    **step.criterion)
+        rel = max(abs(k_terms[n].item() - p_terms[n].item()) / max(abs(p_terms[n].item()), 1e-6)
+                  for n in p_terms)
+        log(f"  {label}: set_criterion_downsample on the card {k_total.item():.6f}, on the CPU "
+            f"{p_total.item():.6f}; {len(p_terms)} loss terms, worst rel diff {rel:.3e} (limit "
+            f"{LOSS_RTOL})")
+        same_choices.check(f"{label} downsampled criterion", book)
+        if rel > LOSS_RTOL or not math.isfinite(k_total.item()):
+            raise SystemExit(f"{label}: the downsampled criterion on the card parts from the CPU's "
+                             f"by {rel}")
+        del outputs, cpu_out, costs
+        torch.cuda.empty_cache()
+        demo = VisualizationDemo(cfg, model=model)
+        rng = np.random.default_rng(SEED + 23)
+        imgs = [rng.integers(0, 256, (size, size + 64 * i, 3), dtype=np.uint8)
+                for i in range(ASYNC_IMAGES)]
+        reset()
+        sync = [demo.run_on_image(im) for im in imgs]
+        pred_async = AsyncPredictor(demo.run_on_image)
+        try:
+            for im in imgs:
+                pred_async.put(im)
+            got_async = [pred_async.get() for _ in imgs]
+        finally:
+            pred_async.shutdown()
+        got = launches()
+        add(got)
+        want = {n: 2 * len(imgs) * maskfiner_launches(cfg).get(n, 0) for n in counters}
+        if got != want:
+            raise SystemExit(f"{label}: the demo's {2 * len(imgs)} calls launched {got}, expected "
+                             f"{want}")
+        agree = [float((a == b).mean()) if a.shape == b.shape else 0.0
+                 for a, b in zip(got_async, sync)]
+        log(f"  {label}: AsyncPredictor over {len(imgs)} images {[im.shape[:2] for im in imgs]}: "
+            f"results in order of shapes {[a.shape for a in got_async]}, pixels equal to the "
+            f"synchronous calls' {agree} (floor {ASYNC_AGREE_MIN}); worker stopped "
+            f"{not pred_async._thread.is_alive()}")
+        if min(agree) < ASYNC_AGREE_MIN or pred_async._thread.is_alive():
+            raise SystemExit(f"{label}: AsyncPredictor's results part from the synchronous ones: "
+                             f"{agree}")
+        record["backends"] = {"auction": auction, "downsample_rel_diff": rel,
+                              "async_agree": agree, "seconds": time.time() - t0}
+        del trainer, batches, model, demo, step
+        torch.cuda.empty_cache()
+
+        # (b) a MixResNeighbour first stage
+        t0 = time.time()
+        label = "(b) maskfiner_mini_neighbour_first"
+        cfg = PRESETS[MASKFINER]()
+        cfg.merge_from_list([*XATTN_FIRST_OPTS, *first_opts])
+        cfg.MODEL.MR.NAME = ["MixResNeighbour"] + list(cfg.MODEL.MR.NAME[1:])
+        model = build_model(cfg)
+        init_random_weights(model, torch.Generator().manual_seed(SEED))
+        model = model.to(dev).eval()
+        expected = {n: maskfiner_launches(cfg).get(n, 0) for n in counters}
+        fwd_ms, got, _ = check_cascade_forward(label, model, cfg, images, counters, expected)
+        add(got)
+        record["neighbour_first"] = {"forward_ms": fwd_ms, "launches": got,
+                                     "seconds": time.time() - t0}
+        del model
+        torch.cuda.empty_cache()
+    record["kernels"] = paths
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "phase23.json"), "a") as f:
+        f.write(json.dumps(record, default=str) + "\n")
+    return paths, total
+
+
 def evaluated_steps(out):
     """The step of the latest checkpoint under a run's OUTPUT_DIR."""
     from autofocusformermod_torch.engine.checkpoint import Checkpointer
@@ -7380,11 +7786,13 @@ def main() -> int:
             kr["by_path"][MASKFINER] = maskfiner_paths[kr["name"]]
             kr["max_abs_err"] = max(kr["max_abs_err"], maskfiner_paths[kr["name"]]["max_abs_err"])
 
-    log(f"phase 12: evaluation and the dataset path: {EVAL_PRESET} trained {EVAL_STEPS} steps "
+    log(f"phase 12: evaluation and the dataset path: {EVAL_PRESET} (one block a stage) trained "
+        f"{EVAL_STEPS} steps "
         f"from TrainLoader with test() every {EVAL_PERIOD}, --eval-only, the test() images "
         f"against the plain versions, {MASKFINER} --eval-only; {len(EVAL_SIZES)} ADE20K-shaped "
         "pairs")
-    eval_launches, eval_paths = eval_phase(dev, smi, {**train_counters, **layout_counters})
+    eval_launches, eval_paths = eval_phase(dev, smi, {**train_counters, **layout_counters},
+                                           ONE_BLOCK_AFF, ONE_BLOCK_MR)
     torch.cuda.empty_cache()
     for kr in kernels:
         for path, rec in eval_paths.get(kr["name"], {}).items():
@@ -7404,13 +7812,15 @@ def main() -> int:
             kr["max_abs_err"] = max(kr["max_abs_err"], mft_paths[kr["name"]]["max_abs_err"])
     torch.cuda.empty_cache()
 
-    log(f"phase 14: panoptic and instance segmentation: {PAN_PRESET} trained {PAN_STEPS} steps "
+    log(f"phase 14: panoptic and instance segmentation: {PAN_PRESET} (one block a stage) trained "
+        f"{PAN_STEPS} steps "
         f"at batch {PAN_BATCH} from the panoptic mapper with test() (PQ) at 1024x2048, "
         f"{INST_PRESET} {INST_STEPS} LSJ steps at 1024x1024, batch {INST_BATCH}, with test() "
         "(COCO mask AP) at 800x1333; a test image of each against the plain versions; K1, K3 "
         "and K9 at 131,072 tokens, K2, K4, K10, K12 and K13 on a real step of each")
     pi_launches, pi_paths = panoptic_instance_phase(dev, smi, gen,
-                                                    {**train_counters, **layout_counters})
+                                                    {**train_counters, **layout_counters},
+                                                    pan_opts=ONE_BLOCK_AFF)
     for kr in kernels:
         for path, rec in pi_paths.get(kr["name"], {}).items():
             kr.setdefault("by_path", {"b8_uniform": {k: kr[k] for k in (
@@ -7542,6 +7952,29 @@ def main() -> int:
             kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
     torch.cuda.empty_cache()
 
+    log("phase 23: the stages and backends once refused: (a) MaskFiner-Mini at its published "
+        f"widths with MR.NAME {XATTN_NAMES}: K1, K3 and K9 on a batch-{XATTN_BATCH} forward's "
+        "operands, the forward against the plain versions, one Trainer step replayed through "
+        "them; (b) a MixResNeighbour first stage, one block a stage, a forward against the plain "
+        "versions; (c) maskfiner_dynamic_eval at the static ratio and at the default buckets; "
+        "(d) the auction against K13 on the stacked matcher costs, the downsampled criterion on "
+        f"the card against the CPU, the demo's AsyncPredictor over {ASYNC_IMAGES} images")
+    t23 = time.time()
+    xattn_paths, xattn_launches = xattn_phase(dev, smi, gen, train_counters)
+    log(f"  phase 23 took {time.time() - t23:.1f} s")
+    for kr in kernels:
+        for path, rec in xattn_paths.get(kr["name"], {}).items():
+            kr.setdefault("by_path", {"b8_uniform": {k: kr[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
+            kr["by_path"][path] = rec
+            kr["max_abs_err"] = max(kr["max_abs_err"], rec["max_abs_err"])
+    torch.cuda.empty_cache()
+    missing = [n for n in ("local_attn", "local_attn_bwd", "msdetrpc", "msdetrpc_bwd", "knn",
+                           "point_sample", "point_sample_bwd", "point_sample_nearest",
+                           "point_sample_nearest_rows", "lapjv") if not xattn_launches.get(n)]
+    if missing:
+        raise SystemExit(f"phase 23 never launched {missing}")
+
     for kr in kernels:
         names = [kr["name"]] + (["point_sample_bwd"] if kr["name"] == "point_sample" else [])
         kr["inference_launches"] = inference_launches.get(kr["name"], 0)
@@ -7576,6 +8009,9 @@ def main() -> int:
         # phase 22: the flagship's steps, the unreserved span-64 AFF's and the
         # MaskFiner options' steps and replays
         kr["dropout_launches"] = sum(dropout_launches.get(n, 0) for n in names)
+        # phase 23: the XAttn / ConvNeXtV2 cascade's forward and step, the
+        # MixResNeighbour-first forward, the dynamic evals and the demo's calls
+        kr["xattn_launches"] = sum(xattn_launches.get(n, 0) for n in names)
         kr["launches"] = (kr["inference_launches"] + kr["mini_step_launches"]
                           + kr["small_run_launches"] + kr["layouts_launches"]
                           + kr["mini15_launches"] + kr["maskfiner_launches"]
@@ -7583,7 +8019,8 @@ def main() -> int:
                           + kr["panoptic_instance_launches"] + kr["grid_launches"]
                           + kr["updown_launches"] + kr["family_launches"]
                           + kr["amp_launches"] + kr["yaml_launches"]
-                          + kr["distributed_launches"] + kr["dropout_launches"])
+                          + kr["distributed_launches"] + kr["dropout_launches"]
+                          + kr["xattn_launches"])
         if kr["launches"] < 1:
             raise SystemExit(f"{kr['name']}: never launched on a main path")
     if len(kernels) != 14:

@@ -121,10 +121,18 @@ def test_entry_forward_matches_jax_at_a_small_image():
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_dryrun_multichip(n, tmp_path, capfd):
+    """Two steps, the first matched by scipy on the host and the second by
+    the default solver, as JAX's dry run switches to its "jv" backend for
+    its second step (each rank asserts that its step's solver alone ran)."""
+    from autofocusformermod_torch.losses import matcher
+
     graft_entry.dryrun_multichip(n, dist_url=f"file://{tmp_path / 'rendezvous'}")
     n_data, n_model = graft_entry.dryrun_mesh(n)
     assert (n_data, n_model) == ((2, 1) if n == 2 else (2, 2))
-    assert f"dryrun_multichip({n}) OK: {n_data} x {n_model} mesh" in capfd.readouterr().out
+    out = capfd.readouterr().out
+    assert f"dryrun_multichip({n}) OK: {n_data} x {n_model} mesh" in out
+    assert "(scipy) second step loss=" in out and out.rstrip().endswith("(jv)")
+    assert matcher._MATCHER_BACKEND is None
 
 
 @pytest.fixture(scope="module")

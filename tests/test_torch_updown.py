@@ -306,8 +306,9 @@ def test_forward_without_ground_truth(ref, port):
 def test_predictor_and_refusals(ref, port):
     """SemanticPredictor pads a request to the coarsest patch's multiple
     and labels every pixel; a composite backbone that is not ported (an MRML
-    one) raises before anything is built; the head's variants that once
-    raised build: the HierUp pixel decoder, the projection pixel decoder
+    one) raises before anything is built, while the stage names that once
+    raised (XAttn and ConvNeXtV2 past stage 0) build; the head's variants
+    that once raised build: the HierUp pixel decoder, the projection pixel decoder
     under the plain stage head (mask features: the head is the final
     stage's) and the Cat decoder (the lrelu pixel decoder keeps its
     mask-features head under both stage heads)."""
@@ -326,7 +327,9 @@ def test_predictor_and_refusals(ref, port):
                     ot_decoders[:2] + ["ProjMaskFinerOracleTeacher"],
                     "MODEL.MR_SEM_SEG_HEAD.NAME": "MaskPredictor"},
                    {"MODEL.MASK_FINER.TRANSFORMER_DECODER_NAME":
-                    "MultiScaleMaskFinerTransformerDecoderCat"}):
+                    "MultiScaleMaskFinerTransformerDecoderCat"},
+                   {"MODEL.MR.NAME": ["MixResViT", "MixResNeighbourXAttn", "ConvNeXtV2",
+                                      "MixResNeighbourXAttn", "ConvNeXtV2"]}):
         cfg = tiny_cfg()
         for field, value in fields.items():
             *parents, leaf = field.split(".")
@@ -348,6 +351,41 @@ def test_predictor_and_refusals(ref, port):
     cfg.MODEL.MR_SEM_SEG_HEAD.PIXEL_DECODER_NAME = ot_decoders
     cfg.MODEL.MR_SEM_SEG_HEAD.NAME = "MaskPredictor"
     assert build_model(cfg).pixel_decoder.mask_features is not None
+
+
+def test_updown_names_past_stage_0_build_as_jax(ref, port):
+    """JAX's UpDown reads MR.NAME at stage 0 (MixResViT, asserted) and at
+    the up stages (MixResViT: global attention; any other name: cluster
+    attention), and builds a MixResNeighbour for every later down stage:
+    with XAttn and ConvNeXtV2 names past stage 0 the port builds JAX's tree
+    (its parameter names and shapes through the bridge) and, on the same
+    weights, the forward of the default names; a first stage other than
+    MixResViT raises."""
+    import jax
+    import jax.numpy as jnp
+
+    from autofocusformermod_tpu.models.registry import META_ARCH_REGISTRY
+
+    cfg = tiny_cfg()
+    cfg.MODEL.MR.NAME = ["MixResViT", "MixResNeighbourXAttn", "ConvNeXtV2", "ConvNeXtV2",
+                         "MixResViT"]
+    jmodel = META_ARCH_REGISTRY.get(cfg.MODEL.META_ARCHITECTURE)(cfg)
+    xf = jnp.zeros((1, SIZE, SIZE, 3), jnp.float32)
+    shapes = jax.eval_shape(lambda: jmodel.init({"params": jax.random.PRNGKey(0),
+                                                 "oracle": jax.random.PRNGKey(1)}, xf))
+    model = build_model(cfg).eval()
+    sd = model.state_dict()
+    flat = jax.tree_util.tree_flatten_with_path(shapes["params"])[0]
+    assert {torch_name(tuple(p.key for p in path)) for path, _ in flat} == set(sd)
+    assert set(sd) == set(port["model"].state_dict())
+    model.load_state_dict(ref["sd"], strict=True)
+    with torch.no_grad():
+        got = model(torch.from_numpy(ref["x"]), torch.from_numpy(ref["gt"]))
+    for key in ("pred_logits", "pred_masks"):
+        assert torch.equal(got[key], port["out"][key]), key
+    cfg.MODEL.MR.NAME = ["ConvNeXtV2"] + cfg.MODEL.MR.NAME[1:]
+    with pytest.raises(ValueError, match="first stage must be MixResViT"):
+        build_model(cfg)
 
 
 def test_bridge_covers_every_leaf_and_tensor(ref, port):
